@@ -4,22 +4,32 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-   sm_90a) and prints the build seconds and the card's name and power limit.
+   sm_90a, one process per source, all started together) and prints the
+   build seconds and the card's name and power limit.
 2. Runs the sub-query through ``execute_query_runtime`` at 2^17 fact rows
    (the workflow binds the ``fused`` plan, so K3 runs) and at 2^25 fact rows
    (403 MB, the paper's smallest table; the ``pipelined`` plan, K1 and K2
    under every shuffle write), checking each result against a vectorized
    numpy oracle and that the main path launched the kernels (the launch
    counters are set to 0 just before each query and read just after).
-3. Holds each kernel (K1 histogram, K2 stable scatter, K3 fused probe)
-   bit-exact against its plain PyTorch version on the card, at the shapes
-   the main path launched it at and on edge cases, and times kernel, plain
-   version and the one PyTorch call computing the same function at the
-   largest main-path shape (CUDA events, median of 20, L2 warm).
-4. Prints the ``kernels`` JSON line.
-5. Re-runs the large query under ``torch.profiler`` (outside the counted
-   run) and prints its device-busy share and its costliest device ops.
-6. Prints the card line and, as its last line,
+3. Serves 8 requests of 32 new tokens with ``llama3.2-3b`` at its published
+   width and depth (28 layers, d_model 3072, vocab 128256, bf16, random
+   weights from seed 0) through ``ServingEngine(max_batch=4,
+   max_seq=1024)``: every prefill runs K4 (flash attention) and every
+   decode step K5 (flash-decode) in each layer. Then feeds each finished
+   sequence once through the full ``forward`` (K4) and holds its logits at
+   every generated position to the logits the engine decoded there (K5).
+4. Holds each kernel against its plain PyTorch version on the card, at the
+   shapes the main path launched it at and on edge cases: K1-K3
+   bit-exact, K4 and K5 within the reference's kernel tolerances. Times
+   kernel, plain version and the one PyTorch call computing the same
+   function at the largest main-path shape (CUDA events, median of 20, L2
+   warm).
+5. Prints the ``kernels`` JSON line (K1-K5).
+6. Re-runs the large query and eight decode steps under ``torch.profiler``
+   (outside the counted runs) and prints their device-busy share and
+   costliest device ops.
+7. Prints the card line and, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line is printed. Needs a CUDA
@@ -41,11 +51,28 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM peak outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 # each group sum is a float32 sum of ~10^4-10^5 products, accumulated in
 # another order than the float64 oracle
 QUERY_RTOL, QUERY_ATOL = 1e-4, 1e-2
 NUM_GROUPS = 64
 REPS = 20
+# the serve phase: llama3.2-3b at full width and depth
+SERVE_ARCH = "llama3.2-3b"
+SERVE_REQUESTS, SERVE_NEW_TOKENS = 8, 32
+SERVE_BATCH, SERVE_SEQ = 4, 1024
+PROMPT_LENGTHS = (64, 512)
+PROFILE_STEPS = 8
+# K4/K5 against their plain versions: the reference's kernel tolerances
+# (tests/test_kernels.py:15)
+ATTN_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
+# teacher-forced forward (K4) vs the engine's decode logits (K5), bf16
+# model. The two paths round the bf16 residual stream differently (other
+# GEMM shapes, K4 vs K5); on an H100 the |diff| over the 3.3e7 logits of the
+# serve phase had rms 0.016 and max 0.098, about the 5.7 sigma expected of
+# that many draws. 0.15 is ~9 sigma: room for other GEMM kernels, while a
+# wrong position, mask or cache slot moves logits of spread ~1 by O(1).
+LOGIT_TOL = 0.15
 
 
 def card_line() -> str:
@@ -72,9 +99,10 @@ def median_ms(fn, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
-def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float = 0.0,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / FP32_OPS_PER_S
+    t_ops = ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
 
@@ -284,6 +312,129 @@ def check_k3(dev, gen, main_shapes) -> dict:
             "shape": f"N={n} M={m} G={g}"}
 
 
+def _dtype(name: str):
+    import torch
+    return {"torch.float32": torch.float32,
+            "torch.bfloat16": torch.bfloat16}[name]
+
+
+def _randn(gen, shape, dtype_name: str, dev):
+    import torch
+    return torch.randn(shape, generator=gen, device=dev).to(_dtype(dtype_name))
+
+
+def _held_close(got, want, dtype_name: str, what: str) -> float:
+    err = float((got.float() - want.float()).abs().max())
+    require(got.shape == want.shape and got.dtype == want.dtype
+            and err <= ATTN_TOL[dtype_name],
+            f"{what}: max |err| {err} > {ATTN_TOL[dtype_name]}")
+    return err
+
+
+def check_k4(dev, gen, main_shapes) -> dict:
+    """K4 within its tolerance at every main-path shape and on edges (a
+    ragged S, S = 1, non-causal, fp32, head_dim 64); timed at the largest
+    main-path shape against its plain version and the library's fused
+    attention on the same expanded q, k, v."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention as A, ref
+    edges = [(1, 77, 24, 128, "torch.bfloat16", True),
+             (2, 1, 24, 128, "torch.bfloat16", True),
+             (1, 300, 8, 128, "torch.bfloat16", False),
+             (1, 200, 4, 128, "torch.float32", True),
+             (1, 129, 4, 128, "torch.float32", False),
+             (2, 130, 6, 64, "torch.bfloat16", True)]
+    err = 0.0
+    for b, s, h, hd, dt, causal in sorted(main_shapes) + edges:
+        q, k, v = (_randn(gen, (b, s, h, hd), dt, dev) for _ in range(3))
+        err = max(err, _held_close(
+            A.flash_attention(q, k, v, causal),
+            ref.flash_attention_ref(q, k, v, causal), dt,
+            f"K4 differs from its plain version at B={b} S={s} H={h} "
+            f"hd={hd} {dt} causal={causal}"))
+    b, s, h, hd, dt, causal = max(main_shapes,
+                                  key=lambda sh: sh[0] * sh[1] ** 2 * sh[2])
+    q, k, v = (_randn(gen, (b, s, h, hd), dt, dev) for _ in range(3))
+    err = max(err, _held_close(A.flash_attention(q, k, v, causal),
+                               ref.flash_attention_ref(q, k, v, causal), dt,
+                               "K4 differs from its plain version (timed)"))
+    elem = q.element_size()
+    flops = (2.0 if causal else 4.0) * b * h * s * s * hd
+    bnd, by = bound_ms(4 * b * s * h * hd * elem, flops,
+                       BF16_OPS_PER_S if dt == "torch.bfloat16"
+                       else FP32_OPS_PER_S)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:72",
+            "max_abs_err": err,
+            "ms": median_ms(lambda: A.flash_attention(q, k, v, causal)),
+            "plain_ms": median_ms(
+                lambda: ref.flash_attention_ref(q, k, v, causal)),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal)),
+            "shape": f"B={b} S={s} H={h} hd={hd} {dt} causal={causal}"}
+
+
+def check_k5(dev, gen, main_shapes, lengths) -> dict:
+    """K5 within its tolerance at every main-path shape (random lengths,
+    with 1 and S among them) and on edges (fp32, one query head a kv head,
+    S not a multiple of the tile); timed at the largest main-path shape
+    with ``lengths``, the cache lengths of the serve phase's decode step
+    that read the most keys, against its plain version and the library's fused attention
+    with a length mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention as A, ref
+    edges = [(2, 24, 256, 8, 128, "torch.float32"),
+             (2, 8, 128, 8, 64, "torch.bfloat16"),
+             (3, 6, 100, 2, 128, "torch.bfloat16")]
+    err = 0.0
+
+    def case(b, h, s, kh, hd, dt, length):
+        q = _randn(gen, (b, h, hd), dt, dev)
+        kc, vc = (_randn(gen, (b, s, kh, hd), dt, dev) for _ in range(2))
+        return q, kc, vc, torch.as_tensor(length, dtype=torch.int32,
+                                          device=dev)
+
+    for b, h, s, kh, hd, dt in sorted(main_shapes) + edges:
+        length = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
+        length[0], length[-1] = 1, s
+        args = case(b, h, s, kh, hd, dt, length)
+        err = max(err, _held_close(
+            A.decode_attention(*args), ref.decode_attention_ref(*args), dt,
+            f"K5 differs from its plain version at B={b} H={h} S={s} K={kh}"
+            f" hd={hd} {dt}"))
+    b, h, s, kh, hd, dt = max(main_shapes, key=lambda sh: sh[0] * sh[2])
+    require(len(lengths) == b, f"{len(lengths)} lengths for batch {b}")
+    args = case(b, h, s, kh, hd, dt, lengths)
+    err = max(err, _held_close(A.decode_attention(*args),
+                               ref.decode_attention_ref(*args), dt,
+                               "K5 differs from its plain version (timed)"))
+    q, kc, vc, length = args
+    elem = q.element_size()
+    keys = int(sum(lengths))
+    bnd, by = bound_ms(2 * b * h * hd * elem + 4 * b
+                       + 2 * keys * kh * hd * elem,
+                       4.0 * keys * h * hd, BF16_OPS_PER_S)
+    mask = (torch.arange(s, device=dev)[None, :] < length[:, None])
+    q4, k4, v4 = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    m4 = mask[:, None, None, :]
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:65",
+            "max_abs_err": err,
+            "ms": median_ms(lambda: A.decode_attention(*args)),
+            "plain_ms": median_ms(lambda: ref.decode_attention_ref(*args)),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=m4, enable_gqa=True)),
+            "shape": f"B={b} H={h} S={s} K={kh} hd={hd} {dt} "
+                     f"lengths={list(lengths)}"}
+
+
 # -- query phases ---------------------------------------------------------------
 
 
@@ -394,6 +545,27 @@ def large_query(device, rows: int = 1 << 25, dim_rows: int = 1 << 22,
     return res
 
 
+def device_busy(prof, top: int = 12) -> tuple[float, dict]:
+    """Device-busy microseconds of a ``torch.profiler`` trace and its
+    ``top`` costliest device kernels (ms). Only device-side events count:
+    an ATen op and the kernel it launches are one interval, not two, and
+    intervals that overlap (two streams) count once."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    require(bool(spans), "the profiler traced no device events")
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return busy, {e.key[:60]: e.self_device_time_total / 1e3
+                  for e in kernels[:top]}
+
+
 def profile_query(device, fact, dim) -> dict:
     """Re-run a query on its tables under ``torch.profiler`` (outside the
     counted run) and split its wall into device-busy and idle time."""
@@ -412,13 +584,185 @@ def profile_query(device, fact, dim) -> dict:
                               device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    device_us = sum(e.self_device_time_total for e in events)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    device_us, top = device_busy(prof)
     return {"wall_s": wall, "device_busy_s": device_us / 1e6,
             "idle_share": 1.0 - device_us / 1e6 / wall,
-            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                              for e in top}}
+            "top_device_ms": top}
+
+
+# -- serve phase ------------------------------------------------------------------
+
+
+def serve_config():
+    """llama3.2-3b's published config, checked."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SERVE_ARCH)
+    require((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype)
+            == (28, 3072, 24, 8, 128, 8192, 128256, "bfloat16"),
+            f"{SERVE_ARCH} is not the published config: {cfg}")
+    return cfg
+
+
+def serve_phase(dev, cfg) -> dict:
+    """Serve 8 requests with ``cfg`` (llama3.2-3b at full width and depth)
+    through the port's ``ServingEngine``, with the attention launch
+    counters set to 0 just before and read just after. The engine's decode
+    logits are kept (on the card) for the teacher-forced check."""
+    import torch
+    from repro_torch.kernels import attention as A
+    from repro_torch.models import init_lm
+    from repro_torch.serving import Request, ServingEngine
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_lm(cfg, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(PROMPT_LENGTHS[0], PROMPT_LENGTHS[1] + 1,
+                           SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in lengths]
+
+    engine = ServingEngine(cfg, model, max_batch=SERVE_BATCH,
+                           max_seq=SERVE_SEQ, device=dev)
+    # keep each step's logits and cache positions and, per request,
+    # (step, slot) of each token
+    steps: list = []
+    step_pos: list = []
+    where: dict[int, list[tuple[int, int]]] = {}
+    decode = engine._decode
+
+    def recording_decode(model_, state, tokens):
+        step_pos.append(state["pos"])
+        logits, state = decode(model_, state, tokens)
+        for slot, req in enumerate(engine.active):
+            if req is not None:
+                where.setdefault(req.req_id, []).append((len(steps), slot))
+        steps.append(logits[:, 0, :cfg.vocab_size])
+        return logits, state
+
+    engine._decode = recording_decode
+    for i, prompt in enumerate(prompts):
+        engine.submit(Request(i, prompt, max_new_tokens=SERVE_NEW_TOKENS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    t0 = time.perf_counter()
+    done = engine.run(max_steps=4096)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(A.LAUNCHES)
+    m = engine.metrics
+    require(len(done) == SERVE_REQUESTS
+            and all(len(r.output) == SERVE_NEW_TOKENS for r in done),
+            f"served {len(done)} requests, outputs "
+            f"{[len(r.output) for r in done]}")
+    require(launches["flash_attention"] == cfg.num_layers * m["prefills"]
+            and launches["decode_attention"] == cfg.num_layers * m["steps"],
+            f"launches {launches} for {m['prefills']} prefills and "
+            f"{m['steps']} decode steps of {cfg.num_layers} layers")
+    # K5's lengths (pos + 1) at the decode step that read the most keys
+    decode_lengths = max(((p + 1).tolist() for p in step_pos), key=sum)
+    return {"cfg": cfg, "model": model, "done": done, "prompts": prompts,
+            "decode_lengths": decode_lengths,
+            "steps": steps, "where": where, "init_s": init_s, "wall_s": wall,
+            "generated": m["generated"], "decode_steps": m["steps"],
+            "prefills": m["prefills"], "decode_ms": list(m["decode_ms"]),
+            "prefill_ms": list(m["prefill_ms"]),
+            "peak_bytes": int(torch.cuda.max_memory_allocated()),
+            "launches": launches}
+
+
+def check_served_tokens(res: dict, dev) -> dict:
+    """Teacher forcing: each finished sequence once through ``forward``
+    (K4); its logits at every generated position must agree with the
+    engine's decode logits (K5) within ``LOGIT_TOL``, and their argmax with
+    the served token wherever the forward's top-2 margin exceeds twice
+    that."""
+    import torch
+    from repro_torch.kernels import attention as A
+    from repro_torch.models import forward
+
+    cfg, steps = res["cfg"], res["steps"]
+    A.reset_launches()
+    max_err, checked, sure_total = 0.0, 0, 0
+    deltas, peak_logit = [], 0.0
+    for req in res["done"]:
+        n, new = len(req.tokens), len(req.output)
+        seq = torch.tensor([req.tokens + req.output[:-1]], device=dev)
+        logits, _ = forward(res["model"], {"tokens": seq})
+        tf = logits[0, n - 1:n - 1 + new, :cfg.vocab_size]
+        rows = res["where"][req.req_id]
+        require(len(rows) == new, f"request {req.req_id}: {len(rows)} "
+                f"decode rows for {new} tokens")
+        eng = torch.stack([steps[s][slot] for s, slot in rows])
+        require(bool(torch.isfinite(tf).all() & torch.isfinite(eng).all()),
+                f"request {req.req_id}: non-finite logits")
+        delta = (tf - eng).abs()
+        max_err = max(max_err, float(delta.max()))
+        peak_logit = max(peak_logit, float(tf.abs().max()))
+        deltas.append(delta.flatten()[::97])   # a strided sample of |diff|
+        top2 = tf.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * LOGIT_TOL
+        served = torch.tensor(req.output, device=dev)
+        require(bool((eng.argmax(-1) == served).all()),
+                f"request {req.req_id}: served tokens are not the argmax of "
+                f"the engine's own logits")
+        require(bool((tf.argmax(-1)[sure] == served[sure]).all()),
+                f"request {req.req_id}: teacher-forced argmax differs where "
+                f"the margin exceeds {2 * LOGIT_TOL}")
+        checked += new
+        sure_total += int(sure.sum())
+    torch.cuda.synchronize()
+    launches = dict(A.LAUNCHES)
+    sample = torch.cat(deltas).double()
+    quant = torch.quantile(sample[:1 << 24],
+                           torch.tensor([0.5, 0.99, 0.9999],
+                                        dtype=torch.float64,
+                                        device=sample.device)).tolist()
+    require(max_err <= LOGIT_TOL, f"teacher-forced logits differ from the "
+            f"engine's by up to {max_err} > {LOGIT_TOL}")
+    require(launches["flash_attention"] == cfg.num_layers * len(res["done"])
+            and launches["decode_attention"] == 0,
+            f"teacher forcing launched {launches}")
+    return {"max_abs_logit_err": max_err, "positions": checked,
+            "logits": checked * cfg.vocab_size,
+            "abs_err_rms": float(sample.square().mean().sqrt()),
+            "abs_err_p50_p99_p9999": quant, "max_abs_logit": peak_logit,
+            "argmax_checked": sure_total, "launches": launches}
+
+
+def profile_decode(res: dict, dev) -> dict:
+    """Eight decode steps of a full batch (after its prefill and a first
+    step, outside the trace) under ``torch.profiler``: the step's wall,
+    its device-busy time and its costliest device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import Request, ServingEngine
+
+    engine = ServingEngine(res["cfg"], res["model"], max_batch=SERVE_BATCH,
+                           max_seq=SERVE_SEQ, device=dev)
+    for i, prompt in enumerate(res["prompts"][:SERVE_BATCH]):
+        engine.submit(Request(i, prompt, max_new_tokens=PROFILE_STEPS + 1))
+    engine.run(max_steps=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run(max_steps=PROFILE_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    require(engine.metrics["steps"] == PROFILE_STEPS + 1,
+            f"profiled {engine.metrics['steps'] - 1} steps")
+    device_us, top = device_busy(prof)
+    return {"steps": PROFILE_STEPS, "wall_ms_per_step": wall / PROFILE_STEPS
+            * 1e3, "device_busy_ms_per_step": device_us / 1e3
+            / PROFILE_STEPS, "idle_share": 1.0 - device_us / 1e6 / wall,
+            "top_device_ms_per_step": {k: v / PROFILE_STEPS
+                                       for k, v in top.items()}}
 
 
 def main() -> int:
@@ -462,21 +806,55 @@ def main() -> int:
     print(f"main-path kernel shapes: "
           f"{ {k: sorted(v) for k, v in main_shapes.items()} }")
 
+    from repro_torch.kernels import attention as A
+    before = {k: set(v) for k, v in A.SHAPES.items()}
+    serve = serve_phase(dev, serve_config())
+    tf = check_served_tokens(serve, dev)
+    attn_shapes = {k: A.SHAPES[k] - before[k] for k in A.SHAPES}
+    dms = np.asarray(serve["decode_ms"])
+    print(f"serve {SERVE_ARCH}: {len(serve['done'])} requests finished, "
+          f"{serve['generated']} tokens in {serve['wall_s']:.3f} s, "
+          f"{serve['generated'] / serve['wall_s']:.1f} tokens/s "
+          f"(init {serve['init_s']:.2f} s, not timed) [{card}]")
+    print(f"serve decode: {serve['decode_steps']} steps, median "
+          f"{np.median(dms):.3f} ms/step, p90 {np.percentile(dms, 90):.3f} "
+          f"ms/step [{card}]")
+    print(f"serve prefill: {serve['prefills']} waves of {SERVE_BATCH}x"
+          f"{SERVE_SEQ} tokens, ms per wave "
+          f"{[round(x, 3) for x in serve['prefill_ms']]} [{card}]")
+    print(f"serve peak max_memory_allocated: {serve['peak_bytes']} B "
+          f"[{card}]")
+    print(f"serve launches: {serve['launches']} [{card}]")
+    print(f"teacher-forced check: {json.dumps(tf)} (tolerance "
+          f"{LOGIT_TOL}) [{card}]")
+    print(f"main-path attention shapes: "
+          f"{ {k: sorted(v) for k, v in attn_shapes.items()} }")
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = [check_k1(dev, gen, main_shapes["partition_histogram"]),
             check_k2(dev, gen, main_shapes["partition_scatter"]),
-            check_k3(dev, gen, main_shapes["fused_probe"])]
+            check_k3(dev, gen, main_shapes["fused_probe"]),
+            check_k4(dev, gen, attn_shapes["flash_attention"]),
+            check_k5(dev, gen, attn_shapes["decode_attention"],
+                     serve["decode_lengths"])]
     for r in rows:
         print(f"kernel {r['name']} ({r['shape']}): {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |err| "
+              f"{r['max_abs_err']:.3g} [{card}]")
+    # the main path's launches: the queries and the serve phase (the
+    # teacher-forced check's own are on its line above)
+    counted = [res["launches"] for res in phases] + [serve["launches"]]
     for r in rows:
-        r["launches"] = sum(res["launches"][r["name"]] for res in phases)
+        r["launches"] = sum(c.get(r["name"], 0) for c in counted)
         del r["shape"]
     print(json.dumps({"kernels": rows}))
     prof = profile_query(dev, *phases[1]["tables"])
     print(f"profile smoke_large (second run, profiler on): "
+          f"{json.dumps(prof)} [{card}]")
+    prof = profile_decode(serve, dev)
+    print(f"profile serve decode ({SERVE_BATCH} sequences, profiler on): "
           f"{json.dumps(prof)} [{card}]")
     print(card)
     print(json.dumps({"ok": True, "device": {

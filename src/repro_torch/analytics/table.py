@@ -11,6 +11,15 @@ arrays (``shuffle_write`` lands its permuted buffer on the host once, so
 readers concatenate bucket views with a memcpy). A function that computes
 on a table it read from the store first moves it onto its invocation's
 device with ``on_device``; nothing else moves columns.
+
+Under the ``threads`` invoker every worker computes on its own CUDA stream,
+so a device column that one invocation produced is read on another's
+stream. Every read of a column that may come from elsewhere (``on_device``,
+``Table.concat_all``, a ``TableSlice`` copying its range out) marks the
+column as in use by the reading stream (``record_stream``), so that the
+caching allocator does not hand its block to a new allocation while the
+read is still running. The data itself is complete: the producer waited
+for its stream before it published the table (``FnContext._force``).
 """
 
 from __future__ import annotations
@@ -28,6 +37,14 @@ from repro_torch.device import resolve_device
 def _row_bytes(columns: Mapping) -> int:
     return sum(int(np.prod(tuple(v.shape[1:]))) * v.dtype.itemsize
                for v in columns.values())
+
+
+def read_here(v):
+    """``v``, marked as read by the current CUDA stream if it is a CUDA
+    tensor (see the module docstring); anything else as it is."""
+    if isinstance(v, torch.Tensor) and v.is_cuda:
+        v.record_stream(torch.cuda.current_stream(v.device))
+    return v
 
 
 def to_numpy(v) -> np.ndarray:
@@ -99,7 +116,8 @@ class Table:
                 else:
                     dev = next(v.device for v in vals
                                if isinstance(v, torch.Tensor))
-                    cols[k] = torch.cat([torch.as_tensor(v, device=dev)
+                    cols[k] = torch.cat([torch.as_tensor(read_here(v),
+                                                         device=dev)
                                          for v in vals])
             return Table(cols)
         out = parts[0]
@@ -118,7 +136,7 @@ def on_device(table, device) -> Table:
     store onto its invocation's device."""
     if table is None:
         return None
-    return Table({k: torch.as_tensor(v, device=device)
+    return Table({k: torch.as_tensor(read_here(v), device=device)
                   for k, v in table.columns.items()})
 
 
@@ -167,8 +185,9 @@ class TableSlice:
             parent, lo, hi = self._src      # one consistent snapshot
             # a tensor range is copied out (as a jnp slice is) so that the
             # parent buffer is not pinned; host bucket views stay views
-            cache = {k: v[lo:hi].clone() if isinstance(v, torch.Tensor)
-                     else v[lo:hi] for k, v in parent.items()}
+            cache = {k: read_here(v)[lo:hi].clone()
+                     if isinstance(v, torch.Tensor) else v[lo:hi]
+                     for k, v in parent.items()}
             self._cache = cache
             # materialized: drop the pin on the full-size parent buffer so
             # the slice's footprint matches the ``nbytes`` the store counts

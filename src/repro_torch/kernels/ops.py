@@ -1,12 +1,14 @@
-"""The data plane's single kernel-dispatch point (analytics half).
+"""The data plane's single kernel-dispatch point.
 
 Every primitive the analytics operators and the serverless function library
-touch routes through here. The three partition primitives that the
-reference runs as Pallas kernels go through the kernel wrappers of
-``repro_torch.kernels.partition`` (CUDA on the card, the plain PyTorch
-version for CPU tensors); hashing, joins and segment sums are plain tensor
-operations on whatever device their inputs live on, as they are plain jnp
-in the reference.
+touch routes through here, and so does attention for the model plane. The
+primitives that the reference runs as Pallas kernels go through the kernel
+wrappers of ``repro_torch.kernels.partition`` (the three partition
+kernels) and ``repro_torch.kernels.attention`` (flash attention and
+flash-decode): CUDA on the card, the plain PyTorch version for CPU
+tensors. Hashing, joins and segment sums are plain tensor operations on
+whatever device their inputs live on, as they are plain jnp in the
+reference.
 
 Shape classes: the partition-grouping entry point (``grouping_indices``)
 pads its input to the next power of two, so partitions with different
@@ -21,11 +23,27 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.kernels import attention as _attn
 from repro_torch.kernels import partition as _k
 
 HASH_MULT = 0x9E3779B1   # Knuth multiplicative hash
 EMPTY = -1
 _MASK32 = 0xFFFFFFFF
+
+
+# -- attention -----------------------------------------------------------------
+
+
+def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
+    """``(B, S, H, hd)`` attention with KV expanded to the H query heads
+    (K4)."""
+    return _attn.flash_attention(q, k, v, causal=causal)
+
+
+def decode_attention(q, k_cache, v_cache, length) -> torch.Tensor:
+    """One query token per sequence ``(B, H, hd)`` against ``(B, S, K, hd)``
+    caches, masked past ``length (B,)`` int32 (K5)."""
+    return _attn.decode_attention(q, k_cache, v_cache, length)
 
 
 # -- partitioning (the shuffle primitive) --------------------------------------

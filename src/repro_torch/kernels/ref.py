@@ -1,9 +1,13 @@
-"""Plain PyTorch versions of the partition kernels (the contracts).
+"""Plain PyTorch versions of the port's kernels (the contracts).
 
-Each function computes exactly what its CUDA kernel in ``partition.cu``
-computes. The kernel wrappers (``repro_torch.kernels.partition``) take these
-for CPU tensors only; ``chip_smoke.py`` holds each kernel against its plain
-version on the card.
+Each function computes what its CUDA kernel computes: the partition kernels
+of ``partition.cu`` exactly, the attention kernels of
+``flash_attention.cu`` and ``decode_attention.cu`` within the tolerance of
+their dtype (the kernels keep the probabilities in fp32, these cast them
+to the value dtype before the PV product, as the reference's oracles do).
+The kernel wrappers (``repro_torch.kernels.partition`` and ``.attention``)
+take these for CPU tensors only; ``chip_smoke.py`` holds each kernel
+against its plain version on the card.
 """
 
 from __future__ import annotations
@@ -61,3 +65,42 @@ def fused_probe_ref(probe_keys, v0, v1, build_keys, build_cat, build_valid,
         return (torch.zeros((0,), dtype=torch.int32, device=probe_keys.device),
                 torch.zeros((0,), dtype=torch.float32, device=v0.device))
     return torch.cat(groups), torch.cat(weights)
+
+
+# -- attention -------------------------------------------------------------------
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """K4: q, k, v ``(B, S, H, hd)`` (KV already expanded to H heads) ->
+    ``(B, S, H, hd)`` in q's dtype; fp32 scores and softmax."""
+    s, hd = q.shape[1], q.shape[3]
+    scores = torch.einsum("bqhk,bshk->bhqs", q.float(), k.float())
+    scores = scores * (hd ** -0.5)
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqs,bshk->bqhk", probs.to(v.dtype), v)
+    return out.to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor,
+                         length: torch.Tensor) -> torch.Tensor:
+    """K5: q ``(B, H, hd)``, caches ``(B, S, K, hd)``, length ``(B,)`` valid
+    prefix sizes -> ``(B, H, hd)`` in q's dtype. GQA: H = K * G, and query
+    head i attends through kv head i // G."""
+    hd = q.shape[2]
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    g = q.shape[1] // kh
+    k_exp = k_cache.repeat_interleave(g, dim=2)          # (B, S, H, hd)
+    v_exp = v_cache.repeat_interleave(g, dim=2)
+    scores = torch.einsum("bhk,bshk->bhs", q.float(), k_exp.float())
+    scores = scores * (hd ** -0.5)
+    valid = torch.arange(s, device=q.device)[None, :] \
+        < length.to(q.device)[:, None]
+    scores = scores.masked_fill(~valid[:, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhs,bshk->bhk", probs.to(v_exp.dtype), v_exp)
+    return out.to(q.dtype)

@@ -1,0 +1,66 @@
+"""Carry the reference's parameter tree across into the port's modules.
+
+``params_from_numpy(jax.tree.map(np.asarray, repro.models.init_lm(cfg,
+key)[0]), cfg, device)`` gives the port's ``LM`` with the reference's
+weights, so both packages can be run on the same model. The reference
+stacks each pattern position's leaves over the repeats
+(``params["blocks"][p][...]`` has a leading ``repeats`` axis); layer
+``r * P + p`` is row ``r`` of position ``p``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.config import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.lm import LM
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.array(a)                     # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: carry the bits
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _flatten(tree, prefix: str, out: dict) -> None:
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            _flatten(val, f"{prefix}{key}.", out)
+        else:
+            out[f"{prefix}{key}"] = val
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> LM:
+    """The port's model holding the weights of a reference parameter tree
+    whose leaves are numpy arrays (bfloat16 leaves as ``ml_dtypes``
+    arrays). Raises if a leaf is missing, left over or of another shape."""
+    dev = resolve_device(device)
+    flat: dict[str, np.ndarray] = {}
+    _flatten({"embed": tree["embed"], "final_norm": tree["final_norm"]}, "",
+             flat)
+    period = len(tree["blocks"])
+    for p, stacked in enumerate(tree["blocks"]):
+        leaves: dict[str, np.ndarray] = {}
+        _flatten(stacked, "", leaves)
+        for name, arr in leaves.items():
+            for r in range(arr.shape[0]):
+                flat[f"layers.{r * period + p}.{name}"] = arr[r]
+    model = LM(cfg, None, torch.device("meta"))
+    want = dict(model.named_parameters())
+    if set(flat) != set(want):
+        raise ValueError(f"parameter trees differ: missing "
+                         f"{sorted(set(want) - set(flat))}, left over "
+                         f"{sorted(set(flat) - set(want))}")
+    state = {}
+    for name, arr in flat.items():
+        if tuple(arr.shape) != tuple(want[name].shape):
+            raise ValueError(f"{name}: shape {arr.shape}, expected "
+                             f"{tuple(want[name].shape)}")
+        state[name] = torch.nn.Parameter(_tensor(arr, dev),
+                                         requires_grad=False)
+    model.load_state_dict(state, assign=True)
+    return model

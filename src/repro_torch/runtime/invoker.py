@@ -162,12 +162,16 @@ class FnContext:
             tr = get_tracer()
             parent = tr.current()     # the invocation span of the issuer
             store, app, node = self._store, self.app, self.node
+            # a device concat inside the read is enqueued on the prefetching
+            # invocation's stream, ordered before its own use of the result
+            stream = torch.cuda.current_stream(self.device) \
+                if self.device.type == "cuda" else None
 
             def fetch():
                 # the fetch runs on a background thread whose span stack is
                 # empty: adopt the issuing invocation's span so the store's
                 # own get spans parent to it instead of landing orphaned
-                with tr.adopt(parent):
+                with tr.adopt(parent), torch.cuda.stream(stream):
                     sources = store.read_sources(app, stage, key[1], node)
                     t0 = time.perf_counter()
                     try:
@@ -230,8 +234,9 @@ class FnContext:
         # first forces a value, scrambling per-stage metrics and stage
         # overlap alike). This wait is charged to compute, not store time.
         # It is a CUDA event recorded on the current stream after the
-        # invocation's last launch: every invoker thread shares that stream,
-        # so the wait also covers other threads' earlier launches.
+        # invocation's last launch; under the threads invoker that is the
+        # worker's own stream, so the wait covers this invocation's
+        # launches and not other workers'.
         cols = getattr(table, "parent_columns", None)
         if cols is None:
             cols = getattr(table, "columns", None)
@@ -749,6 +754,13 @@ class InlineInvoker(Invoker):
 class ThreadPoolInvoker(Invoker):
     """Real parallelism: one worker per in-flight batch or function instance.
 
+    On the card every worker thread computes on its own CUDA stream (from
+    PyTorch's stream pool), so its invocations' launches, and the wait that
+    ``FnContext._force`` charges to them, are not queued behind other
+    workers'. Before it starts, a worker's stream waits for the work the
+    submitting thread had enqueued on its current stream (the stage's
+    input tables), and that stream waits for the worker's when it is done.
+
     With a ``speculation`` policy installed (``SpeculationPolicy``,
     ``repro_torch.runtime.faults``) the invoker polls in-flight invocations and
     feeds their elapsed times to the policy's failure-feedback decision
@@ -779,6 +791,27 @@ class ThreadPoolInvoker(Invoker):
         self.speculation = speculation
         self.speculations: list[tuple[str, int, int, float]] = []
         self._pools: list[ThreadPoolExecutor] = []
+        self._local = threading.local()      # .stream: the worker's stream
+
+    def _caller_stream(self):
+        return torch.cuda.current_stream(self.device) \
+            if self.device.type == "cuda" else None
+
+    def _on_own_stream(self, caller, fn, *args):
+        """``fn(*args)`` on this worker thread's own stream, after the work
+        the submitting thread had enqueued on ``caller``; what the submitter
+        enqueues afterwards waits for the worker's launches in turn."""
+        if caller is None:
+            return fn(*args)
+        stream = getattr(self._local, "stream", None)
+        if stream is None:
+            stream = self._local.stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(caller)
+        try:
+            with torch.cuda.stream(stream):
+                return fn(*args)
+        finally:
+            caller.wait_stream(stream)
 
     def run_stage(self, invocations: Sequence[Invocation],
                   deps: tuple[str, ...] = ()) -> None:
@@ -788,9 +821,11 @@ class ThreadPoolInvoker(Invoker):
             self._run_stage_speculative(list(invocations), deps)
             return
         groups = self._groups(invocations)
+        caller = self._caller_stream()
         with ThreadPoolExecutor(
                 max_workers=min(self.max_workers, len(groups))) as pool:
-            futures = [pool.submit(self._execute_group, group, deps)
+            futures = [pool.submit(self._on_own_stream, caller,
+                                   self._execute_group, group, deps)
                        for group in groups]
             for f in futures:
                 f.result()    # propagate the first failure
@@ -805,6 +840,7 @@ class ThreadPoolInvoker(Invoker):
         tr = get_tracer()
         stage_span = tr.anchored(
             ("stage", invocations[0].app, invocations[0].stage))
+        caller = self._caller_stream()
 
         def run_one(inv):
             # pool threads have empty span stacks and losers may outlive
@@ -812,7 +848,7 @@ class ThreadPoolInvoker(Invoker):
             # run_stage returns): adopt the stage span captured at submit
             # time so invocation and store spans stay parented either way
             with tr.adopt(stage_span):
-                self._execute_one(inv, deps)
+                self._on_own_stream(caller, self._execute_one, inv, deps)
 
         futs: dict = {}                       # future -> index
         copies = [1] * n                      # in-flight copies per index

@@ -1,0 +1,103 @@
+"""Attention kernels of the PyTorch port against the JAX reference.
+
+The same seeded numpy inputs go through the reference's Pallas kernels
+(``repro.kernels.flash_attention`` / ``decode_attention`` in interpret
+mode) and the port's dispatch point (``repro_torch.kernels.ops``), which
+for CPU tensors runs the kernels' plain versions (``kernels/ref.py``). KV
+heads are expanded on each side with its own repeat (``jnp.repeat`` /
+``repeat_interleave``), so the GQA head order is held too. Tolerances are
+the reference's own (``tests/test_kernels.py``): the Pallas kernels keep
+the probabilities in fp32, the plain versions cast them to the value dtype.
+The CUDA kernels are held against the plain versions in
+``test_torch_cuda.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention import decode_attention as pallas_decode
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro_torch.kernels import attention as tattn
+from repro_torch.kernels import ops as tops
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _pair(rng, shape, dtype):
+    """One standard-normal array as a JAX array and a torch tensor of
+    ``dtype`` (both round the same float32 values to bf16)."""
+    a = rng.standard_normal(shape).astype(np.float32)
+    return jnp.asarray(a, dtype), torch.from_numpy(a).to(getattr(torch,
+                                                                 dtype))
+
+
+def _close(got: torch.Tensor, want, dtype: str) -> None:
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 2, 3])
+def test_flash_attention_plain_matches_pallas(dtype, causal, g):
+    rng = np.random.default_rng(10 * g + causal)
+    b, s, kh, hd = 2, 32, 2, 16
+    jq, tq = _pair(rng, (b, s, kh * g, hd), dtype)
+    jk, tk = _pair(rng, (b, s, kh, hd), dtype)
+    jv, tv = _pair(rng, (b, s, kh, hd), dtype)
+    want = pallas_flash(jq, jnp.repeat(jk, g, axis=2),
+                        jnp.repeat(jv, g, axis=2), causal=causal,
+                        block_q=16, block_k=16, interpret=True)
+    got = tops.flash_attention(tq, tk.repeat_interleave(g, dim=2),
+                               tv.repeat_interleave(g, dim=2), causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g", [1, 2, 3])
+def test_decode_attention_plain_matches_pallas(dtype, g):
+    rng = np.random.default_rng(20 + g)
+    b, s, kh, hd = 3, 64, 2, 16
+    jq, tq = _pair(rng, (b, kh * g, hd), dtype)
+    jk, tk = _pair(rng, (b, s, kh, hd), dtype)
+    jv, tv = _pair(rng, (b, s, kh, hd), dtype)
+    length = np.array([1, s, 37], np.int32)           # one key, all, ragged
+    want = pallas_decode(jq, jk, jv, jnp.asarray(length), block_k=16,
+                         interpret=True)
+    got = tops.decode_attention(tq, tk, tv, torch.from_numpy(length))
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, want, dtype)
+
+
+def test_cpu_tensors_never_count_as_launches():
+    tattn.reset_launches()
+    q = torch.zeros((1, 5, 2, 8))
+    tops.flash_attention(q, q, q)
+    tops.decode_attention(q[:, 0], q, q, torch.ones((1,), dtype=torch.int32))
+    assert tattn.LAUNCHES == {"flash_attention": 0, "decode_attention": 0}
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "head_dim", "groups",
+                                  "length_dtype", "last_dim_stride"])
+def test_wrappers_refuse_what_the_kernels_do_not_take(case):
+    q = torch.zeros((1, 4, 2, 8))
+    c = torch.zeros((1, 4, 2, 8))
+    length = torch.ones((1,), dtype=torch.int32)
+    bad = {
+        "dtype": lambda: tattn.flash_attention(q.half(), q.half(), q.half()),
+        "shape": lambda: tattn.flash_attention(q, q[:, :3], q),
+        "head_dim": lambda: tattn.flash_attention(*(3 * [torch.zeros(
+            (1, 4, 2, 12))])),
+        "groups": lambda: tattn.decode_attention(
+            torch.zeros((1, 3, 8)), c, c, length),
+        "length_dtype": lambda: tattn.decode_attention(
+            q[:, 0], c, c, length.long()),
+        "last_dim_stride": lambda: tattn.flash_attention(
+            q, q, torch.zeros((1, 4, 8, 2)).transpose(2, 3)),
+    }[case]
+    with pytest.raises(ValueError):
+        bad()

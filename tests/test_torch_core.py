@@ -205,7 +205,11 @@ def test_port_imports_neither_jax_nor_the_reference():
 def test_entry_points_raise_without_a_card_unless_asked(monkeypatch):
     from repro_torch import NoDeviceError
     from repro_torch.analytics.simulator import calibrated_rates
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_lm
     from repro_torch.runtime.executor import Runtime
+    from repro_torch.serving import ServingEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     gc = tctl.GlobalController({0: 2})
@@ -216,6 +220,18 @@ def test_entry_points_raise_without_a_card_unless_asked(monkeypatch):
     with pytest.raises(NoDeviceError):
         calibrated_rates(force=True)
     assert Runtime(gc, device="cpu").device == torch.device("cpu")
+    cfg = get_config("llama3.2-3b", smoke=True)
+    with pytest.raises(NoDeviceError):
+        init_lm(cfg)
+    model = init_lm(cfg, device="cpu")
+    with pytest.raises(NoDeviceError):
+        ServingEngine(cfg, model)
+    assert ServingEngine(cfg, model, device="cpu").device.type == "cpu"
+    with pytest.raises(NoDeviceError):
+        serve.main(["--requests", "1", "--max-new", "1"])
+    done = serve.main(["--requests", "2", "--max-new", "2", "--device",
+                       "cpu"])
+    assert [len(r.output) for r in done] == [2, 2]
 
 
 def test_process_invoker_is_refused_not_replaced():

@@ -95,3 +95,180 @@ def test_cuda_k1_k2_refuse_ids_out_of_range(cuda_device, bad):
         tpart.partition_scatter(ids[:, None], ids, 15)
     assert tpart.LAUNCHES["partition_histogram"] == 0
     assert tpart.LAUNCHES["partition_scatter"] == 0
+
+
+# -- attention kernels (K4, K5) -------------------------------------------------
+
+# the reference's kernel tolerances (tests/test_kernels.py): the kernels keep
+# the probabilities in fp32, the plain versions cast them to the value dtype
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _attn_inputs(seed, shape, dtype, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(device=device, dtype=dtype) for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,hd,causal", [
+    (2, 128, 4, 128, True), (1, 77, 3, 128, True), (2, 1, 2, 64, True),
+    (1, 200, 2, 64, False), (3, 33, 6, 8, True), (1, 1024, 2, 128, True)])
+def test_cuda_k4_matches_plain(cuda_device, dtype, b, s, h, hd, causal):
+    from repro_torch.kernels import attention as tattn
+    q, k, v = _attn_inputs(s + hd, (b, s, h, hd), dtype, cuda_device)
+    got = tattn.flash_attention(q, k, v, causal=causal)
+    want = tref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, s, h, hd)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= ATTN_TOL[dtype], err
+
+
+@pytest.mark.cuda
+def test_cuda_k4_reads_strided_inputs(cuda_device):
+    """q, k, v as views of one (B, S, 3, H, hd) projection: no copy."""
+    from repro_torch.kernels import attention as tattn
+    rng = np.random.default_rng(5)
+    qkv = torch.from_numpy(rng.standard_normal((2, 70, 3, 4, 64))
+                           .astype(np.float32)).to(cuda_device)
+    q, k, v = qkv.unbind(2)
+    got = tattn.flash_attention(q, k, v)
+    want = tref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATTN_TOL[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,kh,g,hd,lengths", [
+    (4, 1024, 8, 3, 128, (1, 1024, 517, 64)), (2, 96, 2, 3, 8, (1, 96)),
+    (3, 256, 4, 1, 64, (200, 7, 256)), (1, 130, 2, 2, 128, (129,))])
+def test_cuda_k5_matches_plain(cuda_device, dtype, b, s, kh, g, hd, lengths):
+    from repro_torch.kernels import attention as tattn
+    rng = np.random.default_rng(s + hd)
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=cuda_device, dtype=dtype)
+
+    q, kc, vc = t((b, kh * g, hd)), t((b, s, kh, hd)), t((b, s, kh, hd))
+    length = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    got = tattn.decode_attention(q, kc, vc, length)
+    want = tref.decode_attention_ref(q, kc, vc, length)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= ATTN_TOL[dtype], err
+
+
+@pytest.mark.cuda
+def test_cuda_k5_reads_a_layer_slice_of_the_cache(cuda_device):
+    """The cache of one layer is a strided view of the stacked cache."""
+    from repro_torch.kernels import attention as tattn
+    rng = np.random.default_rng(9)
+    cache = torch.from_numpy(rng.standard_normal((2, 3, 2, 80, 2, 64))
+                             .astype(np.float32)).to(cuda_device)
+    kc, vc = cache[0, 1], cache[1, 1]            # (B, S, K, hd) views
+    q = torch.from_numpy(rng.standard_normal((2, 6, 64)).astype(
+        np.float32)).to(cuda_device)
+    length = torch.tensor([80, 33], dtype=torch.int32, device=cuda_device)
+    got = tattn.decode_attention(q, kc, vc, length)
+    want = tref.decode_attention_ref(q, kc, vc, length)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATTN_TOL[torch.float32]
+
+
+# -- the threads invoker: one CUDA stream per worker -------------------------------
+
+
+def _invocation_seconds(device):
+    """Run a heavy and a tiny invocation side by side on the threads
+    invoker; the tiny one starts only after the heavy one has enqueued all
+    its work. The stage runs twice and the second run is measured, so
+    neither side pays the first use of cuBLAS or of a kernel module.
+    Returns the measured run's ``{func: compute_seconds}``."""
+    import threading
+
+    from repro_torch.analytics.table import Table
+    from repro_torch.core.controllers import GlobalController
+    from repro_torch.runtime.invoker import Invocation, ThreadPoolInvoker
+    from repro_torch.runtime.metrics import MetricsSink
+    from repro_torch.runtime.store import ShuffleStore
+
+    enqueued = {}
+
+    def heavy(ctx):
+        gen = torch.Generator(device=ctx.device).manual_seed(0)
+        a = torch.randn((4096, 4096), generator=gen, device=ctx.device)
+        b = torch.randn((4096, 4096), generator=gen, device=ctx.device) / 64
+        for _ in range(60):                  # ~8 TFLOP of fp32 products
+            a = a @ b
+        enqueued[ctx.app].set()
+        ctx.put("out", 0, Table({"x": a[0]}))
+
+    def tiny(ctx):
+        assert enqueued[ctx.app].wait(30)
+        ctx.put("out", 1, Table({"x": torch.ones((4,), device=ctx.device)}))
+
+    sink = MetricsSink()
+    invoker = ThreadPoolInvoker(GlobalController({0: 1, 1: 1}),
+                                ShuffleStore(), sink, device=device)
+    invoker.registry = {"heavy": heavy, "tiny": tiny}
+    for app in ("warm", "q"):
+        enqueued[app] = threading.Event()
+        invoker.run_stage([Invocation(f"{app}/s/0", app, "s", 0, "heavy", 0),
+                           Invocation(f"{app}/s/1", app, "s", 1, "tiny", 1)])
+    return {r.func: r.compute_seconds for r in sink.for_app("q")}
+
+
+@pytest.mark.cuda
+def test_cuda_threads_invoker_charges_no_other_workers_launches(cuda_device):
+    """Each worker thread launches on its own stream, so the tiny
+    invocation's wait for its own launches does not include the heavy
+    one's matrix products, queued before them."""
+    secs = _invocation_seconds(cuda_device)
+    assert secs["heavy"] > 0.02, secs
+    assert secs["tiny"] < 0.25 * secs["heavy"], secs
+
+
+# -- the serving path at the smoke config -------------------------------------------
+
+
+def _serve_smoke(device, model, cfg):
+    from repro_torch.serving import Request, ServingEngine
+    engine = ServingEngine(cfg, model, max_batch=2, max_seq=40,
+                           slo_ms=1e9, device=device)
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        engine.submit(Request(i, rng.integers(0, cfg.vocab_size,
+                                              5 + 4 * i).tolist(),
+                              max_new_tokens=4))
+    done = engine.run(max_steps=64)
+    return {r.req_id: r.output for r in done}, engine.metrics
+
+
+@pytest.mark.cuda
+def test_cuda_engine_serves_through_k4_and_k5(cuda_device):
+    """The smoke config in fp32 on the card gives the CPU engine's tokens,
+    with one K4 launch per layer per prefill and one K5 launch per layer
+    per decode step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention as tattn
+    from repro_torch.models import init_lm
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b", smoke=True),
+                              dtype="float32")
+    model = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    want, _ = _serve_smoke("cpu", model, cfg)
+    tattn.reset_launches()
+    got, metrics = _serve_smoke(cuda_device, model.to(cuda_device), cfg)
+    assert got == want and len(got) == 3
+    assert tattn.LAUNCHES == {
+        "flash_attention": cfg.num_layers * metrics["prefills"],
+        "decode_attention": cfg.num_layers * metrics["steps"]}

@@ -1,0 +1,140 @@
+"""The serving engine of the PyTorch port against the JAX reference.
+
+Both engines serve the same requests with the same weights (the
+reference's ``init_lm``, carried across by ``params_from_numpy``) and the
+same ``max_batch``; they must produce the same tokens, the same step and
+prefill counts and the same batching decisions. The token-for-token runs
+use fp32 weights, so a greedy argmax never turns on bf16 rounding, and an
+SLO so loose that the batching decision never depends on the measured
+step time (the reference's first step includes its jit compile).
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.core.controllers as jctl
+import repro.core.decisions as jdec
+import repro.models.lm as jlm
+import repro.serving.engine as jeng
+import repro_torch.core.controllers as tctl
+import repro_torch.core.decisions as tdec
+import repro_torch.models.lm as tlm
+import repro_torch.serving.engine as teng
+from repro.configs import get_config as jconfig
+from repro_torch.configs import get_config as tconfig
+from repro_torch.models.convert import params_from_numpy
+
+LOOSE_SLO_MS = 1e9
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """{dtype: (reference cfg, params, port cfg, port model)}."""
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        jcfg = dataclasses.replace(jconfig("llama3.2-3b", smoke=True),
+                                   dtype=dtype)
+        tcfg = dataclasses.replace(tconfig("llama3.2-3b", smoke=True),
+                                   dtype=dtype)
+        params = jax.jit(lambda key, c=jcfg: jlm.init_lm(c, key)[0])(
+            jax.random.PRNGKey(0))
+        out[dtype] = (jcfg, params, tcfg, params_from_numpy(
+            jax.tree.map(np.asarray, params), tcfg, "cpu"))
+    return out
+
+
+def _decision(d):
+    return (d.func, d.scale, d.schedule.policy, tuple(d.schedule.nodes),
+            tuple(d.extras))
+
+
+@pytest.mark.parametrize("queue,slo_ms,decode_ms,max_batch", [
+    (3, 200.0, 5.0, 8), (20, 200.0, 5.0, 8), (20, 100.0, 60.0, 8),
+    (0, 200.0, 5.0, 4), (7, 50.0, 1e-6, 2)])
+def test_batching_decision_matches_reference(queue, slo_ms, decode_ms,
+                                             max_batch):
+    got = []
+    for ctl, dec, eng in ((jctl, jdec, jeng), (tctl, tdec, teng)):
+        gc = ctl.GlobalController({0: max_batch})
+        ctx = dec.DecisionContext(node_status=gc.node_status(),
+                                  app={"queue_depth": queue,
+                                       "slo_ms": slo_ms,
+                                       "max_batch": max_batch})
+        ctx.profile = {"decode_ms_per_step": decode_ms}
+        got.append(_decision(eng.batching_decision(ctx)))
+    assert got[0] == got[1]
+
+
+def _serve(eng, cfg, params, prompts, max_new, **kw):
+    """Serve ``prompts`` with engine module ``eng`` -> (outputs by request,
+    counters, the batching decisions in order)."""
+    engine = eng.ServingEngine(cfg, params, slo_ms=LOOSE_SLO_MS, **kw)
+    for i, prompt in enumerate(prompts):
+        engine.submit(eng.Request(i, list(prompt), max_new_tokens=max_new))
+    done = engine.run(max_steps=256)
+    decisions = [(d.func, d.scale, d.schedule.policy, tuple(d.schedule.nodes))
+                 for _, d in engine.node.history]
+    return ({r.req_id: r.output for r in done},
+            {k: engine.metrics[k] for k in ("steps", "prefills", "generated",
+                                            "batch_occupancy")},
+            decisions)
+
+
+@pytest.mark.parametrize("max_batch,lengths,max_new,max_seq", [
+    (2, (11, 5, 17, 3, 6), 3, 48),   # three waves, the last half full
+    (3, (4, 3, 21, 17), 5, 24),      # one request stops at max_seq
+    (1, (13, 7), 4, 32)])
+def test_engine_matches_reference(weights, max_batch, lengths, max_new,
+                                  max_seq):
+    jcfg, params, tcfg, model = weights["float32"]
+    rng = np.random.default_rng(max_batch)
+    prompts = [rng.integers(0, 100, n).tolist() for n in lengths]
+    want = _serve(jeng, jcfg, params, prompts, max_new,
+                  max_batch=max_batch, max_seq=max_seq)
+    got = _serve(teng, tcfg, model, prompts, max_new,
+                 max_batch=max_batch, max_seq=max_seq, device="cpu")
+    assert len(got[0]) == len(lengths)
+    assert all(len(got[0][i]) == min(max_new, max_seq - n)
+               for i, n in enumerate(lengths))
+    assert got == want
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_engine_matches_offline_greedy(weights, dtype):
+    """Engine greedy decode (the decode path, K5's contract) == step-by-step
+    full-forward greedy decode (K4's contract), the twin of
+    ``tests/test_serving.py::test_engine_matches_offline_greedy``."""
+    _, _, cfg, model = weights[dtype]
+    prompt = [3, 1, 4, 1, 5, 9]
+    engine = teng.ServingEngine(cfg, model, max_batch=1, max_seq=32,
+                                device="cpu")
+    engine.submit(teng.Request(0, list(prompt), max_new_tokens=3))
+    got = engine.run(max_steps=64)[0].output
+
+    seq = list(prompt)
+    for _ in range(3):
+        lg, _ = tlm.forward(model, {"tokens": torch.tensor([seq])})
+        seq.append(int(lg[0, -1].argmax()))
+    assert got == seq[len(prompt):]
+
+
+def test_engine_releases_slots(weights):
+    _, _, cfg, model = weights["bfloat16"]
+    engine = teng.ServingEngine(cfg, model, max_batch=2, max_seq=32,
+                                device="cpu")
+    for i in range(3):
+        engine.submit(teng.Request(i, [1, 2, 3], max_new_tokens=2))
+    engine.run(max_steps=128)
+    assert sum(engine.gc.used.values()) == 0
+    assert len(engine.metrics["decode_ms"]) == engine.metrics["steps"]
+    assert len(engine.metrics["prefill_ms"]) == engine.metrics["prefills"]
+
+
+def test_engine_refuses_a_model_on_another_device(weights):
+    _, _, cfg, model = weights["bfloat16"]
+    with pytest.raises(ValueError, match="lives on"):
+        teng.ServingEngine(cfg, model, device="meta")
