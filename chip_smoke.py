@@ -5,7 +5,9 @@
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a, one process per source, all started together) and prints the
-   build seconds and the card's name and power limit.
+   build seconds, each library's count of tensor-core instructions
+   (``HMMA``/``HGMMA`` in ``cuobjdump -sass``, where the toolkit has it; K4's
+   library must have some) and the card's name and power limit.
 2. Runs the sub-query through ``execute_query_runtime`` at 2^17 fact rows
    (the workflow binds the ``fused`` plan, so K3 runs) and at 2^25 fact rows
    (403 MB, the paper's smallest table; the ``pipelined`` plan, K1 and K2
@@ -16,19 +18,22 @@
    width and depth (28 layers, d_model 3072, vocab 128256, bf16, random
    weights from seed 0) through ``ServingEngine(max_batch=4,
    max_seq=1024)``: every prefill runs K4 (flash attention) and every
-   decode step K5 (flash-decode) in each layer. Then feeds each finished
+   decode step K5 (flash-decode, a split along the sequence and a combine)
+   in each layer; every prefill must take K4's tensor-core route. Then
+   feeds each finished
    sequence once through the full ``forward`` (K4) and holds its logits at
    every generated position to the logits the engine decoded there (K5).
 4. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path launched it at and on edge cases: K1-K3
    bit-exact, K4 and K5 within the reference's kernel tolerances. Times
    kernel, plain version and the one PyTorch call computing the same
-   function at the largest main-path shape (CUDA events, median of 20, L2
-   warm).
+   function at the largest main-path shape (CUDA events around one call,
+   median of 20, L2 warm); for K4 and K5 also the device time alone of
+   the kernel and of that call (``torch.profiler``).
 5. Prints the ``kernels`` JSON line (K1-K5).
-6. Re-runs the large query and eight decode steps under ``torch.profiler``
-   (outside the counted runs) and prints their device-busy share and
-   costliest device ops.
+6. Re-runs the large query, eight decode steps and one prefill wave under
+   ``torch.profiler`` (outside the counted runs) and prints their
+   device-busy share and costliest device ops.
 7. Prints the card line and, as its last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -99,12 +104,45 @@ def median_ms(fn, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, reps: int = REPS) -> float:
+    """Device time of one call of ``fn``: the union of the device-side
+    intervals of ``reps`` calls under ``torch.profiler``, over ``reps``.
+    Unlike ``median_ms`` it leaves out the host's share of a call (the
+    wrapper's Python and the launch), which dominates a call of a few
+    microseconds of device work."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return device_busy(prof)[0] / 1e3 / reps
+
+
 def bound_ms(nbytes: float, ops: float = 0.0,
              ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
+
+
+def tensor_core_instructions(libs: dict) -> dict:
+    """``{source: {"HMMA": n, "HGMMA": n}}`` from ``cuobjdump -sass`` of each
+    built library; empty where the toolkit has no ``cuobjdump``."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    counts = {}
+    for src, lib in libs.items():
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True).stdout.split()
+        counts[src] = {op: sum(w.startswith(op + ".") or w == op
+                               for w in sass) for op in ("HMMA", "HGMMA")}
+    return counts
 
 
 def bits_equal(a, b) -> bool:
@@ -332,39 +370,55 @@ def _held_close(got, want, dtype_name: str, what: str) -> float:
 
 
 def check_k4(dev, gen, main_shapes) -> dict:
-    """K4 within its tolerance at every main-path shape and on edges (a
-    ragged S, S = 1, non-causal, fp32, head_dim 64); timed at the largest
-    main-path shape against its plain version and the library's fused
-    attention on the same expanded q, k, v."""
+    """K4 within its tolerance at every main-path shape (q with H heads, k
+    and v with K) and on edges: for the tensor-core route a ragged S, S = 1,
+    non-causal and head_dim 64 with ragged S; for the CUDA-core route fp32
+    and head_dim 32. Timed at the largest main-path shape against its plain
+    version and, as before, the library's fused attention on q and the
+    expanded k, v."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention as A, ref
-    edges = [(1, 77, 24, 128, "torch.bfloat16", True),
-             (2, 1, 24, 128, "torch.bfloat16", True),
-             (1, 300, 8, 128, "torch.bfloat16", False),
-             (1, 200, 4, 128, "torch.float32", True),
-             (1, 129, 4, 128, "torch.float32", False),
-             (2, 130, 6, 64, "torch.bfloat16", True)]
+    # (B, S, H, K, hd, dtype, causal, route)
+    edges = [(1, 77, 24, 8, 128, "torch.bfloat16", True, "tc"),
+             (2, 1, 24, 8, 128, "torch.bfloat16", True, "tc"),
+             (1, 300, 8, 8, 128, "torch.bfloat16", False, "tc"),
+             (2, 130, 6, 2, 64, "torch.bfloat16", True, "tc"),
+             (1, 477, 8, 8, 64, "torch.bfloat16", False, "tc"),
+             (3, 1, 6, 3, 64, "torch.bfloat16", True, "tc"),
+             (1, 200, 4, 2, 128, "torch.float32", True, "simt"),
+             (1, 129, 4, 4, 128, "torch.float32", False, "simt"),
+             (2, 70, 6, 3, 32, "torch.bfloat16", True, "simt")]
+    require(all(sh[-1] == "tc" for sh in main_shapes),
+            f"a prefill took K4's CUDA-core route: {sorted(main_shapes)}")
     err = 0.0
-    for b, s, h, hd, dt, causal in sorted(main_shapes) + edges:
-        q, k, v = (_randn(gen, (b, s, h, hd), dt, dev) for _ in range(3))
+    for b, s, h, kh, hd, dt, causal, route in sorted(main_shapes) + edges:
+        q = _randn(gen, (b, s, h, hd), dt, dev)
+        k, v = (_randn(gen, (b, s, kh, hd), dt, dev) for _ in range(2))
+        A.SHAPES["flash_attention"].clear()
         err = max(err, _held_close(
             A.flash_attention(q, k, v, causal),
             ref.flash_attention_ref(q, k, v, causal), dt,
-            f"K4 differs from its plain version at B={b} S={s} H={h} "
-            f"hd={hd} {dt} causal={causal}"))
-    b, s, h, hd, dt, causal = max(main_shapes,
-                                  key=lambda sh: sh[0] * sh[1] ** 2 * sh[2])
-    q, k, v = (_randn(gen, (b, s, h, hd), dt, dev) for _ in range(3))
+            f"K4 differs from its plain version at B={b} S={s} H={h} K={kh}"
+            f" hd={hd} {dt} causal={causal}"))
+        took = [sh[-1] for sh in A.SHAPES["flash_attention"]]
+        require(took == [route], f"K4 took {took}, expected {route}")
+    b, s, h, kh, hd, dt, causal, _ = max(
+        main_shapes, key=lambda sh: sh[0] * sh[1] ** 2 * sh[2])
+    q = _randn(gen, (b, s, h, hd), dt, dev)
+    k, v = (_randn(gen, (b, s, kh, hd), dt, dev) for _ in range(2))
     err = max(err, _held_close(A.flash_attention(q, k, v, causal),
                                ref.flash_attention_ref(q, k, v, causal), dt,
                                "K4 differs from its plain version (timed)"))
     elem = q.element_size()
     flops = (2.0 if causal else 4.0) * b * h * s * s * hd
-    bnd, by = bound_ms(4 * b * s * h * hd * elem, flops,
+    # q and o with H heads, k and v with K, each moved once
+    bnd, by = bound_ms((2 * b * s * h + 2 * b * s * kh) * hd * elem, flops,
                        BF16_OPS_PER_S if dt == "torch.bfloat16"
                        else FP32_OPS_PER_S)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    g = h // kh
+    qt, kt, vt = (x.transpose(1, 2) for x in (
+        q, k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)))
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:72",
@@ -375,16 +429,22 @@ def check_k4(dev, gen, main_shapes) -> dict:
             "bound_ms": bnd, "bound_by": by,
             "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal)),
-            "shape": f"B={b} S={s} H={h} hd={hd} {dt} causal={causal}"}
+            "device": {"ms": device_ms(lambda: A.flash_attention(
+                q, k, v, causal)), "library_ms": device_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal))},
+            "shape": f"B={b} S={s} H={h} K={kh} hd={hd} {dt} "
+                     f"causal={causal}"}
 
 
 def check_k5(dev, gen, main_shapes, lengths) -> dict:
     """K5 within its tolerance at every main-path shape (random lengths,
-    with 1 and S among them) and on edges (fp32, one query head a kv head,
-    S not a multiple of the tile); timed at the largest main-path shape
-    with ``lengths``, the cache lengths of the serve phase's decode step
-    that read the most keys, against its plain version and the library's fused attention
-    with a length mask."""
+    with 1 and S among them), on edges (fp32, one query head a kv head,
+    S not a multiple of the chunk) and at lengths on the split's chunk
+    edges and 0 (zeros); timed at the largest main-path shape with
+    ``lengths``, the cache lengths of the serve phase's decode step that
+    read the most keys, against its plain version and the library's fused
+    attention with a length mask."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention as A, ref
@@ -408,6 +468,15 @@ def check_k5(dev, gen, main_shapes, lengths) -> dict:
             f"K5 differs from its plain version at B={b} H={h} S={s} K={kh}"
             f" hd={hd} {dt}"))
     b, h, s, kh, hd, dt = max(main_shapes, key=lambda sh: sh[0] * sh[2])
+    for dt_edge in (dt, "torch.float32"):
+        at_edges = (0, 1, 63, 64, 65, 127, 128, 129, s - 1, s)
+        args = case(len(at_edges), h, s, kh, hd, dt_edge, at_edges)
+        got = A.decode_attention(*args)
+        require(not bool(got[0].any()), "K5 at length 0 is not zero")
+        err = max(err, _held_close(
+            got, ref.decode_attention_ref(*args), dt_edge,
+            f"K5 differs from its plain version at lengths {at_edges} "
+            f"{dt_edge}"))
     require(len(lengths) == b, f"{len(lengths)} lengths for batch {b}")
     args = case(b, h, s, kh, hd, dt, lengths)
     err = max(err, _held_close(A.decode_attention(*args),
@@ -431,6 +500,11 @@ def check_k5(dev, gen, main_shapes, lengths) -> dict:
             "bound_ms": bnd, "bound_by": by,
             "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, attn_mask=m4, enable_gqa=True)),
+            "device": {"ms": device_ms(lambda: A.decode_attention(*args)),
+                       "library_ms": device_ms(
+                           lambda: F.scaled_dot_product_attention(
+                               q4, k4, v4, attn_mask=m4,
+                               enable_gqa=True))},
             "shape": f"B={b} H={h} S={s} K={kh} hd={hd} {dt} "
                      f"lengths={list(lengths)}"}
 
@@ -765,6 +839,37 @@ def profile_decode(res: dict, dev) -> dict:
                                        for k, v in top.items()}}
 
 
+def profile_prefill(res: dict, dev) -> dict:
+    """One prefill wave as the engine runs it (fresh caches, then
+    ``prefill_step`` over ``SERVE_BATCH`` x ``SERVE_SEQ`` tokens), after an
+    untraced one, under ``torch.profiler``: its wall, device-busy time and
+    costliest device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import init_decode_state, prefill_step
+
+    cfg = res["cfg"]
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_SEQ))).to(dev)
+
+    def wave():
+        state = init_decode_state(cfg, SERVE_BATCH, SERVE_SEQ, dev)
+        prefill_step(res["model"], state, {"tokens": tokens})
+
+    wave()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        wave()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_us, top = device_busy(prof)
+    return {"wall_ms": wall * 1e3, "device_busy_ms": device_us / 1e3,
+            "idle_share": 1.0 - device_us / 1e6 / wall,
+            "top_device_ms": top}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -784,10 +889,15 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    build.build_all()
+    libs = build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s")
     for src, log in build.BUILD_LOGS.items():
         print(f"nvcc {src}:\n{log.strip()}")
+    sass = tensor_core_instructions(libs)
+    print(f"tensor-core instructions in the SASS: {json.dumps(sass)}")
+    if sass:
+        require(sum(sass["flash_attention.cu"].values()) > 0,
+                "K4's library has no HMMA or HGMMA instruction")
     card = card_line()
     print(f"card: {card}")
 
@@ -839,16 +949,20 @@ def main() -> int:
             check_k5(dev, gen, attn_shapes["decode_attention"],
                      serve["decode_lengths"])]
     for r in rows:
+        dev_line = "" if "device" not in r else (
+            f", device time {r['device']['ms']:.4f} ms (library "
+            f"{r['device']['library_ms']:.4f} ms)")
         print(f"kernel {r['name']} ({r['shape']}): {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |err| "
-              f"{r['max_abs_err']:.3g} [{card}]")
+              f"{r['max_abs_err']:.3g}{dev_line} [{card}]")
     # the main path's launches: the queries and the serve phase (the
     # teacher-forced check's own are on its line above)
     counted = [res["launches"] for res in phases] + [serve["launches"]]
     for r in rows:
         r["launches"] = sum(c.get(r["name"], 0) for c in counted)
         del r["shape"]
+        r.pop("device", None)
     print(json.dumps({"kernels": rows}))
     prof = profile_query(dev, *phases[1]["tables"])
     print(f"profile smoke_large (second run, profiler on): "
@@ -856,6 +970,9 @@ def main() -> int:
     prof = profile_decode(serve, dev)
     print(f"profile serve decode ({SERVE_BATCH} sequences, profiler on): "
           f"{json.dumps(prof)} [{card}]")
+    prof = profile_prefill(serve, dev)
+    print(f"profile serve prefill ({SERVE_BATCH}x{SERVE_SEQ} tokens, profiler "
+          f"on): {json.dumps(prof)} [{card}]")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,24 +1,34 @@
 """Wrappers of the attention kernels K4 (``csrc/flash_attention.cu``) and K5
 (``csrc/decode_attention.cu``).
 
-Each wrapper checks its inputs, allocates its output with ``torch.empty``
-and then dispatches on the device of the tensors it was given: a CPU tensor
-takes the plain PyTorch version in ``ref.py``; a CUDA tensor launches the
-CUDA kernel on the current stream (and raises if the launch fails). A CUDA
-tensor never falls back to the plain version.
+Each wrapper checks its inputs and then dispatches on the device of the
+tensors it was given: a CPU tensor takes the plain PyTorch version in
+``ref.py``; a CUDA tensor gets its output from ``torch.empty_like`` and
+launches the CUDA kernel on the current stream (and raises if the launch
+fails). A CUDA tensor never falls back to the plain version.
 
 Both kernels read their inputs with their strides (the head dimension must
-be contiguous), so neither the prefill's projections nor the decode step's
-``(B, S, K, hd)`` cache is copied into another layout first.
+be contiguous), and both read the K kv heads of grouped-query attention in
+place, so neither the prefill's projections nor the decode step's
+``(B, S, K, hd)`` cache is expanded or copied into another layout first.
 
-``LAUNCHES`` counts kernel launches per wrapper (one per call that reached
-the card), so a run can show that its main path went through the kernels;
-``SHAPES`` keeps the distinct shapes each was launched at.
+K4 has two routes in one library, picked by its C entry point from dtype,
+head dim and alignment: the tensor cores (bf16, hd 64 or 128, rows on 16
+bytes) or the CUDA cores (everything else). A K5 call is two launches, a
+split along the sequence and a combine, through a scratch buffer kept per
+stream, and counts once.
+
+``LAUNCHES`` counts wrapper calls that launched their kernel on the card,
+so a run can show that its main path went through the kernels; ``SHAPES``
+keeps the distinct shapes (for K4 with its route) each was launched at.
 """
 
 from __future__ import annotations
 
+import array
+import contextlib
 import ctypes
+import functools
 import threading
 
 import torch
@@ -31,39 +41,64 @@ HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"flash_attention": 0, "decode_attention": 0}
-# (B, S, H, hd, dtype, causal) for K4; (B, H, S, K, hd, dtype) for K5
+# (B, S, H, K, hd, dtype, causal, route) for K4; (B, H, S, K, hd, dtype)
+# for K5
 SHAPES: dict[str, set] = {k: set() for k in LAUNCHES}
 _COUNT_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_STRIDES = (_LL,) * 9
+# per kernel: source, error-string function, {C function: argument types}
 _LIBS = {
-    "flash_attention": ("flash_attention.cu", "fa_flash_attention",
-                        "fa_error_string",
-                        (_P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
-                         _LL, _LL, _LL, _LL, _LL, _I, _I, _P)),
-    "decode_attention": ("decode_attention.cu", "da_decode_attention",
-                         "da_error_string",
-                         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL,
-                          _LL, _LL, _LL, _LL, _LL, _LL, _I, _P)),
+    "flash_attention": ("flash_attention.cu", "fa_error_string", {
+        "fa_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               *_STRIDES, _I, _I, ctypes.POINTER(_I), _P)}),
+    "decode_attention": ("decode_attention.cu", "da_error_string", {
+        "da_split": (_P,), "da_combine": (_P,), "da_chunk": (),
+        "da_num_args": ()}),
 }
-_BOUND: dict[str, tuple] = {}
+_BOUND: dict[str, dict] = {}
 _BIND_LOCK = threading.Lock()
 
 
-def _fn(name: str):
-    """``(kernel entry, error-string function)`` of one kernel's library,
-    built and bound on first use."""
+def _fn(name: str, entry: str):
+    """C function ``entry`` of one kernel's library, built and bound on
+    first use (``"error"`` is its error-string function)."""
+    bound = _BOUND.get(name)
+    if bound is not None:
+        return bound[entry]
     with _BIND_LOCK:
         if name not in _BOUND:
-            source, entry, errs, args = _LIBS[name]
+            source, errs, entries = _LIBS[name]
             lib = load(source)
-            fn, err = getattr(lib, entry), getattr(lib, errs)
-            fn.argtypes, fn.restype = list(args), _I
-            err.argtypes, err.restype = [_I], ctypes.c_char_p
-            _BOUND[name] = (fn, err)
-        return _BOUND[name]
+            bound = {}
+            for e, args in entries.items():
+                bound[e] = getattr(lib, e)
+                bound[e].argtypes, bound[e].restype = list(args), _I
+            bound["error"] = getattr(lib, errs)
+            bound["error"].argtypes = [_I]
+            bound["error"].restype = ctypes.c_char_p
+            _BOUND[name] = bound
+        return _BOUND[name][entry]
+
+
+@functools.cache
+def _decode_chunk() -> int:
+    """Keys per K5 split CTA, as the library defines it."""
+    n_args = _fn("decode_attention", "da_num_args")()
+    if n_args != _DECODE_ARGS:
+        raise RuntimeError(f"decode_attention.cu packs {n_args} arguments, "
+                           f"the wrapper {_DECODE_ARGS}")
+    return _fn("decode_attention", "da_chunk")()
+
+
+# K5's packed int64 arguments (``enum Arg`` in decode_attention.cu): q, k,
+# v, length, part, out, B, S, K, G, hd, n_split, q's two strides, each
+# cache's three, dtype, stream
+_DECODE_ARGS = 22
+_OUT_ARG = 5
 
 
 def reset_launches() -> None:
@@ -89,6 +124,10 @@ def _route(dev: torch.device) -> str:
 def _check(t, name: str, ndim: int, dtype, device) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+    # one test for the common case; the message is worked out only on failure
+    if t.dim() == ndim and t.dtype is dtype and t.device == device and (
+            t.stride(-1) == 1 or t.shape[-1] <= 1):
+        return
     if t.dim() != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got shape "
                          f"{tuple(t.shape)}")
@@ -96,53 +135,89 @@ def _check(t, name: str, ndim: int, dtype, device) -> None:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.shape[-1] > 1 and t.stride(-1) != 1:
-        raise ValueError(f"{name} must be contiguous in its last dimension")
+    raise ValueError(f"{name} must be contiguous in its last dimension")
 
 
-def _launch(name: str, *args) -> None:
-    fn, err_string = _fn(name)
-    err = fn(*args)
+def _launch(name: str, entry: str, *args) -> None:
+    err = _fn(name, entry)(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel failed: CUDA error {err} "
-                           f"({err_string(err).decode()})")
+                           f"({_fn(name, 'error')(err).decode()})")
+
+
+def _on(dev: torch.device):
+    """The context a launch on ``dev`` runs in: switch the current device
+    only when it is another card."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+# K5's fp32 scratch, one buffer per (device, stream), grown as needed: calls
+# on one stream run in order, so the next call's split cannot overwrite it
+# before this call's combine has read it
+_SCRATCH: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _scratch(dev: torch.device, numel: int) -> torch.Tensor:
+    """At least ``numel`` floats of K5 scratch (per (b, kv head, chunk,
+    head): the chunk's accumulator, max and sum) for ``dev``'s current
+    stream."""
+    key = (dev, _stream(dev))
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = _SCRATCH[key] = torch.empty((numel,), dtype=torch.float32,
+                                          device=dev)
+    return buf
 
 
 def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The raw handle of ``dev``'s current stream (what
+    ``torch.cuda.current_stream(dev).cuda_stream`` gives, without building a
+    Stream object on every call)."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """K4: softmax attention over ``(B, S, H, hd)`` q, k, v of one dtype
-    (float32 or bfloat16; KV already expanded to the H query heads), scaled
-    by ``hd^-0.5``, causal unless ``causal=False``. Any S; hd in
-    ``HEAD_DIMS``. Returns a contiguous ``(B, S, H, hd)`` tensor of q's
-    dtype."""
+    """K4: softmax attention of ``(B, S, H, hd)`` q over ``(B, S, K, hd)``
+    k and v of q's dtype (float32 or bfloat16), H divisible by K; query
+    head i attends through kv head i // (H // K), the reference's
+    ``jnp.repeat(k, H // K, axis=2)`` order. Scaled by ``hd^-0.5``, causal
+    unless ``causal=False``. Any S; hd in ``HEAD_DIMS``. Returns a
+    contiguous ``(B, S, H, hd)`` tensor of q's dtype."""
     if not isinstance(q, torch.Tensor) or q.dim() != 4:
         raise ValueError("q must be a 4-D (B, S, H, hd) tensor")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _check(t, name, 4, q.dtype, q.device)
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v shapes differ: {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, s, h, hd = q.shape
+    kh = k.shape[2]
+    if v.shape != k.shape or (k.shape[0], k.shape[1], k.shape[3]) \
+            != (b, s, hd):
+        raise ValueError(f"q, k, v shapes do not fit: {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if kh == 0 or h % kh:
+        raise ValueError(f"{h} query heads do not group over {kh} kv heads")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     dev = q.device
     if _route(dev) == "plain":
         return ref.flash_attention_ref(q, k, v, causal=causal)
-    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=dev)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(dev):
-        _launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), b, s, h, hd, *q.stride()[:3],
-                *k.stride()[:3], *v.stride()[:3], _DTYPE_CODES[q.dtype],
-                int(bool(causal)), _stream(dev))
-    _count("flash_attention", (b, s, h, hd, str(q.dtype), bool(causal)))
+    route = ctypes.c_int()
+    with _on(dev):
+        _launch("flash_attention", "fa_flash_attention", q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, kh, hd,
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                _DTYPE_CODES[q.dtype], int(bool(causal)),
+                ctypes.byref(route), _stream(dev))
+    _count("flash_attention", (b, s, h, kh, hd, str(q.dtype), bool(causal),
+                               "tc" if route.value else "simt"))
     return out
 
 
@@ -152,9 +227,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """K5: one query token per sequence, ``q (B, H, hd)``, against caches
     ``(B, S, K, hd)`` of q's dtype (float32 or bfloat16), masked past the
     int32 ``length (B,)``; H = K * G and query head i attends through kv
-    head i // G. ``length`` must lie in ``[1, S]`` (the kernel clamps it
-    to ``[0, S]``; it is not checked, which would cost a host sync per
-    call). Returns a contiguous ``(B, H, hd)`` tensor of q's dtype."""
+    head i // G. ``length`` should lie in ``[0, S]`` (the kernel clamps
+    it; it is not checked, which would cost a host sync per call); 0
+    gives zeros. Returns a contiguous ``(B, H, hd)`` tensor of q's
+    dtype."""
     if not isinstance(q, torch.Tensor) or q.dim() != 3:
         raise ValueError("q must be a 3-D (B, H, hd) tensor")
     if q.dtype not in _DTYPE_CODES:
@@ -179,14 +255,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if _route(dev) == "plain":
         return ref.decode_attention_ref(q, k_cache, v_cache, length)
-    out = torch.empty((b, h, hd), dtype=q.dtype, device=dev)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(dev):
-        _launch("decode_attention", q.data_ptr(), k_cache.data_ptr(),
-                v_cache.data_ptr(), length.data_ptr(), out.data_ptr(), b, s,
-                kh, h // kh, hd, q.stride(0), q.stride(1),
-                *k_cache.stride()[:3], *v_cache.stride()[:3],
-                _DTYPE_CODES[q.dtype], _stream(dev))
+    if b * h == 0:
+        return torch.empty((b, h, hd), dtype=q.dtype, device=dev)
+    g = h // kh
+    n_split = max(1, -(-s // _decode_chunk()))
+    part = _scratch(dev, b * kh * n_split * g * (hd + 2))
+    args = array.array("q", (
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        length.data_ptr(), part.data_ptr(), 0, b, s, kh, g, hd, n_split,
+        q.stride(0), q.stride(1), *k_cache.stride()[:3],
+        *v_cache.stride()[:3], _DTYPE_CODES[q.dtype], _stream(dev)))
+    with _on(dev):
+        _launch("decode_attention", "da_split", args.buffer_info()[0])
+        # allocated while the split runs
+        out = torch.empty_like(q, memory_format=torch.contiguous_format)
+        args[_OUT_ARG] = out.data_ptr()
+        _launch("decode_attention", "da_combine", args.buffer_info()[0])
     _count("decode_attention", (b, h, s, kh, hd, str(q.dtype)))
     return out

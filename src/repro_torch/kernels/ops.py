@@ -35,8 +35,8 @@ _MASK32 = 0xFFFFFFFF
 
 
 def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
-    """``(B, S, H, hd)`` attention with KV expanded to the H query heads
-    (K4)."""
+    """``(B, S, H, hd)`` attention over ``(B, S, K, hd)`` KV, H divisible
+    by K, read in place (K4)."""
     return _attn.flash_attention(q, k, v, causal=causal)
 
 

@@ -72,9 +72,14 @@ def fused_probe_ref(probe_keys, v0, v1, build_keys, build_cat, build_valid,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
-    """K4: q, k, v ``(B, S, H, hd)`` (KV already expanded to H heads) ->
-    ``(B, S, H, hd)`` in q's dtype; fp32 scores and softmax."""
+    """K4: q ``(B, S, H, hd)``, k, v ``(B, S, K, hd)`` with H divisible by
+    K -> ``(B, S, H, hd)`` in q's dtype; fp32 scores and softmax. KV is
+    expanded here as the reference expands it (``jnp.repeat(k, H // K,
+    axis=2)``: each kv head ``H // K`` times in a row)."""
     s, hd = q.shape[1], q.shape[3]
+    g = q.shape[2] // k.shape[2]
+    if g > 1:
+        k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
     scores = torch.einsum("bqhk,bshk->bhqs", q.float(), k.float())
     scores = scores * (hd ** -0.5)
     if causal:
@@ -90,7 +95,8 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          length: torch.Tensor) -> torch.Tensor:
     """K5: q ``(B, H, hd)``, caches ``(B, S, K, hd)``, length ``(B,)`` valid
     prefix sizes -> ``(B, H, hd)`` in q's dtype. GQA: H = K * G, and query
-    head i attends through kv head i // G."""
+    head i attends through kv head i // G. A length of 0 gives zeros, as
+    the reference's kernel does (its sum is clamped to 1e-30)."""
     hd = q.shape[2]
     s, kh = k_cache.shape[1], k_cache.shape[2]
     g = q.shape[1] // kh
@@ -101,6 +107,6 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     valid = torch.arange(s, device=q.device)[None, :] \
         < length.to(q.device)[:, None]
     scores = scores.masked_fill(~valid[:, None, :], float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
+    probs = torch.softmax(scores, dim=-1).masked_fill(~valid[:, None, :], 0.)
     out = torch.einsum("bhs,bshk->bhk", probs.to(v_exp.dtype), v_exp)
     return out.to(q.dtype)

@@ -2,8 +2,9 @@
 
 The attention cores go through the port's kernel dispatch point
 (``repro_torch.kernels.ops``): the full and prefill paths through K4
-(``flash_attention``, on KV expanded to the query heads), the decode path
-through K5 (``decode_attention``, on the ``(B, S, K, hd)`` cache in place).
+(``flash_attention``, on the K kv heads, which it groups itself as the
+reference's ``jnp.repeat`` does), the decode path through K5
+(``decode_attention``, on the ``(B, S, K, hd)`` cache in place).
 On the card those are the CUDA kernels; on CPU tensors their plain
 versions.
 
@@ -72,19 +73,11 @@ def _out(p: Attention, out: torch.Tensor) -> torch.Tensor:
     return out.flatten(-2) @ p.wo.reshape(h * hd, d)
 
 
-def _expand_kv(k: torch.Tensor, g: int) -> torch.Tensor:
-    """The reference's ``jnp.repeat(k, g, axis=2)``: each kv head ``g``
-    times in a row (``repeat_interleave``, not ``repeat``)."""
-    return k if g == 1 else k.repeat_interleave(g, dim=2)
-
-
 def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig, causal: bool = True) -> torch.Tensor:
     """Full (train / prefill) attention. x: ``(B, S, D)``."""
-    g = cfg.num_heads // cfg.num_kv_heads
     q, k, v = _project_qkv(p, x, positions, cfg)
-    out = ops.flash_attention(q, _expand_kv(k, g), _expand_kv(v, g),
-                              causal=causal)
+    out = ops.flash_attention(q, k, v, causal=causal)
     return _out(p, out)
 
 
@@ -101,9 +94,7 @@ def prefill_attention(p: Attention, cache: tuple[torch.Tensor, torch.Tensor],
     k_cache, v_cache = cache
     k_cache[:, :s] = k
     v_cache[:, :s] = v
-    g = cfg.num_heads // cfg.num_kv_heads
-    out = ops.flash_attention(q, _expand_kv(k, g), _expand_kv(v, g),
-                              causal=True)
+    out = ops.flash_attention(q, k, v, causal=True)
     return _out(p, out), (k_cache, v_cache)
 
 

@@ -101,3 +101,79 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(case):
     }[case]
     with pytest.raises(ValueError):
         bad()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 2, 3])
+def test_flash_attention_reads_unexpanded_kv(dtype, causal, g):
+    """K4 takes the K kv heads as they are and groups them itself; the
+    reference gets them expanded by ``jnp.repeat``."""
+    rng = np.random.default_rng(30 + 10 * g + causal)
+    b, s, kh, hd = 2, 48, 2, 16
+    jq, tq = _pair(rng, (b, s, kh * g, hd), dtype)
+    jk, tk = _pair(rng, (b, s, kh, hd), dtype)
+    jv, tv = _pair(rng, (b, s, kh, hd), dtype)
+    want = pallas_flash(jq, jnp.repeat(jk, g, axis=2),
+                        jnp.repeat(jv, g, axis=2), causal=causal,
+                        block_q=16, block_k=16, interpret=True)
+    got = tops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("kh", [2, 3])
+def test_flash_attention_refuses_heads_that_do_not_group(kh):
+    q = torch.zeros((1, 4, 5, 8))
+    kv = torch.zeros((1, 4, kh, 8))
+    with pytest.raises(ValueError, match="do not group"):
+        tattn.flash_attention(q, kv, kv)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_length_zero_gives_zeros_like_pallas(dtype):
+    rng = np.random.default_rng(40)
+    b, s, kh, g, hd = 3, 32, 2, 3, 16
+    jq, tq = _pair(rng, (b, kh * g, hd), dtype)
+    jk, tk = _pair(rng, (b, s, kh, hd), dtype)
+    jv, tv = _pair(rng, (b, s, kh, hd), dtype)
+    length = np.array([0, 17, 0], np.int32)
+    want = pallas_decode(jq, jk, jv, jnp.asarray(length), block_k=16,
+                         interpret=True)
+    got = tops.decode_attention(tq, tk, tv, torch.from_numpy(length))
+    assert not bool(got[[0, 2]].any())
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("path", ["forward", "prefill"])
+def test_models_hand_k4_the_unexpanded_kv(monkeypatch, path):
+    """The model's full and prefill attention pass K and V to K4 with
+    their K kv heads (no copy expanded to the query heads)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as mattn
+    from repro_torch.models import (
+        forward, init_decode_state, init_lm, prefill_step)
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b", smoke=True),
+                              dtype="float32")
+    assert cfg.num_heads > cfg.num_kv_heads
+    seen = []
+    real = mattn.ops.flash_attention
+
+    def recording(q, k, v, causal=True):
+        seen.append((q.shape[2], k.shape[2], v.shape[2]))
+        return real(q, k, v, causal=causal)
+
+    monkeypatch.setattr(mattn.ops, "flash_attention", recording)
+    model = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 9)))
+    if path == "forward":
+        forward(model, {"tokens": tokens})
+    else:
+        prefill_step(model, init_decode_state(cfg, 2, 16, "cpu"),
+                     {"tokens": tokens})
+    assert seen == [(cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads)] \
+        * cfg.num_layers

@@ -182,6 +182,121 @@ def test_cuda_k5_reads_a_layer_slice_of_the_cache(cuda_device):
     assert float((got - want).abs().max()) <= ATTN_TOL[torch.float32]
 
 
+def _qkv_views(seed, b, s, h, kh, hd, dtype, device):
+    """q (B, S, H, hd), k and v (B, S, K, hd) as head slices of one
+    (B, S, H + 2K, hd) projection, as a fused qkv matmul gives them: none
+    of the three is contiguous."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, h + 2 * kh, hd))
+                           .astype(np.float32)).to(device=device,
+                                                   dtype=dtype)
+    return qkv[:, :, :h], qkv[:, :, h:h + kh], qkv[:, :, h + kh:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 477, 1024])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cuda_k4_tensor_cores_match_plain(cuda_device, hd, s, causal, g):
+    """K4's tensor-core route (bf16, hd 64 / 128) on strided q, k, v with
+    K = H / G kv heads, at ragged S and at tile edges."""
+    from repro_torch.kernels import attention as tattn
+    b, kh = 2, 2
+    q, k, v = _qkv_views(s * hd + g, b, s, kh * g, kh, hd, torch.bfloat16,
+                         cuda_device)
+    assert not (q.is_contiguous() or k.is_contiguous())
+    tattn.SHAPES["flash_attention"].clear()
+    got = tattn.flash_attention(q, k, v, causal=causal)
+    want = tref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert [sh[-1] for sh in tattn.SHAPES["flash_attention"]] == ["tc"]
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= ATTN_TOL[torch.bfloat16], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [2, 4, 5, 6])
+def test_cuda_k4_tensor_cores_group_query_heads(cuda_device, g, causal):
+    """A tensor-core CTA serves up to three query heads of one kv head
+    (three when G is a multiple of 3, two when G is even, else one): every
+    grouping of G query heads over K = 2 kv heads lands on the right
+    heads."""
+    from repro_torch.kernels import attention as tattn
+    q, k, v = _qkv_views(100 + g, 2, 130, 2 * g, 2, 128, torch.bfloat16,
+                         cuda_device)
+    got = tattn.flash_attention(q, k, v, causal=causal)
+    want = tref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= ATTN_TOL[torch.bfloat16], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 128),
+                                      (torch.bfloat16, 32)])
+def test_cuda_k4_cuda_core_route_reads_grouped_kv(cuda_device, dtype, hd):
+    """fp32 and head dims off the tensor cores take the CUDA-core route,
+    with the same GQA read."""
+    from repro_torch.kernels import attention as tattn
+    q, k, v = _qkv_views(hd, 2, 150, 6, 2, hd, dtype, cuda_device)
+    tattn.SHAPES["flash_attention"].clear()
+    got = tattn.flash_attention(q, k, v)
+    want = tref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert [sh[-1] for sh in tattn.SHAPES["flash_attention"]] == ["simt"]
+    assert float((got.float() - want.float()).abs().max()) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_cuda_k4_refuses_heads_that_do_not_group(cuda_device):
+    from repro_torch.kernels import attention as tattn
+    q = torch.zeros((1, 4, 5, 64), dtype=torch.bfloat16, device=cuda_device)
+    kv = torch.zeros((1, 4, 2, 64), dtype=torch.bfloat16, device=cuda_device)
+    tattn.reset_launches()
+    with pytest.raises(ValueError, match="do not group"):
+        tattn.flash_attention(q, kv, kv)
+    assert tattn.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer_slice", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("s", [100, 1024])
+def test_cuda_k5_split_edges_match_plain(cuda_device, s, dtype,
+                                         layer_slice):
+    """K5's split and combine at lengths on the chunk edges, 0 (zeros) and
+    S, on a contiguous cache and on one layer of a stacked cache."""
+    from repro_torch.kernels import attention as tattn
+    lengths = (0, 1, 63, 64, 65, s)
+    b, kh, g, hd = len(lengths), 8, 3, 128
+    rng = np.random.default_rng(s)
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=cuda_device, dtype=dtype)
+
+    if layer_slice:   # (k/v, layers, B, S, K, hd), layer 1
+        cache = t((2, 3, b, s, kh, hd))
+        kc, vc = cache[0, 1], cache[1, 1]
+    else:
+        kc, vc = t((b, s, kh, hd)), t((b, s, kh, hd))
+    q = t((b, kh * g, hd))
+    length = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    got = tattn.decode_attention(q, kc, vc, length)
+    want = tref.decode_attention_ref(q, kc, vc, length)
+    again = tattn.decode_attention(q, kc, vc, length)
+    torch.cuda.synchronize()
+    assert not bool(got[0].any())
+    assert bool(torch.isfinite(got).all())
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= ATTN_TOL[dtype], err
+    assert torch.equal(got, again)          # a fixed combine order
+
+
 # -- the threads invoker: one CUDA stream per worker -------------------------------
 
 
