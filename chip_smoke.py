@@ -28,12 +28,15 @@
    bit-exact, K4 and K5 within the reference's kernel tolerances. Times
    kernel, plain version and the one PyTorch call computing the same
    function at the largest main-path shape (CUDA events around one call,
-   median of 20, L2 warm); for K4 and K5 also the device time alone of
-   the kernel and of that call (``torch.profiler``).
+   median of 20, L2 warm), and the device time alone of the kernel and
+   of that call (``torch.profiler``). Counts the device ops of one K1 call
+   (must be 1) and one K2 call (at most 2), and times K2 once more with
+   the range check that the path runs before it.
 5. Prints the ``kernels`` JSON line (K1-K5).
 6. Re-runs the large query, eight decode steps and one prefill wave under
    ``torch.profiler`` (outside the counted runs) and prints their
-   device-busy share and costliest device ops.
+   device-busy share and costliest device ops, and the query's device time
+   in the partition kernels.
 7. Prints the card line and, as its last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -78,6 +81,8 @@ ATTN_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 # that many draws. 0.15 is ~9 sigma: room for other GEMM kernels, while a
 # wrong position, mask or cache slot moves logits of spread ~1 by O(1).
 LOGIT_TOL = 0.15
+# names of K1-K3's device kernels (csrc/partition.cu)
+PARTITION_KERNELS = ("hist_kernel", "scatter_kernel", "fused_probe_kernel")
 
 
 def card_line() -> str:
@@ -119,6 +124,22 @@ def device_ms(fn, reps: int = REPS) -> float:
             fn()
         torch.cuda.synchronize()
     return device_busy(prof)[0] / 1e3 / reps
+
+
+def device_kernels(fn) -> list[tuple[str, float]]:
+    """``(name, microseconds)`` of each device kernel (or copy, or fill)
+    that one call of ``fn`` runs, after a warm-up call, from
+    ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name[:40], e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
 
 
 def bound_ms(nbytes: float, ops: float = 0.0,
@@ -215,6 +236,13 @@ def check_k1(dev, gen, main_shapes) -> dict:
             [K.partition_histogram(ids, p)],
             [ref.partition_histogram_ref(ids, p)],
             f"K1 differs from its plain version at N={n}, P={p}"))
+    # a view one id in: not 16-byte aligned, N not a multiple of 4
+    ids = torch.randint(0, 512, ((1 << 22) + 4,), generator=gen, device=dev,
+                        dtype=torch.int32)[1:-2]
+    err = max(err, held_exact(
+        [K.partition_histogram(ids, 512)],
+        [ref.partition_histogram_ref(ids, 512)],
+        "K1 differs from its plain version on an unaligned view"))
     _refuses_bad_ids(dev, lambda ids: K.partition_histogram(ids, 15))
     n, p = _largest(main_shapes)
     ids = torch.randint(0, p, (n,), generator=gen, device=dev,
@@ -222,6 +250,9 @@ def check_k1(dev, gen, main_shapes) -> dict:
     err = max(err, held_exact([K.partition_histogram(ids, p)],
                               [ref.partition_histogram_ref(ids, p)],
                               "K1 differs from its plain version (timed)"))
+    ops = device_kernels(lambda: K.partition_histogram(ids, p, False))
+    require(len(ops) == 1, f"a K1 call ran {len(ops)} device ops: "
+            f"{ops}")
     b, by = bound_ms(n * 4 + p * 4)
     return {"name": "partition_histogram", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/partition.cu",
@@ -234,6 +265,11 @@ def check_k1(dev, gen, main_shapes) -> dict:
             "bound_ms": b, "bound_by": by,
             "library_ms": median_ms(
                 lambda: torch.bincount(ids, minlength=p)),
+            "device": {"ms": device_ms(
+                lambda: K.partition_histogram(ids, p, False)),
+                "library_ms": device_ms(
+                    lambda: torch.bincount(ids, minlength=p))},
+            "device_ops_per_call": ops,
             "shape": f"N={n} P={p}"}
 
 
@@ -273,9 +309,21 @@ def check_k2(dev, gen, main_shapes) -> dict:
     same(r2, torch.zeros_like(i2), 1, "one bucket")
     _refuses_bad_ids(dev, lambda ids: K.partition_scatter(ids[:, None], ids,
                                                           15))
+    # tiles in several waves of CTAs and many chunks of the first launch,
+    # with a ragged last tile; byte rows; rows too wide to stage in shared
+    # memory
+    r3, i3 = _grouping_input(dev, gen, 1 << 23, (1 << 23) + 777, 9)
+    same(r3, i3, 9, "2^23 + 777 rows")
+    same(torch.randint(0, 256, (3001, 3), generator=gen, device=dev
+                       ).to(torch.uint8), i2[:3001], 65, "uint8 (n, 3)")
+    same(torch.randn((3001, 250), generator=gen, device=dev), i2[:3001],
+         65, "1000-byte rows")
     n, p = _largest(main_shapes)
     rows, ids = _grouping_input(dev, gen, n - n // 97, n, p)
     same(rows, ids, p, f"timed input n_pad={n}, P+1={p}")
+    ops = device_kernels(lambda: K.partition_scatter(rows, ids, p, False))
+    require(len(ops) <= 2, f"a K2 call ran {len(ops)} device ops: "
+            f"{ops}")
     b, by = bound_ms(n * 4 + n * 4 + n * 4 + p * 4)
     return {"name": "partition_scatter", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/partition.cu",
@@ -289,6 +337,15 @@ def check_k2(dev, gen, main_shapes) -> dict:
             "bound_ms": b, "bound_by": by,
             "library_ms": median_ms(
                 lambda: torch.argsort(ids, stable=True)),
+            "device": {"ms": device_ms(
+                lambda: K.partition_scatter(rows, ids, p, False)),
+                "library_ms": device_ms(
+                    lambda: torch.argsort(ids, stable=True))},
+            "device_ops_per_call": ops,
+            # as grouping_indices calls it: with the range check's
+            # reduction and host sync
+            "checked_ms": median_ms(
+                lambda: K.partition_scatter(rows, ids, p, True)),
             "shape": f"n_pad={n} P+1={p}"}
 
 
@@ -347,6 +404,8 @@ def check_k3(dev, gen, main_shapes) -> dict:
             "ms": median_ms(lambda: K.fused_probe(*args, g)),
             "plain_ms": median_ms(lambda: ref.fused_probe_ref(*args, g)),
             "bound_ms": b, "bound_by": by, "library_ms": None,
+            "device": {"ms": device_ms(lambda: K.fused_probe(*args, g)),
+                       "library_ms": None},
             "shape": f"N={n} M={m} G={g}"}
 
 
@@ -659,8 +718,15 @@ def profile_query(device, fact, dim) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     device_us, top = device_busy(prof)
+    from torch.autograd import DeviceType
+    partition_us = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+        and any(k in e.key for k in PARTITION_KERNELS))
     return {"wall_s": wall, "device_busy_s": device_us / 1e6,
             "idle_share": 1.0 - device_us / 1e6 / wall,
+            "partition_kernels_ms": partition_us / 1e3,
+            "partition_kernels_share": partition_us / device_us,
             "top_device_ms": top}
 
 
@@ -870,6 +936,22 @@ def profile_prefill(res: dict, dev) -> dict:
             "top_device_ms": top}
 
 
+def print_kernel_rows(rows, card: str) -> None:
+    for r in rows:
+        lib = r["device"]["library_ms"]
+        extra = f", device time {r['device']['ms']:.4f} ms (library " + (
+            "none)" if lib is None else f"{lib:.4f} ms)")
+        if "device_ops_per_call" in r:
+            extra += (f", device ops a call {len(r['device_ops_per_call'])}:"
+                      f" {r['device_ops_per_call']}")
+        if "checked_ms" in r:
+            extra += f", with check_ids {r['checked_ms']:.4f} ms"
+        print(f"kernel {r['name']} ({r['shape']}): {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |err| "
+              f"{r['max_abs_err']:.3g}{extra} [{card}]")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -948,21 +1030,14 @@ def main() -> int:
             check_k4(dev, gen, attn_shapes["flash_attention"]),
             check_k5(dev, gen, attn_shapes["decode_attention"],
                      serve["decode_lengths"])]
-    for r in rows:
-        dev_line = "" if "device" not in r else (
-            f", device time {r['device']['ms']:.4f} ms (library "
-            f"{r['device']['library_ms']:.4f} ms)")
-        print(f"kernel {r['name']} ({r['shape']}): {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |err| "
-              f"{r['max_abs_err']:.3g}{dev_line} [{card}]")
+    print_kernel_rows(rows, card)
     # the main path's launches: the queries and the serve phase (the
     # teacher-forced check's own are on its line above)
     counted = [res["launches"] for res in phases] + [serve["launches"]]
     for r in rows:
         r["launches"] = sum(c.get(r["name"], 0) for c in counted)
-        del r["shape"]
-        r.pop("device", None)
+        for extra in ("shape", "device", "device_ops_per_call", "checked_ms"):
+            r.pop(extra, None)
     print(json.dumps({"kernels": rows}))
     prof = profile_query(dev, *phases[1]["tables"])
     print(f"profile smoke_large (second run, profiler on): "

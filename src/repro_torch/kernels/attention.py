@@ -26,7 +26,6 @@ keeps the distinct shapes (for K4 with its route) each was launched at.
 from __future__ import annotations
 
 import array
-import contextlib
 import ctypes
 import functools
 import threading
@@ -35,6 +34,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import load
+from repro_torch.kernels.streams import (StreamScratch, current_stream,
+                                         on_device)
 
 # head dimensions the kernels are instantiated for (csrc ``launch_hd``)
 HEAD_DIMS = (8, 16, 32, 64, 128)
@@ -145,38 +146,10 @@ def _launch(name: str, entry: str, *args) -> None:
                            f"({_fn(name, 'error')(err).decode()})")
 
 
-def _on(dev: torch.device):
-    """The context a launch on ``dev`` runs in: switch the current device
-    only when it is another card."""
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
-
-
-# K5's fp32 scratch, one buffer per (device, stream), grown as needed: calls
-# on one stream run in order, so the next call's split cannot overwrite it
-# before this call's combine has read it
-_SCRATCH: dict[tuple[torch.device, int], torch.Tensor] = {}
-
-
-def _scratch(dev: torch.device, numel: int) -> torch.Tensor:
-    """At least ``numel`` floats of K5 scratch (per (b, kv head, chunk,
-    head): the chunk's accumulator, max and sum) for ``dev``'s current
-    stream."""
-    key = (dev, _stream(dev))
-    buf = _SCRATCH.get(key)
-    if buf is None or buf.numel() < numel:
-        buf = _SCRATCH[key] = torch.empty((numel,), dtype=torch.float32,
-                                          device=dev)
-    return buf
-
-
-def _stream(dev: torch.device) -> int:
-    """The raw handle of ``dev``'s current stream (what
-    ``torch.cuda.current_stream(dev).cuda_stream`` gives, without building a
-    Stream object on every call)."""
-    index = torch.cuda.current_device() if dev.index is None else dev.index
-    return torch._C._cuda_getCurrentRawStream(index)
+# K5's fp32 scratch (per (b, kv head, chunk, head): the chunk's
+# accumulator, max and sum): calls on one stream run in order, so the next
+# call's split cannot overwrite it before this call's combine has read it
+_SCRATCH = StreamScratch(torch.float32)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -210,12 +183,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     route = ctypes.c_int()
-    with _on(dev):
+    with on_device(dev):
         _launch("flash_attention", "fa_flash_attention", q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, kh, hd,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 _DTYPE_CODES[q.dtype], int(bool(causal)),
-                ctypes.byref(route), _stream(dev))
+                ctypes.byref(route), current_stream(dev))
     _count("flash_attention", (b, s, h, kh, hd, str(q.dtype), bool(causal),
                                "tc" if route.value else "simt"))
     return out
@@ -259,13 +232,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return torch.empty((b, h, hd), dtype=q.dtype, device=dev)
     g = h // kh
     n_split = max(1, -(-s // _decode_chunk()))
-    part = _scratch(dev, b * kh * n_split * g * (hd + 2))
+    stream = current_stream(dev)
+    part = _SCRATCH.get(dev, stream, b * kh * n_split * g * (hd + 2))
     args = array.array("q", (
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         length.data_ptr(), part.data_ptr(), 0, b, s, kh, g, hd, n_split,
         q.stride(0), q.stride(1), *k_cache.stride()[:3],
-        *v_cache.stride()[:3], _DTYPE_CODES[q.dtype], _stream(dev)))
-    with _on(dev):
+        *v_cache.stride()[:3], _DTYPE_CODES[q.dtype], stream))
+    with on_device(dev):
         _launch("decode_attention", "da_split", args.buffer_info()[0])
         # allocated while the split runs
         out = torch.empty_like(q, memory_format=torch.contiguous_format)

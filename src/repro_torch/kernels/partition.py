@@ -6,12 +6,22 @@ takes the plain PyTorch version in ``ref.py``; a CUDA tensor launches the
 CUDA kernel on the current stream (and raises if the launch fails). There is
 no other route: a CUDA tensor never falls back to the plain version.
 
-``LAUNCHES`` counts kernel launches per wrapper (one per call that reached
-the card), so a run can show that its main path went through the kernels.
+``LAUNCHES`` counts wrapper calls that reached the card (one per call, however
+many kernels the call launches), so a run can show that its main path went
+through the kernels.
+
+K1 is one launch and K2 two (K1 counting per tile and scanning the counts
+into each tile's bases, then a one-sweep scatter). Their C entry points
+size themselves (bins, tile, unit, grid) from the shapes, the addresses and
+the card. Both keep scratch per (device, stream) (``streams.StreamScratch``):
+K1's accumulator and ticket, which the kernels leave at zero for the next
+call, so no call clears anything, and K2's per-tile and per-chunk bases,
+which each call writes in full and whose size K2's entry point asks for.
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
 import threading
 
@@ -19,6 +29,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import load
+from repro_torch.kernels.streams import (StreamScratch, current_stream,
+                                         on_device)
 
 # H100: 227 KB of shared memory per block (232,448 bytes, opt-in above
 # 48 KB). K3 stages the whole padded build side there at 12 bytes a row
@@ -28,11 +40,10 @@ from repro_torch.kernels.build import load
 SMEM_PER_BLOCK = 232448
 FUSED_ROW_BYTES = 12
 FUSED_SMEM_ROWS = 1 << ((SMEM_PER_BLOCK // FUSED_ROW_BYTES).bit_length() - 1)
-# K1 keeps one tile's P counters in static-size shared memory (48 KB)
+# the partition counts K1 and K2 take (their contracts since the first
+# port: one 48 KB histogram, and a 32-warp count table in 227 KB)
 MAX_HIST_PARTITIONS = (48 * 1024) // 4
-# K2 keeps a (32 warps x P) count table in shared memory
 MAX_SCATTER_PARTITIONS = SMEM_PER_BLOCK // (32 * 4)
-SCATTER_TILE = 1024
 
 LAUNCHES = {"partition_histogram": 0, "partition_scatter": 0,
             "fused_probe": 0}
@@ -47,11 +58,20 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "rt_error_string": ((_I,), ctypes.c_char_p),
     "rt_fused_probe_smem_bytes": ((), _I),
-    "rt_partition_histogram": ((_P, _LL, _I, _I, _P, _P), _I),
-    "rt_partition_scatter": ((_P, _P, _LL, _I, _I, _P, _P, _P, _P), _I),
+    "rt_hist_num_args": ((), _I),
+    "rt_scatter_num_args": ((), _I),
+    "rt_need_scratch": ((), _I),
+    "rt_partition_histogram": ((_P,), _I),
+    "rt_partition_scatter": ((_P,), _I),
     "rt_fused_probe": ((_P, _P, _P, _LL, _P, _P, _P, _I, _I, _P, _P, _P),
                        _I),
 }
+# the packed arguments of K1 and K2 (``enum HistArg`` / ``enum ScatterArg``
+# in partition.cu)
+_HIST_ARGS = ("ids", "n", "p", "out", "acc", "ticket", "stream")
+_SCATTER_ARGS = ("rows", "ids", "n", "row_bytes", "p", "out", "offsets",
+                 "acc", "ticket", "scratch", "scratch_words", "stream")
+_SCRATCH_ARG = _SCATTER_ARGS.index("scratch")
 _BOUND = None
 
 
@@ -63,8 +83,22 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = list(args), res
         assert lib.rt_fused_probe_smem_bytes() == SMEM_PER_BLOCK
+        assert lib.rt_hist_num_args() == len(_HIST_ARGS)
+        assert lib.rt_scatter_num_args() == len(_SCATTER_ARGS)
         _BOUND = lib
     return _BOUND
+
+
+# K1's accumulator (``MAX_HIST_PARTITIONS`` counters) and ticket, at zero
+# between calls; K2 shares them, and keeps its bases in _BASES
+_COUNTERS = StreamScratch(torch.int32, zeroed=True)
+_BASES = StreamScratch(torch.int32)
+
+
+def _counters(dev: torch.device, stream: int) -> tuple[int, int]:
+    """Addresses of ``stream``'s accumulator and ticket."""
+    acc = _COUNTERS.get(dev, stream, MAX_HIST_PARTITIONS + 1).data_ptr()
+    return acc, acc + 4 * MAX_HIST_PARTITIONS
 
 
 def reset_launches() -> None:
@@ -112,15 +146,32 @@ def _check_ids(part_ids: torch.Tensor, p: int) -> None:
                              f"[{lo}, {hi}]")
 
 
+def _error(fn, err: int) -> RuntimeError:
+    msg = _lib().rt_error_string(err).decode()
+    return RuntimeError(f"{fn.__name__} failed: CUDA error {err} ({msg})")
+
+
 def _launch(fn, *args) -> None:
     err = fn(*args)
     if err != 0:
-        msg = _lib().rt_error_string(err).decode()
-        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err} ({msg})")
+        raise _error(fn, err)
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+def _launch_packed(fn, args: array.array, dev: torch.device,
+                   stream: int) -> None:
+    """K1 or K2 with its packed arguments, on ``stream``'s scratch."""
+    err = fn(args.buffer_info()[0])
+    if err != 0 and err == _lib().rt_need_scratch():
+        # K2 asked for more bases than the stream keeps: grow them, again
+        bases = _BASES.get(dev, stream, args[_SCRATCH_ARG + 1])
+        args[_SCRATCH_ARG] = bases.data_ptr()
+        err = fn(args.buffer_info()[0])
+    if err != 0:
+        # the kernels may have stopped half way: start that stream's
+        # scratch afresh
+        _COUNTERS.drop(dev, stream)
+        _BASES.drop(dev, stream)
+        raise _error(fn, err)
 
 
 def partition_histogram(part_ids: torch.Tensor, num_partitions: int,
@@ -131,7 +182,8 @@ def partition_histogram(part_ids: torch.Tensor, num_partitions: int,
     reduction and host sync.
 
     The reference kernel returns per-block counts that its dispatcher sums;
-    here the kernel adds each tile's counts into the totals itself."""
+    here one launch returns the totals (its CTAs add into the stream's
+    accumulator, and the last one copies it out)."""
     _check(part_ids, "part_ids", torch.int32, 1)
     p = int(num_partitions)
     if not 0 < p <= MAX_HIST_PARTITIONS:
@@ -143,11 +195,15 @@ def partition_histogram(part_ids: torch.Tensor, num_partitions: int,
         _check_ids(part_ids, p)
     if route == "plain":
         return ref.partition_histogram_ref(part_ids, p)
-    out = torch.empty((p,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        _launch(_lib().rt_partition_histogram, part_ids.data_ptr(),
-                part_ids.shape[0], p, 0, out.data_ptr(), _stream(dev))
-    _count("partition_histogram", (part_ids.shape[0], p))
+    n = part_ids.shape[0]
+    with on_device(dev):
+        stream = current_stream(dev)
+        out = torch.empty((p,), dtype=torch.int32, device=dev)
+        acc, ticket = _counters(dev, stream)
+        _launch_packed(_lib().rt_partition_histogram, array.array("q", (
+            part_ids.data_ptr(), n, p, out.data_ptr(), acc, ticket, stream)),
+            dev, stream)
+    _count("partition_histogram", (n, p))
     return out
 
 
@@ -156,7 +212,11 @@ def partition_scatter(rows: torch.Tensor, part_ids: torch.Tensor,
     """K2: stable grouping of ``(N, D)`` rows (any dtype) by ``(N,)`` int32
     partition ids in ``[0, P)`` -> ``(grouped (N, D), offsets (P,) int32)``
     where ``offsets`` is the exclusive prefix of the partition counts.
-    ``check_ids`` as for ``partition_histogram``."""
+    ``check_ids`` as for ``partition_histogram``.
+
+    Two launches: K1 counting the ids of every tile and scanning the
+    counts into each tile's bases, then the scatter, a CTA a tile, which
+    ranks its rows while the first launch runs."""
     _check(rows, "rows", None, 2)
     _check(part_ids, "part_ids", torch.int32, 1, rows.device)
     n = rows.shape[0]
@@ -172,15 +232,22 @@ def partition_scatter(rows: torch.Tensor, part_ids: torch.Tensor,
         _check_ids(part_ids, p)
     if route == "plain":
         return ref.partition_scatter_ref(rows, part_ids, p)
+    if n >= 1 << 31:
+        raise ValueError(f"K2 takes fewer than 2^31 rows, got {n}")
+    row_bytes = rows.shape[1] * rows.element_size()
     out = torch.empty_like(rows)
     offsets = torch.empty((p,), dtype=torch.int32, device=dev)
-    tiles = max(1, -(-n // SCATTER_TILE))
-    tile_hist = torch.empty((tiles * p,), dtype=torch.int32, device=dev)
-    row_bytes = rows.shape[1] * rows.element_size()
-    with torch.cuda.device(dev):
-        _launch(_lib().rt_partition_scatter, rows.data_ptr(),
-                part_ids.data_ptr(), n, row_bytes, p, out.data_ptr(),
-                offsets.data_ptr(), tile_hist.data_ptr(), _stream(dev))
+    with on_device(dev):
+        stream = current_stream(dev)
+        acc, ticket = _counters(dev, stream)
+        # held until the launch, so that no call on another thread replaces
+        # the bases in between
+        with _BASES.lock:
+            bases = _BASES.get(dev, stream, 0)
+            _launch_packed(_lib().rt_partition_scatter, array.array("q", (
+                rows.data_ptr(), part_ids.data_ptr(), n, row_bytes, p,
+                out.data_ptr(), offsets.data_ptr(), acc, ticket,
+                bases.data_ptr(), bases.numel(), stream)), dev, stream)
     _count("partition_scatter", (n, p))
     return out, offsets
 
@@ -225,6 +292,6 @@ def fused_probe(probe_keys, v0, v1, build_keys, build_cat, build_valid,
         _launch(_lib().rt_fused_probe, probe_keys.data_ptr(), v0.data_ptr(),
                 v1.data_ptr(), n, build_keys.data_ptr(), build_cat.data_ptr(),
                 build_valid.data_ptr(), m, g, grp.data_ptr(), wgt.data_ptr(),
-                _stream(dev))
+                current_stream(dev))
     _count("fused_probe", (n, m, g))
     return grp, wgt

@@ -97,6 +97,128 @@ def test_cuda_k1_k2_refuse_ids_out_of_range(cuda_device, bad):
     assert tpart.LAUNCHES["partition_scatter"] == 0
 
 
+# -- K1 and K2 at their edges: alignment, skew, the look-back, the scratch --
+
+
+def _same_grouping(rows, ids, p):
+    out, off = tpart.partition_scatter(rows, ids, p)
+    r_out, r_off = tref.partition_scatter_ref(rows, ids, p)
+    torch.cuda.synchronize()
+    assert torch.equal(off, r_off)
+    assert out.dtype == r_out.dtype and out.shape == r_out.shape
+    assert torch.equal(out.view(torch.uint8), r_out.view(torch.uint8))
+
+
+def _ids(seed, n, p, device):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return torch.randint(0, p, (n,), generator=g, dtype=torch.int32,
+                         device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["waves_ragged", "one_bucket", "p1",
+                                  "p_max"])
+def test_cuda_k2_edges(cuda_device, case):
+    """K2 at its edges: 2^23 + 777 rows (tiles in several waves of CTAs and
+    many chunks of the first launch, a ragged last tile), every row in one
+    bucket (the worst contention), one partition, and the most partitions
+    K2 takes (the first launch counts in per-warp bins)."""
+    n, p = {"waves_ragged": ((1 << 23) + 777, 9),
+            "one_bucket": ((1 << 21) + 5, 9),
+            "p1": (100003, 1),
+            "p_max": (300007, tpart.MAX_SCATTER_PARTITIONS)}[case]
+    ids = _ids(n, n, p, cuda_device)
+    if case == "one_bucket":
+        ids.fill_(4)
+    rows = torch.arange(n, dtype=torch.int32, device=cuda_device)[:, None]
+    _same_grouping(rows, ids, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,width", [
+    (torch.int32, 1), (torch.float32, 3), (torch.int32, 8),
+    (torch.int64, 2), (torch.uint8, 3), (torch.float32, 250)],
+    ids=["1_word", "3_words", "8_words", "16_bytes", "bytes", "gathered"])
+def test_cuda_k2_row_widths(cuda_device, dtype, width):
+    """Rows moved 16, 4 or 1 bytes at a time, staged in shared memory or
+    copied from global memory in bucket order (1000-byte rows: 256 of them,
+    the smallest tile, do not fit a CTA's 227 KB)."""
+    n, p = 200003, 13
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(width)
+    rows = torch.randint(0, 250, (n, width), generator=g,
+                         device=cuda_device).to(dtype)
+    _same_grouping(rows, _ids(width, n, p, cuda_device), p)
+
+
+@pytest.mark.cuda
+def test_cuda_k2_fifty_calls_on_one_stream(cuda_device):
+    """50 calls in a row on one stream, over other sizes and partition
+    counts, reuse the stream's scratch: each call leaves K1's accumulator
+    and ticket at zero for the next, and rewrites the bases it reads."""
+    stream = torch.cuda.current_stream().cuda_stream
+    results = []
+    for i in range(50):
+        n, p = 5000 + 7919 * (i % 11), (3, 9, 65, 1)[i % 4]
+        ids = _ids(i, n, p, cuda_device)
+        rows = torch.arange(n, dtype=torch.int32, device=cuda_device)[:, None]
+        results.append((rows, ids, p, tpart.partition_scatter(rows, ids, p)))
+    torch.cuda.synchronize()
+    for rows, ids, p, (out, off) in results:
+        r_out, r_off = tref.partition_scatter_ref(rows, ids, p)
+        assert torch.equal(off, r_off) and torch.equal(out, r_out)
+    # keyed by the tensors' device (cuda:N)
+    counters = tpart._COUNTERS.get(results[0][0].device, stream, 0)
+    assert counters.numel() == tpart.MAX_HIST_PARTITIONS + 1
+    assert not bool(counters.any())
+
+
+@pytest.mark.cuda
+def test_cuda_k2_two_streams_at_once(cuda_device):
+    """Two streams grouping at once, each with its own scratch."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    inputs = [(torch.arange(1 << 20, dtype=torch.int32,
+                            device=cuda_device)[:, None],
+               _ids(s, 1 << 20, 9 + 4 * s, cuda_device), 9 + 4 * s)
+              for s in range(2)]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(5):
+        for s, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                got[s].append(tpart.partition_scatter(*inputs[s]))
+    torch.cuda.synchronize()
+    for scratch in (tpart._COUNTERS, tpart._BASES):
+        keys = {k for k in scratch.keys()
+                if k[1] in {st.cuda_stream for st in streams}}
+        assert len(keys) == 2
+    for s in range(2):
+        r_out, r_off = tref.partition_scatter_ref(*inputs[s])
+        for out, off in got[s]:
+            assert torch.equal(off, r_off) and torch.equal(out, r_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["unaligned_view", "one_bin", "p1",
+                                  "p_max"])
+def test_cuda_k1_edges(cuda_device, case):
+    """K1 on a view that starts one id in (not 16-byte aligned, N not a
+    multiple of 4), with every id in one bin, and at P = 1 and P =
+    MAX_HIST_PARTITIONS."""
+    p = {"unaligned_view": 512, "one_bin": 512, "p1": 1,
+         "p_max": tpart.MAX_HIST_PARTITIONS}[case]
+    base = _ids(p, (1 << 22) + 4, p, cuda_device)
+    ids = base[1:-2] if case == "unaligned_view" else base
+    if case == "unaligned_view":
+        assert ids.data_ptr() % 16 and ids.shape[0] % 4
+    if case == "one_bin":
+        ids.fill_(p - 1)
+    got = tpart.partition_histogram(ids, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tref.partition_histogram_ref(ids, p))
+
+
 # -- attention kernels (K4, K5) -------------------------------------------------
 
 # the reference's kernel tolerances (tests/test_kernels.py): the kernels keep

@@ -18,6 +18,7 @@ from repro.kernels import partition as jpart
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import partition as tpart
+from repro_torch.kernels import streams as tstreams
 from test_torch_cuda import probe_case
 
 
@@ -332,3 +333,112 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                       ids[:8], ids[:8] + 1, 4)
     assert tpart.LAUNCHES == {"partition_histogram": 0,
                               "partition_scatter": 0, "fused_probe": 0}
+
+
+# -- K1 and K2 at the card tests' edges, through the wrappers' CPU route ------
+
+
+def _edge_ids(rng, n, p, kind):
+    if kind == "one":
+        return np.full(n, p - 1, np.int32)
+    return rng.integers(0, p, n).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["unaligned_view", "one_bin", "p1",
+                                  "p_max"])
+def test_k1_edges_match_reference(case):
+    """K1 on a view that starts one id in (N not a multiple of 4), with
+    every id in one bin, and at P = 1 and P = MAX_HIST_PARTITIONS."""
+    p = {"unaligned_view": 512, "one_bin": 512, "p1": 1,
+         "p_max": tpart.MAX_HIST_PARTITIONS}[case]
+    rng = np.random.default_rng(p)
+    base = _edge_ids(rng, 40004, p, "one" if case == "one_bin" else "")
+    ids = _t(base)[1:-2] if case == "unaligned_view" else _t(base)
+    want = np.bincount(_np(ids), minlength=p)
+    got = tpart.partition_histogram(ids, p)
+    assert got.dtype == torch.int32 and got.shape == (p,)
+    np.testing.assert_array_equal(_np(got), want)
+    np.testing.assert_array_equal(
+        _np(got), np.asarray(jops.partition_histogram(
+            jnp.asarray(_np(ids)), p, force_kernel=False)))
+
+
+# name: (rows, partitions, dtype, row width, ids)
+_K2_EDGES = {
+    "waves_ragged": ((1 << 14) + 777, 9, np.int32, 1, "uniform"),
+    "one_bucket": (4099, 9, np.int32, 1, "one"),
+    "p1": (1003, 1, np.int32, 1, "uniform"),
+    "p_max": (30007, tpart.MAX_SCATTER_PARTITIONS, np.int32, 1, "uniform"),
+    "3_words": (2003, 13, np.float32, 3, "uniform"),
+    "8_words": (2003, 13, np.int32, 8, "uniform"),
+    "16_bytes": (2003, 13, np.int64, 2, "uniform"),
+    "bytes": (2003, 13, np.uint8, 3, "uniform"),
+    "gathered": (2003, 13, np.float32, 250, "uniform"),
+}
+
+
+@pytest.mark.parametrize("case", list(_K2_EDGES))
+def test_k2_edges_match_reference(case):
+    """K2 at the card tests' edges (a ragged last tile, one bucket, one and
+    the most partitions, rows 1, 3 and 8 words, 16 bytes and 3 bytes wide,
+    and 1000-byte rows) against the numpy oracle and, for 4-byte types,
+    the JAX reference."""
+    n, p, dtype, width, kind = _K2_EDGES[case]
+    rng = np.random.default_rng(n + p + width)
+    pids = _edge_ids(rng, n, p, kind)
+    rows = rng.integers(0, 250, (n, width)).astype(dtype)
+    got, off = tpart.partition_scatter(_t(rows), _t(pids), p)
+    order, offsets = _grouping_oracle(pids, p)
+    assert got.dtype == _t(rows).dtype and off.dtype == torch.int32
+    np.testing.assert_array_equal(_np(off), offsets[:-1])
+    np.testing.assert_array_equal(_np(got), rows[order])
+    if rows.itemsize == 4:
+        r_out, r_off = jref.partition_scatter_ref(jnp.asarray(rows),
+                                                  jnp.asarray(pids), p)
+        np.testing.assert_array_equal(_np(off), np.asarray(r_off))
+        np.testing.assert_array_equal(_bits(_np(got)),
+                                      _bits(np.asarray(r_out)))
+
+
+# -- per-stream scratch (K1's and K2's counters and bases, K5's partials) -----
+
+
+@pytest.mark.parametrize("dtype,zeroed", [(torch.int32, True),
+                                          (torch.int32, False),
+                                          (torch.float32, False)])
+def test_stream_scratch_is_kept_per_device_and_stream(dtype, zeroed):
+    """One buffer per (device, stream), kept while large enough, replaced
+    by a larger one when a call needs more, made with zeros where the
+    kernels expect zeros, and forgotten after a failed call."""
+    scratch = tstreams.StreamScratch(dtype, zeroed=zeroed)
+    dev = torch.device("cpu")
+    a = scratch.get(dev, 11, 100)
+    assert a.dtype == dtype and a.shape == (100,)
+    assert scratch.get(dev, 11, 50) is a            # large enough: kept
+    assert scratch.get(dev, 12, 50) is not a        # another stream
+    if zeroed:
+        assert not bool(a.any())
+    grown = scratch.get(dev, 11, 1000)
+    assert grown.shape == (1000,) and scratch.get(dev, 11, 10) is grown
+    assert sorted(k[1] for k in scratch.keys()) == [11, 12]
+    scratch.drop(dev, 11)
+    assert scratch.get(dev, 11, 10) is not grown
+    with scratch.lock:                               # held across a get
+        assert scratch.get(dev, 12, 10).shape == (50,)
+
+
+def test_partition_wrappers_keep_one_counter_block_per_stream():
+    """K1's accumulator and ticket sit in one zeroed int32 buffer per
+    stream, the ticket right after the MAX_HIST_PARTITIONS counters."""
+    dev = torch.device("cpu")
+    try:
+        acc, ticket = tpart._counters(dev, 11)
+        assert tpart._counters(dev, 11) == (acc, ticket)
+        assert tpart._counters(dev, 12)[0] != acc
+        assert ticket - acc == 4 * tpart.MAX_HIST_PARTITIONS
+        buf = tpart._COUNTERS.get(dev, 11, 0)
+        assert buf.shape == (tpart.MAX_HIST_PARTITIONS + 1,)
+        assert not bool(buf.any())
+    finally:
+        tpart._COUNTERS.drop(dev, 11)
+        tpart._COUNTERS.drop(dev, 12)
