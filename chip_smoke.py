@@ -30,8 +30,9 @@
    function at the largest main-path shape (CUDA events around one call,
    median of 20, L2 warm), and the device time alone of the kernel and
    of that call (``torch.profiler``). Counts the device ops of one K1 call
-   (must be 1) and one K2 call (at most 2), and times K2 once more with
-   the range check that the path runs before it.
+   (must be 1), one K2 call (at most 2) and one K3 call (must be 1), times
+   K2 once more with the range check that the path runs before it, and K3
+   once more at N = 2^20 probe rows against 16 Ki build rows.
 5. Prints the ``kernels`` JSON line (K1-K5).
 6. Re-runs the large query, eight decode steps and one prefill wave under
    ``torch.profiler`` (outside the counted runs) and prints their
@@ -349,25 +350,69 @@ def check_k2(dev, gen, main_shapes) -> dict:
             "shape": f"n_pad={n} P+1={p}"}
 
 
-def _probe_input(dev, gen, n: int, m: int, m_valid: int, zero_key: bool):
+INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
+
+
+def _colliding_keys(count: int, first: int = 0) -> np.ndarray:
+    """``count`` distinct int32 keys whose multiply-shift hash under K3's
+    multiplier has its top 16 bits set: K3's table (at most 2^16 slots) puts
+    them all in its last slot, one chain that wraps at the table's end
+    (``first`` skips that many keys)."""
+    from repro_torch.kernels import partition as K
+    inv = np.uint64(pow(K.FUSED_HASH_MULT, -1, 1 << 32))
+    x = np.arange(count, dtype=np.uint64) + np.uint64(0xFFFF0000 + first)
+    return ((x * inv) % np.uint64(1 << 32)).astype(np.uint32).view(np.int32)
+
+
+def _probe_input(dev, gen, n: int, m: int, m_valid: int, zero_key: bool,
+                 kind=None):
+    """K3's inputs as the card tests make them (``probe_case`` in
+    tests/test_torch_cuda.py), drawn on the card; ``kind`` as there."""
     import torch
     keys = torch.randperm(4 * m, generator=gen, device=dev)[:m_valid] + 1
+    keys = keys.to(torch.int32)
     if zero_key:
         keys[0] = 0                       # a real build row with key 0
+    if kind == "duplicates":
+        keys[1::3] = keys[0::3][:len(keys[1::3])].clone()
+        keys[2::9] = keys[0::9][:len(keys[2::9])].clone()
+    elif kind == "extreme_keys":
+        keys[:4] = torch.tensor((INT32_MIN, INT32_MAX, 0, -1), device=dev,
+                                dtype=torch.int32)
+    elif kind == "colliding":
+        keys = torch.from_numpy(_colliding_keys(m_valid)).to(dev)
     bk = torch.zeros((m,), dtype=torch.int32, device=dev)
-    bk[:m_valid] = keys.to(torch.int32)   # padding rows keep key 0
+    bk[:m_valid] = keys                   # padding rows keep key 0
+    if kind == "extreme_keys":
+        bk[m_valid:] = INT32_MAX
     bc = torch.zeros_like(bk)
     bc[:m_valid] = torch.arange(m_valid, device=dev,
                                 dtype=torch.int32) * 7 % 1000
+    if kind == "duplicates":              # cats over all of int32: sums wrap
+        bc[:m_valid] = torch.randint(INT32_MIN, INT32_MAX, (m_valid,),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)
+    elif kind == "negative_cats":
+        bc[:m_valid] = -bc[:m_valid] - 1
+        bc[0] = INT32_MIN
     bv = torch.zeros_like(bk)
-    bv[:m_valid] = 1
+    bv[:m_valid] = 0 if kind == "all_invalid" else 1
     # probe keys with duplicates, half of them hits, plenty of zeros
     pk = torch.randint(0, 8 * m, (n,), generator=gen, device=dev,
                        dtype=torch.int32)
+    if kind == "colliding":               # misses that walk the whole chain
+        misses = torch.from_numpy(_colliding_keys(min(n, 4096),
+                                                  m_valid)).to(dev)
+        pk = misses[torch.randint(0, len(misses), (n,), generator=gen,
+                                  device=dev)]
     hit = torch.rand((n,), generator=gen, device=dev) < 0.5
     pick = torch.randint(0, m_valid, (n,), generator=gen, device=dev)
     pk = torch.where(hit, bk[pick], pk)
     pk[: n // 16] = 0
+    if kind == "extreme_keys":
+        pk[-8:] = torch.tensor((INT32_MIN, INT32_MAX, 0, -1, INT32_MIN + 1,
+                                INT32_MAX - 1, 1, -2), device=dev,
+                               dtype=torch.int32)
     v0 = torch.randn((n,), generator=gen, device=dev)
     v1 = torch.randn((n,), generator=gen, device=dev)
     return pk, v0, v1, bk, bc, bv
@@ -375,28 +420,64 @@ def _probe_input(dev, gen, n: int, m: int, m_valid: int, zero_key: bool):
 
 def check_k3(dev, gen, main_shapes) -> dict:
     """K3 bit-exact at N = 2^16, M = 8192, G = 64 (with padding rows whose
-    key is 0, with and without a real key 0), at the largest build side
-    the gate admits and at every main-path shape; timed at the largest
-    main-path shape."""
+    key is 0, with and without a real key 0), on the edges of its contract
+    (duplicate valid keys, negative cats, extreme keys, keys that collide
+    under its hash, no valid row, M = 1, N = 1, G = 1 and 7, unaligned
+    probe columns), at N = 2^20 with the largest build side the gate admits
+    and at every main-path shape; timed at the largest main-path shape and,
+    on a line of its own, at N = 2^20, M = 16 Ki."""
+    import torch
     from repro_torch.kernels import partition as K, ref
     n0, m0, g0 = 1 << 16, 8192, NUM_GROUPS
-    cases = [(n0, m0, m0 - 500, False, g0), (n0, m0, m0 - 500, True, g0),
-             (1000, 8, 5, False, g0),
-             (4096, K.FUSED_SMEM_ROWS, K.FUSED_SMEM_ROWS - 3, True, g0)]
-    cases += [(n, m, m - m // 10, True, g) for n, m, g in sorted(main_shapes)]
+    gate = K.FUSED_SMEM_ROWS
+    cases = [(n0, m0, m0 - 500, False, g0, None),
+             (n0, m0, m0 - 500, True, g0, None),
+             (1000, 8, 5, False, g0, None),
+             (4096, gate, gate - 3, True, g0, None),
+             (n0, m0, m0 - 500, True, g0, "duplicates"),
+             (n0, m0, m0 - 500, False, g0, "negative_cats"),
+             (n0 + 3, m0, m0 - 500, False, g0, "extreme_keys"),
+             (8192, 2048, 2000, False, g0, "colliding"),
+             (4096, 1024, 1000, True, g0, "all_invalid"),
+             (5000, 1, 1, True, g0, None),
+             (1, m0, m0 - 500, False, g0, None),
+             (n0, m0, m0 - 500, True, 1, None),
+             (n0 + 1, m0, m0 - 500, True, 7, "negative_cats"),
+             (1 << 20, gate, gate - 384, True, g0, None)]
+    cases += [(n, m, m - m // 10, True, g, None)
+              for n, m, g in sorted(main_shapes)]
     err = 0.0
-    for n, m, mv, zero, g in cases:
-        args = _probe_input(dev, gen, n, m, mv, zero)
+    for n, m, mv, zero, g, kind in cases:
+        args = _probe_input(dev, gen, n, m, mv, zero, kind)
         err = max(err, held_exact(
             K.fused_probe(*args, g), ref.fused_probe_ref(*args, g),
-            f"K3 differs from its plain version at N={n}, M={m}, "
-            f"zero key {zero}"))
+            f"K3 differs from its plain version at N={n}, M={m}, G={g}, "
+            f"zero key {zero}, {kind or 'plain'} input"))
+    # probe columns one element into their storage: the unaligned route
+    args = _probe_input(dev, gen, n0 - 1, m0, m0 - 500, True)
+    args = tuple(torch.cat([a[:1], a])[1:] for a in args[:3]) + args[3:]
+    err = max(err, held_exact(K.fused_probe(*args, g0),
+                              ref.fused_probe_ref(*args, g0),
+                              "K3 differs from its plain version on "
+                              "unaligned probe columns"))
+    # the second timed shape: the most probe rows of the edges, at the gate
+    n2, m2 = 1 << 20, gate
+    args = _probe_input(dev, gen, n2, m2, m2 - m2 // 10, False)
+    second = {"shape": f"N={n2} M={m2} G={g0}",
+              "ms": median_ms(lambda: K.fused_probe(*args, g0)),
+              "device_ms": device_ms(lambda: K.fused_probe(*args, g0)),
+              "bound_ms": bound_ms(n2 * 12 + m2 * 12 + n2 * 8)[0]}
     n, m, g = _largest(main_shapes)
     args = _probe_input(dev, gen, n, m, m - m // 10, False)
     err = max(err, held_exact(K.fused_probe(*args, g),
                               ref.fused_probe_ref(*args, g),
                               "K3 differs from its plain version (timed)"))
-    b, by = bound_ms(n * 12 + m * 12 + n * 8, ops=float(n) * m)
+    ops = device_kernels(lambda: K.fused_probe(*args, g))
+    require(len(ops) == 1, f"a K3 call ran {len(ops)} device ops: {ops}")
+    # bytes alone: a hash probe reads each probe and build column once and
+    # writes group and weight, and needs none of the N*M compares of the
+    # one-hot probe the TPU kernel does
+    b, by = bound_ms(n * 12 + m * 12 + n * 8)
     return {"name": "fused_probe", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/partition.cu",
             "replaces": "src/repro/kernels/partition.py:75",
@@ -406,6 +487,7 @@ def check_k3(dev, gen, main_shapes) -> dict:
             "bound_ms": b, "bound_by": by, "library_ms": None,
             "device": {"ms": device_ms(lambda: K.fused_probe(*args, g)),
                        "library_ms": None},
+            "device_ops_per_call": ops, "second": second,
             "shape": f"N={n} M={m} G={g}"}
 
 
@@ -946,6 +1028,11 @@ def print_kernel_rows(rows, card: str) -> None:
                       f" {r['device_ops_per_call']}")
         if "checked_ms" in r:
             extra += f", with check_ids {r['checked_ms']:.4f} ms"
+        if "second" in r:
+            sec = r["second"]
+            print(f"kernel {r['name']} ({sec['shape']}): {sec['ms']:.4f} ms, "
+                  f"device time {sec['device_ms']:.4f} ms, bound "
+                  f"{sec['bound_ms']:.4f} ms (bytes) [{card}]")
         print(f"kernel {r['name']} ({r['shape']}): {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |err| "
@@ -1036,7 +1123,8 @@ def main() -> int:
     counted = [res["launches"] for res in phases] + [serve["launches"]]
     for r in rows:
         r["launches"] = sum(c.get(r["name"], 0) for c in counted)
-        for extra in ("shape", "device", "device_ops_per_call", "checked_ms"):
+        for extra in ("shape", "device", "device_ops_per_call", "checked_ms",
+                      "second"):
             r.pop(extra, None)
     print(json.dumps({"kernels": rows}))
     prof = profile_query(dev, *phases[1]["tables"])

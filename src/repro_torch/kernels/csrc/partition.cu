@@ -64,14 +64,31 @@
 //
 // K3  rt_fused_probe  replaces repro/kernels/partition.py
 //     fused_probe / _fused_probe_kernel (one-hot equality probe).
-//     Bound: operations. N*M key compares against N*12 + M*12 bytes; at
-//     the main path's shapes (M up to 16 Ki) the compares dominate. Design:
-//     the whole padded build side (key, cat, valid: 12 bytes a row) is
-//     staged once per block in shared memory, and one thread per probe row
-//     scans it; every lane of a warp reads the same build row, which
-//     shared memory broadcasts without bank conflicts. The build side
-//     must fit one block's 227 KB (kFusedSmemBytes): 16 Ki rows at the
-//     power-of-two shape classes the dispatcher pads to.
+//     Bound: bytes. The one-hot probe of the TPU kernel does N*M key
+//     compares, but the function needs none of them: a hash probe reads
+//     N*12 + M*12 bytes and writes N*8 (1.4 MB at N = 2^16, M = 8192:
+//     0.42 us at 3.35 TB/s), so what is left is the launch, the table's
+//     build and the probes' shared-memory latency. Design: one launch of
+//     persistent CTAs (at most one a SM, fewer when N is small), each of
+//     which builds the table once in shared memory and then walks its share
+//     of the probe rows in a grid-stride loop. The table: every build row's
+//     (key, cat) staged as 8 bytes, and beside them 2-byte slots that hold
+//     row index + 1, 0 for empty, so no key is confused with an empty slot
+//     (linear probing from a multiply-shift hash of the key; at least 2M
+//     slots, a power of two, and as many more as fit). A valid row is
+//     inserted with a 16-bit atomicCAS; a row whose key is already in the
+//     table adds its cat into the first row's with atomicAdd, which keeps
+//     the one-hot sum of duplicate keys (int32 wraparound included). Rows
+//     with build_valid == 0 are never inserted, so they never match. Probe
+//     columns are read and outputs written 16 bytes a thread where all five
+//     are aligned (a scalar loop takes the rest), and group is cat % G
+//     taken as a floor mod, as the reference's jnp % is. At the gate's 16 Ki
+//     rows the table takes 16 Ki * 8 + 32 Ki * 2 = 192 KB: still 12 bytes a
+//     row, inside one block's 227 KB (kFusedSmemBytes). Keys chosen to
+//     collide under the hash make long chains: slower, never wrong, since
+//     at least half the slots stay empty. Tried and dropped (PERF.md):
+//     inserting in rounds of plain stores instead of CAS, walking a
+//     thread's four probe chains side by side, 32-bit slots.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,7 +100,11 @@ constexpr int kFusedSmemBytes = 232448;          // H100: 227 KB per block
 // the most dynamic shared memory K1 and K2 ask for: 1 KB of the block's
 // 227 KB stays for their static shared variables
 constexpr int kDynSmemMax = kFusedSmemBytes - 1024;
-constexpr int kProbeThreads = 256;
+// K3: one CTA of 1024 threads a SM; its table holds at most kFusedMaxRows
+// build rows (a row's valid bit is kept in a 32-bit mask a thread)
+constexpr int kProbeThreads = 1024;
+constexpr int kFusedMaxRows = 16384;
+constexpr unsigned kProbeHashMult = 0x9E3779B1u;   // Knuth's multiplier
 
 // K1: 16 warps a CTA, two CTAs a SM, so a CTA's bins stay within half the
 // SM's 228 KB
@@ -714,37 +735,109 @@ P* ptr(const long long* a, int i) {
 
 // ---- K3 -----------------------------------------------------------------------
 
-__global__ void fused_probe_kernel(const int* __restrict__ pk,
-                                   const float* __restrict__ v0,
-                                   const float* __restrict__ v1, long long n,
-                                   const int* __restrict__ bk,
-                                   const int* __restrict__ bc,
-                                   const int* __restrict__ bv, int m, int G,
-                                   int* __restrict__ grp,
-                                   float* __restrict__ wgt) {
-  extern __shared__ int build[];         // keys | cats | valid, m each
-  int* skey = build;
-  int* scat = build + m;
-  int* sval = build + 2 * m;
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
-    skey[j] = bk[j];
-    scat[j] = bc[j];
-    sval[j] = bv[j];
+// log2 of the table's slots: the least power of two >= 2m (at least 2),
+// doubled while the table still fits a block's shared memory. A CTA holds
+// its SM alone, so the spare memory costs nothing, and the shorter chains
+// of a sparser table halved the time at M = 8192 (PERF.md).
+int probe_table_bits(int m) {
+  int bits = 1;
+  while ((1 << bits) < 2 * m) ++bits;
+  while (8LL * m + (4LL << bits) <= kFusedSmemBytes) ++bits;
+  return bits;
+}
+
+__device__ __forceinline__ unsigned probe_hash(int key, int shift) {
+  return ((unsigned)key * kProbeHashMult) >> shift;
+}
+
+// One probe row: the summed cat of the valid build rows with its key
+// (0 if none) as a floor mod of G, and v0 * v1 if there was one, else 0.
+__device__ __forceinline__ void probe_row(const int2* rows,
+                                          const unsigned short* slots,
+                                          unsigned mask, int shift, int G,
+                                          int key, float a, float b, int* g,
+                                          float* w) {
+  int cat = 0;
+  bool found = false;
+  for (unsigned h = probe_hash(key, shift);; h = (h + 1) & mask) {
+    const unsigned s = slots[h];
+    if (s == 0) break;
+    const int2 r = rows[s - 1];
+    if (r.x == key) {
+      cat = r.y;
+      found = true;
+      break;
+    }
+  }
+  const int q = cat % G;
+  *g = q + (q < 0 ? G : 0);
+  *w = found ? __fmul_rn(a, b) : 0.0f;
+}
+
+// Vec: every probe column and output is 16-byte aligned, so rows go four
+// at a time (the ragged end of n one at a time).
+template <bool Vec>
+__global__ void __launch_bounds__(kProbeThreads)
+fused_probe_kernel(const int* __restrict__ pk, const float* __restrict__ v0,
+                   const float* __restrict__ v1, long long n,
+                   const int* __restrict__ bk, const int* __restrict__ bc,
+                   const int* __restrict__ bv, int m, int G, int bits,
+                   int* __restrict__ grp, float* __restrict__ wgt) {
+  extern __shared__ int4 table[];
+  int2* rows = reinterpret_cast<int2*>(table);               // m (key, cat)
+  unsigned short* slots = reinterpret_cast<unsigned short*>(rows + m);
+  const unsigned nslots = 1u << bits, mask = nslots - 1;
+  const int shift = 32 - bits;
+  // stage every row and clear the slots (nslots is even)
+  unsigned valid = 0;                    // bit r: this thread's r-th row
+#pragma unroll 4
+  for (int j = threadIdx.x, r = 0; j < m; j += blockDim.x, ++r) {
+    rows[j] = make_int2(bk[j], bc[j]);
+    valid |= (unsigned)(bv[j] != 0) << r;
+  }
+  unsigned* words = reinterpret_cast<unsigned*>(slots);
+  for (unsigned j = threadIdx.x; j < nslots / 2; j += blockDim.x) words[j] = 0;
+  __syncthreads();
+  // insert the valid rows; a key already present takes this row's cat into
+  // the row that holds its slot (only the thread that inserts a row reads
+  // that row's cat, and it never gains a slot afterwards)
+  for (int j = threadIdx.x, r = 0; j < m; j += blockDim.x, ++r) {
+    if (!((valid >> r) & 1u)) continue;
+    const int key = rows[j].x;
+    for (unsigned h = probe_hash(key, shift);; h = (h + 1) & mask) {
+      const unsigned short s = atomicCAS(&slots[h], (unsigned short)0,
+                                         (unsigned short)(j + 1));
+      if (s == 0) break;
+      if (rows[s - 1].x == key) {
+        atomicAdd(&rows[s - 1].y, rows[j].y);
+        break;
+      }
+    }
   }
   __syncthreads();
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int key = pk[i];
-  int hits = 0;
-  int cat = 0;
-  for (int j = 0; j < m; ++j) {
-    const int hit = (skey[j] == key) & (sval[j] != 0);
-    hits += hit;
-    cat += hit * scat[j];
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  long long done = 0;
+  if (Vec) {
+    const long long quads = n >> 2;
+    for (long long i = first; i < quads; i += step) {
+      const int4 k = reinterpret_cast<const int4*>(pk)[i];
+      const float4 a = reinterpret_cast<const float4*>(v0)[i];
+      const float4 b = reinterpret_cast<const float4*>(v1)[i];
+      int4 g;
+      float4 w;
+      probe_row(rows, slots, mask, shift, G, k.x, a.x, b.x, &g.x, &w.x);
+      probe_row(rows, slots, mask, shift, G, k.y, a.y, b.y, &g.y, &w.y);
+      probe_row(rows, slots, mask, shift, G, k.z, a.z, b.z, &g.z, &w.z);
+      probe_row(rows, slots, mask, shift, G, k.w, a.w, b.w, &g.w, &w.w);
+      reinterpret_cast<int4*>(grp)[i] = g;
+      reinterpret_cast<float4*>(wgt)[i] = w;
+    }
+    done = quads << 2;
   }
-  // cat >= 0 (the wrapper checks build_cat), so C's % is the floor mod
-  grp[i] = cat % G;
-  wgt[i] = hits > 0 ? v0[i] * v1[i] : 0.0f;
+  for (long long i = done + first; i < n; i += step)
+    probe_row(rows, slots, mask, shift, G, pk[i], v0[i], v1[i], &grp[i],
+              &wgt[i]);
 }
 
 }  // namespace
@@ -756,6 +849,7 @@ const char* rt_error_string(int err) {
 }
 
 int rt_fused_probe_smem_bytes() { return kFusedSmemBytes; }
+unsigned rt_fused_probe_hash_mult() { return kProbeHashMult; }
 int rt_hist_num_args() { return kHistNumArgs; }
 int rt_scatter_num_args() { return kScatterNumArgs; }
 int rt_need_scratch() { return kNeedScratch; }
@@ -813,20 +907,29 @@ int rt_fused_probe(const int* pk, const float* v0, const float* v1,
                    long long n, const int* bk, const int* bc, const int* bv,
                    int m, int G, int* grp, float* wgt, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)3 * (size_t)m * sizeof(int);
-  if (m <= 0 || G <= 0 || smem > (size_t)kFusedSmemBytes)
+  if (m < 0 || m > kFusedMaxRows || G <= 0 || n < 0)
     return (int)cudaErrorInvalidValue;
-  if (n <= 0) return (int)cudaSuccess;
-  cudaError_t err;
-  if (smem > (size_t)kDefaultSmemBytes) {
-    err = cudaFuncSetAttribute(fused_probe_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long nb = (n + kProbeThreads - 1) / kProbeThreads;
-  fused_probe_kernel<<<(unsigned)nb, kProbeThreads, smem, s>>>(
-      pk, v0, v1, n, bk, bc, bv, m, G, grp, wgt);
+  if (n == 0) return (int)cudaSuccess;
+  const int bits = probe_table_bits(m);
+  const long long smem = (long long)m * (long long)sizeof(int2) +
+                         (2LL << bits);
+  if (smem > kFusedSmemBytes) return (int)cudaErrorInvalidValue;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(pk) |
+                         reinterpret_cast<uintptr_t>(v0) |
+                         reinterpret_cast<uintptr_t>(v1) |
+                         reinterpret_cast<uintptr_t>(grp) |
+                         reinterpret_cast<uintptr_t>(wgt);
+  const bool vec = (addr & 15u) == 0;
+  auto kern = vec ? fused_probe_kernel<true> : fused_probe_kernel<false>;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return (int)err;
+  // each CTA builds the whole table, so take no more CTAs than give every
+  // thread a 16-byte vector (or a row) of probes
+  const long long per_cta = (long long)kProbeThreads * (vec ? 4 : 1);
+  long long grid = (n + per_cta - 1) / per_cta;
+  if (grid > sm_count()) grid = sm_count();
+  kern<<<(unsigned)grid, kProbeThreads, (size_t)smem, s>>>(
+      pk, v0, v1, n, bk, bc, bv, m, G, bits, grp, wgt);
   return (int)cudaGetLastError();
 }
 

@@ -340,10 +340,12 @@ def fused_probe_groups(probe_keys, v0, v1, build_keys, build_cat,
     Returns ``(group, weight)`` tensors aligned with probe rows, where
     non-matching probe rows carry group 0 / weight 0 — bit-identical to the
     unfused ``join -> where(found) -> cat % G`` pipeline (build keys unique
-    per the join contract). Probe and build sides are padded to
-    power-of-two shape classes; K3 runs when the padded build side fits
-    one block's shared memory (``FUSED_SMEM_ROWS``), the sorted-search
-    path otherwise.
+    per the join contract). Both sides are counted at power-of-two shape
+    classes, as the reference pads them; K3 runs when the padded build side
+    fits one block's shared memory (``FUSED_SMEM_ROWS``), on the real rows
+    (it works row by row and never matches an invalid row, so pads would
+    change nothing), and the sorted-search path on the padded sides
+    otherwise.
     """
     from repro_torch.obs.tracer import get_tracer
 
@@ -360,25 +362,24 @@ def fused_probe_groups(probe_keys, v0, v1, build_keys, build_cat,
                            build_rows=m, shape_class=n_pad,
                            path="kernel" if kernel_ok else "sorted"):
 
-        def pad(t, dtype, to):
-            t = t.to(dtype)
-            if to == t.shape[0]:
-                return t.contiguous()
-            return torch.cat([t, torch.zeros((to - t.shape[0],), dtype=dtype,
-                                             device=dev)])
-
-        pk = pad(probe_keys, torch.int32, n_pad)
-        pv0 = pad(v0, torch.float32, n_pad)
-        pv1 = pad(v1, torch.float32, n_pad)
-        bk = pad(build_keys, torch.int32, m_pad)
-        bc = pad(build_cat, torch.int32, m_pad)
-        bv = pad(torch.ones((m,), dtype=torch.int32, device=dev),
-                 torch.int32, m_pad)
+        pk = probe_keys.to(torch.int32).contiguous()
+        pv0 = v0.to(torch.float32).contiguous()
+        pv1 = v1.to(torch.float32).contiguous()
+        bk = build_keys.to(torch.int32).contiguous()
+        bc = build_cat.to(torch.int32).contiguous()
+        bv = torch.ones((m,), dtype=torch.int32, device=dev)
         if kernel_ok:
-            grp, wgt = _k.fused_probe(pk, pv0, pv1, bk, bc, bv, num_groups)
-        else:
-            grp, wgt = _fused_probe_padded(pk, pv0, pv1, bk, bc, bv,
-                                           num_groups)
+            return _k.fused_probe(pk, pv0, pv1, bk, bc, bv, num_groups)
+
+        def pad(t, to):
+            if to == t.shape[0]:
+                return t
+            return torch.cat([t, torch.zeros((to - t.shape[0],),
+                                             dtype=t.dtype, device=dev)])
+
+        grp, wgt = _fused_probe_padded(
+            pad(pk, n_pad), pad(pv0, n_pad), pad(pv1, n_pad), pad(bk, m_pad),
+            pad(bc, m_pad), pad(bv, m_pad), num_groups)
         return grp[:n], wgt[:n]
 
 

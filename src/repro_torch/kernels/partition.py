@@ -17,6 +17,8 @@ the card. Both keep scratch per (device, stream) (``streams.StreamScratch``):
 K1's accumulator and ticket, which the kernels leave at zero for the next
 call, so no call clears anything, and K2's per-tile and per-chunk bases,
 which each call writes in full and whose size K2's entry point asks for.
+K3 is one launch and keeps no scratch: each of its CTAs builds a hash table
+of the build side in its shared memory.
 """
 
 from __future__ import annotations
@@ -33,13 +35,17 @@ from repro_torch.kernels.streams import (StreamScratch, current_stream,
                                          on_device)
 
 # H100: 227 KB of shared memory per block (232,448 bytes, opt-in above
-# 48 KB). K3 stages the whole padded build side there at 12 bytes a row
-# (key, cat, valid as int32), so the largest power-of-two build side it
-# takes is 16 Ki rows; the dispatcher sends larger buckets down the
-# sorted-search path.
+# 48 KB). K3 builds a hash table of the whole build side there at 12 bytes
+# a row at the least (key and cat, 8 bytes, and two 2-byte slots; more slots
+# where they fit), so the largest power-of-two build side it takes is 16 Ki
+# rows; the dispatcher sends larger buckets down the sorted-search path.
 SMEM_PER_BLOCK = 232448
 FUSED_ROW_BYTES = 12
 FUSED_SMEM_ROWS = 1 << ((SMEM_PER_BLOCK // FUSED_ROW_BYTES).bit_length() - 1)
+# K3's table has 2^b slots (2M <= 2^b <= 2^16) and puts a key in slot
+# ``(uint32(key) * FUSED_HASH_MULT mod 2^32) >> (32 - b)`` (then linear
+# probing); the card tests build keys that collide under it
+FUSED_HASH_MULT = 0x9E3779B1
 # the partition counts K1 and K2 take (their contracts since the first
 # port: one 48 KB histogram, and a 32-warp count table in 227 KB)
 MAX_HIST_PARTITIONS = (48 * 1024) // 4
@@ -58,6 +64,7 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "rt_error_string": ((_I,), ctypes.c_char_p),
     "rt_fused_probe_smem_bytes": ((), _I),
+    "rt_fused_probe_hash_mult": ((), ctypes.c_uint),
     "rt_hist_num_args": ((), _I),
     "rt_scatter_num_args": ((), _I),
     "rt_need_scratch": ((), _I),
@@ -83,6 +90,7 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = list(args), res
         assert lib.rt_fused_probe_smem_bytes() == SMEM_PER_BLOCK
+        assert lib.rt_fused_probe_hash_mult() == FUSED_HASH_MULT
         assert lib.rt_hist_num_args() == len(_HIST_ARGS)
         assert lib.rt_scatter_num_args() == len(_SCATTER_ARGS)
         _BOUND = lib
@@ -257,10 +265,14 @@ def fused_probe(probe_keys, v0, v1, build_keys, build_cat, build_valid,
     """K3: fused equality probe of one join bucket.
 
     ``probe_keys`` int32, ``v0``/``v1`` float32, all ``(N,)``;
-    ``build_keys``/``build_cat``/``build_valid`` int32 ``(M,)`` with unique
-    valid keys and ``M <= FUSED_SMEM_ROWS``. Returns ``(group, weight)``
-    aligned with probe rows: ``cat % G`` and ``v0 * v1`` of the matching
-    valid build row, 0 and 0.0 where none matches."""
+    ``build_keys``/``build_cat``/``build_valid`` int32 ``(M,)`` with
+    ``M <= FUSED_SMEM_ROWS``. Returns ``(group, weight)`` aligned with probe
+    rows: the sum of the cats of the valid build rows with the probe's key
+    (one row, by the join contract) as a floor mod of G, and ``v0 * v1``
+    where a valid row matched; 0 and 0.0 where none did.
+
+    One launch, and no host sync: the kernel builds a hash table of the
+    build side in each CTA's shared memory and probes it."""
     _check(probe_keys, "probe_keys", torch.int32, 1)
     dev = probe_keys.device
     for t, name, dt in ((v0, "v0", torch.float32), (v1, "v1", torch.float32),
@@ -273,22 +285,18 @@ def fused_probe(probe_keys, v0, v1, build_keys, build_cat, build_valid,
         raise ValueError("probe columns differ in length")
     if build_cat.shape[0] != m or build_valid.shape[0] != m:
         raise ValueError("build columns differ in length")
+    if m > FUSED_SMEM_ROWS:
+        raise ValueError(f"build side of {m} rows does not fit shared "
+                         f"memory ({FUSED_SMEM_ROWS} rows)")
     g = int(num_groups)
     if g <= 0:
         raise ValueError(f"num_groups must be positive, got {g}")
     if _route(dev) == "plain":
         return ref.fused_probe_ref(probe_keys, v0, v1, build_keys, build_cat,
                                    build_valid, g)
-    if not 0 < m <= FUSED_SMEM_ROWS:
-        raise ValueError(f"build side of {m} rows does not fit shared "
-                         f"memory ({FUSED_SMEM_ROWS} rows)")
-    # the kernel takes C's %, which is the floor mod of the reference only
-    # for non-negative categories
-    if bool(((build_cat < 0) & (build_valid != 0)).any()):
-        raise ValueError("build_cat must be non-negative")
     grp = torch.empty((n,), dtype=torch.int32, device=dev)
     wgt = torch.empty((n,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with on_device(dev):
         _launch(_lib().rt_fused_probe, probe_keys.data_ptr(), v0.data_ptr(),
                 v1.data_ptr(), n, build_keys.data_ptr(), build_cat.data_ptr(),
                 build_valid.data_ptr(), m, g, grp.data_ptr(), wgt.data_ptr(),

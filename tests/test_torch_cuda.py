@@ -17,23 +17,67 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def probe_case(seed, n, m, m_valid, zero_key, g=64):
+INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
+
+
+def colliding_keys(count, first=0):
+    """``count`` distinct int32 keys whose multiply-shift hash under K3's
+    multiplier has its top 16 bits all set, so that K3's table, whatever its
+    size (at most 2^16 slots), puts them all in its last slot: one chain,
+    which wraps around the table's end (``first`` skips that many keys)."""
+    inv = pow(tpart.FUSED_HASH_MULT, -1, 1 << 32)
+    return np.array([(0xFFFF0000 + first + i) * inv % (1 << 32)
+                     for i in range(count)], np.uint32).view(np.int32)
+
+
+def probe_case(seed, n, m, m_valid, zero_key, g=64, kind=None):
+    """K3's inputs: M build rows, the first ``m_valid`` valid (distinct
+    keys, padding rows with key 0), N probes of which about half hit, an
+    eighth probe key 0 and an eighth repeat others. ``kind`` adds an edge:
+    "duplicates" (some valid keys twice or three times, cats over the whole
+    int32 range, so their sums wrap), "negative_cats" (down to INT32_MIN),
+    "extreme_keys" (INT32_MIN, INT32_MAX, 0 and -1 as keys; padding rows
+    with key INT32_MAX; the last eight probes at and beside them),
+    "colliding" (every valid key, and the probes' misses, in one chain of
+    K3's table) or "all_invalid"."""
     rng = np.random.default_rng(seed)
     keys = rng.permutation(4 * m)[:m_valid].astype(np.int32) + 1
     if zero_key:
         keys[0] = 0                       # a real build row with key 0
+    if kind == "duplicates":
+        keys[1::3] = keys[0::3][:len(keys[1::3])]
+        keys[2::9] = keys[0::9][:len(keys[2::9])]
+    elif kind == "extreme_keys":
+        keys[:4] = (INT32_MIN, INT32_MAX, 0, -1)
+    elif kind == "colliding":
+        keys = colliding_keys(m_valid)
     bk = np.zeros(m, np.int32)
     bk[:m_valid] = keys                   # padding rows keep key 0
+    if kind == "extreme_keys":
+        bk[m_valid:] = INT32_MAX
     bc = np.zeros(m, np.int32)
     bc[:m_valid] = (np.arange(m_valid) * 7) % 1000
+    if kind == "duplicates":
+        bc[:m_valid] = rng.integers(INT32_MIN, INT32_MAX + 1, m_valid)
+    elif kind == "negative_cats":
+        bc[:m_valid] = -bc[:m_valid] - 1
+        bc[0] = INT32_MIN
     bv = np.zeros(m, np.int32)
     bv[:m_valid] = 1
+    if kind == "all_invalid":
+        bv[:] = 0
     pk = rng.integers(0, 8 * m, n).astype(np.int32)
+    if kind == "colliding":
+        misses = colliding_keys(min(n, 4096), first=m_valid)
+        pk = misses[rng.integers(0, len(misses), n)]
     hit = rng.random(n) < 0.5
     pk = np.where(hit, bk[rng.integers(0, m_valid, n)], pk).astype(np.int32)
     q = n // 8
     pk[:q] = 0                            # probe zeros against padding
     pk[q: 2 * q] = pk[2 * q: 3 * q]       # duplicate probe keys
+    if kind == "extreme_keys":
+        pk[-8:] = (INT32_MIN, INT32_MAX, 0, -1, INT32_MIN + 1, INT32_MAX - 1,
+                   1, -2)
     v0 = rng.standard_normal(n).astype(np.float32)
     v1 = rng.standard_normal(n).astype(np.float32)
     return pk, v0, v1, bk, bc, bv, g
@@ -69,16 +113,67 @@ def test_cuda_k2_matches_plain(cuda_device, n, p, d):
     assert torch.equal(out.view(torch.int32), r_out.view(torch.int32))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("seed,n,m,m_valid,zero_key", [
-    (0, 1 << 16, 8192, 7692, False), (1, 4096, 16384, 16381, True),
-    (2, 100, 8, 3, True)])
-def test_cuda_k3_matches_plain(cuda_device, seed, n, m, m_valid, zero_key):
-    args = [_t(a).to(cuda_device) for a in
-            probe_case(seed, n, m, m_valid, zero_key)[:6]]
-    grp, wgt = tpart.fused_probe(*args, 64)
-    r_grp, r_wgt = tref.fused_probe_ref(*args, 64)
+# (seed, N, M, valid rows, a real key 0, G, kind of probe_case)
+K3_CASES = {
+    "main_path": (0, 1 << 16, 8192, 7692, False, 64, None),
+    "gate": (1, 4096, 16384, 16381, True, 64, None),
+    "tiny": (2, 100, 8, 3, True, 64, None),
+    "duplicates": (3, 1 << 16, 8192, 6000, True, 64, "duplicates"),
+    "negative_cats": (4, 1 << 16, 8192, 7000, False, 64, "negative_cats"),
+    "extreme_keys": (5, 50001, 4096, 4000, False, 64, "extreme_keys"),
+    "colliding": (6, 8192, 2048, 2000, False, 64, "colliding"),
+    "all_invalid": (7, 4096, 1024, 1000, False, 64, "all_invalid"),
+    "m1": (8, 5000, 1, 1, True, 64, None),
+    "n1": (9, 1, 8192, 8000, False, 64, None),
+    "g1": (10, 4096, 512, 500, False, 1, None),
+    "g7": (11, 4099, 512, 500, True, 7, "negative_cats"),
+    "n2p20_at_gate": (12, 1 << 20, 16384, 16000, True, 64, None),
+}
+
+
+def _k3_held_to_plain(args, g):
+    grp, wgt = tpart.fused_probe(*args, g)
+    r_grp, r_wgt = tref.fused_probe_ref(*args, g)
     torch.cuda.synchronize()
+    assert torch.equal(grp, r_grp)
+    assert torch.equal(wgt.view(torch.int32), r_wgt.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_cuda_k3_matches_plain(cuda_device, case):
+    seed, n, m, m_valid, zero_key, g, kind = K3_CASES[case]
+    pk, v0, v1, bk, bc, bv, g = probe_case(seed, n, m, m_valid, zero_key, g,
+                                           kind)
+    _k3_held_to_plain([_t(a).to(cuda_device)
+                       for a in (pk, v0, v1, bk, bc, bv)], g)
+
+
+@pytest.mark.cuda
+def test_cuda_k3_reads_unaligned_probe_columns(cuda_device):
+    """Probe columns one element into their storage: not 16-byte aligned,
+    so K3 reads them a row at a time."""
+    pk, v0, v1, bk, bc, bv, g = probe_case(13, 30001, 4096, 4000, True)
+    probe = [_t(np.concatenate([a[:1], a])).to(cuda_device)[1:]
+             for a in (pk, v0, v1)]
+    build = [_t(a).to(cuda_device) for a in (bk, bc, bv)]
+    _k3_held_to_plain(probe + build, g)
+
+
+@pytest.mark.cuda
+def test_cuda_k3_makes_no_host_sync(cuda_device):
+    """The K3 wrapper neither reads a device value nor waits for the card:
+    a call under ``set_sync_debug_mode("error")`` raises on any sync."""
+    pk, v0, v1, bk, bc, bv, g = probe_case(14, 4096, 512, 500, False, 7)
+    args = [_t(a).to(cuda_device) for a in (pk, v0, v1, bk, bc, bv)]
+    tpart.fused_probe(*args, g)           # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grp, wgt = tpart.fused_probe(*args, g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    r_grp, r_wgt = tref.fused_probe_ref(*args, g)
     assert torch.equal(grp, r_grp)
     assert torch.equal(wgt.view(torch.int32), r_wgt.view(torch.int32))
 

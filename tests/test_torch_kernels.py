@@ -19,7 +19,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import partition as tpart
 from repro_torch.kernels import streams as tstreams
-from test_torch_cuda import probe_case
+from test_torch_cuda import INT32_MAX, INT32_MIN, probe_case
 
 
 def _t(a):
@@ -183,20 +183,116 @@ def test_k3_plain_matches_pallas_and_sorted_path(seed, n, m, m_valid,
     np.testing.assert_array_equal(_bits(_np(t_wgt)), _bits(_np(wgt)))
 
 
+def _probe_oracle(pk, v0, v1, bk, bc, bv, g):
+    """numpy: the int32-wrapped sum of the matching valid rows' cats as a
+    floor mod of G, and v0 * v1 where one matched."""
+    match = (pk[:, None] == bk[None, :]) & (bv[None, :] != 0)
+    cat = (match * bc[None, :].astype(np.int64)).sum(axis=1)
+    cat = (cat + 2**31) % 2**32 - 2**31
+    return (np.mod(cat, g).astype(np.int32),
+            np.where(match.any(axis=1), v0 * v1, np.float32(0.0)))
+
+
+# (seed, N, M, valid rows, a real key 0, G, kind of probe_case): the card
+# tests' edges at sizes the Pallas kernel runs in interpret mode
+K3_EDGES = {
+    "negative_cats": (20, 512, 256, 200, False, 64, "negative_cats"),
+    "duplicates": (21, 512, 256, 200, True, 64, "duplicates"),
+    "extreme_keys": (22, 512, 256, 200, False, 64, "extreme_keys"),
+    "colliding": (23, 512, 256, 200, False, 64, "colliding"),
+    "all_invalid": (24, 256, 64, 60, True, 64, "all_invalid"),
+    "g1": (25, 512, 256, 200, True, 1, None),
+    "g7": (26, 512, 256, 200, True, 7, "negative_cats"),
+    "g7_duplicates": (27, 512, 256, 200, False, 7, "duplicates"),
+    "m1": (28, 384, 1, 1, True, 64, None),
+    "n1": (29, 1, 256, 200, False, 64, None),
+}
+
+
+@pytest.mark.parametrize("case", list(K3_EDGES))
+def test_k3_edges_match_pallas_and_numpy(case):
+    """The plain version (what K3 is held to on the card) against the
+    Pallas kernel in interpret mode and a numpy oracle, at the edges of
+    the contract: negative cats (a floor mod), duplicate valid keys (their
+    cats summed, wrapping), extreme keys, G = 1 and 7."""
+    seed, n, m, m_valid, zero_key, g, kind = K3_EDGES[case]
+    args = probe_case(seed, n, m, m_valid, zero_key, g, kind)[:6]
+    grp, wgt = tpart.fused_probe(*map(_t, args), g)
+    p_grp, p_wgt = jpart.fused_probe(*map(jnp.asarray, args), g,
+                                     interpret=True)
+    o_grp, o_wgt = _probe_oracle(*args, g)
+    for want_g, want_w in ((p_grp, p_wgt), (o_grp, o_wgt)):
+        np.testing.assert_array_equal(_np(grp), np.asarray(want_g))
+        np.testing.assert_array_equal(_bits(_np(wgt)),
+                                      _bits(np.asarray(want_w)))
+
+
+def test_k3_edge_cases_reach_their_edges():
+    """The edge inputs hold what they are named for."""
+    _, _, _, bk, bc, bv, _ = probe_case(*K3_EDGES["duplicates"])
+    keys, counts = np.unique(bk[bv != 0], return_counts=True)
+    assert counts.max() == 3 and (counts == 2).sum() > 10
+    assert bc.min() < 0 and bc.max() > 2**30
+    _, _, _, bk, bc, bv, _ = probe_case(*K3_EDGES["negative_cats"])
+    assert bc[0] == INT32_MIN and (bc[bv != 0] < 0).all()
+    pk, _, _, bk, _, bv, _ = probe_case(*K3_EDGES["extreme_keys"])
+    assert {INT32_MIN, INT32_MAX, 0, -1} <= set(bk[bv != 0].tolist())
+    assert {INT32_MIN, INT32_MAX, 0, -1} <= set(pk.tolist())
+    pk, _, _, bk, _, bv, _ = probe_case(*K3_EDGES["colliding"])
+
+    def top16(keys):      # the top 16 bits of the hash's product
+        return ((keys.astype(np.uint32).astype(np.uint64)
+                 * tpart.FUSED_HASH_MULT) % 2**32) >> 16
+
+    assert (top16(bk[bv != 0]) == 0xFFFF).all()
+    miss = pk[~np.isin(pk, bk)]
+    assert len(miss) > 100 and (top16(miss) == 0xFFFF).all()
+
+
 @pytest.mark.parametrize("n,m", [(300, 200), (64, 5), (40, 20000)])
 def test_fused_probe_groups_matches_reference(n, m):
     """Both dispatch paths: K3 below the shared-memory gate, the sorted
-    search above it (m = 20000 pads past FUSED_SMEM_ROWS)."""
+    search above it (m = 20000 pads past FUSED_SMEM_ROWS), with the
+    padding counted as the reference counts it."""
     rng = np.random.default_rng(n * m)
     bk = rng.permutation(3 * m)[:m].astype(np.int32)
     bc = (np.arange(m) % 50).astype(np.int32)
     pk = rng.integers(0, 3 * m, n).astype(np.int32)
     v0 = rng.standard_normal(n).astype(np.float32)
     v1 = rng.standard_normal(n).astype(np.float32)
+    tops.reset_padding_counters()
+    jops.reset_padding_counters()
     grp, wgt = tops.fused_probe_groups(*map(_t, (pk, v0, v1, bk, bc)), 64)
     j_grp, j_wgt = jops.fused_probe_groups(pk, v0, v1, bk, bc, 64)
     np.testing.assert_array_equal(_np(grp), j_grp)
     np.testing.assert_array_equal(_bits(_np(wgt)), _bits(j_wgt))
+    assert tops.padding_counters() == jops.padding_counters()
+
+
+@pytest.mark.parametrize("n,m,path", [(300, 200, "kernel"),
+                                      (5000, 3000, "kernel"),
+                                      (40, 20000, "sorted")])
+def test_fused_probe_groups_gives_k3_the_real_rows(monkeypatch, n, m, path):
+    """K3 gets the unpadded sides (the shape classes are only counted);
+    negative cats come out as the reference's floor mod on both paths."""
+    rng = np.random.default_rng(n + m)
+    bk = rng.permutation(3 * m)[:m].astype(np.int32)
+    bc = (rng.integers(-1000, 1000, m)).astype(np.int32)
+    pk = rng.integers(0, 3 * m, n).astype(np.int32)
+    v0 = rng.standard_normal(n).astype(np.float32)
+    v1 = rng.standard_normal(n).astype(np.float32)
+    seen, real = [], tpart.fused_probe
+
+    def probe(*args):
+        seen.append(tuple(int(a.shape[0]) for a in args[:6]))
+        return real(*args)
+
+    monkeypatch.setattr(tops._k, "fused_probe", probe)
+    grp, wgt = tops.fused_probe_groups(*map(_t, (pk, v0, v1, bk, bc)), 7)
+    j_grp, j_wgt = jops.fused_probe_groups(pk, v0, v1, bk, bc, 7)
+    np.testing.assert_array_equal(_np(grp), j_grp)
+    np.testing.assert_array_equal(_bits(_np(wgt)), _bits(j_wgt))
+    assert seen == ([(n, n, n, m, m, m)] if path == "kernel" else [])
 
 
 def test_fused_gate_is_derived_from_shared_memory():
