@@ -14,6 +14,13 @@
    under every shuffle write), checking each result against a vectorized
    numpy oracle and that the main path launched the kernels (the launch
    counters are set to 0 just before each query and read just after).
+   Then ``sim_plane``, with the counters set to 0 just before it and read
+   just after: it calibrates the simulator's six operator rates on the
+   card, plans the 2^25-row tables through the large query's own workflow
+   object on a 4-node ``ClusterSim`` (the skew feedback's sketch runs K1),
+   requires the simulator's decision sequence to equal the runtime's and
+   K1 to have launched, and replays the large query's invocation trace
+   into a fresh cluster (simulated makespan beside the measured wall).
 3. Serves 8 requests of 32 new tokens with ``llama3.2-3b`` at its published
    width and depth (28 layers, d_model 3072, vocab 128256, bf16, random
    weights from seed 0) through ``ServingEngine(max_batch=4,
@@ -23,7 +30,27 @@
    feeds each finished
    sequence once through the full ``forward`` (K4) and holds its logits at
    every generated position to the logits the engine decoded there (K5).
-4. Holds each kernel against its plain PyTorch version on the card, at the
+   Serves the same requests once more on the same weights, warm: the
+   yardstick for step 4's last run.
+4. Drives the worker plane and the scheduler, each with the kernel
+   counters set to 0 just before it and read just after (after the serve
+   phase, so that the phases before it run as they always have):
+   ``process_query`` runs the large query again on its tables through the
+   process worker plane (4 spawned workers, each with its own CUDA
+   context), holds it to the oracle and requires the workers to have
+   launched K1 and K2 (their counts come home with each task), printing
+   the pool's cold starts, warm hits, function-seconds and peak size, the
+   card's used memory and how the invocations' seconds split between the
+   host, the workers' bodies and their waits on the host's store; ``scheduler_mix`` runs six 2^22-row queries
+   (priorities 0, 0, 0, 0, 10, 10) through one ``QueryScheduler`` over one
+   ``threads`` runtime under ``fifo``, ``priority`` and ``fair_share``,
+   each result held to its oracle and no slot leaked, printing each
+   policy's makespan and latencies. Then requires that no worker process
+   outlived its invoker and serves the warm requests of step 3 again,
+   printing tokens/s before and after these phases beside what is left
+   running (threads, reserved card memory, processes on the card). Each
+   phase prints its seconds.
+5. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path launched it at and on edge cases: K1-K3
    bit-exact, K4 and K5 within the reference's kernel tolerances. Times
    kernel, plain version and the one PyTorch call computing the same
@@ -33,12 +60,14 @@
    (must be 1), one K2 call (at most 2) and one K3 call (must be 1), times
    K2 once more with the range check that the path runs before it, and K3
    once more at N = 2^20 probe rows against 16 Ki build rows.
-5. Prints the ``kernels`` JSON line (K1-K5).
-6. Re-runs the large query, eight decode steps and one prefill wave under
+6. Prints the ``kernels`` JSON line (K1-K5), its launch counts summed over
+   every phase above.
+7. Re-runs the large query, eight decode steps and one prefill wave under
    ``torch.profiler`` (outside the counted runs) and prints their
    device-busy share and costliest device ops, and the query's device time
-   in the partition kernels.
-7. Prints the card line and, as its last line,
+   in the partition kernels. A profiler trace with no device event in it
+   is taken again, up to three times, before the script fails.
+8. Prints the seconds of each phase, the card line and, as its last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line is printed. Needs a CUDA
@@ -84,6 +113,13 @@ ATTN_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 LOGIT_TOL = 0.15
 # names of K1-K3's device kernels (csrc/partition.cu)
 PARTITION_KERNELS = ("hist_kernel", "scatter_kernel", "fused_probe_kernel")
+# empty device traces taken again before a measurement gives up (``traced``)
+PROFILE_TRIES = 3
+# the process phase: smoke_large's query on this many worker processes
+PROCESS_WORKERS = 4
+# the scheduler phase: six queries sharing one runtime, two of them urgent
+MIX_QUERIES, MIX_ROWS, MIX_DIM_ROWS = 6, 1 << 22, 1 << 19
+MIX_PRIORITIES = (0, 0, 0, 0, 10, 10)
 
 
 def card_line() -> str:
@@ -110,20 +146,39 @@ def median_ms(fn, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
+def traced(body, setup=None, cpu: bool = False):
+    """``body(setup())`` under ``torch.profiler`` (CUDA activity, and the
+    host's when ``cpu``), ``setup`` running untraced before it and both
+    ending in a synchronize; returns ``(profile, body's result)``. A trace
+    that holds no device event at all is taken again, up to
+    ``PROFILE_TRIES`` times: the profiler has been seen to hand back an
+    empty device trace of work that did run on the card, and an empty
+    trace must not pass for a call that launched nothing."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for attempt in range(1, PROFILE_TRIES + 1):
+        state = setup() if setup is not None else None
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            out = body(state)
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            return prof, out
+        print(f"profiler: no device event in the trace (try {attempt} of "
+              f"{PROFILE_TRIES})")
+    raise AssertionError(f"the profiler traced no device event in "
+                         f"{PROFILE_TRIES} tries")
+
+
 def device_ms(fn, reps: int = REPS) -> float:
     """Device time of one call of ``fn``: the union of the device-side
     intervals of ``reps`` calls under ``torch.profiler``, over ``reps``.
     Unlike ``median_ms`` it leaves out the host's share of a call (the
     wrapper's Python and the launch), which dominates a call of a few
     microseconds of device work."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    prof, _ = traced(lambda _: [fn() for _i in range(reps)], setup=fn)
     return device_busy(prof)[0] / 1e3 / reps
 
 
@@ -131,14 +186,8 @@ def device_kernels(fn) -> list[tuple[str, float]]:
     """``(name, microseconds)`` of each device kernel (or copy, or fill)
     that one call of ``fn`` runs, after a warm-up call, from
     ``torch.profiler``."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof, _ = traced(lambda _: fn(), setup=fn)
     return [(e.name[:40], e.time_range.elapsed_us()) for e in prof.events()
             if e.device_type == DeviceType.CUDA]
 
@@ -686,29 +735,40 @@ def query_tables(rows: int, dim_rows: int, seed: int, fact_nodes: int,
 
 
 def run_query(app: str, rows: int, dim_rows: int, device, seed: int,
-              fact_nodes: int, dim_nodes, invoker: str = "threads") -> dict:
+              fact_nodes: int, dim_nodes, invoker: str = "threads",
+              tables=None, runtime=None) -> dict:
     """One query through the port's entry point with the kernel counters
-    set to 0 just before it and read just after."""
+    set to 0 just before it and read just after. ``tables`` reuses an
+    earlier phase's ``(fact, dim, oracle sums)``; ``runtime`` runs it on
+    a runtime built by the caller (else ``execute_query_runtime`` builds
+    one with ``invoker``)."""
     import torch
+    from repro_torch.analytics.planner import build_query_workflow
     from repro_torch.analytics.query import (
         QueryStrategy, execute_query_runtime)
     from repro_torch.kernels import partition as K
     from repro_torch.obs.audit import get_audit_log
 
     t0 = time.perf_counter()
-    fact, dim = query_tables(rows, dim_rows, seed, fact_nodes, dim_nodes,
-                             device)
-    t1 = time.perf_counter()
-    want = oracle(fact, dim)
-    setup = {"synth_s": t1 - t0, "oracle_s": time.perf_counter() - t1}
+    if tables is None:
+        fact, dim = query_tables(rows, dim_rows, seed, fact_nodes, dim_nodes,
+                                 device)
+        t1 = time.perf_counter()
+        want = oracle(fact, dim)
+        setup = {"synth_s": t1 - t0, "oracle_s": time.perf_counter() - t1}
+    else:
+        (fact, dim, want), setup = tables, {"reused_tables": True}
+    strategy = QueryStrategy("static_merge")
+    workflow = build_query_workflow(strategy)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     t0 = time.perf_counter()
     got, runtime = execute_query_runtime(
-        fact, dim, QueryStrategy("static_merge"), app=app, invoker=invoker,
-        pipeline=True, num_groups=NUM_GROUPS, device=device)
+        fact, dim, strategy, app=app, invoker=invoker, runtime=runtime,
+        pipeline=True, num_groups=NUM_GROUPS, workflow=workflow,
+        device=None if runtime is not None else device)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -731,7 +791,9 @@ def run_query(app: str, rows: int, dim_rows: int, device, seed: int,
             "setup": setup, "wall_s": wall, "rows_per_s": rows / wall,
             "peak_bytes": int(peak), "max_abs_err": err,
             "launches": launches, "stages": stages,
-            "sequence": get_audit_log().sequence(app), "tables": (fact, dim)}
+            "sequence": get_audit_log().sequence(app), "tables": (fact, dim),
+            "want": want, "runtime": runtime, "workflow": workflow,
+            "decisions": list(workflow.last_run.sequence)}
 
 
 def check_phase(res: dict, plan: str, kernels) -> None:
@@ -760,6 +822,212 @@ def large_query(device, rows: int = 1 << 25, dim_rows: int = 1 << 22,
     return res
 
 
+# -- the simulator plane, the process worker plane, the scheduler ------------------
+
+
+def sim_plane(device, large: dict) -> dict:
+    """The simulator plane at full size: calibrate the six operator rates on
+    the card, plan ``smoke_large``'s 2^25-row tables through its own
+    workflow object on a 4-node ``ClusterSim`` (the shuffle-skew feedback
+    builds its sketch with K1: the counters are set to 0 just before the
+    planning and read just after), require the simulator's bound decision
+    sequence to equal the runtime's, then replay ``smoke_large``'s
+    invocation trace into a fresh cluster."""
+    from repro_torch.analytics.query import QueryStrategy, plan_query_tasks
+    from repro_torch.analytics.simulator import calibrated_rates, make_cluster
+    from repro_torch.core.controllers import PrivateController
+    from repro_torch.kernels import partition as K
+
+    t0 = time.perf_counter()
+    rates = calibrated_rates(device=device, force=True)
+    calib_s = time.perf_counter() - t0
+    fact, dim = large["tables"]
+    app, wf = large["app"], large["workflow"]
+    gc, sim = make_cluster(4)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    plan_query_tasks(sim, PrivateController(app, gc, priority=10), fact, dim,
+                     QueryStrategy("static_merge"), app=app, workflow=wf,
+                     device=device)
+    plan_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    seq_sim = list(wf.last_run.sequence)
+    require(seq_sim == large["decisions"],
+            f"sim_plane: the simulator bound {seq_sim}, the runtime "
+            f"{large['decisions']}")
+    require(launches["partition_histogram"] > 0,
+            f"sim_plane: the planner never launched K1 ({launches})")
+    planned = sim.run()["completion"][app]
+    _, replay = make_cluster(4)
+    tasks = large["runtime"].replay_into(replay, app=app)
+    require(tasks > 0, "sim_plane: the trace replayed no task")
+    replayed = replay.run()["completion"][app]
+    return {"rates": rates, "calibrate_s": calib_s, "plan_s": plan_s,
+            "launches": launches,
+            "sequence": [(st, d.func) for st, d in seq_sim],
+            "planned_makespan_s": planned, "replayed_tasks": tasks,
+            "replayed_makespan_s": replayed,
+            "measured_wall_s": large["wall_s"]}
+
+
+class MemorySampler:
+    """The card's used memory (``nvidia-smi``, MiB) sampled every
+    ``period`` seconds on a thread until ``stop()``; ``peak_mib`` is the
+    most it saw."""
+
+    def __init__(self, period: float = 0.5):
+        import threading
+        self.peak_mib = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, args=(period,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self, period: float) -> None:
+        while not self._stop.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits"],
+                capture_output=True, text=True).stdout.split()
+            if out:
+                self.peak_mib = max(self.peak_mib, int(out[0]))
+            self._stop.wait(period)
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._thread.join(30)
+        return self.peak_mib
+
+
+def process_query(device, large: dict, workers: int = PROCESS_WORKERS) -> dict:
+    """``smoke_large``'s query again, on its tables, through the process
+    worker plane (``invoker="process"``, up to ``workers`` spawned workers,
+    each with its own CUDA context), held to the same oracle. The workers'
+    kernel launches come home in their task metrics
+    (``worker_launches``)."""
+    from repro_torch.core.controllers import GlobalController
+    from repro_torch.obs import get_tracer
+    from repro_torch.runtime import Runtime
+
+    fact, dim = large["tables"]
+    runtime = Runtime(GlobalController({n: 8 for n in range(4)}),
+                      invoker="process", max_workers=workers, device=device)
+    sampler = MemorySampler()
+    t0 = time.perf_counter()
+    try:
+        res = run_query("smoke_process", large["fact_rows"],
+                        large["dim_rows"], device, seed=1, fact_nodes=4,
+                        dim_nodes=2, tables=(fact, dim, large["want"]),
+                        runtime=runtime)
+        pool = runtime.invoker.pool.stats()
+        launches = dict(runtime.invoker.worker_launches)
+        gc_used = sum(runtime.gc.used.values())
+    finally:
+        peak_mib = sampler.stop()
+        runtime.invoker.shutdown()
+    res.pop("runtime")
+    check_phase(res, "pipelined", ())
+    for k in ("partition_histogram", "partition_scatter"):
+        require(launches.get(k, 0) > 0,
+                f"smoke_process: no worker launched {k} ({launches})")
+    require(gc_used == 0, f"smoke_process: {gc_used} slots leaked")
+    # where the invocations' seconds went: the host's span of each
+    # (send, store RPCs, results back), the body in the worker, and the
+    # body's wait on the host for store reads (tables through the pipe)
+    bodies = [sp for sp in get_tracer().spans() if sp.start >= t0
+              and sp.attrs.get("kind") == "worker_body"]
+    res["split"] = {"invocations": len(bodies),
+                    "host_s": sum(sp.seconds for sp in bodies),
+                    "worker_body_s": sum(sp.attrs["busy_s"] for sp in bodies),
+                    "worker_rpc_wait_s": sum(sp.attrs["rpc_s"]
+                                             for sp in bodies)}
+    res.update(worker_launches=launches, pool=pool,
+               gpu_memory_used_peak_mib=peak_mib,
+               mean_cold_start_s=pool["provision_seconds"]
+               / max(1, pool["cold_starts"]))
+    return res
+
+
+def scheduler_mix(device) -> dict:
+    """Six queries at 2^22 fact rows (priorities 0, 0, 0, 0, 10, 10;
+    strategies cycling static_hash, dynamic, static_merge, as in
+    ``examples/multi_tenant.py`` part 3) through one ``QueryScheduler`` over
+    one ``threads`` runtime on the card, once per policy. Every result is
+    held to its oracle and no slot may leak; the kernel counters are set to
+    0 before each policy's run and read after it."""
+    import torch
+    from repro_torch.core.controllers import GlobalController
+    from repro_torch.kernels import partition as K
+    from repro_torch.runtime import QueryJob, QueryScheduler, Runtime
+
+    t0 = time.perf_counter()
+    queries = []
+    for i in range(MIX_QUERIES):
+        fact, dim = query_tables(MIX_ROWS, MIX_DIM_ROWS, 100 + 7 * i, 4, 2,
+                                 device)
+        queries.append((fact, dim, oracle(fact, dim)))
+    out = {"setup_s": time.perf_counter() - t0, "policies": {}}
+    for policy in ("fifo", "priority", "fair_share"):
+        gc = GlobalController({n: 8 for n in range(4)})
+        runtime = Runtime(gc, invoker="threads", max_workers=8,
+                          device=device)
+        sched = QueryScheduler(runtime, policy=policy)
+        for i, (fact, dim, _) in enumerate(queries):
+            sched.submit(QueryJob(
+                f"{policy}_q{i}", fact, dim,
+                ("static_hash", "dynamic", "static_merge")[i % 3],
+                priority=MIX_PRIORITIES[i], num_groups=NUM_GROUPS))
+        torch.cuda.synchronize()
+        K.reset_launches()
+        results = sched.run()
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        errs = []
+        for i, (_, _, want) in enumerate(queries):
+            res = results[f"{policy}_q{i}"]
+            require(res.ok, f"scheduler_mix {policy} q{i}: {res.error!r}")
+            require(np.allclose(res.sums, want, rtol=QUERY_RTOL,
+                                atol=QUERY_ATOL),
+                    f"scheduler_mix {policy} q{i} differs from its oracle")
+            errs.append(float(np.max(np.abs(res.sums - want))))
+        used = sum(gc.used.values())
+        require(used == 0, f"scheduler_mix {policy}: {used} slots leaked")
+        require(runtime.invoker.gate is None,
+                f"scheduler_mix {policy}: the gate stayed on the invoker")
+        out["policies"][policy] = {
+            "makespan_s": sched.makespan(),
+            "hi_latencies_s": sched.latencies(min_priority=10),
+            "all_latencies_s": sched.latencies(),
+            "max_abs_err": max(errs), "launches": launches}
+    return out
+
+
+def leftovers() -> dict:
+    """What the phases so far left running in this process: its live child
+    processes and threads, the card memory its allocator holds, and the
+    other processes ``nvidia-smi`` lists with a context on the card (a
+    container may hide them)."""
+    import multiprocessing
+    import os
+    import threading
+
+    import torch
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.split()
+    return {"children": [p.pid for p in multiprocessing.active_children()],
+            "threads": threading.active_count(),
+            "reserved_bytes": int(torch.cuda.memory_reserved()),
+            "card_processes": sorted(int(p) for p in apps
+                                     if p.isdigit() and int(p) != os.getpid())}
+
+
+def serve_rate(res: dict) -> dict:
+    return {"tokens_per_s": res["generated"] / res["wall_s"],
+            "decode_median_ms": float(np.median(res["decode_ms"])),
+            "wall_s": res["wall_s"]}
+
+
 def device_busy(prof, top: int = 12) -> tuple[float, dict]:
     """Device-busy microseconds of a ``torch.profiler`` trace and its
     ``top`` costliest device kernels (ms). Only device-side events count:
@@ -785,20 +1053,19 @@ def profile_query(device, fact, dim) -> dict:
     """Re-run a query on its tables under ``torch.profiler`` (outside the
     counted run) and split its wall into device-busy and idle time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.analytics.query import (
         QueryStrategy, execute_query_runtime)
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def query(_):
         t0 = time.perf_counter()
         execute_query_runtime(fact, dim, QueryStrategy("static_merge"),
                               app="smoke_profile", invoker="threads",
                               pipeline=True, num_groups=NUM_GROUPS,
                               device=device)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        return time.perf_counter() - t0
+
+    prof, wall = traced(query, cpu=True)
     device_us, top = device_busy(prof)
     from torch.autograd import DeviceType
     partition_us = sum(
@@ -826,20 +1093,22 @@ def serve_config():
     return cfg
 
 
-def serve_phase(dev, cfg) -> dict:
+def serve_phase(dev, cfg, model=None) -> dict:
     """Serve 8 requests with ``cfg`` (llama3.2-3b at full width and depth)
     through the port's ``ServingEngine``, with the attention launch
     counters set to 0 just before and read just after. The engine's decode
-    logits are kept (on the card) for the teacher-forced check."""
+    logits are kept (on the card) for the teacher-forced check. ``model``
+    serves the same requests again on weights made by an earlier call."""
     import torch
     from repro_torch.kernels import attention as A
     from repro_torch.models import init_lm
     from repro_torch.serving import Request, ServingEngine
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
     t0 = time.perf_counter()
-    model = init_lm(cfg, gen, dev)
+    if model is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        model = init_lm(cfg, gen, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
@@ -962,23 +1231,27 @@ def profile_decode(res: dict, dev) -> dict:
     step, outside the trace) under ``torch.profiler``: the step's wall,
     its device-busy time and its costliest device ops."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import Request, ServingEngine
 
-    engine = ServingEngine(res["cfg"], res["model"], max_batch=SERVE_BATCH,
-                           max_seq=SERVE_SEQ, device=dev)
-    for i, prompt in enumerate(res["prompts"][:SERVE_BATCH]):
-        engine.submit(Request(i, prompt, max_new_tokens=PROFILE_STEPS + 1))
-    engine.run(max_steps=1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def prefilled():
+        engine = ServingEngine(res["cfg"], res["model"],
+                               max_batch=SERVE_BATCH, max_seq=SERVE_SEQ,
+                               device=dev)
+        for i, prompt in enumerate(res["prompts"][:SERVE_BATCH]):
+            engine.submit(Request(i, prompt,
+                                  max_new_tokens=PROFILE_STEPS + 1))
+        engine.run(max_steps=1)
+        return engine
+
+    def steps(engine):
         t0 = time.perf_counter()
         engine.run(max_steps=PROFILE_STEPS)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    require(engine.metrics["steps"] == PROFILE_STEPS + 1,
-            f"profiled {engine.metrics['steps'] - 1} steps")
+        require(engine.metrics["steps"] == PROFILE_STEPS + 1,
+                f"profiled {engine.metrics['steps'] - 1} steps")
+        return time.perf_counter() - t0
+
+    prof, wall = traced(steps, setup=prefilled, cpu=True)
     device_us, top = device_busy(prof)
     return {"steps": PROFILE_STEPS, "wall_ms_per_step": wall / PROFILE_STEPS
             * 1e3, "device_busy_ms_per_step": device_us / 1e3
@@ -993,7 +1266,6 @@ def profile_prefill(res: dict, dev) -> dict:
     untraced one, under ``torch.profiler``: its wall, device-busy time and
     costliest device ops."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import init_decode_state, prefill_step
 
     cfg = res["cfg"]
@@ -1004,14 +1276,13 @@ def profile_prefill(res: dict, dev) -> dict:
         state = init_decode_state(cfg, SERVE_BATCH, SERVE_SEQ, dev)
         prefill_step(res["model"], state, {"tokens": tokens})
 
-    wave()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def timed_wave(_):
         t0 = time.perf_counter()
         wave()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        return time.perf_counter() - t0
+
+    prof, wall = traced(timed_wave, setup=wave, cpu=True)
     device_us, top = device_busy(prof)
     return {"wall_ms": wall * 1e3, "device_busy_ms": device_us / 1e3,
             "idle_share": 1.0 - device_us / 1e6 / wall,
@@ -1037,6 +1308,16 @@ def print_kernel_rows(rows, card: str) -> None:
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |err| "
               f"{r['max_abs_err']:.3g}{extra} [{card}]")
+
+
+def print_query(res: dict, card: str) -> None:
+    print(f"query {res['app']}: {res['fact_rows']} fact rows, wall "
+          f"{res['wall_s']:.3f} s, {res['rows_per_s']:.0f} rows/s, peak "
+          f"{res['peak_bytes']} B, max |err| {res['max_abs_err']:.3g}, "
+          f"launches {res['launches']} [{card}]")
+    print(f"  setup (not timed): {res['setup']}")
+    print(f"  sequence: {res['sequence']}")
+    print(f"  stages: {json.dumps(res['stages'])}")
 
 
 def main() -> int:
@@ -1071,24 +1352,39 @@ def main() -> int:
     print(f"card: {card}")
 
     from repro_torch.kernels import partition as K
-    before = {k: set(v) for k, v in K.SHAPES.items()}
+    partition_before = {k: set(v) for k, v in K.SHAPES.items()}
+    seconds = {}
+    t0 = time.perf_counter()
     phases = [small_query(dev), large_query(dev)]
-    main_shapes = {k: K.SHAPES[k] - before[k] for k in K.SHAPES}
+    seconds["queries"] = time.perf_counter() - t0
     for res in phases:
-        print(f"query {res['app']}: {res['fact_rows']} fact rows, wall "
-              f"{res['wall_s']:.3f} s, {res['rows_per_s']:.0f} rows/s, peak "
-              f"{res['peak_bytes']} B, max |err| {res['max_abs_err']:.3g}, "
-              f"launches {res['launches']} [{card}]")
-        print(f"  setup (not timed): {res['setup']}")
-        print(f"  sequence: {res['sequence']}")
-        print(f"  stages: {json.dumps(res['stages'])}")
-    print(f"main-path kernel shapes: "
-          f"{ {k: sorted(v) for k, v in main_shapes.items()} }")
+        print_query(res, card)
+    print(f"phase queries: {seconds['queries']:.2f} s")
+
+    t0 = time.perf_counter()
+    sim = sim_plane(dev, phases[1])
+    for res in phases:             # the large one's trace is replayed
+        del res["runtime"]
+    seconds["sim_plane"] = time.perf_counter() - t0
+    print(f"sim_plane: calibrated rates (bytes/s) "
+          f"{json.dumps(sim['rates'])} in {sim['calibrate_s']:.3f} s "
+          f"[{card}]")
+    print(f"sim_plane: planned smoke_large's 2^25-row tables in "
+          f"{sim['plan_s']:.3f} s, launches {sim['launches']}, decisions "
+          f"equal the runtime's: {sim['sequence']} [{card}]")
+    print(f"sim_plane: simulated makespan {sim['planned_makespan_s']:.6f} s "
+          f"(calibrated rates); trace replay of {sim['replayed_tasks']} "
+          f"invocations: simulated makespan "
+          f"{sim['replayed_makespan_s']:.6f} s against the measured wall "
+          f"{sim['measured_wall_s']:.6f} s [{card}]")
+    print(f"phase sim_plane: {seconds['sim_plane']:.2f} s")
 
     from repro_torch.kernels import attention as A
     before = {k: set(v) for k, v in A.SHAPES.items()}
+    t0 = time.perf_counter()
     serve = serve_phase(dev, serve_config())
     tf = check_served_tokens(serve, dev)
+    seconds["serve"] = time.perf_counter() - t0
     attn_shapes = {k: A.SHAPES[k] - before[k] for k in A.SHAPES}
     dms = np.asarray(serve["decode_ms"])
     print(f"serve {SERVE_ARCH}: {len(serve['done'])} requests finished, "
@@ -1108,6 +1404,58 @@ def main() -> int:
           f"{LOGIT_TOL}) [{card}]")
     print(f"main-path attention shapes: "
           f"{ {k: sorted(v) for k, v in attn_shapes.items()} }")
+    print(f"phase serve: {seconds['serve']:.2f} s")
+    # the same requests again on the same weights, now warm: the yardstick
+    # of the serve run after the worker and scheduler phases below
+    warm = serve_rate(serve_phase(dev, serve["cfg"], serve["model"]))
+    warm.update(leftovers())
+
+    t0 = time.perf_counter()
+    proc = process_query(dev, phases[1])
+    seconds["process_query"] = time.perf_counter() - t0
+    print_query(proc, card)
+    pool = proc["pool"]
+    print(f"process_query: {PROCESS_WORKERS} workers at most, peak pool "
+          f"{pool['peak_size']}, cold starts {pool['cold_starts']} (mean "
+          f"{proc['mean_cold_start_s']:.3f} s), warm hits "
+          f"{pool['warm_hits']}, function-seconds "
+          f"{pool['cost_function_seconds']:.3f} (busy "
+          f"{pool['busy_seconds']:.3f}, provision "
+          f"{pool['provision_seconds']:.3f}), worker launches "
+          f"{proc['worker_launches']}, card memory used at most "
+          f"{proc['gpu_memory_used_peak_mib']} MiB; threads wall "
+          f"{phases[1]['wall_s']:.3f} s [{card}]")
+    print(f"process_query split: {json.dumps(proc['split'])} [{card}]")
+    print(f"phase process_query: {seconds['process_query']:.2f} s")
+
+    t0 = time.perf_counter()
+    mix = scheduler_mix(dev)
+    seconds["scheduler_mix"] = time.perf_counter() - t0
+    print(f"scheduler_mix: {MIX_QUERIES} queries of {MIX_ROWS} fact rows, "
+          f"priorities {list(MIX_PRIORITIES)} (tables and oracles "
+          f"{mix['setup_s']:.2f} s, not timed) [{card}]")
+    for policy, r in mix["policies"].items():
+        print(f"scheduler_mix {policy}: makespan {r['makespan_s']:.4f} s, "
+              f"priority-10 latencies "
+              f"{[round(x, 4) for x in r['hi_latencies_s']]} s, all "
+              f"{[round(x, 4) for x in r['all_latencies_s']]} s, max |err| "
+              f"{r['max_abs_err']:.3g}, launches {r['launches']} [{card}]")
+    print(f"phase scheduler_mix: {seconds['scheduler_mix']:.2f} s")
+    # does anything the worker and scheduler phases leave behind slow
+    # later work? The same warm serve run again, in this process
+    after = leftovers()
+    require(not after["children"],
+            f"worker processes outlived their invoker: {after['children']}")
+    t0 = time.perf_counter()
+    after.update(serve_rate(serve_phase(dev, serve["cfg"], serve["model"])))
+    seconds["serve_again"] = time.perf_counter() - t0
+    print(f"serve again: warm before the worker and scheduler phases "
+          f"{json.dumps(warm)}; after them {json.dumps(after)}; ratio of "
+          f"tokens/s {after['tokens_per_s'] / warm['tokens_per_s']:.4f} "
+          f"[{card}]")
+    main_shapes = {k: K.SHAPES[k] - partition_before[k] for k in K.SHAPES}
+    print(f"main-path kernel shapes: "
+          f"{ {k: sorted(v) for k, v in main_shapes.items()} }")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -1118,9 +1466,13 @@ def main() -> int:
             check_k5(dev, gen, attn_shapes["decode_attention"],
                      serve["decode_lengths"])]
     print_kernel_rows(rows, card)
-    # the main path's launches: the queries and the serve phase (the
+    # the main path's launches: the queries, the simulator's planning, the
+    # process workers', the scheduler's and the serve phase (the
     # teacher-forced check's own are on its line above)
-    counted = [res["launches"] for res in phases] + [serve["launches"]]
+    counted = [res["launches"] for res in phases] + [
+        sim["launches"], proc["worker_launches"]] + [
+        r["launches"] for r in mix["policies"].values()] + [
+        serve["launches"]]
     for r in rows:
         r["launches"] = sum(c.get(r["name"], 0) for c in counted)
         for extra in ("shape", "device", "device_ops_per_call", "checked_ms",
@@ -1136,6 +1488,7 @@ def main() -> int:
     prof = profile_prefill(serve, dev)
     print(f"profile serve prefill ({SERVE_BATCH}x{SERVE_SEQ} tokens, profiler "
           f"on): {json.dumps(prof)} [{card}]")
+    print(f"phase seconds: {json.dumps(seconds)}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

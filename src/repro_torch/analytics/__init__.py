@@ -1,6 +1,6 @@
 """Serverless data-analytics case study (the paper's §3/§6 workload): the
-runtime half of the query path. The simulator half of the reference
-(``ClusterSim``, ``plan_query_with_workflow``) is not ported yet."""
+runtime plane and the simulator plane of the query path, both bound by one
+decision workflow."""
 
 from repro_torch.analytics.table import (  # noqa: F401
     DistTable,
@@ -18,13 +18,22 @@ from repro_torch.analytics.decisions import (  # noqa: F401
 from repro_torch.analytics.planner import (  # noqa: F401
     AdaptiveQueryPlan,
     build_query_workflow,
+    estimate_scan_output,
+    plan_query_with_workflow,
     stages_for_run,
 )
-from repro_torch.analytics.simulator import calibrated_rates  # noqa: F401
+from repro_torch.analytics.simulator import (  # noqa: F401
+    ClusterSim,
+    SimTask,
+    calibrated_rates,
+    make_cluster,
+    sim_fault_models,
+)
 from repro_torch.analytics.query import (  # noqa: F401
     QueryStrategy,
     execute_query_runtime,
     execute_query_torch,
+    plan_query_tasks,
     plan_runtime_stages,
     prepare_query_plan,
     reference_query_numpy,

@@ -2,12 +2,15 @@
 
 One ``DecisionWorkflow`` per query carries five per-phase decision nodes —
 ``scan``, ``join``, ``exchange``, ``aggregate``, ``pipeline`` — and drives
-the serverless runtime. ``AdaptiveQueryPlan`` is the runtime side: the DAG
+*both* data planes. ``AdaptiveQueryPlan`` is the runtime side: the DAG
 executor calls it back as physical stages complete, it folds the observed
 metrics and the **post-filter** scan output distribution into the workflow
 context, binds the next decisions, and emits the newly materialized stages
-— a mid-query re-plan. (The reference's simulator side,
-``plan_query_with_workflow``, is not ported yet.)
+— a mid-query re-plan. ``plan_query_with_workflow`` is the simulator side:
+it walks the identical workflow, substituting an *estimated* scan output
+for the measured one, and submits ``SimTask``s. Because both planners
+evaluate the same workflow object, the simulated and real plans come from
+identical decision sequences.
 
 The join node is late-bound on the scan stage: it sees ``A_scanned`` (the
 post-filter fact distribution) instead of the raw input, so a highly
@@ -20,6 +23,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.analytics.decisions import ALPHA
 from repro_torch.core.decisions import (
@@ -31,9 +35,12 @@ from repro_torch.core.decisions import (
     Schedule,
     WorkflowRun,
     elasticity_node,
+    merge_hot_keys,
+    partition_skew,
     skew_node,
     tiering_node,
 )
+from repro_torch.device import resolve_device
 
 MAX_JOIN_FANOUT = 64      # runtime join bucket-space cap
 
@@ -133,6 +140,52 @@ def decide_skew(run: WorkflowRun, rows_hist, bytes_hist,
     run.ctx.profile["skew.hot_keys"] = tuple(
         (int(k), int(c)) for k, c in hot_keys)
     return run.decide("skew")
+
+
+def shuffle_skew_feedback(fact, n_join: int, filter_col: str = "v0",
+                          filter_gt: float = 0.0, device=None) -> tuple:
+    """The simulator's stand-in for the runtime's observed shuffle
+    feedback: ``(partition_rows, partition_bytes, hot_keys)`` of the
+    post-filter fact side, computed with the same kernels
+    (``partition_ids``, then K1 for the per-partition histogram and again
+    inside ``heavy_hitter_sketch``) over the same partition contents the
+    runtime's shuffle writers see, on ``device`` (the card unless ``"cpu"``
+    is passed); only the counts and the sketch's candidates leave it.
+    Exact for materialized tables (the scan filter is replayed per
+    partition, exactly like ``estimate_scan_output``), so both planes bind
+    the identical skew decision; ``PhantomTable``s yield empty histograms —
+    the node then decides ``none`` on either plane."""
+    from repro_torch.kernels import ops as kops
+
+    parts = getattr(fact, "partitions", None)
+    if not parts:
+        return ((), (), ())
+    dev = resolve_device(device)
+    n_join = int(n_join)
+    rows = np.zeros(n_join, dtype=np.int64)
+    nbytes = np.zeros(n_join, dtype=np.int64)
+    sketches = []
+    for _node, t in sorted(parts.items()):
+        if t.num_rows == 0:
+            continue
+        keys = torch.as_tensor(t["key"]).to(dev)
+        if filter_col in t.columns:
+            keys = keys[torch.as_tensor(t[filter_col]).to(dev) > filter_gt]
+        if keys.numel() == 0:
+            continue
+        row_nb = sum(int(np.prod(tuple(v.shape[1:]))) * v.dtype.itemsize
+                     for v in t.columns.values())
+        keys = keys.to(torch.int32)
+        # hashed ids lie in [0, n_join) by construction; only the n_join
+        # counts leave the device
+        pids = kops.partition_ids(keys, n_join)
+        hist = kops.partition_histogram(
+            pids, n_join, check_ids=False).cpu().numpy().astype(np.int64)
+        rows += hist
+        nbytes += hist * row_nb
+        sketches.append(kops.heavy_hitter_sketch(keys))
+    return (tuple(int(r) for r in rows), tuple(int(b) for b in nbytes),
+            merge_hot_keys(sketches))
 
 
 # rough per-row bytes of a two-phase partial-aggregate bucket (group key +
@@ -310,6 +363,46 @@ def resolve_query_workflow(workflow: DecisionWorkflow | None, strategy,
         strategy,
         consolidate_threshold=2 << 30 if consolidate_threshold is None
         else consolidate_threshold)
+
+
+# ---------------------------------------------------------------------------
+# Scan feedback estimation (simulator stand-in for measured store state)
+# ---------------------------------------------------------------------------
+
+
+def estimate_scan_output(fact, name: str = "A_scanned",
+                         filter_col: str = "v0", filter_gt: float = 0.0,
+                         selectivity: float | None = None) -> DataDist:
+    """Simulated scan feedback: the post-filter output distribution.
+
+    For materialized ``DistTable``s the filter is evaluated per partition,
+    where its columns live — exact, byte-for-byte what the runtime's scan
+    stage writes to the store — so a shared workflow binds identical
+    decisions on either plane. For ``PhantomTable``s (GB-scale, size-only)
+    a selectivity factor scales the input distribution; the default 1.0
+    preserves the planner's historical sizing.
+    """
+    parts = getattr(fact, "partitions", None)
+    if parts is not None and selectivity is None:
+        per_node: dict[int, int] = {}
+        rows_per_part: list[int] = []
+        total_rows = 0
+        for node, t in sorted(parts.items()):
+            rows = t.num_rows
+            kept = rows
+            if rows and filter_col in t.columns:
+                kept = int((torch.as_tensor(t[filter_col]) > filter_gt)
+                           .sum())
+            row_bytes = (t.nbytes // rows) if rows else 0
+            per_node[node] = per_node.get(node, 0) + kept * row_bytes
+            rows_per_part.append(kept)
+            total_rows += kept
+        return DataDist(name, per_node, rows=total_rows,
+                        skew=partition_skew(rows_per_part))
+    dist = fact.data_dist()
+    s = 1.0 if selectivity is None else float(selectivity)
+    per = {n: int(b * s) for n, b in dist.bytes_per_node.items()}
+    return DataDist(name, per, rows=int(dist.rows * s), skew=dist.skew)
 
 
 # ---------------------------------------------------------------------------
@@ -828,3 +921,192 @@ def stages_for_run(run: WorkflowRun, app: str,
         aggregate=run.decisions.get("aggregate"),
         pipeline=run.decisions.get("pipeline"),
         skew=run.decisions.get("skew"))
+
+
+# ---------------------------------------------------------------------------
+# Simulator materialization: the same workflow -> SimTasks
+# ---------------------------------------------------------------------------
+
+
+def plan_query_with_workflow(sim, pc, fact, dim, strategy,
+                             app: str = "query",
+                             workflow: DecisionWorkflow | None = None,
+                             consolidate_threshold: int | None = None,
+                             scan_selectivity: float | None = None,
+                             num_groups: int = 64,
+                             storage_spec=None,
+                             store_quota: int | None = None,
+                             device=None) -> WorkflowRun:
+    """Plan the TPC-DS-like sub-query into ``sim`` through the decision
+    workflow; the scan stage's feedback is *estimated* (exactly, for
+    materialized tables) instead of measured. ``storage_spec`` /
+    ``store_quota`` mirror the runtime store's cold-tier specs and app
+    quota into the tiering decision (default: the sim's own
+    ``storage_spec``/``store_quotas`` attributes when set, else no tiers —
+    matching a store without spill backends). ``device`` is where the skew
+    feedback's kernels and the rate calibration run: the card unless
+    ``"cpu"`` is passed. Returns the ``WorkflowRun`` whose decision sequence
+    the submitted tasks materialize."""
+    from repro_torch.analytics.simulator import calibrated_rates
+
+    rates = calibrated_rates(device=device)
+    gc = pc.gc
+    status = gc.node_status()
+    nodes = sorted(status.total_slots)
+    slots = max(status.total_slots.values())
+
+    dist_f, dist_d = fact.data_dist(), dim.data_dist()
+    pc.observe_data(dist_f)
+    pc.observe_data(dist_d)
+    wf = resolve_query_workflow(workflow, strategy, consolidate_threshold)
+    ctx = DecisionContext(data_dist={"A": dist_f, "B": dist_d},
+                          node_status=status, profile=dict(pc.profile))
+    run = wf.start(ctx)
+    run.app = app
+    run.decide("scan")
+
+    # simulate the scan stage: the estimated post-filter output distribution
+    # is the feedback the late-bound join decision consumes
+    scanned = estimate_scan_output(fact, selectivity=scan_selectivity)
+    run.observe(scanned)
+    run.feedback("scan", {"scan_fact.bytes_out": scanned.size,
+                          "scan_fact.estimated": True})
+    decision = run.decide("join")
+    exchange_d = run.decide("exchange")
+    # skew feedback: the sim *recomputes* exactly what the runtime's shuffle
+    # writers would observe — same partition_ids kernel, same sketch, same
+    # post-filter rows — so both planes bind the skew node on identical
+    # evidence and materialize identical decision sequences
+    if exchange_d.func == "shuffle":
+        rows_h, bytes_h, hot = shuffle_skew_feedback(
+            fact, join_fanout(decision), device=device)
+        run.feedback("exchange",
+                     {"shuffle_fact.partition_rows": rows_h,
+                      "shuffle_fact.partition_bytes": bytes_h,
+                      "shuffle_fact.hot_keys": hot})
+    else:
+        rows_h, bytes_h, hot = (), (), ()
+        run.feedback("exchange", {})
+    skew_d = decide_skew(run, rows_h, bytes_h, hot)
+    run.decide("aggregate")
+    run.decide("pipeline")
+    # elasticity, through the same helper as the runtime plane: the sim's
+    # cold-start model (when enabled) pre-warms on "grow" exactly where the
+    # runtime resizes its process pool
+    elastic_d = decide_elastic(run, join_fanout(decision), sim.pool_size()
+                               if hasattr(sim, "pool_size") else 0)
+    if elastic_d.func == "grow" and hasattr(sim, "prewarm"):
+        sim.prewarm(int(elastic_d.scale), app)
+    # tiering, through the same helper and the same plan-derived estimates
+    # as the runtime plane (estimate_scan_output is exact for materialized
+    # tables, so both planes price identical stage profiles)
+    if storage_spec is None:
+        storage_spec = getattr(sim, "storage_spec", None)
+    if store_quota is None:
+        store_quota = (getattr(sim, "store_quotas", None) or {}).get(app)
+    decide_tiering(run,
+                   ephemeral_stage_profile(scanned, dist_d, decision,
+                                           exchange_d, num_groups,
+                                           skew=skew_d),
+                   store_quota, storage_spec)
+    consolidated = bool(decision.extra("consolidate", False))
+
+    _submit_sim_tasks(sim, app, dist_f, dist_d, scanned, decision,
+                      consolidated, nodes, slots, rates)
+    return run
+
+
+def _submit_sim_tasks(sim, app, dist_f, dist_d, scanned, decision,
+                      consolidated, nodes, slots, rates) -> None:
+    from repro_torch.analytics.simulator import SimTask
+
+    # ---- scan phase 1: map over fact partitions (scan+filter+project) -----
+    map1 = []
+    if consolidated:
+        # paper Fig. 7 (2 GB case): pack everything onto one node; the only
+        # transfers are the initial partition pulls.
+        target = max(dist_f.bytes_per_node, key=dist_f.bytes_per_node.get)
+        n_tasks = min(slots, max(1, int(dist_f.size / ALPHA)))
+        per = dist_f.size / n_tasks
+        for i in range(n_tasks):
+            src = nodes[i % len(nodes)]
+            sim.submit(SimTask(
+                f"{app}/map1/{i}", app, per / rates["scan"], node=target,
+                priority=10,
+                transfers={src: int(per)} if src != target else {}))
+            map1.append(f"{app}/map1/{i}")
+    else:
+        n_tasks = max(1, int(dist_f.size / ALPHA))
+        placement = Schedule("round-robin", tuple(nodes)).place(n_tasks)
+        per = dist_f.size / n_tasks
+        for i, node in enumerate(placement):
+            data_node = nodes[i % len(nodes)]
+            sim.submit(SimTask(
+                f"{app}/map1/{i}", app, per / rates["scan"], node=node,
+                priority=10,
+                transfers={data_node: int(per)} if data_node != node else {}))
+            map1.append(f"{app}/map1/{i}")
+
+    # ---- scan phase 2: map over dim partitions ----------------------------
+    map2 = []
+    n_tasks2 = max(1, int(dist_d.size / ALPHA))
+    place2 = Schedule("round-robin", tuple(sorted(dist_d.loc))).place(n_tasks2)
+    per2 = dist_d.size / n_tasks2
+    for i, node in enumerate(place2):
+        sim.submit(SimTask(f"{app}/map2/{i}", app, per2 / rates["scan"],
+                           node=node, priority=10))
+        map2.append(f"{app}/map2/{i}")
+
+    # ---- join phase: sized by the *post-scan* volume ----------------------
+    join_nodes = decision.schedule.place(decision.scale) or tuple(nodes)
+    n_join = len(join_nodes)
+    per_join = scanned.size / n_join
+
+    if consolidated:
+        target = max(dist_f.bytes_per_node, key=dist_f.bytes_per_node.get)
+        for i in range(min(slots, n_join)):
+            sim.submit(SimTask(
+                f"{app}/join/{i}", app,
+                per_join / rates["hash_probe"]
+                + dist_d.size / max(1, n_join) / rates["hash_build"],
+                node=target, priority=10, deps=tuple(map1 + map2)))
+    elif decision.func == "merge_join":
+        # shuffle both sides by key: every join task pulls its hash range
+        # from every map task's node (all-to-all), then sort-merges.
+        for i, node in enumerate(join_nodes):
+            pulls = {n: int((per_join + dist_d.size / n_join)
+                            / max(1, len(nodes)))
+                     for n in nodes if n != node}
+            sim.submit(SimTask(
+                f"{app}/join/{i}", app,
+                (per_join + dist_d.size / n_join) / rates["merge_join"],
+                node=node, priority=10, deps=tuple(map1 + map2),
+                transfers=pulls))
+    else:
+        # hash join: broadcast the whole dim table once per *node* (senders =
+        # dim's home nodes, serialized — the Fig. 4c effect); the first task
+        # on a node builds the table, co-located tasks share it and probe.
+        dim_homes = sorted(dist_d.loc) or nodes
+        seen_nodes: set[int] = set()
+        for i, node in enumerate(join_nodes):
+            first_on_node = node not in seen_nodes
+            seen_nodes.add(node)
+            src = dim_homes[i % len(dim_homes)]
+            pulls = {src: int(dist_d.size)} \
+                if (first_on_node and src != node) else {}
+            dur = per_join / rates["hash_probe"]
+            if first_on_node:
+                dur += dist_d.size / rates["hash_build"]
+            sim.submit(SimTask(
+                f"{app}/join/{i}", app, dur, node=node, priority=10,
+                deps=tuple(map1 + map2), transfers=pulls))
+
+    # ---- final aggregation ------------------------------------------------
+    join_names = [t for t in sim.tasks if t.startswith(f"{app}/join/")]
+    agg_node = join_nodes[0] if join_nodes else nodes[0]
+    pulls = {n: int(scanned.size / max(1, n_join) / 16)
+             for n in set(join_nodes) if n != agg_node}
+    sim.submit(SimTask(f"{app}/agg", app,
+                       scanned.size / 16 / rates["agg"], node=agg_node,
+                       priority=10, deps=tuple(join_names),
+                       transfers=pulls))

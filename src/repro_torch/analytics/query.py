@@ -7,12 +7,16 @@
 
 Execution under Proteus: one decision workflow per query (scan → join →
 exchange → skew → aggregate → pipeline → elastic → tiering, see
-``repro_torch.analytics.planner``) drives the serverless runtime. Decisions
-are **late-bound**: the join node is evaluated only after the scan stage's
+``repro_torch.analytics.planner``) drives both data planes. Decisions are
+**late-bound**: the join node is evaluated only after the scan stage's
 runtime feedback has been folded into the context, so a selective filter
-can flip the join variant mid-query. ``execute_query_runtime`` runs the
-query end to end; ``execute_query_torch`` runs the logical plan in-process
-for correctness tests against a numpy oracle.
+can flip the join variant mid-query. On the serverless runtime the DAG
+executor interleaves decision evaluation with stage completion through
+``AdaptiveQueryPlan``; on the cluster simulator the same workflow binds the
+same decision sequence against an estimated scan output.
+``execute_query_runtime`` and ``plan_query_tasks`` are thin wrappers over
+that shared machinery; ``execute_query_torch`` runs the logical plan
+in-process for correctness tests against a numpy oracle.
 """
 
 from __future__ import annotations
@@ -27,10 +31,12 @@ from repro_torch.analytics import operators as ops
 from repro_torch.analytics.decisions import ALPHA
 from repro_torch.analytics.planner import (
     AdaptiveQueryPlan,
+    plan_query_with_workflow,
     resolve_query_workflow as _resolve_workflow,
     scan_stages,
     tail_stages,
 )
+from repro_torch.analytics.simulator import ClusterSim
 from repro_torch.analytics.table import (
     DistTable,
     Table,
@@ -143,6 +149,21 @@ def resolve_join_decision(strategy: QueryStrategy, ctx: DecisionContext,
     total_bytes = sum(d.size for d in ctx.data_dist.values())
     return decision, consolidation_applies(
         strategy.name, decision, total_bytes, consolidate_threshold)
+
+
+def plan_query_tasks(sim: ClusterSim, pc: PrivateController,
+                     fact: DistTable, dim: DistTable,
+                     strategy: QueryStrategy, app: str = "query",
+                     consolidate_threshold: int | None = None,
+                     workflow: DecisionWorkflow | None = None,
+                     device=None) -> None:
+    """Emit the task DAG for the sub-query — thin wrapper over the
+    workflow-driven planner (``plan_query_with_workflow``); ``device`` is
+    where its skew feedback and rate calibration run (the card unless
+    ``"cpu"`` is passed)."""
+    plan_query_with_workflow(
+        sim, pc, fact, dim, strategy, app=app, workflow=workflow,
+        consolidate_threshold=consolidate_threshold, device=device)
 
 
 # -- runtime execution: decisions -> real partitioned invocations ----------------

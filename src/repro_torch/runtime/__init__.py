@@ -5,8 +5,11 @@ this package executes those decisions: stateless function instances
 (``invoker``) run registered partitioned-analytics functions
 (``functions``) over an ephemeral externalized-state store (``store``),
 orchestrated as a stage DAG (``executor``), with per-invocation metrics
-(``metrics``) folded back into the decision workflows. The reference's
-process worker plane and multi-query scheduler are not ported yet.
+(``metrics``) folded back into the decision workflows and optionally
+replayed into the cluster simulator so both data planes share one plan.
+Function bodies run in-process (``invoker``) or in long-lived worker
+subprocesses (``workers``); a multi-query scheduler (``scheduler``) shares
+one runtime among many queries.
 """
 
 from repro_torch.runtime.storage import (  # noqa: F401
@@ -56,9 +59,20 @@ from repro_torch.runtime.invoker import (  # noqa: F401
     ThreadPoolInvoker,
 )
 from repro_torch.runtime.functions import FUNCTIONS, register  # noqa: F401
+from repro_torch.runtime.workers import (  # noqa: F401
+    ProcessPoolInvoker,
+    WorkerPool,
+)
 from repro_torch.runtime.executor import (  # noqa: F401
     DAGExecutor,
     Runtime,
     RuntimeStage,
     StagePlanner,
+)
+from repro_torch.runtime.scheduler import (  # noqa: F401
+    FairShareGate,
+    GateTimeoutError,
+    QueryJob,
+    QueryResult,
+    QueryScheduler,
 )

@@ -23,7 +23,7 @@ from __future__ import annotations
 import threading
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
@@ -426,8 +426,8 @@ class Runtime:
     """The executable serverless substrate: store + invoker + metrics.
 
     ``invoker`` may be an ``Invoker`` instance or one of the backend names
-    ``"inline"`` / ``"threads"``. ``"process"`` (long-lived worker
-    subprocesses) is refused until the worker plane is ported.
+    ``"inline"`` / ``"threads"`` / ``"process"`` (long-lived worker
+    subprocesses — see ``repro_torch.runtime.workers``).
 
     ``device`` is where function bodies compute: the card unless the caller
     passes ``"cpu"``; an ``Invoker`` instance brings its own.
@@ -459,9 +459,13 @@ class Runtime:
                                             max_workers=max_workers,
                                             batching=batching, device=device)
             elif invoker == "process":
-                raise NotImplementedError(
-                    "the process worker plane is not ported yet "
-                    "(ROADMAP Queue 1 item 9)")
+                # imported lazily: the worker plane pulls multiprocessing
+                # machinery most runtimes never need
+                from repro_torch.runtime.workers import ProcessPoolInvoker
+                invoker = ProcessPoolInvoker(gc, self.store, self.metrics,
+                                             max_workers=max_workers,
+                                             batching=batching,
+                                             device=device)
             else:
                 raise ValueError(f"unknown invoker backend {invoker!r}")
         elif device is not None and \
@@ -506,3 +510,8 @@ class Runtime:
     def release(self, app: str) -> int:
         """Tear down an application's ephemeral state; returns bytes freed."""
         return self.store.clear_app(app)
+
+    def replay_into(self, sim, app: str | None = None,
+                    rates: Mapping[str, float] | None = None) -> int:
+        """Feed the invocation trace to a ``ClusterSim`` (one shared plan)."""
+        return self.metrics.replay_into(sim, app=app, rates=rates)

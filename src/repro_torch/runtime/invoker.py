@@ -754,12 +754,17 @@ class InlineInvoker(Invoker):
 class ThreadPoolInvoker(Invoker):
     """Real parallelism: one worker per in-flight batch or function instance.
 
-    On the card every worker thread computes on its own CUDA stream (from
-    PyTorch's stream pool), so its invocations' launches, and the wait that
-    ``FnContext._force`` charges to them, are not queued behind other
-    workers'. Before it starts, a worker's stream waits for the work the
-    submitting thread had enqueued on its current stream (the stage's
-    input tables), and that stream waits for the worker's when it is done.
+    On the card every worker computes on a CUDA stream of its own, so its
+    invocations' launches, and the wait that ``FnContext._force`` charges
+    to them, are not queued behind other workers'. A worker borrows its
+    stream for each call from ``kernels.streams.WORKER_STREAMS``, which
+    lends a stream to one borrower at a time and makes another when none
+    is free, so no two workers running at once share a stream, whatever
+    ``max_workers`` is (PyTorch's own pool has 32 streams, so past 32
+    workers two would share one). Before it starts, a worker's stream
+    waits for the work the submitting thread had enqueued on its current
+    stream (the stage's input tables), and that stream waits for the
+    worker's when it is done.
 
     With a ``speculation`` policy installed (``SpeculationPolicy``,
     ``repro_torch.runtime.faults``) the invoker polls in-flight invocations and
@@ -791,27 +796,27 @@ class ThreadPoolInvoker(Invoker):
         self.speculation = speculation
         self.speculations: list[tuple[str, int, int, float]] = []
         self._pools: list[ThreadPoolExecutor] = []
-        self._local = threading.local()      # .stream: the worker's stream
 
     def _caller_stream(self):
         return torch.cuda.current_stream(self.device) \
             if self.device.type == "cuda" else None
 
     def _on_own_stream(self, caller, fn, *args):
-        """``fn(*args)`` on this worker thread's own stream, after the work
-        the submitting thread had enqueued on ``caller``; what the submitter
-        enqueues afterwards waits for the worker's launches in turn."""
+        """``fn(*args)`` on a stream this worker holds alone for the call,
+        after the work the submitting thread had enqueued on ``caller``;
+        what the submitter enqueues afterwards waits for the worker's
+        launches in turn."""
         if caller is None:
             return fn(*args)
-        stream = getattr(self._local, "stream", None)
-        if stream is None:
-            stream = self._local.stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(caller)
+        from repro_torch.kernels.streams import WORKER_STREAMS
+        stream = WORKER_STREAMS.take(self.device)
         try:
+            stream.wait_stream(caller)
             with torch.cuda.stream(stream):
                 return fn(*args)
         finally:
             caller.wait_stream(stream)
+            WORKER_STREAMS.give(stream)
 
     def run_stage(self, invocations: Sequence[Invocation],
                   deps: tuple[str, ...] = ()) -> None:

@@ -3,8 +3,9 @@
 Every function invocation — including preempted attempts — leaves an
 ``InvocationRecord``. The sink aggregates them per stage, formats the
 operator dashboards the examples print, folds profile feedback into
-``DecisionContext.profile`` (paper Fig. 5 step 4). (The reference's replay
-of the trace into ``ClusterSim`` waits for the simulator's port.)
+``DecisionContext.profile`` (paper Fig. 5 step 4), and can replay the whole
+trace into ``ClusterSim`` so the simulated benchmarks and the real data
+plane share one plan.
 """
 
 from __future__ import annotations
@@ -162,7 +163,7 @@ class MetricsSink:
     def clear(self, app: str | None = None) -> int:
         """Drop records (one app's, or all) — the compaction hook that keeps
         a long-running/service-mode sink bounded. Returns the number
-        dropped.
+        dropped. Note that ``replay_into`` only covers records still held.
         """
         with self._lock:
             before = len(self.records)
@@ -305,3 +306,34 @@ class MetricsSink:
                      f"{100 * m.padding_overhead:5.1f} "
                      f"{skew} {len(m.hot_keys):4d}")
         return "\n".join(lines)
+
+    # -- trace replay into the simulator ---------------------------------------
+
+    def replay_into(self, sim, app: str | None = None,
+                    rates: Mapping[str, float] | None = None) -> int:
+        """Submit the successful invocation trace as SimTasks.
+
+        The real runtime and the simulator then share one plan: same task
+        names, dependency edges, placements and transfer volumes; durations
+        come from calibrated per-operator rates applied to the *measured*
+        bytes (or measured wall time when no rate covers the function).
+        Returns the number of tasks submitted; caller runs ``sim.run()``.
+        """
+        from repro_torch.analytics.simulator import SimTask
+        n = 0
+        with self._lock:
+            records = list(self.records)
+        ok = {r.name for r in records if r.status == "ok"}
+        for r in records:
+            if r.status != "ok" or (app is not None and r.app != app):
+                continue
+            rate = (rates or {}).get(r.func)
+            duration = (r.bytes_in / rate) if rate and r.bytes_in \
+                else r.seconds
+            sim.submit(SimTask(
+                r.name, r.app, duration, node=r.node, priority=r.priority,
+                deps=tuple(d for d in r.deps if d in ok),
+                transfers={s: int(b) for s, b in r.reads_by_node.items()
+                           if s != r.node}))
+            n += 1
+        return n

@@ -235,10 +235,18 @@ def test_entry_points_raise_without_a_card_unless_asked(monkeypatch):
 
 
 def test_process_invoker_is_refused_not_replaced():
+    """Asking for the process backend gives the worker plane itself, on
+    the device asked for: never a stand-in such as the threads invoker."""
     from repro_torch.runtime.executor import Runtime
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        Runtime(tctl.GlobalController({0: 2}), invoker="process",
-                device="cpu")
+    from repro_torch.runtime.workers import ProcessPoolInvoker
+    rt = Runtime(tctl.GlobalController({0: 2}), invoker="process",
+                 device="cpu")
+    try:
+        assert type(rt.invoker) is ProcessPoolInvoker
+        assert rt.device == rt.invoker.pool.device == torch.device("cpu")
+        assert rt.invoker.pool.size() == 0    # no worker before a lease
+    finally:
+        rt.invoker.shutdown()
 
 
 def test_calibrated_rates_on_the_cpu_when_asked():

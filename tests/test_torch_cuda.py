@@ -604,3 +604,93 @@ def test_cuda_engine_serves_through_k4_and_k5(cuda_device):
     assert tattn.LAUNCHES == {
         "flash_attention": cfg.num_layers * metrics["prefills"],
         "decode_attention": cfg.num_layers * metrics["steps"]}
+
+
+@pytest.mark.cuda
+def test_cuda_threads_invoker_gives_each_of_40_workers_its_own_stream(
+        cuda_device):
+    """40 invocations that all run at once (each waits at a barrier for the
+    other 39) see 40 distinct current streams. PyTorch's pool holds 32
+    streams a priority, so handing those out would repeat one."""
+    import threading
+
+    from repro_torch.core.controllers import GlobalController
+    from repro_torch.runtime.invoker import Invocation, ThreadPoolInvoker
+    from repro_torch.runtime.metrics import MetricsSink
+    from repro_torch.runtime.store import ShuffleStore
+
+    n = 40
+    barrier = threading.Barrier(n, timeout=60)
+    seen = {}
+
+    def probe(ctx):
+        seen[ctx.index] = torch.cuda.current_stream(ctx.device).cuda_stream
+        barrier.wait()
+
+    invoker = ThreadPoolInvoker(GlobalController({0: n}), ShuffleStore(),
+                                MetricsSink(), max_workers=n, batching=False,
+                                device=cuda_device)
+    invoker.registry = {"probe": probe}
+    invoker.run_stage([Invocation(f"s/p/{i}", "s", "p", i, "probe", 0)
+                       for i in range(n)])
+    assert len(seen) == n
+    assert len(set(seen.values())) == n, sorted(seen.values())
+    # made non-blocking (cudaStreamNonBlocking), as PyTorch's pooled
+    # streams are
+    import ctypes
+
+    from repro_torch.kernels.streams import _cudart
+    flags = ctypes.c_uint()
+    for handle in seen.values():
+        assert _cudart().cudaStreamGetFlags(ctypes.c_void_p(handle),
+                                            ctypes.byref(flags)) == 0
+        assert flags.value == 1, handle
+    assert torch.cuda.current_stream(cuda_device).cuda_stream \
+        not in seen.values()
+
+
+# -- the process worker plane and the simulator plane on the card ------------------
+
+
+@pytest.mark.cuda
+def test_cuda_process_backend_query_launches_k1_k2_in_workers(cuda_device):
+    """A 2^18-row query on the process backend: each worker opens its own
+    CUDA context and runs the shuffle's K1 and K2 there; the result equals
+    the oracle and the host's own launch counters stay where they were."""
+    from repro_torch.analytics.query import (QueryStrategy,
+                                             execute_query_runtime,
+                                             synth_query_tables)
+    from repro_torch.core.controllers import GlobalController
+    from repro_torch.runtime import Runtime
+
+    fd, dd, ref = synth_query_tables(1 << 18, 1 << 14, seed=5,
+                                     device=cuda_device)
+    gc = GlobalController({n: 8 for n in range(4)})
+    rt = Runtime(gc, invoker="process", max_workers=2, device=cuda_device)
+    host = dict(tpart.LAUNCHES)
+    try:
+        got, _ = execute_query_runtime(fd, dd, QueryStrategy("static_merge"),
+                                       runtime=rt, pipeline=True)
+    finally:
+        rt.invoker.shutdown()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-2)
+    assert rt.invoker.worker_launches["partition_histogram"] > 0
+    assert rt.invoker.worker_launches["partition_scatter"] > 0
+    assert tpart.LAUNCHES == host
+    assert sum(gc.used.values()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_shuffle_skew_feedback_matches_cpu(cuda_device):
+    """The simulator's skew feedback on the card (its sketch through K1)
+    equals the CPU's, histogram, bytes and hot keys."""
+    from repro_torch.analytics.planner import shuffle_skew_feedback
+    from repro_torch.analytics.query import synth_query_tables
+
+    fd, _, _ = synth_query_tables(1 << 18, 1 << 12, zipf=1.5, seed=3,
+                                  device="cpu")
+    want = shuffle_skew_feedback(fd, 8, device="cpu")
+    before = tpart.LAUNCHES["partition_histogram"]
+    got = shuffle_skew_feedback(fd, 8, device=cuda_device)
+    assert got == want and sum(want[0]) > 0 and want[2]
+    assert tpart.LAUNCHES["partition_histogram"] > before
