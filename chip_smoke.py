@@ -31,7 +31,18 @@
    sequence once through the full ``forward`` (K4) and holds its logits at
    every generated position to the logits the engine decoded there (K5).
    Serves the same requests once more on the same weights, warm: the
-   yardstick for step 4's last run.
+   yardstick for step 4's last run. Then serves the same 8 requests with
+   ``granite-moe-1b-a400m`` at its published config (24 layers, d_model
+   1024, 32 experts top-8, d_expert 512, vocab 49155, bf16, random weights
+   from seed 0): K2 groups every MoE layer's expert assignments in every
+   prefill and decode step (24 launches each), K4 on its tensor-core route
+   in every prefill, K5 in every step. Its teacher-forced check holds each
+   request at the generated positions below the first position that lost
+   an assignment to the capacity in any layer, in its forward or in a
+   prefill that held it (a decode step must lose none); at least one
+   position must be held; the forward routes every token to the experts
+   the engine chose for it (the router's top-k turns on bf16 rounding).
+   Prints the drops.
 4. Drives the worker plane and the scheduler, each with the kernel
    counters set to 0 just before it and read just after (after the serve
    phase, so that the phases before it run as they always have):
@@ -59,13 +70,19 @@
    of that call (``torch.profiler``). Counts the device ops of one K1 call
    (must be 1), one K2 call (at most 2) and one K3 call (must be 1), times
    K2 once more with the range check that the path runs before it, and K3
-   once more at N = 2^20 probe rows against 16 Ki build rows.
+   once more at N = 2^20 probe rows against 16 Ki build rows. Holds the
+   MoE dispatch through K2 bit-exact against its plain version (the
+   per-row stable argsort) at granite's prefill (32,768 assignments) and
+   decode (32) shapes over 129 buckets, and one MoE layer's output through
+   it within the bf16 tolerance of its output through the plain dispatch.
 6. Prints the ``kernels`` JSON line (K1-K5), its launch counts summed over
    every phase above.
-7. Re-runs the large query, eight decode steps and one prefill wave under
-   ``torch.profiler`` (outside the counted runs) and prints their
-   device-busy share and costliest device ops, and the query's device time
-   in the partition kernels. A profiler trace with no device event in it
+7. Re-runs the large query, and eight decode steps and one prefill wave of
+   each served model, under ``torch.profiler`` (outside the counted runs)
+   and prints their device-busy share and costliest device ops, and the
+   query's device time in the partition kernels; then times granite's
+   decode step with K2's range check and with it stubbed out (in turns,
+   inside that measurement only). A profiler trace with no device event in it
    is taken again, up to three times, before the script fails.
 8. Prints the seconds of each phase, the card line and, as its last line,
    ``{"ok": true, "device": {...}}``.
@@ -97,6 +114,15 @@ NUM_GROUPS = 64
 REPS = 20
 # the serve phase: llama3.2-3b at full width and depth
 SERVE_ARCH = "llama3.2-3b"
+# the MoE serve phase: granite-moe-1b-a400m at its published config, its
+# expert dispatch on K2 (same requests, batch and max_seq)
+MOE_ARCH = "granite-moe-1b-a400m"
+# (layers, d_model, heads, kv heads, head_dim, d_ff, vocab, dtype,
+# (experts, top_k, d_expert) or None): the published configs
+PUBLISHED = {
+    SERVE_ARCH: (28, 3072, 24, 8, 128, 8192, 128256, "bfloat16", None),
+    MOE_ARCH: (24, 1024, 16, 8, 64, 512, 49155, "bfloat16", (32, 8, 512)),
+}
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 8, 32
 SERVE_BATCH, SERVE_SEQ = 4, 1024
 PROMPT_LENGTHS = (64, 512)
@@ -399,6 +425,98 @@ def check_k2(dev, gen, main_shapes) -> dict:
             "shape": f"n_pad={n} P+1={p}"}
 
 
+def check_moe_dispatch(dev, gen, res: dict) -> dict:
+    """The MoE dispatch through K2 (``moe.dispatch``) bit-exact against
+    its plain version (``moe.dispatch_plain``, the reference's per-row
+    stable argsort) at the main path's shapes: a prefill wave's
+    ``SERVE_BATCH * SERVE_SEQ * top_k`` assignments and a decode step's
+    ``SERVE_BATCH * top_k``, over ``SERVE_BATCH * E + 1`` buckets, experts
+    chosen by the served model's first router from random inputs; and
+    that layer's output through it within the bf16 tolerance of the
+    reference's kernel tests (atol and rtol 2e-2) of its output through the
+    plain dispatch. Both dispatches timed at each shape, call and device
+    time."""
+    import torch
+    from repro_torch.models import moe
+    cfg = res["cfg"]
+    layer = res["model"].layers[0].ffn
+    m = cfg.moe
+    out = []
+    for s in (SERVE_SEQ, 1):
+        x = torch.randn((SERVE_BATCH, s, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        top_i = torch.topk(torch.softmax(x.float() @ layer.router, -1),
+                           m.top_k, dim=-1).indices
+        cap = moe.capacity(s, m)
+        got = moe.dispatch(top_i, m.num_experts, cap)
+        want = moe.dispatch_plain(top_i, cap)
+        for name, a, b in zip(moe.Dispatch._fields, got, want):
+            require(bits_equal(a, b), f"the MoE dispatch's {name} on K2 "
+                    f"differs from its plain version at S={s}")
+        y = moe.moe(layer, x, cfg)[0]
+        dispatch = moe.dispatch
+        moe.dispatch = lambda t, e, c: moe.dispatch_plain(t, c)
+        try:
+            y_plain = moe.moe(layer, x, cfg)[0]
+        finally:
+            moe.dispatch = dispatch
+        err = (y.float() - y_plain.float()).abs()
+        tol = ATTN_TOL["torch.bfloat16"]
+        require(bool((err <= tol + tol * y_plain.float().abs()).all()),
+                f"a MoE layer through K2 differs from it through the plain "
+                f"dispatch at S={s}: max |err| {float(err.max())}")
+        out.append({"assignments": SERVE_BATCH * s * m.top_k,
+                    "buckets": SERVE_BATCH * m.num_experts + 1,
+                    "capacity": cap, "dropped": int((~got.keep).sum()),
+                    "layer_max_abs_err": float(err.max()),
+                    "ms": median_ms(lambda: moe.dispatch(
+                        top_i, m.num_experts, cap)),
+                    "plain_ms": median_ms(lambda: moe.dispatch_plain(
+                        top_i, cap)),
+                    "device_ms": device_ms(lambda: moe.dispatch(
+                        top_i, m.num_experts, cap)),
+                    "plain_device_ms": device_ms(lambda: moe.dispatch_plain(
+                        top_i, cap))})
+    return {"shapes": out}
+
+
+def range_check_cost(res: dict, dev, steps: int = PROFILE_STEPS,
+                     pairs: int = 4) -> dict:
+    """Decode ms per step of a full batch of the MoE model as it runs
+    (K2's range check, an ``aminmax`` and a host read, in every MoE
+    layer's dispatch) and with the check stubbed out inside this
+    measurement only, in turns (on, off, off, on, ...: ``pairs`` of each),
+    ``steps`` steps each after a prefill and a first step: what the
+    check's host syncs cost a decode step."""
+    import torch
+    from repro_torch.kernels import partition as K
+    from repro_torch.serving import Request, ServingEngine
+
+    def step_ms() -> float:
+        engine = ServingEngine(res["cfg"], res["model"],
+                               max_batch=SERVE_BATCH, max_seq=SERVE_SEQ,
+                               device=dev)
+        for i, prompt in enumerate(res["prompts"][:SERVE_BATCH]):
+            engine.submit(Request(i, prompt, max_new_tokens=steps + 1))
+        engine.run(max_steps=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run(max_steps=steps)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    checked = K._check_ids
+    times = {"checked": [], "unchecked": []}
+    for on in (True, False, False, True) * (pairs // 2):
+        K._check_ids = checked if on else (lambda ids, p: None)
+        try:
+            times["checked" if on else "unchecked"].append(step_ms())
+        finally:
+            K._check_ids = checked
+    return {"syncs_per_step": moe_layers(res["cfg"]),
+            "ms_per_step": times}
+
+
 INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
 
 
@@ -657,7 +775,8 @@ def check_k5(dev, gen, main_shapes, lengths) -> dict:
             A.decode_attention(*args), ref.decode_attention_ref(*args), dt,
             f"K5 differs from its plain version at B={b} H={h} S={s} K={kh}"
             f" hd={hd} {dt}"))
-    b, h, s, kh, hd, dt = max(main_shapes, key=lambda sh: sh[0] * sh[2])
+    b, h, s, kh, hd, dt = max(main_shapes, key=lambda sh: (sh[0] * sh[2],
+                                                           sh[1] * sh[4]))
     for dt_edge in (dt, "torch.float32"):
         at_edges = (0, 1, 63, 64, 65, 127, 128, 129, s - 1, s)
         args = case(len(at_edges), h, s, kh, hd, dt_edge, at_edges)
@@ -1082,25 +1201,178 @@ def profile_query(device, fact, dim) -> dict:
 # -- serve phase ------------------------------------------------------------------
 
 
-def serve_config():
-    """llama3.2-3b's published config, checked."""
+def serve_config(arch: str = SERVE_ARCH):
+    """``arch``'s published config (llama3.2-3b or granite-moe-1b-a400m),
+    checked."""
     from repro_torch.configs import get_config
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
+    moe = None if cfg.moe is None else (cfg.moe.num_experts, cfg.moe.top_k,
+                                        cfg.moe.d_expert)
     require((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype)
-            == (28, 3072, 24, 8, 128, 8192, 128256, "bfloat16"),
-            f"{SERVE_ARCH} is not the published config: {cfg}")
+             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype, moe)
+            == PUBLISHED[arch], f"{arch} is not the published config: {cfg}")
     return cfg
 
 
-def serve_phase(dev, cfg, model=None) -> dict:
-    """Serve 8 requests with ``cfg`` (llama3.2-3b at full width and depth)
-    through the port's ``ServingEngine``, with the attention launch
-    counters set to 0 just before and read just after. The engine's decode
+def moe_layers(cfg) -> int:
+    return sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+
+
+class MoeRecorder:
+    """While entered, wraps the MoE router and dispatch
+    (``repro_torch.models.moe.route`` and ``.dispatch``) and keeps, under
+    the ``label`` of the moment, each layer's expert choices ``top_i`` and
+    each dispatch's sequence length and bookkeeping: no device work is
+    added to the run."""
+
+    def __init__(self):
+        self.label = None
+        self.routes: list = []
+        self.calls: list = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._route, self._dispatch = moe.route, moe.dispatch
+
+        def recording_route(p, x, top_k):
+            out = self._route(p, x, top_k)
+            self.routes.append((self.label, out[2]))
+            return out
+
+        def recording_dispatch(top_i, num_experts, cap):
+            bk = self._dispatch(top_i, num_experts, cap)
+            self.calls.append((self.label, top_i.shape[1], bk.token_src,
+                               bk.keep))
+            return bk
+
+        moe.route, moe.dispatch = recording_route, recording_dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route, moe.dispatch = self._route, self._dispatch
+
+    def top_i(self, label) -> list:
+        """The label's expert choices, one ``(R, S, k)`` a MoE layer."""
+        return [t for lab, t in self.routes if lab == label]
+
+    def lost(self, label, calls: int):
+        """The ``(R, S)`` count of assignments each token lost to the
+        capacity over the label's dispatches, which must be ``calls``: one
+        a MoE layer, so that no sequence was cut into chunks (whose token
+        positions would not line up)."""
+        import torch
+        mine = [c for c in self.calls if c[0] == label]
+        require(len(mine) == calls,
+                f"{label}: {len(mine)} MoE dispatches, expected {calls}")
+        total = None
+        for _, s, token_src, keep in mine:
+            counts = torch.zeros((token_src.shape[0], s), dtype=torch.int64,
+                                 device=token_src.device).scatter_add_(
+                1, token_src, (~keep).long())
+            total = counts if total is None else total + counts
+        return total
+
+
+def first_lost(counts_row, upto: int) -> int | None:
+    """The first position below ``upto`` whose token lost an assignment,
+    or None."""
+    hit = counts_row[:upto].nonzero()
+    return int(hit[0, 0]) if hit.numel() else None
+
+
+class PinnedRouting:
+    """While entered, the MoE router keeps its probabilities but routes
+    each token of each layer, in call order, to ``pinned[layer]`` ``(B, S,
+    k)``, with those experts' probabilities renormalized, and counts the
+    (token, layer) pairs whose own top-k set differs."""
+
+    def __init__(self, pinned: list):
+        self.pinned, self.layer, self.differ = pinned, 0, 0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._route = moe.route
+
+        def pinned_route(p, x, top_k):
+            probs, _, own = self._route(p, x, top_k)
+            top_i = self.pinned[self.layer].to(own.device)
+            self.layer += 1
+            chosen = torch.zeros_like(probs, dtype=torch.bool)
+            self.differ += int((chosen.scatter(-1, own, True)
+                                != chosen.scatter(-1, top_i, True)).any(-1)
+                               .sum())
+            top_p = probs.gather(-1, top_i)
+            return probs, top_p / top_p.sum(dim=-1, keepdim=True), top_i
+
+        moe.route = pinned_route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._route
+
+
+def engine_routing(res: dict, req) -> list:
+    """The experts the engine chose for each token of ``req``'s sequence
+    (its prompt and every generated token but the last), one ``(1, L, k)``
+    a MoE layer: at positions below its last prefill's length less one,
+    that prefill's choices; from there on, the decode steps' (each step
+    re-feeds and routes the position it decodes from)."""
+    import torch
+    rec, last = res["recorder"], res["drops"]["last_prefill"][req.req_id]
+    n = len(req.tokens)
+    cut = last["tokens"] - 1
+    pre = rec.top_i(("prefill", last["wave"]))
+    rows = res["where"][req.req_id][cut - (n - 1):]
+    steps = {}
+    for step, _ in rows:
+        if step not in steps:
+            steps[step] = rec.top_i(("decode", step))
+    return [torch.cat([pre[layer][last["slot"], :cut]]
+                      + [steps[step][layer][slot] for step, slot in rows])[None]
+            for layer in range(len(pre))]
+
+
+def prefill_drops(rec: MoeRecorder, waves, layers: int) -> dict:
+    """What the prefill waves lost to the MoE capacity: per wave the
+    assignments dropped at every position (the padding included) and at
+    the real tokens' positions, and per request the last wave that held it
+    (its slot, its tokens then and the first of them that lost an
+    assignment, or None)."""
+    per_wave, last = [], {}
+    for w, slots in enumerate(waves):
+        counts = rec.lost(("prefill", w), layers)
+        require(counts.shape == (SERVE_BATCH, SERVE_SEQ),
+                f"prefill wave {w}: drop counts of shape {counts.shape}")
+        real = 0
+        for slot, held in enumerate(slots):
+            if held is None:
+                continue
+            rid, n = held
+            real += int(counts[slot, :n].sum())
+            last[rid] = {"wave": w, "slot": slot, "tokens": n,
+                         "first_lost": first_lost(counts[slot], n)}
+        per_wave.append({"dropped": int(counts.sum()), "dropped_real": real,
+                         "requests": [h and h[0] for h in slots]})
+    return {"waves": per_wave, "last_prefill": last}
+
+
+def serve_phase(dev, cfg, model=None, rec: MoeRecorder | None = None
+                ) -> dict:
+    """Serve 8 requests with ``cfg`` (llama3.2-3b or granite-moe-1b-a400m
+    at its published config) through the port's ``ServingEngine``, with
+    the attention and partition launch counters set to 0 just before and
+    read just after: K4 once a layer a prefill wave, K5 once a layer a
+    decode step, and K2 once a MoE layer in both. The engine's decode
     logits are kept (on the card) for the teacher-forced check. ``model``
-    serves the same requests again on weights made by an earlier call."""
+    serves the same requests again on weights made by an earlier call.
+    ``rec`` records the MoE routing and dispatch of every prefill wave and
+    decode step (decode steps must drop no assignment)."""
     import torch
     from repro_torch.kernels import attention as A
+    from repro_torch.kernels import partition as K
     from repro_torch.models import init_lm
     from repro_torch.serving import Request, ServingEngine
 
@@ -1125,9 +1397,13 @@ def serve_phase(dev, cfg, model=None) -> dict:
     step_pos: list = []
     where: dict[int, list[tuple[int, int]]] = {}
     decode = engine._decode
+    # per prefill wave, (request id, tokens held) in each slot
+    waves: list = []
 
     def recording_decode(model_, state, tokens):
         step_pos.append(state["pos"])
+        if rec is not None:
+            rec.label = ("decode", len(steps))
         logits, state = decode(model_, state, tokens)
         for slot, req in enumerate(engine.active):
             if req is not None:
@@ -1136,34 +1412,64 @@ def serve_phase(dev, cfg, model=None) -> dict:
         return logits, state
 
     engine._decode = recording_decode
+    if rec is not None:
+        prefill = engine._prefill
+
+        def recording_prefill(model_, state, inputs):
+            rec.label = ("prefill", len(waves))
+            waves.append([None if r is None else
+                          (r.req_id, len(r.tokens) + len(r.output))
+                          for r in engine.active])
+            return prefill(model_, state, inputs)
+
+        engine._prefill = recording_prefill
     for i, prompt in enumerate(prompts):
         engine.submit(Request(i, prompt, max_new_tokens=SERVE_NEW_TOKENS))
     torch.cuda.synchronize()
+    start_bytes = int(torch.cuda.memory_allocated())
     torch.cuda.reset_peak_memory_stats()
     A.reset_launches()
+    K.reset_launches()
     t0 = time.perf_counter()
-    done = engine.run(max_steps=4096)
+    if rec is None:
+        done = engine.run(max_steps=4096)
+    else:
+        with rec:
+            done = engine.run(max_steps=4096)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(A.LAUNCHES)
+    launches = {**A.LAUNCHES, **K.LAUNCHES}
     m = engine.metrics
     require(len(done) == SERVE_REQUESTS
             and all(len(r.output) == SERVE_NEW_TOKENS for r in done),
             f"served {len(done)} requests, outputs "
             f"{[len(r.output) for r in done]}")
     require(launches["flash_attention"] == cfg.num_layers * m["prefills"]
-            and launches["decode_attention"] == cfg.num_layers * m["steps"],
+            and launches["decode_attention"] == cfg.num_layers * m["steps"]
+            and launches["partition_scatter"]
+            == moe_layers(cfg) * (m["prefills"] + m["steps"]),
             f"launches {launches} for {m['prefills']} prefills and "
-            f"{m['steps']} decode steps of {cfg.num_layers} layers")
+            f"{m['steps']} decode steps of {cfg.num_layers} layers, "
+            f"{moe_layers(cfg)} of them MoE")
     # K5's lengths (pos + 1) at the decode step that read the most keys
     decode_lengths = max(((p + 1).tolist() for p in step_pos), key=sum)
-    return {"cfg": cfg, "model": model, "done": done, "prompts": prompts,
+    out = {}
+    if rec is not None:
+        out = {"drops": prefill_drops(rec, waves, moe_layers(cfg)),
+               "recorder": rec}
+        decode_lost = sum(int(rec.lost(("decode", i), moe_layers(cfg))
+                              .sum()) for i in range(len(steps)))
+        require(decode_lost == 0, f"decode steps dropped {decode_lost} "
+                "assignments (one token gives an expert one at most)")
+    return {**out, "cfg": cfg, "model": model, "done": done,
+            "prompts": prompts,
             "decode_lengths": decode_lengths,
             "steps": steps, "where": where, "init_s": init_s, "wall_s": wall,
             "generated": m["generated"], "decode_steps": m["steps"],
             "prefills": m["prefills"], "decode_ms": list(m["decode_ms"]),
             "prefill_ms": list(m["prefill_ms"]),
             "peak_bytes": int(torch.cuda.max_memory_allocated()),
+            "start_bytes": start_bytes,
             "launches": launches}
 
 
@@ -1172,23 +1478,90 @@ def check_served_tokens(res: dict, dev) -> dict:
     (K4); its logits at every generated position must agree with the
     engine's decode logits (K5) within ``LOGIT_TOL``, and their argmax with
     the served token wherever the forward's top-2 margin exceeds twice
-    that."""
+    that.
+
+    For a MoE model (``res["drops"]`` set by ``serve_phase``) the forward
+    is made to compute what the engine computed, up to rounding:
+
+    - A dropped assignment changes its token's output and every later
+      position's K/V. A decode step drops nothing (one token gives an
+      expert one assignment at most), so the forward drops nothing either
+      (the capacity factor raised to ``E / top_k``), and each request is
+      held only at generated positions below the first position that lost
+      an assignment in its last prefill (capacity that of ``SERVE_SEQ``
+      tokens, padding included), and only at tokens decoded after it.
+    - The router's top-k turns on bf16 rounding: on an H100 with the
+      seed-0 weights the forward's own choices differ from the engine's for
+      5–25 % of (token, layer) pairs, from the first token on, and the
+      reroutes move later logits by up to ~0.45. So the forward routes each token
+      to the experts the engine chose for it (``PinnedRouting``), with its
+      own probabilities, and prints how many pairs that changed.
+
+    Over all requests at least one position must be held. A forward at
+    the model's own capacity, unpinned, runs too, uncompared, for its drop
+    counts."""
+    import dataclasses
+
     import torch
     from repro_torch.kernels import attention as A
+    from repro_torch.kernels import partition as K
     from repro_torch.models import forward
 
     cfg, steps = res["cfg"], res["steps"]
+    model, passes = res["model"], 1
+    moe = "drops" in res
+    if moe:
+        passes = 2
+        layers = moe_layers(cfg)
+        no_drops = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+        rec = MoeRecorder()
     A.reset_launches()
+    K.reset_launches()
     max_err, checked, sure_total = 0.0, 0, 0
-    deltas, peak_logit = [], 0.0
+    deltas, peak_logit, held = [], 0.0, {}
     for req in res["done"]:
         n, new = len(req.tokens), len(req.output)
         seq = torch.tensor([req.tokens + req.output[:-1]], device=dev)
-        logits, _ = forward(res["model"], {"tokens": seq})
+        if not moe:
+            logits, _ = forward(model, {"tokens": seq})
+        else:
+            pin = PinnedRouting(engine_routing(res, req))
+            with rec:
+                rec.label = ("forward", req.req_id)
+                forward(model, {"tokens": seq})
+                rec.label = ("forward_pinned", req.req_id)
+                model.cfg = no_drops
+                try:
+                    with pin:
+                        logits, _ = forward(model, {"tokens": seq})
+                finally:
+                    model.cfg = cfg
         tf = logits[0, n - 1:n - 1 + new, :cfg.vocab_size]
         rows = res["where"][req.req_id]
         require(len(rows) == new, f"request {req.req_id}: {len(rows)} "
                 f"decode rows for {new} tokens")
+        served = req.output
+        if moe:
+            require(int(rec.lost(rec.label, layers).sum()) == 0,
+                    f"request {req.req_id}: the forward at capacity factor "
+                    f"{no_drops.moe.capacity_factor} dropped assignments")
+            lost = rec.lost(("forward", req.req_id), layers)[0]
+            last = res["drops"]["last_prefill"][req.req_id]
+            first = last["tokens"] - n          # decoded after that prefill
+            upto = new if last["first_lost"] is None \
+                else max(first, min(new, last["first_lost"] - (n - 1)))
+            held[req.req_id] = {
+                "prompt": n, "held": upto - first,
+                "prefill_first_lost": last["first_lost"],
+                "forward_dropped": int(lost.sum()),
+                "forward_first_lost": first_lost(lost, seq.shape[1]),
+                "rerouted_by_pinning": pin.differ,
+                "of": layers * seq.shape[1]}
+            tf, rows, served = (tf[first:upto], rows[first:upto],
+                                served[first:upto])
+            if not len(rows):
+                continue
         eng = torch.stack([steps[s][slot] for s, slot in rows])
         require(bool(torch.isfinite(tf).all() & torch.isfinite(eng).all()),
                 f"request {req.req_id}: non-finite logits")
@@ -1198,17 +1571,18 @@ def check_served_tokens(res: dict, dev) -> dict:
         deltas.append(delta.flatten()[::97])   # a strided sample of |diff|
         top2 = tf.topk(2, dim=-1).values
         sure = (top2[:, 0] - top2[:, 1]) > 2 * LOGIT_TOL
-        served = torch.tensor(req.output, device=dev)
+        served = torch.tensor(served, device=dev)
         require(bool((eng.argmax(-1) == served).all()),
                 f"request {req.req_id}: served tokens are not the argmax of "
                 f"the engine's own logits")
         require(bool((tf.argmax(-1)[sure] == served[sure]).all()),
                 f"request {req.req_id}: teacher-forced argmax differs where "
                 f"the margin exceeds {2 * LOGIT_TOL}")
-        checked += new
+        checked += len(rows)
         sure_total += int(sure.sum())
     torch.cuda.synchronize()
-    launches = dict(A.LAUNCHES)
+    launches = {**A.LAUNCHES, **K.LAUNCHES}
+    require(checked > 0, f"no generated position was held: {held}")
     sample = torch.cat(deltas).double()
     quant = torch.quantile(sample[:1 << 24],
                            torch.tensor([0.5, 0.99, 0.9999],
@@ -1216,10 +1590,14 @@ def check_served_tokens(res: dict, dev) -> dict:
                                         device=sample.device)).tolist()
     require(max_err <= LOGIT_TOL, f"teacher-forced logits differ from the "
             f"engine's by up to {max_err} > {LOGIT_TOL}")
-    require(launches["flash_attention"] == cfg.num_layers * len(res["done"])
-            and launches["decode_attention"] == 0,
+    require(launches["flash_attention"]
+            == passes * cfg.num_layers * len(res["done"])
+            and launches["decode_attention"] == 0
+            and launches["partition_scatter"]
+            == passes * moe_layers(cfg) * len(res["done"]),
             f"teacher forcing launched {launches}")
-    return {"max_abs_logit_err": max_err, "positions": checked,
+    out = {"held_by_request": held} if moe else {}
+    return {**out, "max_abs_logit_err": max_err, "positions": checked,
             "logits": checked * cfg.vocab_size,
             "abs_err_rms": float(sample.square().mean().sqrt()),
             "abs_err_p50_p99_p9999": quant, "max_abs_logit": peak_logit,
@@ -1287,6 +1665,26 @@ def profile_prefill(res: dict, dev) -> dict:
     return {"wall_ms": wall * 1e3, "device_busy_ms": device_us / 1e3,
             "idle_share": 1.0 - device_us / 1e6 / wall,
             "top_device_ms": top}
+
+
+def print_serve(res: dict, tf: dict, prefix: str, tf_prefix: str,
+                card: str) -> None:
+    dms = np.asarray(res["decode_ms"])
+    print(f"serve {res['cfg'].name}: {len(res['done'])} requests finished, "
+          f"{res['generated']} tokens in {res['wall_s']:.3f} s, "
+          f"{res['generated'] / res['wall_s']:.1f} tokens/s "
+          f"(init {res['init_s']:.2f} s, not timed) [{card}]")
+    print(f"{prefix} decode: {res['decode_steps']} steps, median "
+          f"{np.median(dms):.3f} ms/step, p90 {np.percentile(dms, 90):.3f} "
+          f"ms/step [{card}]")
+    print(f"{prefix} prefill: {res['prefills']} waves of {SERVE_BATCH}x"
+          f"{SERVE_SEQ} tokens, ms per wave "
+          f"{[round(x, 3) for x in res['prefill_ms']]} [{card}]")
+    print(f"{prefix} peak max_memory_allocated: {res['peak_bytes']} B "
+          f"({res['start_bytes']} B allocated when the run began) [{card}]")
+    print(f"{prefix} launches: {res['launches']} [{card}]")
+    print(f"{tf_prefix}teacher-forced check: {json.dumps(tf)} (tolerance "
+          f"{LOGIT_TOL}) [{card}]")
 
 
 def print_kernel_rows(rows, card: str) -> None:
@@ -1386,22 +1784,7 @@ def main() -> int:
     tf = check_served_tokens(serve, dev)
     seconds["serve"] = time.perf_counter() - t0
     attn_shapes = {k: A.SHAPES[k] - before[k] for k in A.SHAPES}
-    dms = np.asarray(serve["decode_ms"])
-    print(f"serve {SERVE_ARCH}: {len(serve['done'])} requests finished, "
-          f"{serve['generated']} tokens in {serve['wall_s']:.3f} s, "
-          f"{serve['generated'] / serve['wall_s']:.1f} tokens/s "
-          f"(init {serve['init_s']:.2f} s, not timed) [{card}]")
-    print(f"serve decode: {serve['decode_steps']} steps, median "
-          f"{np.median(dms):.3f} ms/step, p90 {np.percentile(dms, 90):.3f} "
-          f"ms/step [{card}]")
-    print(f"serve prefill: {serve['prefills']} waves of {SERVE_BATCH}x"
-          f"{SERVE_SEQ} tokens, ms per wave "
-          f"{[round(x, 3) for x in serve['prefill_ms']]} [{card}]")
-    print(f"serve peak max_memory_allocated: {serve['peak_bytes']} B "
-          f"[{card}]")
-    print(f"serve launches: {serve['launches']} [{card}]")
-    print(f"teacher-forced check: {json.dumps(tf)} (tolerance "
-          f"{LOGIT_TOL}) [{card}]")
+    print_serve(serve, tf, "serve", "", card)
     print(f"main-path attention shapes: "
           f"{ {k: sorted(v) for k, v in attn_shapes.items()} }")
     print(f"phase serve: {seconds['serve']:.2f} s")
@@ -1409,6 +1792,27 @@ def main() -> int:
     # of the serve run after the worker and scheduler phases below
     warm = serve_rate(serve_phase(dev, serve["cfg"], serve["model"]))
     warm.update(leftovers())
+
+    # granite-moe-1b-a400m: K2 dispatches every MoE layer's experts
+    before = {k: set(v) for k, v in A.SHAPES.items()}
+    t0 = time.perf_counter()
+    granite = serve_phase(dev, serve_config(MOE_ARCH), rec=MoeRecorder())
+    granite_tf = check_served_tokens(granite, dev)
+    seconds["serve_granite_moe_1b_a400m"] = time.perf_counter() - t0
+    moe_shapes = {k: A.SHAPES[k] - before[k] for k in A.SHAPES}
+    require(all(sh[-1] == "tc" for sh in moe_shapes["flash_attention"]),
+            f"a {MOE_ARCH} prefill took K4's CUDA-core route: "
+            f"{sorted(moe_shapes['flash_attention'])}")
+    print_serve(granite, granite_tf, f"serve {MOE_ARCH}", f"{MOE_ARCH} ",
+                card)
+    print(f"serve {MOE_ARCH} capacity drops: {json.dumps(granite['drops'])}"
+          f" (a decode step dropped none) [{card}]")
+    print(f"serve {MOE_ARCH} attention shapes: "
+          f"{ {k: sorted(v) for k, v in moe_shapes.items()} }")
+    print(f"phase serve_granite_moe_1b_a400m: "
+          f"{seconds['serve_granite_moe_1b_a400m']:.2f} s")
+    for k in attn_shapes:
+        attn_shapes[k] |= moe_shapes[k]
 
     t0 = time.perf_counter()
     proc = process_query(dev, phases[1])
@@ -1466,13 +1870,17 @@ def main() -> int:
             check_k5(dev, gen, attn_shapes["decode_attention"],
                      serve["decode_lengths"])]
     print_kernel_rows(rows, card)
+    moe_check = check_moe_dispatch(dev, gen, granite)
+    print(f"moe dispatch on K2 ({MOE_ARCH}): bit-exact against its plain "
+          f"version, its layer within bf16 tolerance: "
+          f"{json.dumps(moe_check)} [{card}]")
     # the main path's launches: the queries, the simulator's planning, the
     # process workers', the scheduler's and the serve phase (the
     # teacher-forced check's own are on its line above)
     counted = [res["launches"] for res in phases] + [
         sim["launches"], proc["worker_launches"]] + [
         r["launches"] for r in mix["policies"].values()] + [
-        serve["launches"]]
+        serve["launches"], granite["launches"]]
     for r in rows:
         r["launches"] = sum(c.get(r["name"], 0) for c in counted)
         for extra in ("shape", "device", "device_ops_per_call", "checked_ms",
@@ -1488,6 +1896,14 @@ def main() -> int:
     prof = profile_prefill(serve, dev)
     print(f"profile serve prefill ({SERVE_BATCH}x{SERVE_SEQ} tokens, profiler "
           f"on): {json.dumps(prof)} [{card}]")
+    prof = profile_decode(granite, dev)
+    print(f"profile serve {MOE_ARCH} decode ({SERVE_BATCH} sequences, "
+          f"profiler on): {json.dumps(prof)} [{card}]")
+    prof = profile_prefill(granite, dev)
+    print(f"profile serve {MOE_ARCH} prefill ({SERVE_BATCH}x{SERVE_SEQ} "
+          f"tokens, profiler on): {json.dumps(prof)} [{card}]")
+    cost = range_check_cost(granite, dev)
+    print(f"serve {MOE_ARCH} range check: {json.dumps(cost)} [{card}]")
     print(f"phase seconds: {json.dumps(seconds)}")
     print(card)
     print(json.dumps({"ok": True, "device": {

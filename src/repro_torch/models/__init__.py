@@ -1,5 +1,6 @@
-"""Model plane of the port: the dense attention LM (``lm``), its layers and
-attention, and the carry-across of reference weights (``convert``)."""
+"""Model plane of the port: the attention LM (``lm``) with dense or MoE
+FFNs (``moe``), its layers and attention, and the carry-across of reference
+weights (``convert``)."""
 
 from repro_torch.models.lm import (  # noqa: F401
     LM,

@@ -1,6 +1,6 @@
 """The language model of the port (``repro/models/lm.py``): a stack of
-attention blocks with dense SwiGLU FFNs, with its full forward, its prompt
-prefill and its one-token decode step.
+attention blocks with dense SwiGLU or MoE FFNs, with its full forward, its
+prompt prefill and its one-token decode step.
 
 The reference stacks each pattern position's weights over the repeats and
 scans over them; the port keeps one module per layer and loops (PyTorch
@@ -9,8 +9,8 @@ is one ``(B, max_seq, K, hd)`` K and V cache per layer plus the ``(B,)``
 int32 positions; prefill and decode write the caches in place.
 
 The blocks the port does not have yet raise ``NotImplementedError`` when a
-model is built: Mamba, mLSTM and sLSTM blocks, MoE FFNs and the vision and
-audio stub frontends all wait for ROADMAP Queue 1 item 11. The modules are
+model is built: Mamba, mLSTM and sLSTM blocks and the vision and audio stub
+frontends all wait for ROADMAP Queue 1 item 11. The modules are
 inference-only until ``training/`` is ported (no parameter asks for
 gradients).
 """
@@ -23,6 +23,7 @@ from torch import nn
 from repro_torch.core.config import BlockKind, FFNKind, Frontend, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     MLP,
     Embedding,
@@ -38,22 +39,23 @@ _LATER = "is not ported yet (ROADMAP Queue 1 item 11)"
 
 class Block(nn.Module):
     """One residual layer: ``norm1``, the attention ``block``, ``norm2`` and
-    the dense ``ffn``, named as in the reference's parameter tree."""
+    the ``ffn`` (an ``MoE`` where ``cfg.layer_is_moe(layer)``, else the
+    dense SwiGLU), named as in the reference's parameter tree."""
 
     def __init__(self, cfg: ModelConfig, layer: int, generator, device):
         super().__init__()
         kind = cfg.block_kind(layer)
         if kind != BlockKind.ATTENTION:
             raise NotImplementedError(f"the {kind.value} block {_LATER}")
-        if cfg.layer_is_moe(layer):
-            raise NotImplementedError(f"the MoE FFN {_LATER}")
-        if cfg.ffn != FFNKind.DENSE:
+        if cfg.ffn not in (FFNKind.DENSE, FFNKind.MOE):
             raise NotImplementedError(f"the {cfg.ffn.value!r} FFN {_LATER}")
         dtype = getattr(torch, cfg.dtype)
         self.norm1 = RMSNorm(cfg.d_model, dtype, device)
         self.block = attn_mod.init_attention(cfg, generator, device)
         self.norm2 = RMSNorm(cfg.d_model, dtype, device)
-        self.ffn = MLP(cfg.d_model, cfg.d_ff, dtype, generator, device)
+        self.ffn = moe_mod.MoE(cfg, generator, device) \
+            if cfg.layer_is_moe(layer) \
+            else MLP(cfg.d_model, cfg.d_ff, dtype, generator, device)
 
 
 class LM(nn.Module):
@@ -89,24 +91,38 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device).expand(b, s)
 
 
+def _ffn(layer: Block, h: torch.Tensor, cfg: ModelConfig):
+    """The layer's FFN residual update of ``h`` and its MoE aux loss
+    (``None`` for a dense FFN)."""
+    normed = rmsnorm(layer.norm2, h, cfg.norm_eps)
+    if isinstance(layer.ffn, moe_mod.MoE):
+        out, aux = moe_mod.moe(layer.ffn, normed, cfg)
+        return h + out, aux
+    return h + mlp(layer.ffn, normed), None
+
+
 def forward(model: LM, inputs: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Full causal forward: ``inputs["tokens"] (B, S)`` (and optionally
     ``inputs["positions"]``) -> ``(fp32 logits (B, S, V_padded), aux)``,
-    ``aux`` the reference's MoE loss, 0 for the blocks the port has. Every
-    layer's attention runs K4."""
+    ``aux`` the reference's MoE load-balance loss summed over the MoE
+    layers (0 without them). Every layer's attention runs K4, and every MoE
+    layer's dispatch K2."""
     cfg = model.cfg
     h = embed(model.embed, inputs["tokens"])
     b, s, _ = h.shape
     positions = inputs.get("positions")
     if positions is None:
         positions = _positions(b, s, h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for layer in model.layers:
         normed = rmsnorm(layer.norm1, h, cfg.norm_eps)
         h = h + attn_mod.attention(layer.block, normed, positions, cfg)
-        h = h + mlp(layer.ffn, rmsnorm(layer.norm2, h, cfg.norm_eps))
+        h, layer_aux = _ffn(layer, h, cfg)
+        if layer_aux is not None:
+            aux = aux + layer_aux
     h = rmsnorm(model.final_norm, h, cfg.norm_eps)
     logits = unembed(model.embed, h, cfg.vocab_size).float()
-    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+    return logits, aux
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
@@ -124,7 +140,7 @@ def prefill_step(model: LM, state: dict, inputs: dict):
     """Process whole prompts ``inputs["tokens"] (B, S)`` at positions
     ``[0, S)``, fill every layer's cache, and return ``(fp32 logits of the
     last position (B, 1, V_padded), state)`` with every row at position S.
-    Every layer's attention runs K4."""
+    Every layer's attention runs K4, and every MoE layer's dispatch K2."""
     cfg = model.cfg
     h = embed(model.embed, inputs["tokens"])
     b, s, _ = h.shape
@@ -133,8 +149,7 @@ def prefill_step(model: LM, state: dict, inputs: dict):
         normed = rmsnorm(layer.norm1, h, cfg.norm_eps)
         out, _ = attn_mod.prefill_attention(
             layer.block, (st["k"], st["v"]), normed, positions, cfg)
-        h = h + out
-        h = h + mlp(layer.ffn, rmsnorm(layer.norm2, h, cfg.norm_eps))
+        h, _ = _ffn(layer, h + out, cfg)
     h = rmsnorm(model.final_norm, h, cfg.norm_eps)
     logits = unembed(model.embed, h[:, -1:], cfg.vocab_size).float()
     return logits, {"layers": state["layers"],
@@ -145,7 +160,8 @@ def prefill_step(model: LM, state: dict, inputs: dict):
 def decode_step(model: LM, state: dict, tokens: torch.Tensor):
     """One token for every sequence: ``tokens (B, 1)`` at ``state["pos"]``
     -> ``(fp32 logits (B, 1, V_padded), state)`` with the positions
-    advanced by one. Every layer's attention runs K5 on its cache."""
+    advanced by one. Every layer's attention runs K5 on its cache, and
+    every MoE layer's dispatch K2."""
     cfg = model.cfg
     h = embed(model.embed, tokens)
     positions = state["pos"]
@@ -153,8 +169,7 @@ def decode_step(model: LM, state: dict, tokens: torch.Tensor):
         normed = rmsnorm(layer.norm1, h, cfg.norm_eps)
         out, _ = attn_mod.decode_attention(
             layer.block, (st["k"], st["v"]), normed, positions, cfg)
-        h = h + out
-        h = h + mlp(layer.ffn, rmsnorm(layer.norm2, h, cfg.norm_eps))
+        h, _ = _ffn(layer, h + out, cfg)
     h = rmsnorm(model.final_norm, h, cfg.norm_eps)
     logits = unembed(model.embed, h, cfg.vocab_size).float()
     return logits, {"layers": state["layers"], "pos": positions + 1}

@@ -203,12 +203,12 @@ def _describe(payload) -> str:
     return f"{payload[0]}: {payload[1]}"
 
 
-def worker_main(conn, modules: Sequence[str] = (), device="cpu") -> None:
-    """Subprocess entry point: open ``device`` (a CUDA context of its own
-    on the card) and import the function registry (the cold start),
-    handshake, then serve tasks until told to stop. A worker that cannot
-    open its device or import the registry reports the error instead of
-    ``ready`` and exits."""
+def worker_main(conn, modules: Sequence[str] = (), device=None) -> None:
+    """Subprocess entry point: open ``device`` (the card, with a CUDA
+    context of its own, unless the caller passes ``"cpu"``) and import the
+    function registry (the cold start), handshake, then serve tasks until
+    told to stop. A worker that cannot open its device or import the
+    registry reports the error instead of ``ready`` and exits."""
     try:
         dev = resolve_device(device)
         if dev.type == "cuda":

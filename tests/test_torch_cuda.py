@@ -694,3 +694,53 @@ def test_cuda_shuffle_skew_feedback_matches_cpu(cuda_device):
     got = shuffle_skew_feedback(fd, 8, device=cuda_device)
     assert got == want and sum(want[0]) > 0 and want[2]
     assert tpart.LAUNCHES["partition_histogram"] > before
+
+
+# -- the MoE dispatch on K2 -----------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,e,k,cap", [
+    (4, 1024, 32, 8, 320),     # granite's prefill wave at max_seq 1024
+    (4, 1, 32, 8, 4),          # granite's decode step
+    (4, 300, 32, 8, 16),       # most assignments dropped
+    (2, 77, 1000, 4, 12)])     # one row a K2 call
+def test_cuda_moe_dispatch_on_k2_matches_plain(cuda_device, b, s, e, k, cap):
+    """The dispatch bookkeeping through K2 is bit-exact against the
+    per-row stable argsort, with one K2 launch a group of rows."""
+    from repro_torch.models import moe as tmoe
+    scores = torch.randn((b, s, e), device=cuda_device)
+    top_i = torch.topk(scores, k, dim=-1).indices
+    before = tpart.LAUNCHES["partition_scatter"]
+    got = tmoe.dispatch(top_i, e, cap)
+    per_call = (tpart.MAX_SCATTER_PARTITIONS - 1) // e
+    assert tpart.LAUNCHES["partition_scatter"] - before == -(-b // per_call)
+    want = tmoe.dispatch_plain(top_i, cap)
+    for name, g, w in zip(tmoe.Dispatch._fields, got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+def test_cuda_engine_serves_granite_through_k2(cuda_device):
+    """Granite's smoke config in fp32 on the card gives the CPU engine's
+    tokens, with one K2 launch per MoE layer per prefill and per decode
+    step, beside K4's and K5's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention as tattn
+    from repro_torch.models import init_lm
+
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m", smoke=True),
+                              dtype="float32")
+    model = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    want, _ = _serve_smoke("cpu", model, cfg)
+    tattn.reset_launches()
+    tpart.reset_launches()
+    got, metrics = _serve_smoke(cuda_device, model.to(cuda_device), cfg)
+    assert got == want and len(got) == 3
+    calls = metrics["prefills"] + metrics["steps"]
+    assert tpart.LAUNCHES["partition_scatter"] == cfg.num_layers * calls
+    assert tattn.LAUNCHES == {
+        "flash_attention": cfg.num_layers * metrics["prefills"],
+        "decode_attention": cfg.num_layers * metrics["steps"]}

@@ -28,6 +28,9 @@ ATOL = 1e-4
 # the served model (GQA with 3 query heads a kv head, tied embeddings) and
 # one with qkv biases, untied embeddings and no grouping
 DENSE = ("llama3.2-3b", "qwen1.5-4b")
+# MoE FFNs on standard attention: granite (4 experts top-2 in its smoke
+# config) and moonshot (8 experts top-2, no grouping)
+MOE = ("granite-moe-1b-a400m", "moonshot-v1-16b-a3b")
 
 
 def _close(got: torch.Tensor, want) -> None:
@@ -112,19 +115,22 @@ def test_tied_unembed_with_a_padded_vocab_matches_reference():
 # -- the model ------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_forward_matches_reference(arch):
+    """Logits and the MoE aux loss (0 for a dense model)."""
     jcfg, params, tcfg, model = _models(arch)
     toks = _tokens(5, (2, 9), jcfg.vocab_size)
-    want, _ = jax.jit(partial(jlm.forward, cfg=jcfg, remat="none",
-                              q_chunk=9))(params,
-                                          {"tokens": jnp.asarray(toks)})
+    want, want_aux = jax.jit(partial(jlm.forward, cfg=jcfg, remat="none",
+                                     q_chunk=9))(
+        params, {"tokens": jnp.asarray(toks)})
     got, aux = tlm.forward(model, {"tokens": torch.from_numpy(toks)})
-    assert got.dtype == torch.float32 and float(aux) == 0.0
+    assert got.dtype == torch.float32 and aux.dtype == torch.float32
+    assert (float(aux) == 0.0) == (arch in DENSE)
     _close(got, want)
+    _close(aux, want_aux)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_prefill_then_decode_matches_reference(arch):
     """A prefill of 7 tokens, then three decode steps from positions the
     engine's rewind leaves (rows at different positions), caches included."""
@@ -165,8 +171,8 @@ def test_init_lm_has_the_reference_parameter_shapes():
                zip(model.parameters(), again.parameters()))
 
 
-@pytest.mark.parametrize("arch", ["xlstm-1.3b", "moonshot-v1-16b-a3b",
-                                  "jamba-v0.1-52b", "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-v0.1-52b",
+                                  "internvl2-1b"])
 def test_blocks_not_ported_yet_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
         tlm.init_lm(tconfig(arch, smoke=True), device="cpu")
