@@ -62,10 +62,10 @@
    running (threads, reserved card memory, processes on the card). Each
    phase prints its seconds.
 5. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main path launched it at and on edge cases: K1-K3
+   shapes the main path launched it at so far and on edge cases: K1-K3
    bit-exact, K4 and K5 within the reference's kernel tolerances. Times
    kernel, plain version and the one PyTorch call computing the same
-   function at the largest main-path shape (CUDA events around one call,
+   function at the largest of those shapes (CUDA events around one call,
    median of 20, L2 warm), and the device time alone of the kernel and
    of that call (``torch.profiler``). Counts the device ops of one K1 call
    (must be 1), one K2 call (at most 2) and one K3 call (must be 1), times
@@ -75,17 +75,52 @@
    per-row stable argsort) at granite's prefill (32,768 assignments) and
    decode (32) shapes over 129 buckets, and one MoE layer's output through
    it within the bf16 tolerance of its output through the plain dispatch.
-6. Prints the ``kernels`` JSON line (K1-K5), its launch counts summed over
-   every phase above.
-7. Re-runs the large query, and eight decode steps and one prefill wave of
-   each served model, under ``torch.profiler`` (outside the counted runs)
+6. Re-runs the large query, and eight decode steps and one prefill wave of
+   llama and granite, under ``torch.profiler`` (outside the counted runs)
    and prints their device-busy share and costliest device ops, and the
    query's device time in the partition kernels; then times granite's
    decode step with K2's range check and with it stubbed out (in turns,
-   inside that measurement only). A profiler trace with no device event in it
-   is taken again, up to three times, before the script fails.
-8. Prints the seconds of each phase, the card line and, as its last line,
-   ``{"ok": true, "device": {...}}``.
+   inside that measurement only). A profiler trace with no device event
+   in it is taken again, up to three times, before the script fails.
+7. Profiles jamba and xlstm (the models of step 8, on the weights made
+   from the same seed) the same way, outside the counted runs, with the
+   shares of the Mamba scan, the Mamba decode step and the sLSTM loop,
+   and holds jamba's MoE dispatch on K2 bit-exact at its prefill (8,192
+   assignments) and decode (8) shapes over 65 buckets. Before step 8:
+   every profiler trace taken after those phases came back empty.
+8. The recurrent models and the stub frontends, after everything above,
+   which runs as it always has; each model freed when its phase ends.
+   ``serve_jamba_v0_1_52b_8l``: ``jamba-v0.1-52b`` at its published width
+   (d_model 4096, 32 heads, 8 kv heads, 16 experts top-2 on every second
+   layer, d_expert 14336, Mamba d_state 16, d_conv 4, expand 2, vocab
+   65536, bf16), cut to one period of its block pattern (8 of 32 layers:
+   32 are 103 GB of bf16 weights, one H100 holds 80 GB), random weights
+   from seed 0, serves step 3's requests through the same engine, with the
+   counters set to 0 just before and read just after: K4 once a wave (one
+   attention layer, its tensor-core route), K5 once a step, K2 four times
+   a wave and a step. ``serve_xlstm_1_3b``: ``xlstm-1.3b`` at its full
+   config (48 layers, 7 mLSTM : 1 sLSTM, d_model 2048, 4 heads, vocab
+   50304), the same requests; no K1-K5 launch. Each is held at the model
+   level, not against the engine's tokens (the engine's padded prefill
+   feeds a recurrent state its pad tokens, ROADMAP Queue 3): each
+   request's prompt through ``prefill_step`` (its longest prefix that the
+   mLSTM's prefill chunk of 256 takes, the rest teacher-forced), then its
+   generated tokens teacher-forced through ``decode_step``, the logits at
+   the 32 generated positions within ``LOGIT_TOL`` of one ``forward`` over
+   the sequence (jamba drop-free and pinned to the routing its decode path
+   chose), both on their weights cast to fp32: in bf16 each model's own
+   forward moves by more than ``LOGIT_TOL`` between batch 1 and batch 2.
+   Prints that bf16 rounding floor, whether the engine's tokens are the
+   greedy continuation for one request (they are not expected to be), and
+   jamba's drops. ``frontends``: ``internvl2-1b`` (256 stub patches) and
+   ``musicgen-medium`` (frame embeddings) at their full configs, batch 2,
+   one ``forward`` and one ``prefill_step`` each, the last position's
+   logits within ``LOGIT_TOL`` of each other, K4 once a layer in each
+   call. Then K2, K4 and K5 are held against their plain versions at the
+   shapes these phases added.
+9. Prints the ``kernels`` JSON line (K1-K5), its launch counts summed over
+   every phase above, then the seconds of each phase, the card line and,
+   as its last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line is printed. Needs a CUDA
 device and the repository's ``src/`` beside this file; imports no JAX.
@@ -93,6 +128,7 @@ device and the repository's ``src/`` beside this file; imports no JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -117,12 +153,45 @@ SERVE_ARCH = "llama3.2-3b"
 # the MoE serve phase: granite-moe-1b-a400m at its published config, its
 # expert dispatch on K2 (same requests, batch and max_seq)
 MOE_ARCH = "granite-moe-1b-a400m"
+# the hybrid serve phase: jamba-v0.1-52b at its published width, cut to
+# one period of its block pattern (8 of 32 layers: all 32 are 103 GB of
+# bf16 weights, one H100 holds 80 GB), its experts dispatched on K2
+HYBRID_ARCH, HYBRID_LAYERS = "jamba-v0.1-52b", 8
+# the recurrent serve phase: xlstm-1.3b (mLSTM and sLSTM, no attention) at
+# its full config
+XLSTM_ARCH = "xlstm-1.3b"
+# the stub-frontend phase: each model at its full config, one forward and
+# one prefill of FRONTEND_BATCH x FRONTEND_SEQ positions (internvl2's
+# 256 patches among them)
+FRONTEND_ARCHS = ("internvl2-1b", "musicgen-medium")
+FRONTEND_BATCH, FRONTEND_SEQ = 2, 512
 # (layers, d_model, heads, kv heads, head_dim, d_ff, vocab, dtype,
 # (experts, top_k, d_expert) or None): the published configs
 PUBLISHED = {
     SERVE_ARCH: (28, 3072, 24, 8, 128, 8192, 128256, "bfloat16", None),
     MOE_ARCH: (24, 1024, 16, 8, 64, 512, 49155, "bfloat16", (32, 8, 512)),
+    # arXiv:2403.19887, ai21labs/Jamba-v0.1
+    HYBRID_ARCH: (32, 4096, 32, 8, 128, 14336, 65536, "bfloat16",
+                  (16, 2, 14336)),
+    # src/repro/configs/xlstm_1_3b.py (arXiv:2405.04517)
+    XLSTM_ARCH: (48, 2048, 4, 4, 512, 0, 50304, "bfloat16", None),
+    "internvl2-1b": (24, 896, 14, 2, 64, 4864, 151655, "bfloat16", None),
+    "musicgen-medium": (48, 1536, 24, 24, 64, 6144, 2048, "bfloat16", None),
 }
+# the rest of the recurrent and stub-frontend configs: block pattern,
+# MoE every k-th layer, and the (d_state, d_conv, expand) of the Mamba
+# blocks, the (sLSTM every, conv kernel, qk factor, up factor) of the xLSTM
+# blocks, or the frontend and its patch count
+PUBLISHED_REST = {
+    HYBRID_ARCH: (("mamba",) * 3 + ("attention",) + ("mamba",) * 4, 2,
+                  (16, 4, 2)),
+    XLSTM_ARCH: (("mlstm",) * 7 + ("slstm",), None, (8, 4, 0.5, 2.0)),
+    "internvl2-1b": (("attention",), None, ("vision", 256)),
+    "musicgen-medium": (("attention",), None, ("audio", 256)),
+}
+# the reference's mLSTM chunk in prefill (``prefill_step`` passes it no
+# chunk): a prefill's length must be under it or a multiple of it
+MLSTM_PREFILL_CHUNK = 256
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 8, 32
 SERVE_BATCH, SERVE_SEQ = 4, 1024
 PROMPT_LENGTHS = (64, 512)
@@ -172,18 +241,20 @@ def median_ms(fn, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
-def traced(body, setup=None, cpu: bool = False):
-    """``body(setup())`` under ``torch.profiler`` (CUDA activity, and the
-    host's when ``cpu``), ``setup`` running untraced before it and both
-    ending in a synchronize; returns ``(profile, body's result)``. A trace
-    that holds no device event at all is taken again, up to
-    ``PROFILE_TRIES`` times: the profiler has been seen to hand back an
-    empty device trace of work that did run on the card, and an empty
-    trace must not pass for a call that launched nothing."""
+def traced(body, setup=None):
+    """``body(setup())`` under ``torch.profiler`` (the card's activity and
+    the host's), ``setup`` running untraced before it and both ending in a
+    synchronize; returns ``(profile, body's result)``. A trace that holds
+    no device event at all is taken again, up to ``PROFILE_TRIES`` times:
+    the profiler has been seen to hand back an empty device trace of work
+    that did run on the card, and an empty trace must not pass for a call
+    that launched nothing. Every trace records both activities: traces of
+    the card alone, taken after traces of both, came back empty three times
+    running on an H100."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    acts = [ProfilerActivity.CUDA, ProfilerActivity.CPU]
     for attempt in range(1, PROFILE_TRIES + 1):
         state = setup() if setup is not None else None
         torch.cuda.synchronize()
@@ -358,6 +429,18 @@ def _grouping_input(dev, gen, n_real: int, n_pad: int, buckets: int):
     return rows, ids
 
 
+def hold_k2(dev, gen, n: int, p: int) -> float:
+    """K2 bit-exact against its plain version at ``n`` padded rows (the
+    last ``n // 97`` the padding sentinel) over ``p`` buckets; returns the
+    max |err| (0)."""
+    from repro_torch.kernels import partition as K, ref
+    rows, ids = _grouping_input(dev, gen, n - n // 97, n, p)
+    return held_exact(K.partition_scatter(rows, ids, p),
+                      ref.partition_scatter_ref(rows, ids, p),
+                      f"K2 differs from its plain version: n_pad={n}, "
+                      f"P+1={p}")
+
+
 def check_k2(dev, gen, main_shapes) -> dict:
     """K2 bit-exact at n_pad = 2^23 with P+1 = 15, on edges and at every
     main-path shape; timed at the largest main-path shape."""
@@ -371,9 +454,8 @@ def check_k2(dev, gen, main_shapes) -> dict:
                                ref.partition_scatter_ref(rows, ids, p),
                                f"K2 differs from its plain version: {what}"))
 
-    for n, p in [(1 << 23, 15)] + sorted(main_shapes):
-        same(*_grouping_input(dev, gen, n - n // 97, n, p), p,
-             f"n_pad={n}, P+1={p}")
+    errs += [hold_k2(dev, gen, n, p)
+             for n, p in [(1 << 23, 15)] + sorted(main_shapes)]
     # edges: a ragged last tile, all rows in one bucket, 3-wide float rows,
     # one bucket in all
     r2, i2 = _grouping_input(dev, gen, 3000, 3333, 65)
@@ -431,7 +513,7 @@ def check_moe_dispatch(dev, gen, res: dict) -> dict:
     stable argsort) at the main path's shapes: a prefill wave's
     ``SERVE_BATCH * SERVE_SEQ * top_k`` assignments and a decode step's
     ``SERVE_BATCH * top_k``, over ``SERVE_BATCH * E + 1`` buckets, experts
-    chosen by the served model's first router from random inputs; and
+    chosen by the served model's first MoE router from random inputs; and
     that layer's output through it within the bf16 tolerance of the
     reference's kernel tests (atol and rtol 2e-2) of its output through the
     plain dispatch. Both dispatches timed at each shape, call and device
@@ -439,7 +521,8 @@ def check_moe_dispatch(dev, gen, res: dict) -> dict:
     import torch
     from repro_torch.models import moe
     cfg = res["cfg"]
-    layer = res["model"].layers[0].ffn
+    layer = next(lay.ffn for lay in res["model"].layers
+                 if isinstance(getattr(lay, "ffn", None), moe.MoE))
     m = cfg.moe
     out = []
     for s in (SERVE_SEQ, 1):
@@ -677,6 +760,25 @@ def _held_close(got, want, dtype_name: str, what: str) -> float:
     return err
 
 
+def hold_k4(dev, gen, shape) -> float:
+    """K4 at ``shape`` ``(B, S, H, K, hd, dtype, causal, route)`` within
+    its tolerance of its plain version, on the route named; returns the
+    max |err|."""
+    from repro_torch.kernels import attention as A, ref
+    b, s, h, kh, hd, dt, causal, route = shape
+    q = _randn(gen, (b, s, h, hd), dt, dev)
+    k, v = (_randn(gen, (b, s, kh, hd), dt, dev) for _ in range(2))
+    A.SHAPES["flash_attention"].clear()
+    err = _held_close(
+        A.flash_attention(q, k, v, causal),
+        ref.flash_attention_ref(q, k, v, causal), dt,
+        f"K4 differs from its plain version at B={b} S={s} H={h} K={kh}"
+        f" hd={hd} {dt} causal={causal}")
+    took = [sh[-1] for sh in A.SHAPES["flash_attention"]]
+    require(took == [route], f"K4 took {took}, expected {route}")
+    return err
+
+
 def check_k4(dev, gen, main_shapes) -> dict:
     """K4 within its tolerance at every main-path shape (q with H heads, k
     and v with K) and on edges: for the tensor-core route a ragged S, S = 1,
@@ -699,18 +801,8 @@ def check_k4(dev, gen, main_shapes) -> dict:
              (2, 70, 6, 3, 32, "torch.bfloat16", True, "simt")]
     require(all(sh[-1] == "tc" for sh in main_shapes),
             f"a prefill took K4's CUDA-core route: {sorted(main_shapes)}")
-    err = 0.0
-    for b, s, h, kh, hd, dt, causal, route in sorted(main_shapes) + edges:
-        q = _randn(gen, (b, s, h, hd), dt, dev)
-        k, v = (_randn(gen, (b, s, kh, hd), dt, dev) for _ in range(2))
-        A.SHAPES["flash_attention"].clear()
-        err = max(err, _held_close(
-            A.flash_attention(q, k, v, causal),
-            ref.flash_attention_ref(q, k, v, causal), dt,
-            f"K4 differs from its plain version at B={b} S={s} H={h} K={kh}"
-            f" hd={hd} {dt} causal={causal}"))
-        took = [sh[-1] for sh in A.SHAPES["flash_attention"]]
-        require(took == [route], f"K4 took {took}, expected {route}")
+    err = max(hold_k4(dev, gen, shape)
+              for shape in sorted(main_shapes) + edges)
     b, s, h, kh, hd, dt, causal, _ = max(
         main_shapes, key=lambda sh: sh[0] * sh[1] ** 2 * sh[2])
     q = _randn(gen, (b, s, h, hd), dt, dev)
@@ -745,6 +837,30 @@ def check_k4(dev, gen, main_shapes) -> dict:
                      f"causal={causal}"}
 
 
+def _k5_case(dev, gen, shape, length):
+    import torch
+    b, h, s, kh, hd, dt = shape
+    q = _randn(gen, (b, h, hd), dt, dev)
+    kc, vc = (_randn(gen, (b, s, kh, hd), dt, dev) for _ in range(2))
+    return q, kc, vc, torch.as_tensor(length, dtype=torch.int32, device=dev)
+
+
+def hold_k5(dev, gen, shape) -> float:
+    """K5 at ``shape`` ``(B, H, S, K, hd, dtype)``, random lengths with 1
+    and S among them, within its tolerance of its plain version; returns
+    the max |err|."""
+    import torch
+    from repro_torch.kernels import attention as A, ref
+    b, h, s, kh, hd, dt = shape
+    length = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
+    length[0], length[-1] = 1, s
+    args = _k5_case(dev, gen, shape, length)
+    return _held_close(
+        A.decode_attention(*args), ref.decode_attention_ref(*args), dt,
+        f"K5 differs from its plain version at B={b} H={h} S={s} K={kh}"
+        f" hd={hd} {dt}")
+
+
 def check_k5(dev, gen, main_shapes, lengths) -> dict:
     """K5 within its tolerance at every main-path shape (random lengths,
     with 1 and S among them), on edges (fp32, one query head a kv head,
@@ -759,22 +875,12 @@ def check_k5(dev, gen, main_shapes, lengths) -> dict:
     edges = [(2, 24, 256, 8, 128, "torch.float32"),
              (2, 8, 128, 8, 64, "torch.bfloat16"),
              (3, 6, 100, 2, 128, "torch.bfloat16")]
-    err = 0.0
+    err = max(hold_k5(dev, gen, shape)
+              for shape in sorted(main_shapes) + edges)
 
     def case(b, h, s, kh, hd, dt, length):
-        q = _randn(gen, (b, h, hd), dt, dev)
-        kc, vc = (_randn(gen, (b, s, kh, hd), dt, dev) for _ in range(2))
-        return q, kc, vc, torch.as_tensor(length, dtype=torch.int32,
-                                          device=dev)
+        return _k5_case(dev, gen, (b, h, s, kh, hd, dt), length)
 
-    for b, h, s, kh, hd, dt in sorted(main_shapes) + edges:
-        length = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
-        length[0], length[-1] = 1, s
-        args = case(b, h, s, kh, hd, dt, length)
-        err = max(err, _held_close(
-            A.decode_attention(*args), ref.decode_attention_ref(*args), dt,
-            f"K5 differs from its plain version at B={b} H={h} S={s} K={kh}"
-            f" hd={hd} {dt}"))
     b, h, s, kh, hd, dt = max(main_shapes, key=lambda sh: (sh[0] * sh[2],
                                                            sh[1] * sh[4]))
     for dt_edge in (dt, "torch.float32"):
@@ -1153,8 +1259,13 @@ def device_busy(prof, top: int = 12) -> tuple[float, dict]:
     an ATen op and the kernel it launches are one interval, not two, and
     intervals that overlap (two streams) count once."""
     from torch.autograd import DeviceType
+    # a ``record_function`` range (``LoopSpans``) also shows on the device
+    # timeline, spanning its kernels and the gaps between them: not work
+    notes = {e.name for e in prof.events()
+             if getattr(e, "is_user_annotation", False)}
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and e.name not in notes)
     require(bool(spans), "the profiler traced no device events")
     busy, end = 0.0, float("-inf")
     for s, e in spans:
@@ -1162,7 +1273,7 @@ def device_busy(prof, top: int = 12) -> tuple[float, dict]:
             busy += e - max(s, end)
             end = e
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA and e.key not in notes]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     return busy, {e.key[:60]: e.self_device_time_total / 1e3
                   for e in kernels[:top]}
@@ -1184,7 +1295,7 @@ def profile_query(device, fact, dim) -> dict:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    prof, wall = traced(query, cpu=True)
+    prof, wall = traced(query)
     device_us, top = device_busy(prof)
     from torch.autograd import DeviceType
     partition_us = sum(
@@ -1202,8 +1313,8 @@ def profile_query(device, fact, dim) -> dict:
 
 
 def serve_config(arch: str = SERVE_ARCH):
-    """``arch``'s published config (llama3.2-3b or granite-moe-1b-a400m),
-    checked."""
+    """``arch``'s published config (``PUBLISHED``, and ``PUBLISHED_REST``
+    where it has an entry), checked."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     moe = None if cfg.moe is None else (cfg.moe.num_experts, cfg.moe.top_k,
@@ -1211,11 +1322,29 @@ def serve_config(arch: str = SERVE_ARCH):
     require((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
              cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, cfg.dtype, moe)
             == PUBLISHED[arch], f"{arch} is not the published config: {cfg}")
+    if arch in PUBLISHED_REST:
+        if cfg.ssm is not None:
+            block = (cfg.ssm.d_state, cfg.ssm.d_conv, cfg.ssm.expand)
+        elif cfg.xlstm is not None:
+            x = cfg.xlstm
+            block = (x.slstm_every, x.conv_kernel, x.qk_dim_factor,
+                     x.proj_factor)
+        else:
+            block = (cfg.frontend, cfg.stub_patches)
+        rest = (tuple(cfg.block_pattern),
+                cfg.moe.every_k_layers if cfg.moe else None, block)
+        require(rest == PUBLISHED_REST[arch],
+                f"{arch} is not the published config: {cfg}")
     return cfg
 
 
 def moe_layers(cfg) -> int:
     return sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+
+
+def attention_layers(cfg) -> int:
+    return sum(cfg.block_kind(i).value == "attention"
+               for i in range(cfg.num_layers))
 
 
 class MoeRecorder:
@@ -1359,13 +1488,24 @@ def prefill_drops(rec: MoeRecorder, waves, layers: int) -> dict:
     return {"waves": per_wave, "last_prefill": last}
 
 
+def serve_prompts(cfg) -> list:
+    """The serve phases' ``SERVE_REQUESTS`` prompts, their lengths drawn
+    from ``PROMPT_LENGTHS``, from seed 0."""
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(PROMPT_LENGTHS[0], PROMPT_LENGTHS[1] + 1,
+                           SERVE_REQUESTS)
+    return [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+            for n in lengths]
+
+
 def serve_phase(dev, cfg, model=None, rec: MoeRecorder | None = None
                 ) -> dict:
-    """Serve 8 requests with ``cfg`` (llama3.2-3b or granite-moe-1b-a400m
-    at its published config) through the port's ``ServingEngine``, with
+    """Serve 8 requests with ``cfg`` (a served model at its published
+    config, jamba cut in depth) through the port's ``ServingEngine``, with
     the attention and partition launch counters set to 0 just before and
-    read just after: K4 once a layer a prefill wave, K5 once a layer a
-    decode step, and K2 once a MoE layer in both. The engine's decode
+    read just after: K4 once an attention layer a prefill wave, K5 once an
+    attention layer a decode step, K2 once a MoE layer in both, and K1 and
+    K3 never. The engine's decode
     logits are kept (on the card) for the teacher-forced check. ``model``
     serves the same requests again on weights made by an earlier call.
     ``rec`` records the MoE routing and dispatch of every prefill wave and
@@ -1383,11 +1523,7 @@ def serve_phase(dev, cfg, model=None, rec: MoeRecorder | None = None
         model = init_lm(cfg, gen, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
-    lengths = rng.integers(PROMPT_LENGTHS[0], PROMPT_LENGTHS[1] + 1,
-                           SERVE_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
-               for n in lengths]
+    prompts = serve_prompts(cfg)
 
     engine = ServingEngine(cfg, model, max_batch=SERVE_BATCH,
                            max_seq=SERVE_SEQ, device=dev)
@@ -1444,13 +1580,16 @@ def serve_phase(dev, cfg, model=None, rec: MoeRecorder | None = None
             and all(len(r.output) == SERVE_NEW_TOKENS for r in done),
             f"served {len(done)} requests, outputs "
             f"{[len(r.output) for r in done]}")
-    require(launches["flash_attention"] == cfg.num_layers * m["prefills"]
-            and launches["decode_attention"] == cfg.num_layers * m["steps"]
+    attn = attention_layers(cfg)
+    require(launches["flash_attention"] == attn * m["prefills"]
+            and launches["decode_attention"] == attn * m["steps"]
             and launches["partition_scatter"]
-            == moe_layers(cfg) * (m["prefills"] + m["steps"]),
+            == moe_layers(cfg) * (m["prefills"] + m["steps"])
+            and launches["partition_histogram"] == 0
+            and launches["fused_probe"] == 0,
             f"launches {launches} for {m['prefills']} prefills and "
-            f"{m['steps']} decode steps of {cfg.num_layers} layers, "
-            f"{moe_layers(cfg)} of them MoE")
+            f"{m['steps']} decode steps of {cfg.num_layers} layers, {attn} "
+            f"of them attention and {moe_layers(cfg)} MoE")
     # K5's lengths (pos + 1) at the decode step that read the most keys
     decode_lengths = max(((p + 1).tolist() for p in step_pos), key=sum)
     out = {}
@@ -1500,8 +1639,6 @@ def check_served_tokens(res: dict, dev) -> dict:
     Over all requests at least one position must be held. A forward at
     the model's own capacity, unpinned, runs too, uncompared, for its drop
     counts."""
-    import dataclasses
-
     import torch
     from repro_torch.kernels import attention as A
     from repro_torch.kernels import partition as K
@@ -1513,8 +1650,7 @@ def check_served_tokens(res: dict, dev) -> dict:
     if moe:
         passes = 2
         layers = moe_layers(cfg)
-        no_drops = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+        no_drops = drop_free(cfg)
         rec = MoeRecorder()
     A.reset_launches()
     K.reset_launches()
@@ -1604,10 +1740,86 @@ def check_served_tokens(res: dict, dev) -> dict:
             "argmax_checked": sure_total, "launches": launches}
 
 
+class LoopSpans:
+    """While entered, each call of the recurrent loops, the Mamba chunk
+    scan (``ssm._scan_chunk``, prefill), the Mamba decode step
+    (``ssm.mamba_step``, through the LM's step table) and the sLSTM
+    recurrence (``xlstm._slstm_scan``, prefill and decode), runs inside a
+    ``torch.profiler.record_function`` range of its label, between two CUDA
+    events on the current stream. ``shares`` gives each label's device time
+    (the kernels launched inside its ranges: the range's host-side event's
+    ``device_time_total``) and its stream span (the events' elapsed time,
+    idle gaps included), each beside its share of the trace's device-busy
+    time and wall."""
+
+    def __init__(self):
+        import torch
+        from repro_torch.core.config import BlockKind
+        from repro_torch.models import lm, ssm, xlstm
+        self.targets = [(ssm, "_scan_chunk", "mamba_scan"),
+                        (lm._STEP, BlockKind.MAMBA, "mamba_step"),
+                        (xlstm, "_slstm_scan", "slstm_loop")]
+        self.events: dict = {label: [] for *_, label in self.targets}
+        self._torch = torch
+
+    @staticmethod
+    def _get(where, key):
+        return where[key] if isinstance(where, dict) else getattr(where, key)
+
+    @staticmethod
+    def _set(where, key, fn) -> None:
+        if isinstance(where, dict):
+            where[key] = fn
+        else:
+            setattr(where, key, fn)
+
+    def __enter__(self):
+        torch = self._torch
+        self._saved = []
+        for where, key, label in self.targets:
+            fn = self._get(where, key)
+            self._saved.append((where, key, fn))
+
+            def spanned(*args, _fn=fn, _label=label, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                with torch.profiler.record_function(_label):
+                    out = _fn(*args, **kw)
+                stop.record()
+                self.events[_label].append((start, stop))
+                return out
+
+            self._set(where, key, spanned)
+        return self
+
+    def __exit__(self, *exc):
+        for where, key, fn in self._saved:
+            self._set(where, key, fn)
+
+    def shares(self, prof, device_us: float, wall_s: float) -> dict:
+        from torch.autograd import DeviceType
+        self._torch.cuda.synchronize()
+        out = {}
+        for label, spans in self.events.items():
+            if not spans:
+                continue
+            dev_us = sum(e.device_time_total for e in prof.events()
+                         if e.name == label
+                         and e.device_type == DeviceType.CPU)
+            span_ms = sum(a.elapsed_time(b) for a, b in spans)
+            out[label] = {"calls": len(spans), "device_ms": dev_us / 1e3,
+                          "device_share": dev_us / device_us,
+                          "span_ms": span_ms,
+                          "wall_share": span_ms / 1e3 / wall_s}
+        return out
+
+
 def profile_decode(res: dict, dev) -> dict:
     """Eight decode steps of a full batch (after its prefill and a first
     step, outside the trace) under ``torch.profiler``: the step's wall,
-    its device-busy time and its costliest device ops."""
+    its device-busy time, its costliest device ops and the recurrent
+    loops' shares (``LoopSpans``)."""
     import torch
     from repro_torch.serving import Request, ServingEngine
 
@@ -1622,27 +1834,31 @@ def profile_decode(res: dict, dev) -> dict:
         return engine
 
     def steps(engine):
-        t0 = time.perf_counter()
-        engine.run(max_steps=PROFILE_STEPS)
-        torch.cuda.synchronize()
+        with LoopSpans() as loops:
+            t0 = time.perf_counter()
+            engine.run(max_steps=PROFILE_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         require(engine.metrics["steps"] == PROFILE_STEPS + 1,
                 f"profiled {engine.metrics['steps'] - 1} steps")
-        return time.perf_counter() - t0
+        return wall, loops
 
-    prof, wall = traced(steps, setup=prefilled, cpu=True)
+    prof, (wall, loops) = traced(steps, setup=prefilled)
     device_us, top = device_busy(prof)
     return {"steps": PROFILE_STEPS, "wall_ms_per_step": wall / PROFILE_STEPS
             * 1e3, "device_busy_ms_per_step": device_us / 1e3
             / PROFILE_STEPS, "idle_share": 1.0 - device_us / 1e6 / wall,
             "top_device_ms_per_step": {k: v / PROFILE_STEPS
-                                       for k, v in top.items()}}
+                                       for k, v in top.items()},
+            "loops": loops.shares(prof, device_us, wall)}
 
 
 def profile_prefill(res: dict, dev) -> dict:
     """One prefill wave as the engine runs it (fresh caches, then
     ``prefill_step`` over ``SERVE_BATCH`` x ``SERVE_SEQ`` tokens), after an
-    untraced one, under ``torch.profiler``: its wall, device-busy time and
-    costliest device ops."""
+    untraced one, under ``torch.profiler``: its wall, device-busy time,
+    costliest device ops and the recurrent loops' shares
+    (``LoopSpans``)."""
     import torch
     from repro_torch.models import init_decode_state, prefill_step
 
@@ -1655,16 +1871,426 @@ def profile_prefill(res: dict, dev) -> dict:
         prefill_step(res["model"], state, {"tokens": tokens})
 
     def timed_wave(_):
-        t0 = time.perf_counter()
-        wave()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
+        with LoopSpans() as loops:
+            t0 = time.perf_counter()
+            wave()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return wall, loops
 
-    prof, wall = traced(timed_wave, setup=wave, cpu=True)
+    prof, (wall, loops) = traced(timed_wave, setup=wave)
     device_us, top = device_busy(prof)
     return {"wall_ms": wall * 1e3, "device_busy_ms": device_us / 1e3,
             "idle_share": 1.0 - device_us / 1e6 / wall,
-            "top_device_ms": top}
+            "top_device_ms": top,
+            "loops": loops.shares(prof, device_us, wall)}
+
+
+def prefill_length(cfg, n: int) -> int:
+    """The longest prefix of an ``n``-token prompt that ``prefill_step``
+    takes whole at a Mamba chunk of its own length: with mLSTM layers (a
+    fixed prefill chunk of ``MLSTM_PREFILL_CHUNK``) a length under the
+    chunk or a multiple of it, else all ``n``."""
+    if "mlstm" in cfg.block_pattern and n > MLSTM_PREFILL_CHUNK:
+        return n - n % MLSTM_PREFILL_CHUNK
+    return n
+
+
+def routing_of(rec: MoeRecorder, cut: int, row: int, length: int) -> list:
+    """The experts that the teacher-forced run chose for each token of row
+    ``row`` (its prefill of ``cut`` tokens, then its decode steps up to
+    position ``length - 1``), one ``(1, length, k)`` a MoE layer."""
+    import torch
+    pre = rec.top_i(("prefill", cut))
+    steps = [rec.top_i(("decode", cut, pos)) for pos in range(cut, length)]
+    return [torch.cat([pre[layer][row]] + [st[layer][row] for st in steps])
+            [None] for layer in range(len(pre))]
+
+
+def check_recurrent(res: dict, dev) -> dict:
+    """The model-level check of a recurrent model (the engine's padded
+    prefill is not the greedy continuation for these, ROADMAP Queue 3):
+    each finished request's sequence (prompt and generated tokens but the
+    last) goes through ``prefill_step`` at batch 1 up to its longest
+    prefix that the mLSTM's prefill chunk allows (``prefill_length``), at a
+    Mamba chunk of that length, then through ``decode_step`` teacher-forced
+    token by token; requests with the same prefix length run as one batch.
+    The logits at the 32 generated positions must agree with one
+    ``forward`` over the whole sequence (Mamba and mLSTM chunk its length)
+    within ``LOGIT_TOL``. A MoE model runs drop-free throughout (capacity
+    factor E / top_k; a decode step drops nothing either) and the forward
+    routes each token to the experts that the prefill and decode chose for
+    it (``PinnedRouting``; the top-k turns on bf16 rounding)."""
+    import contextlib
+
+    import torch
+    from repro_torch.models import (
+        decode_step,
+        forward,
+        init_decode_state,
+        prefill_step,
+    )
+
+    cfg, model = res["cfg"], res["model"]
+    moe = cfg.moe is not None
+    rec = MoeRecorder() if moe else contextlib.nullcontext()
+    model.cfg = drop_free(cfg)
+    groups: dict = {}
+    for req in res["done"]:
+        groups.setdefault(prefill_length(cfg, len(req.tokens)), []).append(req)
+    t0 = time.perf_counter()
+    max_err, deltas, held, decoded, rerouted = 0.0, [], {}, 0, 0
+    try:
+        with rec:
+            for cut, reqs in sorted(groups.items()):
+                seqs = [r.tokens + r.output[:-1] for r in reqs]
+                longest = max(map(len, seqs))
+                toks = torch.zeros((len(reqs), longest), dtype=torch.int32)
+                for i, seq in enumerate(seqs):
+                    toks[i, :len(seq)] = torch.tensor(seq)
+                toks = toks.to(dev)
+                state = init_decode_state(cfg, len(reqs), longest, dev)
+                if moe:
+                    rec.label = ("prefill", cut)
+                lg, state = prefill_step(model, state,
+                                         {"tokens": toks[:, :cut]},
+                                         ssm_chunk=cut)
+                # position cut - 1 + j at index j; rows past their end feed
+                # their pad tokens, whose logits no row reads
+                logits = [lg[:, 0, :cfg.vocab_size]]
+                for pos in range(cut, longest):
+                    if moe:
+                        rec.label = ("decode", cut, pos)
+                    lg, state = decode_step(model, state,
+                                            toks[:, pos:pos + 1])
+                    logits.append(lg[:, 0, :cfg.vocab_size])
+                decoded += longest - cut
+                logits = torch.stack(logits, dim=1)
+                for i, req in enumerate(reqs):
+                    n, seq = len(req.tokens), seqs[i]
+                    mine = logits[i, n - cut:n - cut + SERVE_NEW_TOKENS]
+                    pin = PinnedRouting(routing_of(rec, cut, i, len(seq))) \
+                        if moe else contextlib.nullcontext()
+                    if moe:
+                        rec.label = ("forward", req.req_id)
+                    with pin:
+                        fw, _ = forward(model, {"tokens": torch.tensor(
+                            [seq], device=dev)}, ssm_chunk=len(seq))
+                    want = fw[0, n - 1:n - 1 + SERVE_NEW_TOKENS,
+                              :cfg.vocab_size]
+                    require(mine.shape == want.shape
+                            and bool(torch.isfinite(mine).all()
+                                     & torch.isfinite(want).all()),
+                            f"request {req.req_id}: logits {mine.shape} "
+                            f"against {want.shape}, or not finite")
+                    delta = (mine - want).abs()
+                    max_err = max(max_err, float(delta.max()))
+                    deltas.append(delta.flatten()[::97])
+                    held[req.req_id] = {"prompt": n, "prefill": cut,
+                                        "teacher_forced": len(seq) - cut,
+                                        "max_abs_err": float(delta.max())}
+                    if moe:
+                        rerouted += pin.differ
+                        lost = int(rec.lost(("forward", req.req_id),
+                                            moe_layers(cfg)).sum())
+                        require(lost == 0, f"request {req.req_id}: the "
+                                f"drop-free forward dropped {lost}")
+            if moe:
+                for cut in groups:
+                    lost = int(rec.lost(("prefill", cut),
+                                        moe_layers(cfg)).sum())
+                    require(lost == 0, f"the drop-free prefill of length "
+                            f"{cut} dropped {lost} assignments")
+    finally:
+        model.cfg = cfg
+    torch.cuda.synchronize()
+    sample = torch.cat(deltas).double()
+    require(max_err <= LOGIT_TOL, f"teacher-forced decode differs from the "
+            f"forward by up to {max_err} > {LOGIT_TOL}")
+    out = {"max_abs_logit_err": max_err,
+           "abs_err_rms": float(sample.square().mean().sqrt()),
+           "positions": SERVE_NEW_TOKENS * len(held),
+           "prefill_batches": {str(c): len(r) for c, r in
+                               sorted(groups.items())},
+           "decode_steps": decoded, "seconds": time.perf_counter() - t0,
+           "held_by_request": held}
+    if moe:
+        out["rerouted_by_pinning"] = rerouted
+    return out
+
+
+def greedy_check(res: dict, dev) -> dict:
+    """For the request with the shortest prompt: the greedy continuation
+    of its prompt (``prefill_step`` of its longest allowed prefix, the rest
+    of the prompt teacher-forced, then its own argmax fed back) beside the
+    engine's tokens. They are not expected to be equal for a recurrent
+    model (the padded prefill, ROADMAP Queue 3)."""
+    import torch
+    from repro_torch.models import decode_step, init_decode_state, \
+        prefill_step
+    cfg, model = res["cfg"], res["model"]
+    req = min(res["done"], key=lambda r: len(r.tokens))
+    n = len(req.tokens)
+    cut = prefill_length(cfg, n)
+    toks = torch.tensor([req.tokens], dtype=torch.int32, device=dev)
+    state = init_decode_state(cfg, 1, n + SERVE_NEW_TOKENS, dev)
+    lg, state = prefill_step(model, state, {"tokens": toks[:, :cut]},
+                             ssm_chunk=cut)
+    for pos in range(cut, n):
+        lg, state = decode_step(model, state, toks[:, pos:pos + 1])
+    greedy = []
+    for _ in range(SERVE_NEW_TOKENS):
+        nxt = lg[:, -1, :cfg.vocab_size].argmax(-1)
+        greedy.append(int(nxt))
+        lg, state = decode_step(model, state,
+                                nxt[:, None].to(torch.int32))
+    first = next((i for i, (a, b) in enumerate(zip(greedy, req.output))
+                  if a != b), None)
+    return {"request": req.req_id, "prompt": n, "equal": greedy == req.output,
+            "first_difference": first, "engine_first8": req.output[:8],
+            "greedy_first8": greedy[:8]}
+
+
+def drop_free(cfg):
+    """``cfg`` with a MoE capacity factor of E / top_k: no assignment is
+    dropped (``cfg`` itself without MoE)."""
+    import dataclasses
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def rounding_floor(res: dict, dev) -> dict:
+    """How far the served model's own ``forward`` moves with the batch it
+    runs in: the request with the shortest prompt alone and beside its
+    reversed copy (other GEMM shapes, the same arithmetic), max |Δ| and rms
+    of the logits at its generated positions. A MoE model runs drop-free
+    and unpinned, so a top-k that flips counts too."""
+    import torch
+    from repro_torch.models import forward
+    cfg, model = res["cfg"], res["model"]
+    req = min(res["done"], key=lambda r: len(r.tokens))
+    n, seq = len(req.tokens), req.tokens + req.output[:-1]
+    toks = torch.tensor([seq, seq[::-1]], device=dev)
+    model.cfg = drop_free(cfg)
+    try:
+        alone, _ = forward(model, {"tokens": toks[:1]}, ssm_chunk=len(seq))
+        pair, _ = forward(model, {"tokens": toks}, ssm_chunk=len(seq))
+    finally:
+        model.cfg = cfg
+    held = slice(n - 1, n - 1 + SERVE_NEW_TOKENS)
+    delta = (alone[0, held, :cfg.vocab_size]
+             - pair[0, held, :cfg.vocab_size]).abs()
+    return {"request": req.req_id, "max_abs": float(delta.max()),
+            "rms": float(delta.square().mean().sqrt())}
+
+
+def recurrent_phase(dev, cfg, card: str, name: str) -> dict:
+    """Serve the 8 requests with a recurrent model (jamba cut to one
+    pattern period, or xlstm) through ``serve_phase`` (launches counted
+    there), check K4's route, print the greedy line, the model's bf16
+    rounding floor (``rounding_floor``) and, for a MoE model, the drops;
+    then cast the model to fp32 (exactly: every bf16 value is an fp32
+    value), hold it at the model level there (``check_recurrent``) and
+    free it. Returns the phase's numbers without the model.
+
+    Why fp32: in bf16 the two paths the check compares differ by bf16
+    rounding amplified through the layers, which at random weights reaches
+    the tolerance. On an H100 jamba's bf16 check gave 0.143 and 0.156 in
+    two builds and xlstm's 1.59, while each model's own bf16 forward moved
+    by 1.35-3.09 (jamba, unpinned) and 1.16-3.95 (xlstm) between batch 1
+    and batch 2 of one sequence (``rounding_floor``, printed in every run).
+    In fp32 jamba's check gave 5.5e-5 and xlstm's 0.0127."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import attention as A
+    moe = cfg.moe is not None
+    before = {k: set(v) for k, v in A.SHAPES.items()}
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(what: str) -> None:
+        nonlocal t0
+        seconds[what] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    res = serve_phase(dev, cfg, rec=MoeRecorder() if moe else None)
+    lap("serve")
+    shapes = {k: A.SHAPES[k] - before[k] for k in A.SHAPES}
+    require(all(sh[-1] == "tc" for sh in shapes["flash_attention"]),
+            f"a {name} prefill took K4's CUDA-core route: "
+            f"{sorted(shapes['flash_attention'])}")
+    greedy = greedy_check(res, dev)
+    print(f"serve {name} greedy: the engine's tokens against the greedy "
+          f"continuation of the prompt (not expected equal: the engine "
+          f"prefills padded to max_seq, ROADMAP Queue 3): "
+          f"{json.dumps(greedy)}")
+    lap("greedy")
+    floor = rounding_floor(res, dev)
+    print(f"serve {name} bf16 rounding floor (its forward at batch 1 against"
+          f" batch 2): {json.dumps(floor)} [{card}]")
+    lap("rounding_floor")
+    if moe:
+        print(f"serve {name} capacity drops: {json.dumps(res['drops'])} (a "
+              f"decode step dropped none) [{card}]")
+    print(f"serve {name} attention shapes: "
+          f"{ {k: sorted(v) for k, v in shapes.items()} }")
+    res["model"] = res["model"].float()
+    res["model"].cfg = res["cfg"] = dataclasses.replace(cfg, dtype="float32")
+    tf = check_recurrent(res, dev)
+    lap("check")
+    res["cfg"] = cfg
+    print_serve(res, tf, f"serve {name}", f"{name} model-level (fp32) ",
+                card)
+    print(f"serve {name}: {cfg.num_layers} of {PUBLISHED[cfg.name][0]} "
+          f"layers; seconds by part {json.dumps(seconds)} [{card}]")
+    for k in ("model", "recorder", "steps"):
+        res.pop(k, None)
+    # the engine and serve_phase's recording hooks hold each other (and
+    # the model): a cycle, which only the collector frees
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def recurrent_profiles(dev, cfg, name: str, card: str) -> None:
+    """A recurrent model on the weights ``serve_phase`` makes for it (seed
+    0), outside the counted runs: eight decode steps and one prefill wave
+    under ``torch.profiler`` (``profile_decode``, ``profile_prefill``)
+    and, for a MoE model, its dispatch on K2 held bit-exact and timed at
+    its shapes (``check_moe_dispatch``); the model freed after. The
+    script runs these before the recurrent phases: on an H100 every
+    profiler trace taken after those phases came back empty (after jamba's
+    fp32 check at once and for good; K2, K4 and K5 at that check's shapes
+    alone, or a full card, left the profiler working)."""
+    import torch
+    from repro_torch.models import init_lm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    res = {"cfg": cfg, "model": init_lm(cfg, gen, dev),
+           "prompts": serve_prompts(cfg)}
+    for what, fn in (("decode", profile_decode), ("prefill",
+                                                  profile_prefill)):
+        t0 = time.perf_counter()
+        prof = fn(res, dev)
+        print(f"profile serve {name} {what} ({SERVE_BATCH}x"
+              f"{SERVE_SEQ if what == 'prefill' else 1} tokens, profiler "
+              f"on, {time.perf_counter() - t0:.2f} s): {json.dumps(prof)} "
+              f"[{card}]")
+    if cfg.moe is not None:
+        gen.manual_seed(1)
+        print(f"moe dispatch on K2 ({name}): bit-exact against its plain "
+              f"version, its layer within bf16 tolerance: "
+              f"{json.dumps(check_moe_dispatch(dev, gen, res))} [{card}]")
+    del res
+    torch.cuda.empty_cache()
+
+
+def shape_sets() -> dict:
+    """A copy of every kernel's recorded launch shapes (K1-K5)."""
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import partition as K
+    return {k: set(v) for k, v in {**K.SHAPES, **A.SHAPES}.items()}
+
+
+def restore_shape_sets(saved: dict) -> None:
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import partition as K
+    for shapes in (K.SHAPES, A.SHAPES):
+        for k in shapes:
+            shapes[k].clear()
+            shapes[k] |= saved[k]
+
+
+def hold_late_shapes(dev, gen, late: dict) -> dict:
+    """K2, K4 and K5 held against their plain versions at the shapes in
+    ``late`` (the recurrent and frontends phases' launches; they launch no
+    K1 or K3); the max |err| of each kernel."""
+    require(not late["partition_histogram"] and not late["fused_probe"],
+            f"K1 or K3 launched: {late}")
+    return {"partition_histogram": 0.0, "fused_probe": 0.0,
+            "partition_scatter": max(
+                [0.0] + [hold_k2(dev, gen, n, p)
+                         for n, p in sorted(late["partition_scatter"])]),
+            "flash_attention": max(
+                [0.0] + [hold_k4(dev, gen, sh)
+                         for sh in sorted(late["flash_attention"])]),
+            "decode_attention": max(
+                [0.0] + [hold_k5(dev, gen, sh)
+                         for sh in sorted(late["decode_attention"])])}
+
+
+def frontends_phase(dev, card: str) -> dict:
+    """internvl2-1b (256 stub patches before 256 tokens) and
+    musicgen-medium (frame embeddings added to 512 tokens), each at its
+    full config with random weights from seed 0: one ``forward`` and one
+    ``prefill_step`` of ``FRONTEND_BATCH`` sequences on the card, with the
+    attention launch counters set to 0 before each call and read after it
+    (K4 once a layer, on its tensor-core route, K5 never); the prefill's
+    last-position logits held to the forward's within ``LOGIT_TOL``, both
+    finite. Each model is freed when it is done."""
+    import torch
+    from repro_torch.configs.common import concrete_inputs
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.kernels import attention as A
+    from repro_torch.models import forward, init_decode_state, init_lm, \
+        prefill_step
+    out = {"launches": {"flash_attention": 0, "decode_attention": 0},
+           "shapes": {k: set() for k in A.SHAPES}}
+    shape = ShapeConfig("frontends", FRONTEND_SEQ, FRONTEND_BATCH, "prefill")
+    for arch in FRONTEND_ARCHS:
+        cfg = serve_config(arch)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        model = init_lm(cfg, gen, dev)
+        inputs = concrete_inputs(cfg, shape, gen, dev)
+        before = {k: set(v) for k, v in A.SHAPES.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        row = {}
+        for what in ("forward", "prefill"):
+            A.reset_launches()
+            t0 = time.perf_counter()
+            if what == "forward":
+                logits, _ = forward(model, inputs)
+                last = logits[:, -1]
+            else:
+                state = init_decode_state(cfg, FRONTEND_BATCH, FRONTEND_SEQ,
+                                          dev)
+                logits, state = prefill_step(model, state, inputs)
+                last = logits[:, 0]
+                require(bool((state["pos"] == FRONTEND_SEQ).all()),
+                        f"{arch}: prefill left positions {state['pos']}")
+            torch.cuda.synchronize()
+            row[f"{what}_ms"] = (time.perf_counter() - t0) * 1e3
+            launches = dict(A.LAUNCHES)
+            require(launches == {"flash_attention": cfg.num_layers,
+                                 "decode_attention": 0},
+                    f"{arch} {what}: launches {launches}")
+            for k, v in launches.items():
+                out["launches"][k] += v
+            row[what] = last[:, :cfg.vocab_size].float()
+        require(logits.shape[0] == FRONTEND_BATCH, f"{arch}: {logits.shape}")
+        shapes = {k: A.SHAPES[k] - before[k] for k in A.SHAPES}
+        require(all(sh[-1] == "tc" for sh in shapes["flash_attention"]),
+                f"{arch} took K4's CUDA-core route: {shapes}")
+        for k in shapes:
+            out["shapes"][k] |= shapes[k]
+        f, p = row.pop("forward"), row.pop("prefill")
+        require(bool(torch.isfinite(f).all() & torch.isfinite(p).all()),
+                f"{arch}: non-finite logits")
+        err = float((f - p).abs().max())
+        require(err <= LOGIT_TOL, f"{arch}: prefill's last logits differ "
+                f"from the forward's by {err} > {LOGIT_TOL}")
+        row.update(max_abs_err=err, k4_per_call=cfg.num_layers,
+                   peak_bytes=int(torch.cuda.max_memory_allocated()),
+                   inputs={k: list(v.shape) for k, v in inputs.items()})
+        print(f"frontends {arch}: {json.dumps(row)} (tolerance {LOGIT_TOL})"
+              f" [{card}]")
+        del model, inputs, logits, state, f, p, last
+        torch.cuda.empty_cache()
+    return out
 
 
 def print_serve(res: dict, tf: dict, prefix: str, tf_prefix: str,
@@ -1874,19 +2500,6 @@ def main() -> int:
     print(f"moe dispatch on K2 ({MOE_ARCH}): bit-exact against its plain "
           f"version, its layer within bf16 tolerance: "
           f"{json.dumps(moe_check)} [{card}]")
-    # the main path's launches: the queries, the simulator's planning, the
-    # process workers', the scheduler's and the serve phase (the
-    # teacher-forced check's own are on its line above)
-    counted = [res["launches"] for res in phases] + [
-        sim["launches"], proc["worker_launches"]] + [
-        r["launches"] for r in mix["policies"].values()] + [
-        serve["launches"], granite["launches"]]
-    for r in rows:
-        r["launches"] = sum(c.get(r["name"], 0) for c in counted)
-        for extra in ("shape", "device", "device_ops_per_call", "checked_ms",
-                      "second"):
-            r.pop(extra, None)
-    print(json.dumps({"kernels": rows}))
     prof = profile_query(dev, *phases[1]["tables"])
     print(f"profile smoke_large (second run, profiler on): "
           f"{json.dumps(prof)} [{card}]")
@@ -1904,6 +2517,62 @@ def main() -> int:
           f"tokens, profiler on): {json.dumps(prof)} [{card}]")
     cost = range_check_cost(granite, dev)
     print(f"serve {MOE_ARCH} range check: {json.dumps(cost)} [{card}]")
+
+    # jamba at full width, one period of its pattern (Mamba, attention, MoE
+    # on K2), then xlstm (mLSTM and sLSTM), then the stub frontends: after
+    # everything above, which runs as it did before these existed; each
+    # model freed at its phase's end. Their profiles come first, on the
+    # weights made from seed 0 once more, and leave no shape behind
+    # (``recurrent_profiles``): every profiler trace taken after these
+    # phases came back empty on an H100
+    import dataclasses
+    recurrent_cfgs = {}
+    for arch, cut in ((HYBRID_ARCH, HYBRID_LAYERS), (XLSTM_ARCH, None)):
+        cfg = serve_config(arch)
+        name = "serve_" + arch.replace("-", "_").replace(".", "_")
+        if cut is not None:
+            cfg = dataclasses.replace(cfg, num_layers=cut)
+            name += f"_{cut}l"
+        recurrent_cfgs[name] = (arch, cfg)
+    before = shape_sets()
+    for name, (arch, cfg) in recurrent_cfgs.items():
+        t0 = time.perf_counter()
+        recurrent_profiles(dev, cfg, arch, card)
+        seconds[f"{name}_profiles"] = time.perf_counter() - t0
+    restore_shape_sets(before)
+    recurrent = {}
+    for name, (arch, cfg) in recurrent_cfgs.items():
+        t0 = time.perf_counter()
+        recurrent[name] = recurrent_phase(dev, cfg, card, arch)
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase {name}: {seconds[name]:.2f} s")
+    t0 = time.perf_counter()
+    fronts = frontends_phase(dev, card)
+    seconds["frontends"] = time.perf_counter() - t0
+    print(f"phase frontends: {seconds['frontends']:.2f} s")
+    # each kernel held against its plain version at every new shape these
+    # phases launched it at (their checks' own among them)
+    late = {k: v - before[k] for k, v in shape_sets().items()}
+    print(f"main-path kernel shapes of the recurrent and frontends phases: "
+          f"{ {k: sorted(v) for k, v in late.items()} }")
+    late_err = hold_late_shapes(dev, gen, late)
+    for r in rows:
+        r["max_abs_err"] = max(r["max_abs_err"], late_err[r["name"]])
+
+    # the main path's launches: the queries, the simulator's planning, the
+    # process workers', the scheduler's, the serve phases and the frontends
+    # (the teacher-forced checks' own are on their lines above)
+    counted = [res["launches"] for res in phases] + [
+        sim["launches"], proc["worker_launches"]] + [
+        r["launches"] for r in mix["policies"].values()] + [
+        serve["launches"], granite["launches"], fronts["launches"]] + [
+        r["launches"] for r in recurrent.values()]
+    for r in rows:
+        r["launches"] = sum(c.get(r["name"], 0) for c in counted)
+        for extra in ("shape", "device", "device_ops_per_call", "checked_ms",
+                      "second"):
+            r.pop(extra, None)
+    print(json.dumps({"kernels": rows}))
     print(f"phase seconds: {json.dumps(seconds)}")
     print(card)
     print(json.dumps({"ok": True, "device": {

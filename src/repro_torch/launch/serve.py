@@ -5,7 +5,9 @@ batching decision node, on the card unless ``--device cpu`` is given.
         --requests 16 --max-new 8
 
 Serves the architecture's smoke config with random weights (seed 0), as
-the reference's ``launch/serve.py`` does.
+the reference's ``launch/serve.py`` does. The engine feeds token ids only,
+so the two stub-frontend architectures (internvl2, musicgen) are not
+offered.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import time
 import numpy as np
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.config import Frontend
 from repro_torch.device import resolve_device
 from repro_torch.models import init_lm
 from repro_torch.serving import Request, ServingEngine
@@ -23,7 +26,9 @@ from repro_torch.serving import Request, ServingEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-3b", choices=ARCH_IDS)
+    servable = [a for a in ARCH_IDS
+                if get_config(a).frontend == Frontend.TOKENS.value]
+    ap.add_argument("--arch", default="llama3.2-3b", choices=servable)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--max-batch", type=int, default=4)

@@ -1,8 +1,10 @@
-"""Model plane of the port: the attention LM (``lm``) with dense or MoE
-FFNs (``moe``), its layers and attention, and the carry-across of reference
-weights (``convert``)."""
+"""Model plane of the port: the LM (``lm``) of attention (``attention``),
+Mamba (``ssm``), mLSTM and sLSTM (``xlstm``) blocks with dense, MoE
+(``moe``) or no FFNs behind a token or stub frontend, its layers, and the
+carry-across of reference weights (``convert``)."""
 
 from repro_torch.models.lm import (  # noqa: F401
+    AUDIO_FRAME_DIM,
     LM,
     decode_step,
     forward,

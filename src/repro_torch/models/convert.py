@@ -37,11 +37,13 @@ def _flatten(tree, prefix: str, out: dict) -> None:
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> LM:
     """The port's model holding the weights of a reference parameter tree
     whose leaves are numpy arrays (bfloat16 leaves as ``ml_dtypes``
-    arrays). Raises if a leaf is missing, left over or of another shape."""
+    arrays): the embedding, the final norm, the stub frontend's
+    ``patch_proj`` or ``frame_proj``, and every layer's leaves (fp32 ones,
+    such as Mamba's ``a_log`` or sLSTM's ``r_gates``, stay fp32). Raises if
+    a leaf is missing, left over or of another shape or dtype."""
     dev = resolve_device(device)
     flat: dict[str, np.ndarray] = {}
-    _flatten({"embed": tree["embed"], "final_norm": tree["final_norm"]}, "",
-             flat)
+    _flatten({k: v for k, v in tree.items() if k != "blocks"}, "", flat)
     period = len(tree["blocks"])
     for p, stacked in enumerate(tree["blocks"]):
         leaves: dict[str, np.ndarray] = {}
@@ -60,7 +62,10 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> LM:
         if tuple(arr.shape) != tuple(want[name].shape):
             raise ValueError(f"{name}: shape {arr.shape}, expected "
                              f"{tuple(want[name].shape)}")
-        state[name] = torch.nn.Parameter(_tensor(arr, dev),
-                                         requires_grad=False)
+        t = _tensor(arr, dev)
+        if t.dtype != want[name].dtype:
+            raise ValueError(f"{name}: dtype {t.dtype}, expected "
+                             f"{want[name].dtype}")
+        state[name] = torch.nn.Parameter(t, requires_grad=False)
     model.load_state_dict(state, assign=True)
     return model

@@ -24,12 +24,17 @@ def pad_to_multiple(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def frozen(t: torch.Tensor) -> nn.Parameter:
+    """A parameter that asks for no gradient (the port is inference-only)."""
+    return nn.Parameter(t, requires_grad=False)
+
+
 def init_normal(shape, scale: float, dtype, generator, device) -> nn.Parameter:
     """``normal * scale`` drawn in fp32, then cast: the reference's
     ``_init`` (from a torch generator, so not the reference's numbers)."""
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32) * scale
-    return nn.Parameter(w.to(dtype), requires_grad=False)
+    return frozen(w.to(dtype))
 
 
 # -- RMSNorm -----------------------------------------------------------------

@@ -1,18 +1,17 @@
 """The language model of the port (``repro/models/lm.py``): a stack of
-attention blocks with dense SwiGLU or MoE FFNs, with its full forward, its
-prompt prefill and its one-token decode step.
+attention, Mamba, mLSTM and sLSTM blocks with dense SwiGLU, MoE or no FFNs,
+behind a token, vision-stub or audio-stub frontend, with its full forward,
+its prompt prefill and its one-token decode step.
 
 The reference stacks each pattern position's weights over the repeats and
 scans over them; the port keeps one module per layer and loops (PyTorch
 runs eagerly, so there is no program size to keep small). The decode state
-is one ``(B, max_seq, K, hd)`` K and V cache per layer plus the ``(B,)``
-int32 positions; prefill and decode write the caches in place.
-
-The blocks the port does not have yet raise ``NotImplementedError`` when a
-model is built: Mamba, mLSTM and sLSTM blocks and the vision and audio stub
-frontends all wait for ROADMAP Queue 1 item 11. The modules are
-inference-only until ``training/`` is ported (no parameter asks for
-gradients).
+is one entry per layer, by its kind: the ``(B, max_seq, K, hd)`` K and V
+caches of an attention layer (prefill and decode write them in place),
+``{h, conv}`` of a Mamba layer, ``{c, n, m, conv}`` of an mLSTM layer and
+``{c, n, h, m, conv}`` of an sLSTM layer (replaced at every call), plus the
+``(B,)`` int32 positions. The modules are inference-only until
+``training/`` is ported (no parameter asks for gradients).
 """
 
 from __future__ import annotations
@@ -24,51 +23,68 @@ from repro_torch.core.config import BlockKind, FFNKind, Frontend, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (
     MLP,
     Embedding,
     RMSNorm,
     embed,
+    init_normal,
     mlp,
     rmsnorm,
     unembed,
 )
 
-_LATER = "is not ported yet (ROADMAP Queue 1 item 11)"
+AUDIO_FRAME_DIM = 128   # EnCodec latent dim (stub frontend)
+
+_BLOCK_INIT = {
+    BlockKind.ATTENTION: attn_mod.init_attention,
+    BlockKind.MAMBA: ssm_mod.init_mamba,
+    BlockKind.MLSTM: xlstm_mod.init_mlstm,
+    BlockKind.SLSTM: xlstm_mod.init_slstm,
+}
 
 
 class Block(nn.Module):
-    """One residual layer: ``norm1``, the attention ``block``, ``norm2`` and
-    the ``ffn`` (an ``MoE`` where ``cfg.layer_is_moe(layer)``, else the
-    dense SwiGLU), named as in the reference's parameter tree."""
+    """One residual layer: ``norm1`` and the ``block`` of the layer's kind,
+    then, unless ``cfg.ffn`` is ``none``, ``norm2`` and the ``ffn`` (an
+    ``MoE`` where ``cfg.layer_is_moe(layer)``, else the dense SwiGLU),
+    named as in the reference's parameter tree."""
 
     def __init__(self, cfg: ModelConfig, layer: int, generator, device):
         super().__init__()
-        kind = cfg.block_kind(layer)
-        if kind != BlockKind.ATTENTION:
-            raise NotImplementedError(f"the {kind.value} block {_LATER}")
-        if cfg.ffn not in (FFNKind.DENSE, FFNKind.MOE):
-            raise NotImplementedError(f"the {cfg.ffn.value!r} FFN {_LATER}")
+        self.kind = cfg.block_kind(layer)
         dtype = getattr(torch, cfg.dtype)
         self.norm1 = RMSNorm(cfg.d_model, dtype, device)
-        self.block = attn_mod.init_attention(cfg, generator, device)
-        self.norm2 = RMSNorm(cfg.d_model, dtype, device)
-        self.ffn = moe_mod.MoE(cfg, generator, device) \
-            if cfg.layer_is_moe(layer) \
-            else MLP(cfg.d_model, cfg.d_ff, dtype, generator, device)
+        self.block = _BLOCK_INIT[self.kind](cfg, generator, device)
+        if cfg.ffn != FFNKind.NONE:
+            self.norm2 = RMSNorm(cfg.d_model, dtype, device)
+            self.ffn = moe_mod.MoE(cfg, generator, device) \
+                if cfg.layer_is_moe(layer) \
+                else MLP(cfg.d_model, cfg.d_ff, dtype, generator, device)
 
 
 class LM(nn.Module):
+    """``embed``, ``final_norm``, the stub frontend's projection
+    (``patch_proj (d, d)`` or ``frame_proj (AUDIO_FRAME_DIM, d)``) and the
+    ``layers``."""
+
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
-        if cfg.frontend != Frontend.TOKENS.value:
-            raise NotImplementedError(f"the {cfg.frontend!r} frontend "
-                                      f"{_LATER}")
         self.cfg = cfg
         dtype = getattr(torch, cfg.dtype)
-        self.embed = Embedding(cfg.vocab_size, cfg.d_model, dtype, generator,
+        d = cfg.d_model
+        self.embed = Embedding(cfg.vocab_size, d, dtype, generator,
                                device, tie=cfg.tie_embeddings)
-        self.final_norm = RMSNorm(cfg.d_model, dtype, device)
+        self.final_norm = RMSNorm(d, dtype, device)
+        if cfg.frontend == Frontend.VISION_STUB.value:
+            self.patch_proj = init_normal((d, d), d ** -0.5, dtype,
+                                          generator, device)
+        elif cfg.frontend == Frontend.AUDIO_STUB.value:
+            self.frame_proj = init_normal((AUDIO_FRAME_DIM, d),
+                                          AUDIO_FRAME_DIM ** -0.5, dtype,
+                                          generator, device)
         self.layers = nn.ModuleList(
             Block(cfg, i, generator, device) for i in range(cfg.num_layers))
 
@@ -91,9 +107,24 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device).expand(b, s)
 
 
+def _frontend_embed(model: LM, inputs: dict) -> torch.Tensor:
+    """The token embeddings, with the vision stub's projected patches put
+    before them, or the audio stub's projected frames added at every
+    position."""
+    h = embed(model.embed, inputs["tokens"])
+    if model.cfg.frontend == Frontend.VISION_STUB.value:
+        patches = inputs["patch_embeds"].to(h.dtype) @ model.patch_proj
+        h = torch.cat([patches, h], dim=1)
+    elif model.cfg.frontend == Frontend.AUDIO_STUB.value:
+        h = h + inputs["frame_embeds"].to(h.dtype) @ model.frame_proj
+    return h
+
+
 def _ffn(layer: Block, h: torch.Tensor, cfg: ModelConfig):
     """The layer's FFN residual update of ``h`` and its MoE aux loss
-    (``None`` for a dense FFN)."""
+    (``None`` for a dense FFN or none)."""
+    if not hasattr(layer, "ffn"):
+        return h, None
     normed = rmsnorm(layer.norm2, h, cfg.norm_eps)
     if isinstance(layer.ffn, moe_mod.MoE):
         out, aux = moe_mod.moe(layer.ffn, normed, cfg)
@@ -101,14 +132,24 @@ def _ffn(layer: Block, h: torch.Tensor, cfg: ModelConfig):
     return h + mlp(layer.ffn, normed), None
 
 
-def forward(model: LM, inputs: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full causal forward: ``inputs["tokens"] (B, S)`` (and optionally
-    ``inputs["positions"]``) -> ``(fp32 logits (B, S, V_padded), aux)``,
-    ``aux`` the reference's MoE load-balance loss summed over the MoE
-    layers (0 without them). Every layer's attention runs K4, and every MoE
+_RECURRENT = {
+    BlockKind.MAMBA: ssm_mod.mamba,
+    BlockKind.MLSTM: xlstm_mod.mlstm,
+    BlockKind.SLSTM: xlstm_mod.slstm,
+}
+
+
+def forward(model: LM, inputs: dict, ssm_chunk: int = 128
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full causal forward: ``inputs["tokens"] (B, S)`` (with the stub
+    frontend's ``patch_embeds`` or ``frame_embeds``, and optionally
+    ``positions``) -> ``(fp32 logits (B, S', V_padded), aux)``, ``S'``
+    counting the patches, ``aux`` the reference's MoE load-balance loss
+    summed over the MoE layers (0 without them). ``ssm_chunk`` is the
+    Mamba and mLSTM chunk. Every attention layer runs K4, and every MoE
     layer's dispatch K2."""
     cfg = model.cfg
-    h = embed(model.embed, inputs["tokens"])
+    h = _frontend_embed(model, inputs)
     b, s, _ = h.shape
     positions = inputs.get("positions")
     if positions is None:
@@ -116,8 +157,12 @@ def forward(model: LM, inputs: dict) -> tuple[torch.Tensor, torch.Tensor]:
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for layer in model.layers:
         normed = rmsnorm(layer.norm1, h, cfg.norm_eps)
-        h = h + attn_mod.attention(layer.block, normed, positions, cfg)
-        h, layer_aux = _ffn(layer, h, cfg)
+        if layer.kind == BlockKind.ATTENTION:
+            out = attn_mod.attention(layer.block, normed, positions, cfg)
+        else:
+            out = _RECURRENT[layer.kind](layer.block, normed, cfg,
+                                         chunk=ssm_chunk)
+        h, layer_aux = _ffn(layer, h + out, cfg)
         if layer_aux is not None:
             aux = aux + layer_aux
     h = rmsnorm(model.final_norm, h, cfg.norm_eps)
@@ -125,51 +170,88 @@ def forward(model: LM, inputs: dict) -> tuple[torch.Tensor, torch.Tensor]:
     return logits, aux
 
 
+_INIT_STATE = {
+    BlockKind.MAMBA: ssm_mod.init_mamba_state,
+    BlockKind.MLSTM: xlstm_mod.init_mlstm_state,
+    BlockKind.SLSTM: xlstm_mod.init_slstm_state,
+}
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device) -> dict:
-    """Zeroed per-layer KV caches and positions for ``batch`` sequences."""
+    """Each layer's zeroed state for ``batch`` sequences (K/V caches of
+    ``max_seq`` positions for attention, the recurrent state otherwise)
+    and the positions."""
     layers = []
-    for _ in range(cfg.num_layers):
-        k, v = attn_mod.init_kv_cache(cfg, batch, max_seq, device)
-        layers.append({"k": k, "v": v})
+    for i in range(cfg.num_layers):
+        kind = cfg.block_kind(i)
+        if kind == BlockKind.ATTENTION:
+            k, v = attn_mod.init_kv_cache(cfg, batch, max_seq, device)
+            layers.append({"k": k, "v": v})
+        else:
+            layers.append(_INIT_STATE[kind](cfg, batch, device))
     return {"layers": layers,
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
-def prefill_step(model: LM, state: dict, inputs: dict):
-    """Process whole prompts ``inputs["tokens"] (B, S)`` at positions
-    ``[0, S)``, fill every layer's cache, and return ``(fp32 logits of the
-    last position (B, 1, V_padded), state)`` with every row at position S.
-    Every layer's attention runs K4, and every MoE layer's dispatch K2."""
+def prefill_step(model: LM, state: dict, inputs: dict, ssm_chunk: int = 128):
+    """Process whole prompts (``forward``'s inputs) at positions
+    ``[0, S')``, fill every layer's state, and return ``(fp32 logits of the
+    last position (B, 1, V_padded), state)`` with every row at position
+    ``S'``. ``ssm_chunk`` is the Mamba chunk; the mLSTM keeps its own 256,
+    as in the reference. Every attention layer runs K4, and every MoE
+    layer's dispatch K2."""
     cfg = model.cfg
-    h = embed(model.embed, inputs["tokens"])
+    h = _frontend_embed(model, inputs)
     b, s, _ = h.shape
     positions = _positions(b, s, h.device)
+    layers = []
     for layer, st in zip(model.layers, state["layers"]):
         normed = rmsnorm(layer.norm1, h, cfg.norm_eps)
-        out, _ = attn_mod.prefill_attention(
-            layer.block, (st["k"], st["v"]), normed, positions, cfg)
+        if layer.kind == BlockKind.ATTENTION:
+            out, _ = attn_mod.prefill_attention(
+                layer.block, (st["k"], st["v"]), normed, positions, cfg)
+        elif layer.kind == BlockKind.MAMBA:
+            out, st = ssm_mod.mamba(layer.block, normed, cfg,
+                                    chunk=ssm_chunk, return_state=True)
+        else:
+            out, st = _RECURRENT[layer.kind](layer.block, normed, cfg,
+                                             return_state=True)
+        layers.append(st)
         h, _ = _ffn(layer, h + out, cfg)
     h = rmsnorm(model.final_norm, h, cfg.norm_eps)
     logits = unembed(model.embed, h[:, -1:], cfg.vocab_size).float()
-    return logits, {"layers": state["layers"],
+    return logits, {"layers": layers,
                     "pos": torch.full((b,), s, dtype=torch.int32,
                                       device=h.device)}
+
+
+_STEP = {
+    BlockKind.MAMBA: ssm_mod.mamba_step,
+    BlockKind.MLSTM: xlstm_mod.mlstm_step,
+    BlockKind.SLSTM: xlstm_mod.slstm_step,
+}
 
 
 def decode_step(model: LM, state: dict, tokens: torch.Tensor):
     """One token for every sequence: ``tokens (B, 1)`` at ``state["pos"]``
     -> ``(fp32 logits (B, 1, V_padded), state)`` with the positions
-    advanced by one. Every layer's attention runs K5 on its cache, and
-    every MoE layer's dispatch K2."""
+    advanced by one (no stub-frontend input, as in the reference). Every
+    attention layer runs K5 on its cache, and every MoE layer's dispatch
+    K2."""
     cfg = model.cfg
     h = embed(model.embed, tokens)
     positions = state["pos"]
+    layers = []
     for layer, st in zip(model.layers, state["layers"]):
         normed = rmsnorm(layer.norm1, h, cfg.norm_eps)
-        out, _ = attn_mod.decode_attention(
-            layer.block, (st["k"], st["v"]), normed, positions, cfg)
+        if layer.kind == BlockKind.ATTENTION:
+            out, _ = attn_mod.decode_attention(
+                layer.block, (st["k"], st["v"]), normed, positions, cfg)
+        else:
+            out, st = _STEP[layer.kind](layer.block, st, normed, cfg)
+        layers.append(st)
         h, _ = _ffn(layer, h + out, cfg)
     h = rmsnorm(model.final_norm, h, cfg.norm_eps)
     logits = unembed(model.embed, h, cfg.vocab_size).float()
-    return logits, {"layers": state["layers"], "pos": positions + 1}
+    return logits, {"layers": layers, "pos": positions + 1}

@@ -1,0 +1,332 @@
+"""xLSTM blocks [arXiv:2405.04517] (the port of ``repro/models/xlstm.py``):
+mLSTM (matrix memory, chunkwise-parallel with stabilized exponential
+gating) and sLSTM (scalar memory, a sequential recurrence with
+block-diagonal hidden-to-hidden weights).
+
+The mLSTM forward is the reference's chunkwise form: per chunk an
+attention-like quadratic product plus the carried ``(C, n, m)`` state,
+the stabilizer ``m`` starting at -1e9. The sLSTM runs its recurrence one
+position at a time, as the reference's ``lax.scan`` does; its recurrent
+weights ``r_gates (4, H, dv, dv)`` are laid out once, when they are made or
+loaded, as ``r_step (H, dv, 4 dv)``, so that each step is one batched
+product over the heads. Only the reference's unsharded sLSTM scan is
+ported: its ``shard_map`` branch needs a mesh (ROADMAP Queue 1 item 11.4).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.config import ModelConfig, XLSTMConfig
+from repro_torch.models.layers import frozen, init_normal
+from repro_torch.models.ssm import _causal_conv
+
+
+def _dims(cfg: ModelConfig) -> tuple[int, int, int, int, int]:
+    x = cfg.xlstm or XLSTMConfig()
+    d_in = int(x.proj_factor * cfg.d_model)
+    h = cfg.num_heads
+    qk = int(x.qk_dim_factor * d_in)
+    return d_in, h, qk, qk // h, d_in // h      # d_in, H, qk, dk, dv
+
+
+def _headnorm(h: torch.Tensor, scale: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    """Per-head RMS norm. h: ``(..., H, dv)``; scale: ``(H*dv,)``."""
+    h32 = h.float()
+    rms = torch.rsqrt(h32.square().mean(dim=-1, keepdim=True) + eps)
+    out = (h32 * rms).flatten(-2)
+    return (out * scale.float()).to(scale.dtype)
+
+
+def _up_conv(p, x: torch.Tensor, conv_state=None):
+    """The shared front of both blocks: the up projection split into the
+    branch ``u`` and the gate ``z``, and ``silu`` of the causal conv of
+    ``u``. Returns ``(u, z, conv, new conv state)``."""
+    u, z = (x @ p.up).chunk(2, dim=-1)
+    c, conv_state = _causal_conv(u, p.conv_w, p.conv_b, conv_state)
+    return u, z, F.silu(c.float()).to(x.dtype), conv_state
+
+
+def _down(p, hid: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Head norm of ``hid (B, S, H, dv)``, the ``silu(z)`` gate and the
+    down projection."""
+    y = _headnorm(hid, p.norm)
+    y = y * F.silu(z.float()).to(y.dtype)
+    return y @ p.down
+
+
+# =========================== mLSTM =============================================
+
+
+class MLSTM(nn.Module):
+    """The reference's ``init_mlstm`` leaves: ``up (d, 2 d_in)``,
+    ``conv_w (K, d_in)``, ``conv_b``, ``wq``/``wk (d_in, qk)``,
+    ``wv (d_in, d_in)``, ``norm``, ``down (d_in, d)`` in the config's
+    dtype, and the gates ``w_if (d_in, 2H)`` and ``b_if`` (forget biases
+    3..6) in fp32."""
+
+    def __init__(self, cfg: ModelConfig, generator, device):
+        super().__init__()
+        d = cfg.d_model
+        d_in, h, qk, _, _ = _dims(cfg)
+        x = cfg.xlstm or XLSTMConfig()
+        dtype = getattr(torch, cfg.dtype)
+        self.up = init_normal((d, 2 * d_in), d ** -0.5, dtype, generator,
+                              device)
+        self.conv_w = init_normal((x.conv_kernel, d_in), 0.3, dtype,
+                                  generator, device)
+        self.conv_b = frozen(torch.zeros((d_in,), dtype=dtype, device=device))
+        self.wq = init_normal((d_in, qk), d_in ** -0.5, dtype, generator,
+                              device)
+        self.wk = init_normal((d_in, qk), d_in ** -0.5, dtype, generator,
+                              device)
+        self.wv = init_normal((d_in, d_in), d_in ** -0.5, dtype, generator,
+                              device)
+        self.w_if = init_normal((d_in, 2 * h), d_in ** -0.5, torch.float32,
+                                generator, device)
+        self.b_if = frozen(torch.cat([
+            torch.zeros((h,), device=device),
+            torch.linspace(3.0, 6.0, h, device=device)]))
+        self.norm = frozen(torch.ones((d_in,), dtype=dtype, device=device))
+        self.down = init_normal((d_in, d), d_in ** -0.5, dtype, generator,
+                                device)
+
+
+def init_mlstm(cfg: ModelConfig, generator, device) -> MLSTM:
+    return MLSTM(cfg, generator, device)
+
+
+def _mlstm_qkv_gates(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
+                     conv_state=None):
+    """Shared pre-processing. x: ``(B, S, D)`` -> q, k ``(B, S, H, dk)``
+    (k scaled by ``dk ** -0.5``), v ``(B, S, H, dv)``, log_i, log_f
+    ``(B, S, H)`` fp32, z, and the conv state."""
+    _, h, _, dk, dv = _dims(cfg)
+    b, s, _ = x.shape
+    u, z, c, conv_state = _up_conv(p, x, conv_state)
+    q = (c @ p.wq).view(b, s, h, dk)
+    k = (c @ p.wk).view(b, s, h, dk)
+    v = (u @ p.wv).view(b, s, h, dv)
+    gates = c.float() @ p.w_if + p.b_if
+    log_i, raw_f = gates.view(b, s, 2, h).unbind(2)
+    return q, k * dk ** -0.5, v, log_i, F.logsigmoid(raw_f), z, conv_state
+
+
+def mlstm(p: MLSTM, x: torch.Tensor, cfg: ModelConfig, chunk: int = 256,
+          return_state: bool = False):
+    """Chunkwise-parallel mLSTM forward. x: ``(B, S, D)`` -> ``(B, S, D)``
+    [, the final ``{"c", "n", "m", "conv"}`` state]. ``S`` must be a
+    multiple of the chunk (or at most one chunk), as in the reference."""
+    b, s, _ = x.shape
+    _, h, _, dk, dv = _dims(cfg)
+    q, k, v, log_i, log_f, z, conv_tail = _mlstm_qkv_gates(p, x, cfg)
+
+    chunk = min(chunk, s)
+    assert s % chunk == 0
+    dev = x.device
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=dev).tril()
+    c_mat = torch.zeros((b, h, dk, dv), dtype=torch.float32, device=dev)
+    n_vec = torch.zeros((b, h, dk), dtype=torch.float32, device=dev)
+    m = torch.full((b, h), -1e9, dtype=torch.float32, device=dev)
+    outs = []
+    for lo in range(0, s, chunk):
+        hi = lo + chunk
+        lic = log_i[:, lo:hi].transpose(1, 2)          # (B,H,C)
+        f_cum = log_f[:, lo:hi].transpose(1, 2).cumsum(dim=-1)   # F_t
+        g = lic - f_cum                                # g_s = li_s - F_s
+        mx = torch.maximum(m[..., None], g.cummax(dim=-1).values)
+        m_t = f_cum + mx                   # the stabilizer at each position
+        alpha = torch.exp(m[..., None] - mx)           # inter-chunk scale
+        w = torch.exp(g[:, :, None, :] - mx[..., None])    # (B,H,t,s)
+        w = torch.where(causal, w, 0.0)
+
+        qf = q[:, lo:hi].transpose(1, 2).float()       # (B,H,C,dk)
+        kf = k[:, lo:hi].transpose(1, 2).float()
+        vf = v[:, lo:hi].transpose(1, 2).float()       # (B,H,C,dv)
+        scores = (qf @ kf.transpose(-1, -2)) * w
+        num = scores @ vf + alpha[..., None] * (qf @ c_mat)
+        n_t = w @ kf + alpha[..., None] * n_vec[:, :, None]
+        den = torch.maximum((qf * n_t).sum(dim=-1).abs(), torch.exp(-m_t))
+        outs.append((num / den[..., None]).transpose(1, 2))  # (B,C,H,dv)
+
+        # the carry at the chunk's end
+        w_last = torch.exp(g - mx[..., -1:])           # (B,H,C)
+        c_mat = alpha[..., -1, None, None] * c_mat \
+            + (kf * w_last[..., None]).transpose(-1, -2) @ vf
+        n_vec = n_t[:, :, -1]
+        m = m_t[..., -1]
+    h_all = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+    out = _down(p, h_all, z)
+    if return_state:
+        return out, {"c": c_mat, "n": n_vec, "m": m, "conv": conv_tail}
+    return out
+
+
+def init_mlstm_state(cfg: ModelConfig, batch: int, device) -> dict:
+    d_in, h, _, dk, dv = _dims(cfg)
+    x = cfg.xlstm or XLSTMConfig()
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "c": torch.zeros((batch, h, dk, dv), **f32),
+        "n": torch.zeros((batch, h, dk), **f32),
+        "m": torch.full((batch, h), -1e9, **f32),
+        "conv": torch.zeros((batch, x.conv_kernel - 1, d_in),
+                            dtype=getattr(torch, cfg.dtype), device=device),
+    }
+
+
+def mlstm_step(p: MLSTM, state: dict, x: torch.Tensor,
+               cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """One decode step. x: ``(B, 1, D)`` -> ``(out, new state)``."""
+    q, k, v, log_i, log_f, z, conv_state = _mlstm_qkv_gates(
+        p, x, cfg, state["conv"])
+    qf = q[:, 0].float()                   # (B,H,dk)
+    kf = k[:, 0].float()
+    vf = v[:, 0].float()                   # (B,H,dv)
+    li, lf = log_i[:, 0], log_f[:, 0]      # (B,H)
+
+    m_new = torch.maximum(lf + state["m"], li)
+    f_sc = torch.exp(lf + state["m"] - m_new)
+    i_sc = torch.exp(li - m_new)
+    c_new = f_sc[..., None, None] * state["c"] \
+        + i_sc[..., None, None] * kf[..., :, None] * vf[..., None, :]
+    n_new = f_sc[..., None] * state["n"] + i_sc[..., None] * kf
+    num = (qf[..., None, :] @ c_new)[..., 0, :]
+    den = torch.maximum((qf * n_new).sum(dim=-1).abs(), torch.exp(-m_new))
+    h_out = (num / den[..., None])[:, None]          # (B,1,H,dv)
+    return _down(p, h_out, z), {"c": c_new, "n": n_new, "m": m_new,
+                                "conv": conv_state}
+
+
+# =========================== sLSTM =============================================
+
+
+def _step_layout(r_gates: torch.Tensor) -> torch.Tensor:
+    """``r_gates (4, H, dv, dv)`` as ``(H, dv, 4 dv)``: column ``g*dv + w``
+    of head ``h`` is ``r_gates[g, h, :, w]``."""
+    g, h, dv, _ = r_gates.shape
+    return r_gates.permute(1, 2, 0, 3).reshape(h, dv, g * dv).contiguous()
+
+
+class SLSTM(nn.Module):
+    """The reference's ``init_slstm`` leaves: ``up (d, 2 d_in)``,
+    ``conv_w``, ``conv_b``, ``w_gates (d_in, 4 d_in)`` (z, i, f, o),
+    ``norm``, ``down`` in the config's dtype, and ``r_gates (4, H, dv, dv)``
+    and ``b_gates`` (forget bias 3) in fp32. The buffer ``r_step`` holds
+    ``r_gates`` in the step's layout; it is made again whenever
+    ``r_gates`` is loaded."""
+
+    def __init__(self, cfg: ModelConfig, generator, device):
+        super().__init__()
+        d = cfg.d_model
+        d_in, h, _, _, dv = _dims(cfg)
+        x = cfg.xlstm or XLSTMConfig()
+        dtype = getattr(torch, cfg.dtype)
+        self.up = init_normal((d, 2 * d_in), d ** -0.5, dtype, generator,
+                              device)
+        self.conv_w = init_normal((x.conv_kernel, d_in), 0.3, dtype,
+                                  generator, device)
+        self.conv_b = frozen(torch.zeros((d_in,), dtype=dtype, device=device))
+        self.w_gates = init_normal((d_in, 4 * d_in), d_in ** -0.5, dtype,
+                                   generator, device)
+        self.r_gates = init_normal((4, h, dv, dv), dv ** -0.5, torch.float32,
+                                   generator, device)
+        self.b_gates = frozen(torch.cat([
+            torch.zeros((2 * d_in,), device=device),          # z, i
+            torch.full((d_in,), 3.0, device=device),          # f bias
+            torch.zeros((d_in,), device=device)]))            # o
+        self.norm = frozen(torch.ones((d_in,), dtype=dtype, device=device))
+        self.down = init_normal((d_in, d), d_in ** -0.5, dtype, generator,
+                                device)
+        self.register_buffer("r_step", _step_layout(self.r_gates),
+                             persistent=False)
+        self.register_load_state_dict_post_hook(SLSTM._relayout)
+
+    @staticmethod
+    def _relayout(module: "SLSTM", incompatible_keys) -> None:
+        module.r_step = _step_layout(module.r_gates)
+
+
+def init_slstm(cfg: ModelConfig, generator, device) -> SLSTM:
+    return SLSTM(cfg, generator, device)
+
+
+def _slstm_scan(p: SLSTM, gates_x: torch.Tensor, h: int, dv: int,
+                state: dict):
+    """The recurrence over ``gates_x (B, S, 4 d_in)``, the input's part of
+    the gates (fp32), from ``state``. Returns the hidden states
+    ``(B, S, d_in)`` and the final ``(c, n, h, m)``, each ``(B, d_in)``.
+
+    Inside the loop every tensor is laid out head-major, ``(H, B, dv)``, so
+    that the step's recurrent product is one ``baddbmm`` of the heads'
+    ``(B, dv) @ (dv, 4 dv)`` onto the input's gates."""
+    b, s, _ = gates_x.shape
+
+    def heads(t):                          # (B, d_in) -> (H, B, dv)
+        return t.view(b, h, dv).transpose(0, 1)
+
+    gx = gates_x.float().view(b, s, 4, h, dv).permute(1, 3, 0, 2, 4) \
+        .reshape(s, h, b, 4 * dv)          # [t, h, b, g*dv + w]
+    c, n, hid, m = (heads(state[k]) for k in ("c", "n", "h", "m"))
+    hs = gx.new_empty((s, h, b, dv))
+    for gx_t, out in zip(gx.unbind(0), hs.unbind(0)):
+        pre = torch.baddbmm(gx_t, hid, p.r_step).view(h, b, 4, dv)
+        zt, li, ft, ot = pre.unbind(2)
+        lfm = F.logsigmoid(ft) + m
+        m_new = torch.maximum(lfm, li)
+        i_sc = torch.exp(li - m_new)
+        f_sc = torch.exp(lfm - m_new)
+        c = torch.addcmul(i_sc * torch.tanh(zt), f_sc, c)
+        n = torch.maximum(torch.addcmul(i_sc, f_sc, n), torch.exp(-m_new))
+        hid = torch.mul(torch.sigmoid(ot), c / n, out=out)
+        m = m_new
+
+    def flat(t):                           # (H, B, dv) -> (B, d_in)
+        return t.transpose(0, 1).reshape(b, h * dv)
+
+    hs = hs.permute(2, 0, 1, 3).reshape(b, s, h * dv)
+    return hs, tuple(flat(t) for t in (c, n, hid, m))
+
+
+def init_slstm_state(cfg: ModelConfig, batch: int, device) -> dict:
+    d_in = _dims(cfg)[0]
+    x = cfg.xlstm or XLSTMConfig()
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "c": torch.zeros((batch, d_in), **f32),
+        "n": torch.ones((batch, d_in), **f32),
+        "h": torch.zeros((batch, d_in), **f32),
+        "m": torch.zeros((batch, d_in), **f32),
+        "conv": torch.zeros((batch, x.conv_kernel - 1, d_in),
+                            dtype=getattr(torch, cfg.dtype), device=device),
+    }
+
+
+def _slstm_core(p: SLSTM, x: torch.Tensor, cfg: ModelConfig, state: dict):
+    _, h, _, _, dv = _dims(cfg)
+    _, z, c, conv_state = _up_conv(p, x, state["conv"])
+    gates_x = (c @ p.w_gates).float() + p.b_gates
+    hs, carry = _slstm_scan(p, gates_x, h, dv, state)
+    new_state = dict(zip(("c", "n", "h", "m"), carry), conv=conv_state)
+    out = _down(p, hs.view(*hs.shape[:2], h, dv).to(x.dtype), z)
+    return out, new_state
+
+
+def slstm(p: SLSTM, x: torch.Tensor, cfg: ModelConfig, chunk: int = 0,
+          return_state: bool = False):
+    """sLSTM forward from the initial state. x: ``(B, S, D)``; ``chunk``
+    is taken and ignored, as in the reference."""
+    out, state = _slstm_core(p, x, cfg,
+                             init_slstm_state(cfg, x.shape[0], x.device))
+    return (out, state) if return_state else out
+
+
+def slstm_step(p: SLSTM, state: dict, x: torch.Tensor,
+               cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """One decode step. x: ``(B, 1, D)`` -> ``(out, new state)``."""
+    return _slstm_core(p, x, cfg, state)

@@ -107,7 +107,7 @@ class FnContext:
     """
 
     def __init__(self, store: ShuffleStore, inv: Invocation,
-                 honor_plan: bool = False, device="cpu"):
+                 honor_plan: bool = False, *, device):
         self._store = store
         # the device this invocation computes on: functions move what they
         # read onto it (``analytics.table.on_device``) before computing

@@ -12,6 +12,14 @@ The engine runs lockstep continuous batching: one prefill per admitted wave
 decode step over the active batch per step. The reference caches a jitted
 program per shape; the port runs eagerly, and every attention core goes
 through the port's kernels (K4 in prefill, K5 in decode) on the card.
+
+Recurrent layers (Mamba, mLSTM, sLSTM) keep their states in the same
+decode state. The padded prefill is the reference's contract and the port
+keeps it: a recurrent state takes in every pad token and then the last
+real token a second time, so for such models the engine's tokens are not
+the greedy continuation of the prompt (ROADMAP Queue 3). A model with a
+stub frontend is refused when the engine is built: the engine feeds token
+ids only (the reference fails at its first prefill).
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from repro_torch.core.config import ModelConfig
+from repro_torch.core.config import Frontend, ModelConfig
 from repro_torch.core.controllers import GlobalController, PrivateController
 from repro_torch.core.decisions import (
     Decision,
@@ -85,6 +93,11 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, model: LM, max_batch: int = 4,
                  max_seq: int = 128, gc: GlobalController | None = None,
                  slo_ms: float = 200.0, device=None):
+        if cfg.frontend != Frontend.TOKENS.value:
+            raise ValueError(
+                f"{cfg.name} has the {cfg.frontend!r} stub frontend: the "
+                f"engine feeds token ids only, and the model's prefill needs "
+                f"its frontend's embeddings too")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())

@@ -744,3 +744,80 @@ def test_cuda_engine_serves_granite_through_k2(cuda_device):
     assert tattn.LAUNCHES == {
         "flash_attention": cfg.num_layers * metrics["prefills"],
         "decode_attention": cfg.num_layers * metrics["steps"]}
+
+
+# -- the recurrent models at the smoke config ------------------------------------
+
+RECURRENT = ("jamba-v0.1-52b", "xlstm-1.3b")
+
+
+def _fp32_smoke(arch, drop_free=False):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    if drop_free and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_cuda_engine_serves_recurrent_models(cuda_device, arch):
+    """jamba's and xlstm's smoke configs in fp32 on the card give the CPU
+    engine's tokens, with K4 once an attention layer a prefill, K5 once an
+    attention layer a decode step and K2 once a MoE layer in both: xlstm
+    launches none of them."""
+    from repro_torch.kernels import attention as tattn
+    from repro_torch.models import init_lm
+
+    cfg = _fp32_smoke(arch)
+    model = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    want, _ = _serve_smoke("cpu", model, cfg)
+    tattn.reset_launches()
+    tpart.reset_launches()
+    got, metrics = _serve_smoke(cuda_device, model.to(cuda_device), cfg)
+    assert got == want and len(got) == 3
+    attn = sum(cfg.block_kind(i).value == "attention"
+               for i in range(cfg.num_layers))
+    moe = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+    assert (attn, moe) == ((2, 2) if arch == RECURRENT[0] else (0, 0))
+    assert tattn.LAUNCHES == {
+        "flash_attention": attn * metrics["prefills"],
+        "decode_attention": attn * metrics["steps"]}
+    assert tpart.LAUNCHES == {
+        "partition_histogram": 0, "fused_probe": 0,
+        "partition_scatter": moe * (metrics["prefills"] + metrics["steps"])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_cuda_recurrent_prefill_then_decode_matches_forward(cuda_device,
+                                                            arch):
+    """On the card, a 12-token prefill and four teacher-forced decode steps
+    give the logits of one forward over the 16 tokens (fp32, jamba's MoE
+    drop-free)."""
+    from repro_torch.models import (
+        decode_step,
+        forward,
+        init_decode_state,
+        init_lm,
+        prefill_step,
+    )
+
+    cfg = _fp32_smoke(arch, drop_free=True)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    model = init_lm(cfg, gen, cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen,
+                         device=cuda_device, dtype=torch.int32)
+    want, _ = forward(model, {"tokens": toks}, ssm_chunk=16)
+    st = init_decode_state(cfg, 2, 32, cuda_device)
+    lg, st = prefill_step(model, st, {"tokens": toks[:, :12]}, ssm_chunk=12)
+    got = [lg]
+    for t in range(12, 16):
+        lg, st = decode_step(model, st, toks[:, t:t + 1])
+        got.append(lg)
+    got = torch.cat(got, dim=1)[..., :cfg.vocab_size]
+    torch.testing.assert_close(got, want[:, 11:, :cfg.vocab_size],
+                               atol=1e-3, rtol=1e-3)

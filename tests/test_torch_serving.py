@@ -10,6 +10,7 @@ step time (the reference's first step includes its jit compile).
 """
 
 import dataclasses
+from functools import cache
 
 import jax
 import numpy as np
@@ -138,3 +139,84 @@ def test_engine_refuses_a_model_on_another_device(weights):
     _, _, cfg, model = weights["bfloat16"]
     with pytest.raises(ValueError, match="lives on"):
         teng.ServingEngine(cfg, model, device="meta")
+
+
+# -- recurrent models and stub frontends ----------------------------------------
+
+# the recurrent families: xlstm (mLSTM + sLSTM) and jamba (Mamba, attention
+# and MoE FFNs)
+RECURRENT = ("xlstm-1.3b", "jamba-v0.1-52b")
+
+
+@cache
+def _fp32(arch: str, drop_free: bool = False):
+    """(reference cfg, params, port cfg, port model) of ``arch``'s smoke
+    config in fp32; ``drop_free`` raises a MoE's capacity factor to 8 so
+    that no assignment is dropped."""
+    jcfg = dataclasses.replace(jconfig(arch, smoke=True), dtype="float32")
+    tcfg = dataclasses.replace(tconfig(arch, smoke=True), dtype="float32")
+    if drop_free and jcfg.moe is not None:
+        jcfg, tcfg = (dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, capacity_factor=8.0)) for c in (jcfg, tcfg))
+    params = jax.jit(lambda key: jlm.init_lm(jcfg, key)[0])(
+        jax.random.PRNGKey(0))
+    return jcfg, params, tcfg, params_from_numpy(
+        jax.tree.map(np.asarray, params), tcfg, "cpu")
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_engine_matches_reference_on_recurrent_models(arch):
+    """Both engines give the same tokens, counters and decisions with the
+    recurrent states in the decode state (three waves, one half full)."""
+    jcfg, params, tcfg, model = _fp32(arch)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 100, n).tolist() for n in (11, 5, 17, 3, 6)]
+    want = _serve(jeng, jcfg, params, prompts, 3, max_batch=2, max_seq=32)
+    got = _serve(teng, tcfg, model, prompts, 3, max_batch=2, max_seq=32,
+                 device="cpu")
+    assert len(got[0]) == len(prompts)
+    assert got == want
+
+
+def _greedy(model, prompt: list[int], new: int) -> list[int]:
+    seq = list(prompt)
+    for _ in range(new):
+        lg, _ = tlm.forward(model, {"tokens": torch.tensor([seq])},
+                            ssm_chunk=len(seq))
+        seq.append(int(lg[0, -1].argmax()))
+    return seq[len(prompt):]
+
+
+@pytest.mark.parametrize("arch,greedy", [("llama3.2-3b", True),
+                                         ("xlstm-1.3b", False),
+                                         ("jamba-v0.1-52b", False)])
+def test_padded_prefill_fault_recurrent_engine_is_not_greedy(arch, greedy):
+    """The engine prefills at ``max_seq`` with the prompt padded by token 0,
+    then rewinds to the last real token and feeds it again. An attention
+    cache masks the pads and rewrites the slot, so llama's tokens are the
+    greedy continuation; a recurrent state has taken in every pad and then
+    the last token twice, so xlstm's and jamba's are not (ROADMAP Queue 3:
+    the reference's contract, kept by the port; jamba's MoE drop-free, so
+    that only the padding differs)."""
+    _, _, cfg, model = _fp32(arch, drop_free=True)
+    prompt = np.random.default_rng(3).integers(0, 100, 10).tolist()
+    engine = teng.ServingEngine(cfg, model, max_batch=1, max_seq=32,
+                                device="cpu")
+    engine.submit(teng.Request(0, list(prompt), max_new_tokens=4))
+    got = engine.run(max_steps=64)[0].output
+    assert (got == _greedy(model, prompt, 4)) == greedy
+
+
+@pytest.mark.parametrize("arch", ["internvl2-1b", "musicgen-medium"])
+def test_engine_refuses_a_stub_frontend_model(arch):
+    """The port's engine refuses a stub-frontend model when it is built;
+    the reference's takes it and fails at its first prefill, which lacks
+    the frontend's embeddings."""
+    jcfg, params, tcfg, model = _fp32(arch)
+    with pytest.raises(ValueError, match="stub frontend"):
+        teng.ServingEngine(tcfg, model, device="cpu")
+    engine = jeng.ServingEngine(jcfg, params, max_batch=1, max_seq=32,
+                                slo_ms=LOOSE_SLO_MS)
+    engine.submit(jeng.Request(0, [1, 2, 3], max_new_tokens=2))
+    with pytest.raises(KeyError):
+        engine.run(max_steps=8)
