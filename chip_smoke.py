@@ -82,6 +82,27 @@
    decode step with K2's range check and with it stubbed out (in turns,
    inside that measurement only). A profiler trace with no device event
    in it is taken again, up to three times, before the script fails.
+   Then frees the served models and trains (``train_phase``), with the
+   counters set to 0 just before each run and read just after:
+   ``llama3.2-3b`` and ``granite-moe-1b-a400m`` at their published
+   configs, not cut, random weights from seed 0, AdamW (lr 3e-4, no
+   warmup, fp32 master weights), ``remat="block"``, on one fixed batch of
+   4 x 1024 tokens from the port's ``SyntheticSource(seed=1)``: one
+   untimed step whose gradients must all be finite and not all zero (every
+   MoE router's among them), then 4 (llama) or 3 (granite) timed steps;
+   every loss and norm finite and the loss falling; K4 twice an attention
+   layer a step (forward and recompute) on its tensor-core route, K4b
+   (its backward) once, K2 twice a MoE layer. Prints step ms, tokens/s,
+   peak memory and one profiled step (busy, idle share, top device ops,
+   K4's and K4b's shares); for llama one step of two microbatches from a
+   fresh state, its loss within 1e-2 of the first step's. Then holds the
+   gradients of llama cut to 2 layers at full width in fp32 (1 x 256
+   tokens) on the card against the CPU's, each leaf within 1e-3
+   relative, and K4b against its plain version (bf16 within 2e-2, fp32
+   within 1e-4 of the gradient's largest magnitude) at the train phases'
+   shapes and on edges, timed beside its bound and the library's
+   attention backward at llama's, granite's, an fp32 and two ragged
+   shapes.
 7. Profiles jamba and xlstm (the models of step 8, on the weights made
    from the same seed) the same way, outside the counted runs, with the
    shares of the Mamba scan, the Mamba decode step and the sLSTM loop,
@@ -118,7 +139,7 @@
    logits within ``LOGIT_TOL`` of each other, K4 once a layer in each
    call. Then K2, K4 and K5 are held against their plain versions at the
    shapes these phases added.
-9. Prints the ``kernels`` JSON line (K1-K5), its launch counts summed over
+9. Prints the ``kernels`` JSON line (K1-K5 and K4b), its launch counts summed over
    every phase above, then the seconds of each phase, the card line and,
    as its last line, ``{"ok": true, "device": {...}}``.
 
@@ -206,6 +227,22 @@ ATTN_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 # that many draws. 0.15 is ~9 sigma: room for other GEMM kernels, while a
 # wrong position, mask or cache slot moves logits of spread ~1 by O(1).
 LOGIT_TOL = 0.15
+# the train phases: each model at its published config, not cut, on one
+# fixed batch of TRAIN_BATCH x TRAIN_SEQ tokens, AdamW at TRAIN_LR
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 1024, 3e-4
+TRAIN_STEPS = {SERVE_ARCH: 4, MOE_ARCH: 3}
+# two microbatches against one batch: the same mean over equal token
+# counts, in another order of bf16 sums
+MB_LOSS_RTOL = 1e-2
+# the full-width gradient hold: llama cut to 2 layers, fp32, 1 x 256
+# tokens, card against CPU (both fp32; sums in other orders)
+GRAD_HOLD_LAYERS, GRAD_HOLD_SEQ, GRAD_HOLD_TOL = 2, 256, 1e-3
+# K4b against its plain version: max |err| over the plain gradient's
+# largest magnitude (bf16 outputs round to 2^-8 of it; fp32 sums differ in
+# order only)
+K4B_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
+# K4b's three device kernels (csrc/flash_attention_bwd.cu)
+K4B_KERNELS = ("stats_kernel", "dkdv_kernel", "dq_kernel")
 # names of K1-K3's device kernels (csrc/partition.cu)
 PARTITION_KERNELS = ("hist_kernel", "scatter_kernel", "fused_probe_kernel")
 # empty device traces taken again before a measurement gives up (``traced``)
@@ -2187,6 +2224,349 @@ def recurrent_profiles(dev, cfg, name: str, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# -- train phase ------------------------------------------------------------------
+
+
+def _k4b_case(dev, gen, shape):
+    """K4b's inputs at ``(B, S, H, K, hd, dtype, causal)``: random q, k, v
+    and d_out, and ``out`` from K4."""
+    import torch
+    from repro_torch.kernels import attention as A
+    b, s, h, kh, hd, dt, causal = shape
+    q, d_out = (_randn(gen, (b, s, h, hd), dt, dev) for _ in range(2))
+    k, v = (_randn(gen, (b, s, kh, hd), dt, dev) for _ in range(2))
+    with torch.no_grad():
+        out = A.flash_attention(q, k, v, causal)
+    return q, k, v, out, d_out, causal
+
+
+def hold_k4b(dev, gen, shape) -> tuple[float, float]:
+    """K4b at ``shape`` against its plain version on the same inputs: each
+    of dq, dk, dv within ``K4B_TOL`` times the plain gradient's largest
+    magnitude. Returns (max |err|, the largest error over that
+    magnitude)."""
+    from repro_torch.kernels import attention as A, ref
+    args = _k4b_case(dev, gen, shape)
+    got = A.flash_attention_bwd(*args)
+    want = ref.flash_attention_bwd_ref(*args)
+    err, rel = 0.0, 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        require(g.shape == w.shape and g.dtype == w.dtype,
+                f"K4b {name}: {g.shape} {g.dtype}, plain {w.shape} {w.dtype}")
+        e = float((g.float() - w.float()).abs().max())
+        scale = float(w.float().abs().max())
+        err, rel = max(err, e), max(rel, e / scale)
+        require(e <= K4B_TOL[shape[5]] * scale,
+                f"K4b {name} differs from its plain version at {shape}: max "
+                f"|err| {e} > {K4B_TOL[shape[5]]} x {scale}")
+    return err, rel
+
+
+def _k4b_bound(shape) -> tuple[float, str]:
+    """K4b's bound: its five products (Q K^T recomputed, dO V^T, P^T dO,
+    dS K, dS^T Q; 5 x 2 B H S^2 hd, halved when causal) at the rate of the
+    dtype, or its bytes (q, o, dO read and dq written with H heads, k, v
+    read and dk, dv written with K) at the memory rate."""
+    b, s, h, kh, hd, dt, causal = shape
+    elem = 2 if dt == "torch.bfloat16" else 4
+    flops = 5 * 2.0 * b * h * s * s * hd / (2 if causal else 1)
+    nbytes = (4 * b * s * h + 4 * b * s * kh) * hd * elem
+    return bound_ms(nbytes, flops, BF16_OPS_PER_S if elem == 2
+                    else FP32_OPS_PER_S)
+
+
+def _sdpa_backward(args):
+    """The library's attention backward alone on K4b's inputs: SDPA's
+    forward (outside the timed window) and a function that runs its
+    backward."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v, _, d_out, causal = args
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                       enable_gqa=True)
+    go = d_out.transpose(1, 2)
+    return lambda: torch.autograd.grad(o, (qt, kt, vt), go,
+                                       retain_graph=True)
+
+
+def check_k4b(dev, gen, main_shapes, card: str) -> dict:
+    """K4b within ``K4B_TOL`` of its plain version at the train phases'
+    shapes and at llama's and granite's training shapes, one fp32 case at
+    hd 128 and a ragged S (causal and full); each timed (call ms, median of
+    20; device ms) beside its bound and the library's attention backward.
+    Returns the kernel row at llama's shape."""
+    from repro_torch.kernels import attention as A, ref
+    cases = [(4, 1024, 24, 8, 128, "torch.bfloat16", True),
+             (4, 1024, 16, 8, 64, "torch.bfloat16", True),
+             (1, 512, 8, 4, 128, "torch.float32", True),
+             (2, 200, 6, 2, 128, "torch.bfloat16", True),
+             (1, 300, 4, 4, 64, "torch.bfloat16", False)]
+    edges = [(3, 130, 6, 2, 32, "torch.bfloat16", True),
+             (1, 77, 2, 2, 8, "torch.float32", False),
+             (2, 65, 3, 1, 16, "torch.float32", True)]
+    err = 0.0
+    for shape in sorted(main_shapes) + edges:
+        err = max(err, hold_k4b(dev, gen, shape)[0])
+    row = None
+    for shape in cases:
+        e, rel = hold_k4b(dev, gen, shape)
+        err = max(err, e)
+        args = _k4b_case(dev, gen, shape)
+        lib = _sdpa_backward(args)
+        bnd, by = _k4b_bound(shape)
+        r = {"ms": median_ms(lambda: A.flash_attention_bwd(*args)),
+             "device_ms": device_ms(lambda: A.flash_attention_bwd(*args)),
+             "plain_ms": median_ms(
+                 lambda: ref.flash_attention_bwd_ref(*args)),
+             "library_ms": median_ms(lib), "library_device_ms": device_ms(lib),
+             "bound_ms": bnd, "bound_by": by, "rel_err": rel}
+        b, s, h, kh, hd, dt, causal = shape
+        print(f"kernel flash_attention_bwd (B={b} S={s} H={h} K={kh} hd={hd}"
+              f" {dt} causal={causal}): {r['ms']:.4f} ms, device time "
+              f"{r['device_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library backward {r['library_ms']:.4f} ms (device "
+              f"{r['library_device_ms']:.4f} ms), bound {bnd:.4f} ms ({by}), "
+              f"max |err| / max |grad| {rel:.3g} [{card}]")
+        if row is None:
+            row = {"name": "flash_attention_bwd", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/"
+                             "flash_attention_bwd.cu",
+                   # the kernel whose gradient it is: the reference has
+                   # no Pallas backward (XLA differentiates its attention)
+                   "replaces": "src/repro/kernels/flash_attention.py:72",
+                   "ms": r["ms"], "plain_ms": r["plain_ms"],
+                   "bound_ms": bnd, "bound_by": by,
+                   "library_ms": r["library_ms"],
+                   "device": {"ms": r["device_ms"],
+                              "library_ms": r["library_device_ms"]},
+                   "shape": f"B={b} S={s} H={h} K={kh} hd={hd} {dt} "
+                            f"causal={causal}"}
+    row["max_abs_err"] = err
+    return row
+
+
+def _train_inputs(cfg, dev, batch: int, seq: int):
+    """A ``ShapeConfig`` of ``batch`` x ``seq`` and batch 0 of the port's
+    ``SyntheticSource(seed=1)`` on ``dev``."""
+    import torch
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.data import SyntheticSource
+    shape = ShapeConfig("chip_train", seq, batch, "train")
+    src = SyntheticSource(cfg, shape, seed=1)
+    return shape, {k: torch.from_numpy(v).to(dev)
+                   for k, v in src.batch(0).items()}
+
+
+def _fresh_state(cfg, dev) -> dict:
+    """The model at ``cfg`` with random weights from seed 0 on ``dev``, its
+    gradients on, and a fresh AdamW state."""
+    import torch
+    from repro_torch.models import init_lm
+    from repro_torch.training import init_train_state
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    return init_train_state(cfg, init_lm(cfg, gen, dev))
+
+
+def _release() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def profile_train_step(step, state, batch) -> dict:
+    """One more train step under ``torch.profiler``: its wall, device-busy
+    time, idle share, costliest device ops, and K4's and K4b's shares of
+    the busy time."""
+    import torch
+    from torch.autograd import DeviceType
+
+    def body(_):
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    prof, wall = traced(body)
+    busy_us, top = device_busy(prof, top=8)
+
+    def share(names) -> float:
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and any(n in e.key for n in names))
+        return us / busy_us
+
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+            "idle_share": 1.0 - busy_us / 1e6 / wall,
+            "k4_share": share(("flash_tc_kernel", "flash_kernel")),
+            "k4b_share": share(K4B_KERNELS), "top_device_ms": top}
+
+
+def train_phase(dev, arch: str, steps: int, card: str,
+                microbatch_check: bool = False) -> dict:
+    """Train ``arch`` at its published config, not cut (random weights from
+    seed 0, AdamW at lr 3e-4 with no warmup, ``remat="block"``) on one
+    fixed batch of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, with the
+    counters set to 0 just before and read just after: one untimed step
+    whose gradients are held (every leaf finite and not all zero), then
+    ``steps`` timed ones (host clock ending in a synchronize). K4 runs
+    twice an attention layer a step (forward and recompute) on its
+    tensor-core route, K4b once, K2 twice a MoE layer. Every loss and norm
+    finite, the loss falling. Then one profiled step and, with
+    ``microbatch_check``, one step of two microbatches from a fresh state,
+    whose loss must be the first step's within ``MB_LOSS_RTOL``. Frees
+    the model."""
+    import torch
+    from repro_torch.core.config import OptimizerConfig, ParallelConfig
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import partition as K
+    from repro_torch.training import apply_updates, make_train_step
+    from repro_torch.training.train_step import make_grad_fn
+
+    cfg = serve_config(arch)
+    shape, batch = _train_inputs(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+    opt_cfg = OptimizerConfig(lr=TRAIN_LR, warmup_steps=0)
+    pc = ParallelConfig(remat="block")
+    t0 = time.perf_counter()
+    state = _fresh_state(cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = state["params"]
+    named = dict(model.named_parameters())
+    step = make_train_step(cfg, shape, opt_cfg, pc)
+    before = {k: set(v) for k, v in A.SHAPES.items()}
+    start_bytes = int(torch.cuda.memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    K.reset_launches()
+    loss, metrics, grads = make_grad_fn(cfg, pc)(model, batch)
+    bad = [k for k, g in grads.items()
+           if not (bool(torch.isfinite(g).all()) and bool(g.any()))]
+    require(not bad, f"{arch}: leaves whose first gradient is not finite or "
+            f"all zero: {bad}")
+    routers = [k for k in grads if k.endswith("ffn.router")]
+    require(len(routers) == moe_layers(cfg),
+            f"{arch}: {len(routers)} routers for {moe_layers(cfg)} MoE "
+            f"layers")
+    _, state["opt"], opt_metrics = apply_updates(named, grads, state["opt"],
+                                                 opt_cfg)
+    del grads
+    losses = [float(loss)]
+    norms = [float(opt_metrics["grad_norm"])]
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    launches = {**A.LAUNCHES, **K.LAUNCHES}
+    peak = int(torch.cuda.max_memory_allocated())
+    n, attn, moe = steps + 1, attention_layers(cfg), moe_layers(cfg)
+    want = {"flash_attention": 2 * attn * n, "flash_attention_bwd": attn * n,
+            "decode_attention": 0, "partition_scatter": 2 * moe * n,
+            "partition_histogram": 0, "fused_probe": 0}
+    require(launches == want, f"{arch} training: launches {launches} for "
+            f"{n} steps, expected {want}")
+    shapes = {k: A.SHAPES[k] - before[k] for k in A.SHAPES}
+    require(all(sh[-1] == "tc" for sh in shapes["flash_attention"]),
+            f"{arch} training took K4's CUDA-core route: "
+            f"{sorted(shapes['flash_attention'])}")
+    require(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+            f"{arch}: losses {losses}, grad norms {norms}")
+    require(losses[-1] < losses[0], f"{arch}: the loss did not fall: "
+            f"{losses}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    res = {"init_s": init_s, "losses": losses, "grad_norms": norms,
+           "step_ms": step_ms,
+           "tokens_per_s": tokens / (np.median(step_ms) / 1e3),
+           "peak_bytes": peak, "start_bytes": start_bytes,
+           "launches": launches, "shapes": shapes}
+    res["profile"] = profile_train_step(step, state, batch)
+    del state, model, named, step, metrics
+    _release()
+    if microbatch_check:
+        state = _fresh_state(cfg, dev)
+        torch.cuda.reset_peak_memory_stats()
+        step2 = make_train_step(cfg, shape, opt_cfg, ParallelConfig(
+            remat="block", microbatches=2))
+        _, m2 = step2(state, batch)
+        loss2 = float(m2["loss"])
+        res["microbatches_2"] = {
+            "loss": loss2, "first_step_loss": losses[0],
+            "rel_diff": abs(loss2 - losses[0]) / abs(losses[0]),
+            "peak_bytes": int(torch.cuda.max_memory_allocated())}
+        require(res["microbatches_2"]["rel_diff"] <= MB_LOSS_RTOL,
+                f"{arch}: two microbatches' loss {loss2} against one "
+                f"batch's {losses[0]}")
+        del state, step2, m2
+        _release()
+    print(f"train {arch}: {n} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens "
+          f"(the first untimed), step ms {[round(x, 2) for x in step_ms]}, "
+          f"{res['tokens_per_s']:.1f} tokens/s at the median step, peak "
+          f"max_memory_allocated {peak} B ({start_bytes} B allocated with "
+          f"the weights and optimizer state), init {init_s:.2f} s [{card}]")
+    print(f"train {arch} losses {[round(x, 5) for x in losses]}, grad norms "
+          f"{[round(x, 5) for x in norms]}, launches {launches} [{card}]")
+    print(f"train {arch} profiled step: {json.dumps(res['profile'])} "
+          f"[{card}]")
+    if microbatch_check:
+        print(f"train {arch} two microbatches from a fresh state: "
+              f"{json.dumps(res['microbatches_2'])} [{card}]")
+    return res
+
+
+def grad_hold(dev, card: str) -> dict:
+    """llama3.2-3b at full width cut to ``GRAD_HOLD_LAYERS`` layers, in
+    fp32, one batch of 1 x ``GRAD_HOLD_SEQ`` tokens: the card's gradients
+    (K4's fp32 route and K4b, ``remat="block"``) against the same model's
+    on the CPU through the plain versions, each leaf within ``GRAD_HOLD_TOL``
+    relative (|g_card - g_cpu| / |g_cpu|, Frobenius). Outside the counted
+    runs: the shapes it launches at are not kept."""
+    import copy
+    import dataclasses
+
+    import torch
+    from repro_torch.core.config import ParallelConfig
+    from repro_torch.models import init_lm
+    from repro_torch.training.train_step import make_grad_fn
+
+    cfg = dataclasses.replace(serve_config(SERVE_ARCH),
+                              num_layers=GRAD_HOLD_LAYERS, dtype="float32")
+    saved = shape_sets()
+    cpu_model = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    for m in (cpu_model, card_model):
+        for p in m.parameters():
+            p.requires_grad_(True)
+    _, batch = _train_inputs(cfg, "cpu", 1, GRAD_HOLD_SEQ)
+    grad_fn = make_grad_fn(cfg, ParallelConfig(remat="block"))
+    t0 = time.perf_counter()
+    loss_cpu, _, g_cpu = grad_fn(cpu_model, batch)
+    cpu_s = time.perf_counter() - t0
+    loss_card, _, g_card = grad_fn(card_model, batch)
+    rel = {k: float((g_card[k].cpu().double() - g.double()).norm()
+                    / g.double().norm()) for k, g in g_cpu.items()}
+    worst = max(rel, key=rel.get)
+    res = {"layers": GRAD_HOLD_LAYERS, "seq": GRAD_HOLD_SEQ,
+           "loss_cpu": float(loss_cpu), "loss_card": float(loss_card),
+           "max_rel_err": rel[worst], "leaf": worst, "leaves": len(rel),
+           "cpu_s": cpu_s}
+    print(f"train grad hold (llama3.2-3b, {GRAD_HOLD_LAYERS} layers at full "
+          f"width, fp32): {json.dumps(res)} (tolerance {GRAD_HOLD_TOL}) "
+          f"[{card}]")
+    require(rel[worst] <= GRAD_HOLD_TOL,
+            f"the card's gradient of {worst} differs from the CPU's by "
+            f"{rel[worst]}")
+    del cpu_model, card_model, g_cpu, g_card
+    restore_shape_sets(saved)
+    _release()
+    return res
+
+
 def shape_sets() -> dict:
     """A copy of every kernel's recorded launch shapes (K1-K5)."""
     from repro_torch.kernels import attention as A
@@ -2204,9 +2584,9 @@ def restore_shape_sets(saved: dict) -> None:
 
 
 def hold_late_shapes(dev, gen, late: dict) -> dict:
-    """K2, K4 and K5 held against their plain versions at the shapes in
-    ``late`` (the recurrent and frontends phases' launches; they launch no
-    K1 or K3); the max |err| of each kernel."""
+    """K2, K4, K4b and K5 held against their plain versions at the shapes
+    in ``late`` (the recurrent and frontends phases' launches; they launch
+    no K1, K3 or K4b); the max |err| of each kernel."""
     require(not late["partition_histogram"] and not late["fused_probe"],
             f"K1 or K3 launched: {late}")
     return {"partition_histogram": 0.0, "fused_probe": 0.0,
@@ -2216,6 +2596,9 @@ def hold_late_shapes(dev, gen, late: dict) -> dict:
             "flash_attention": max(
                 [0.0] + [hold_k4(dev, gen, sh)
                          for sh in sorted(late["flash_attention"])]),
+            "flash_attention_bwd": max(
+                [0.0] + [hold_k4b(dev, gen, sh)[0]
+                         for sh in sorted(late["flash_attention_bwd"])]),
             "decode_attention": max(
                 [0.0] + [hold_k5(dev, gen, sh)
                          for sh in sorted(late["decode_attention"])])}
@@ -2236,7 +2619,7 @@ def frontends_phase(dev, card: str) -> dict:
     from repro_torch.kernels import attention as A
     from repro_torch.models import forward, init_decode_state, init_lm, \
         prefill_step
-    out = {"launches": {"flash_attention": 0, "decode_attention": 0},
+    out = {"launches": {k: 0 for k in A.LAUNCHES},
            "shapes": {k: set() for k in A.SHAPES}}
     shape = ShapeConfig("frontends", FRONTEND_SEQ, FRONTEND_BATCH, "prefill")
     for arch in FRONTEND_ARCHS:
@@ -2266,6 +2649,7 @@ def frontends_phase(dev, card: str) -> dict:
             row[f"{what}_ms"] = (time.perf_counter() - t0) * 1e3
             launches = dict(A.LAUNCHES)
             require(launches == {"flash_attention": cfg.num_layers,
+                                 "flash_attention_bwd": 0,
                                  "decode_attention": 0},
                     f"{arch} {what}: launches {launches}")
             for k, v in launches.items():
@@ -2518,6 +2902,38 @@ def main() -> int:
     cost = range_check_cost(granite, dev)
     print(f"serve {MOE_ARCH} range check: {json.dumps(cost)} [{card}]")
 
+    # training: llama and granite at their published configs, after the
+    # served models are freed and before the recurrent phases (after which
+    # profiler traces came back empty)
+    for res in (serve, granite):
+        for k in ("model", "recorder", "steps"):
+            res.pop(k, None)
+    _release()
+    train = {}
+    for arch, mb_check in ((SERVE_ARCH, True), (MOE_ARCH, False)):
+        t0 = time.perf_counter()
+        train[arch] = train_phase(dev, arch, TRAIN_STEPS[arch], card,
+                                  microbatch_check=mb_check)
+        name = "train_" + arch.replace("-", "_").replace(".", "_")
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase {name}: {seconds[name]:.2f} s")
+    t0 = time.perf_counter()
+    grad_hold(dev, card)
+    seconds["train_grad_hold"] = time.perf_counter() - t0
+    print(f"phase train_grad_hold: {seconds['train_grad_hold']:.2f} s")
+    t0 = time.perf_counter()
+    train_shapes = {k: set().union(*(t["shapes"][k] for t in train.values()))
+                    for k in A.SHAPES}
+    print(f"main-path attention shapes of the train phases: "
+          f"{ {k: sorted(v) for k, v in train_shapes.items()} }")
+    k4_new = train_shapes["flash_attention"] - attn_shapes["flash_attention"]
+    rows[3]["max_abs_err"] = max([rows[3]["max_abs_err"]] + [
+        hold_k4(dev, gen, sh) for sh in sorted(k4_new)])
+    rows.append(check_k4b(dev, gen, train_shapes["flash_attention_bwd"],
+                          card))
+    print_kernel_rows(rows[-1:], card)
+    seconds["train_kernel_checks"] = time.perf_counter() - t0
+
     # jamba at full width, one period of its pattern (Mamba, attention, MoE
     # on K2), then xlstm (mLSTM and sLSTM), then the stub frontends: after
     # everything above, which runs as it did before these existed; each
@@ -2566,7 +2982,8 @@ def main() -> int:
         sim["launches"], proc["worker_launches"]] + [
         r["launches"] for r in mix["policies"].values()] + [
         serve["launches"], granite["launches"], fronts["launches"]] + [
-        r["launches"] for r in recurrent.values()]
+        r["launches"] for r in recurrent.values()] + [
+        t["launches"] for t in train.values()]
     for r in rows:
         r["launches"] = sum(c.get(r["name"], 0) for c in counted)
         for extra in ("shape", "device", "device_ops_per_call", "checked_ms",

@@ -1,18 +1,25 @@
-"""Model configuration of the port: a plain copy of the model half of the
-reference's ``repro/core/config.py``.
+"""Configuration of the port: a plain copy of the reference's
+``repro/core/config.py``.
 
-``ModelConfig`` carries an architecture definition and ``ShapeConfig`` one
-input-shape cell. The dataclasses are frozen and field-for-field equal to
-the reference's, so equality, ``resolved_head_dim`` and ``param_count``
-agree. The run-level configs (optimizer, parallelism, checkpointing) are
-not copied: the port has no mesh, and its trainer is not ported yet.
+``ModelConfig`` carries an architecture definition, ``ShapeConfig`` one
+input-shape cell, and ``OptimizerConfig``, ``ParallelConfig``,
+``CheckpointConfig`` and ``RunConfig`` a training run. The dataclasses are
+frozen and field-for-field equal to the reference's, so equality,
+``resolved_head_dim``, ``param_count`` and ``fingerprint`` agree.
+``ParallelConfig``'s mesh fields (``attn_strategy``, ``moe_strategy``,
+``layout``, ``fsdp``, ``zero2``, ...) are carried and not acted on: the
+port has no mesh yet (ROADMAP Queue 1 item 11.4); its trainer reads
+``microbatches`` and ``remat``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
+import hashlib
+import json
 from dataclasses import dataclass
-from typing import Mapping
+from typing import Any, Mapping, Sequence
 
 
 class BlockKind(str, enum.Enum):
@@ -203,3 +210,95 @@ SHAPES: Mapping[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    # Gradient compression for cross-pod all-reduce: "none"|"bf16"|"int8"
+    grad_compression: str = "none"
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Resolved control-plane decisions for one (arch x shape x mesh) cell:
+    the reference's decision tuple (func, scale, schedule)."""
+
+    # func: which implementation variant
+    attn_strategy: str = "auto"      # "head_tp" | "seq_tp" | "replicated" | "auto"
+    moe_strategy: str = "auto"       # "all_to_all" | "gather" |
+                                     # "shard_map_a2a" | "auto"
+    layout: str = "auto"             # "tp" | "pure_dp" | "auto"
+    # scale: how much parallelism / accumulation
+    microbatches: int = 1
+    remat: str = "block"             # "none" | "block" | "dots"
+    # schedule: placement of work over the mesh
+    pod_axis_role: str = "data"      # "data" (round-robin) | "pipeline" (packing)
+    sequence_sharded_residual: bool = False
+    fsdp: str = "auto"               # "on" | "off" | "auto"
+    zero2: bool = False              # gather FSDP weights once per step
+    # data-plane knobs
+    use_pallas_attention: bool = False
+    kv_compress: bool = False        # int8-wire the seq_tp KV broadcast
+    causal_skip: bool = False        # skip upper-triangle attention chunks
+    mlp_mode: str = "tp"             # "tp" | "seq" | "auto"
+    dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class CheckpointConfig:
+    directory: str = "/tmp/repro_ckpt"
+    keep: int = 3
+    every_steps: int = 50
+    async_write: bool = True
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    optimizer: OptimizerConfig = OptimizerConfig()
+    parallel: ParallelConfig = ParallelConfig()
+    checkpoint: CheckpointConfig = CheckpointConfig()
+    steps: int = 100
+    seed: int = 0
+    priority: int = 0                # controller priority (higher wins)
+
+
+def asdict(cfg: Any) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def fingerprint(*cfgs: Any) -> str:
+    """Stable content hash of configs (the reference's executable-cache
+    key)."""
+    blob = json.dumps([dataclasses.asdict(c) for c in cfgs], sort_keys=True,
+                      default=str)
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def replace(cfg, **kw):
+    return dataclasses.replace(cfg, **kw)
+
+
+def override(cfg, dotted: Mapping[str, Any]):
+    """Apply {"optimizer.lr": 1e-4}-style overrides to a nested dataclass."""
+    for key, value in dotted.items():
+        cfg = _override_one(cfg, key.split("."), value)
+    return cfg
+
+
+def _override_one(cfg, parts: Sequence[str], value):
+    if len(parts) == 1:
+        return dataclasses.replace(cfg, **{parts[0]: value})
+    child = getattr(cfg, parts[0])
+    return dataclasses.replace(
+        cfg, **{parts[0]: _override_one(child, parts[1:], value)}
+    )

@@ -1,4 +1,5 @@
-"""Wrappers of the attention kernels K4 (``csrc/flash_attention.cu``) and K5
+"""Wrappers of the attention kernels K4 (``csrc/flash_attention.cu``), its
+gradient K4b (``csrc/flash_attention_bwd.cu``) and K5
 (``csrc/decode_attention.cu``).
 
 Each wrapper checks its inputs and then dispatches on the device of the
@@ -17,6 +18,12 @@ head dim and alignment: the tensor cores (bf16, hd 64 or 128, rows on 16
 bytes) or the CUDA cores (everything else). A K5 call is two launches, a
 split along the sequence and a combine, through a scratch buffer kept per
 stream, and counts once.
+
+On CUDA tensors that ask for a gradient, ``flash_attention`` is a
+``torch.autograd.Function``: its forward is K4, and its backward K4b
+(three launches, the rows' statistics into a per-stream scratch, then dK
+and dV, then dQ, counted once). On CPU tensors autograd differentiates the
+plain version. Nothing falls back: a K4b build or launch failure raises.
 
 ``LAUNCHES`` counts wrapper calls that launched their kernel on the card,
 so a run can show that its main path went through the kernels; ``SHAPES``
@@ -41,9 +48,10 @@ from repro_torch.kernels.streams import (StreamScratch, current_stream,
 HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES = {"flash_attention": 0, "decode_attention": 0}
-# (B, S, H, K, hd, dtype, causal, route) for K4; (B, H, S, K, hd, dtype)
-# for K5
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0,
+            "decode_attention": 0}
+# (B, S, H, K, hd, dtype, causal, route) for K4; (B, S, H, K, hd, dtype,
+# causal) for K4b; (B, H, S, K, hd, dtype) for K5
 SHAPES: dict[str, set] = {k: set() for k in LAUNCHES}
 _COUNT_LOCK = threading.Lock()
 
@@ -56,6 +64,9 @@ _LIBS = {
     "flash_attention": ("flash_attention.cu", "fa_error_string", {
         "fa_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                *_STRIDES, _I, _I, ctypes.POINTER(_I), _P)}),
+    "flash_attention_bwd": ("flash_attention_bwd.cu", "fab_error_string", {
+        "fab_flash_attention_bwd": (_P,) * 8 + (_I,) * 5 + _STRIDES
+        + (_I, _I, _P, _P)}),
     "decode_attention": ("decode_attention.cu", "da_error_string", {
         "da_split": (_P,), "da_combine": (_P,), "da_chunk": (),
         "da_num_args": ()}),
@@ -150,16 +161,15 @@ def _launch(name: str, entry: str, *args) -> None:
 # accumulator, max and sum): calls on one stream run in order, so the next
 # call's split cannot overwrite it before this call's combine has read it
 _SCRATCH = StreamScratch(torch.float32)
+# K4b's fp32 scratch (per (b, h, row): the log-sum-exp and delta), written
+# by its first launch and read by the two after it on the same stream
+_BWD_SCRATCH = StreamScratch(torch.float32)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """K4: softmax attention of ``(B, S, H, hd)`` q over ``(B, S, K, hd)``
-    k and v of q's dtype (float32 or bfloat16), H divisible by K; query
-    head i attends through kv head i // (H // K), the reference's
-    ``jnp.repeat(k, H // K, axis=2)`` order. Scaled by ``hd^-0.5``, causal
-    unless ``causal=False``. Any S; hd in ``HEAD_DIMS``. Returns a
-    contiguous ``(B, S, H, hd)`` tensor of q's dtype."""
+def _check_qkv(q, k, v) -> None:
+    """q ``(B, S, H, hd)``, k and v ``(B, S, K, hd)`` of q's dtype (float32
+    or bfloat16) on q's device, last dimension contiguous, K dividing H,
+    hd in ``HEAD_DIMS``."""
     if not isinstance(q, torch.Tensor) or q.dim() != 4:
         raise ValueError("q must be a 4-D (B, S, H, hd) tensor")
     if q.dtype not in _DTYPE_CODES:
@@ -176,9 +186,48 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{h} query heads do not group over {kh} kv heads")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
-    dev = q.device
-    if _route(dev) == "plain":
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K4 forward, K4b backward, on the card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = _flash_forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, d_out, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """K4: softmax attention of ``(B, S, H, hd)`` q over ``(B, S, K, hd)``
+    k and v of q's dtype (float32 or bfloat16), H divisible by K; query
+    head i attends through kv head i // (H // K), the reference's
+    ``jnp.repeat(k, H // K, axis=2)`` order. Scaled by ``hd^-0.5``, causal
+    unless ``causal=False``. Any S; hd in ``HEAD_DIMS``. Returns a
+    contiguous ``(B, S, H, hd)`` tensor of q's dtype. On the card, with
+    gradients on and an input that asks for one, its gradient is K4b's."""
+    _check_qkv(q, k, v)
+    if _route(q.device) == "plain":
         return ref.flash_attention_ref(q, k, v, causal=causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, bool(causal))
+    return _flash_forward(q, k, v, causal)
+
+
+def _flash_forward(q, k, v, causal) -> torch.Tensor:
+    """K4's launch on checked CUDA inputs."""
+    b, s, h, hd = q.shape
+    kh = k.shape[2]
+    dev = q.device
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:
         return out
@@ -192,6 +241,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _count("flash_attention", (b, s, h, kh, hd, str(q.dtype), bool(causal),
                                "tc" if route.value else "simt"))
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, d_out: torch.Tensor,
+                        causal: bool = True):
+    """K4b: the gradient of ``flash_attention(q, k, v, causal)`` whose
+    output was ``out``, against ``d_out``: ``(dq, dk, dv)``, contiguous,
+    of q's dtype and q's, k's and v's shapes (dk and dv summed over each kv
+    head's query heads). CPU tensors take ``ref.flash_attention_bwd_ref``;
+    CUDA tensors launch K4b or raise. ``out`` and ``d_out`` may have any
+    strides (autograd hands a broadcast ``d_out`` to a sum's input): the
+    kernel reads contiguous copies."""
+    _check_qkv(q, k, v)
+    # the kernel reads both as contiguous (B, S, H, hd)
+    out, d_out = out.contiguous(), d_out.contiguous()
+    for t, name in ((out, "out"), (d_out, "d_out")):
+        _check(t, name, 4, q.dtype, q.device)
+        if t.shape != q.shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, q "
+                             f"{tuple(q.shape)}")
+    dev = q.device
+    if _route(dev) == "plain":
+        return ref.flash_attention_bwd_ref(q, k, v, out, d_out, causal)
+    b, s, h, hd = q.shape
+    kh = k.shape[2]
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if q.numel() == 0:
+        return dq, dk, dv
+    stream = current_stream(dev)
+    with _BWD_SCRATCH.lock:
+        scratch = _BWD_SCRATCH.get(dev, stream, 2 * b * h * s)
+        with on_device(dev):
+            _launch("flash_attention_bwd", "fab_flash_attention_bwd",
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), b, s, h, kh, hd, *q.stride()[:3],
+                    *k.stride()[:3], *v.stride()[:3], int(bool(causal)),
+                    _DTYPE_CODES[q.dtype], scratch.data_ptr(), stream)
+    _count("flash_attention_bwd", (b, s, h, kh, hd, str(q.dtype),
+                                   bool(causal)))
+    return dq, dk, dv
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -2,9 +2,10 @@
 
 Each function computes what its CUDA kernel computes: the partition kernels
 of ``partition.cu`` exactly, the attention kernels of
-``flash_attention.cu`` and ``decode_attention.cu`` within the tolerance of
-their dtype (the kernels keep the probabilities in fp32, these cast them
-to the value dtype before the PV product, as the reference's oracles do).
+``flash_attention.cu``, ``flash_attention_bwd.cu`` and
+``decode_attention.cu`` within the tolerance of their dtype (the kernels
+keep the probabilities in fp32, these cast them to the value dtype before
+the PV product, as the reference's oracles do; K4b's is fp32 throughout).
 The kernel wrappers (``repro_torch.kernels.partition`` and ``.attention``)
 take these for CPU tensors only; ``chip_smoke.py`` holds each kernel
 against its plain version on the card.
@@ -88,6 +89,38 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqs,bshk->bqhk", probs.to(v.dtype), v)
     return out.to(q.dtype)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            d_out: torch.Tensor, causal: bool = True):
+    """K4b: the gradient of ``flash_attention_ref`` by the explicit formula,
+    in fp32: with ``P = softmax(Q K^T * scale)`` (masked above the diagonal
+    when causal) and ``delta = rowsum(d_out * out)``, ``dS = P * (d_out
+    V^T - delta)``, ``dq = dS K * scale``, ``dk = dS^T Q * scale`` and
+    ``dv = P^T d_out``, dk and dv summed over each kv head's ``H // K``
+    query heads. Returns ``(dq, dk, dv)`` in q's dtype."""
+    b, s, h, hd = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    qf, of, gf = q.float(), out.float(), d_out.float()
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    scale = hd ** -0.5
+    scores = torch.einsum("bqhd,bshd->bhqs", qf, kf) * scale
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    dp = torch.einsum("bqhd,bshd->bhqs", gf, vf)
+    delta = (gf * of).sum(dim=-1).transpose(1, 2)          # (B, H, S)
+    ds = probs * (dp - delta[..., None])
+    dq = torch.einsum("bhqs,bshd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqs,bqhd->bshd", ds, qf) * scale
+    dv = torch.einsum("bhqs,bqhd->bshd", probs, gf)
+    dk = dk.view(b, s, kh, g, hd).sum(dim=3)
+    dv = dv.view(b, s, kh, g, hd).sum(dim=3)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,

@@ -8,6 +8,7 @@ from repro_torch.models.lm import (  # noqa: F401
     LM,
     decode_step,
     forward,
+    forward_hidden,
     init_decode_state,
     init_lm,
     prefill_step,

@@ -1,11 +1,14 @@
-"""Carry the reference's parameter tree across into the port's modules.
+"""Carry parameter trees between the reference's layout and the port's
+modules.
 
 ``params_from_numpy(jax.tree.map(np.asarray, repro.models.init_lm(cfg,
 key)[0]), cfg, device)`` gives the port's ``LM`` with the reference's
-weights, so both packages can be run on the same model. The reference
-stacks each pattern position's leaves over the repeats
-(``params["blocks"][p][...]`` has a leading ``repeats`` axis); layer
-``r * P + p`` is row ``r`` of position ``p``.
+weights, so both packages can be run on the same model;
+``params_to_numpy(model, cfg)`` is its inverse, and also restacks any
+mapping keyed by the port's parameter names (gradients, the optimizer's
+``master``, ``m`` and ``v``). The reference stacks each pattern position's
+leaves over the repeats (``params["blocks"][p][...]`` has a leading
+``repeats`` axis); layer ``r * P + p`` is row ``r`` of position ``p``.
 """
 
 from __future__ import annotations
@@ -69,3 +72,48 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> LM:
         state[name] = torch.nn.Parameter(t, requires_grad=False)
     model.load_state_dict(state, assign=True)
     return model
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:       # the bits, as an ml_dtypes array
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def _nest(tree: dict, name: str, value) -> None:
+    *parents, leaf = name.split(".")
+    for key in parents:
+        tree = tree.setdefault(key, {})
+    tree[leaf] = value
+
+
+def params_to_numpy(model, cfg: ModelConfig) -> dict:
+    """The reference's parameter tree of ``model`` (an ``LM``, or a mapping
+    from the port's parameter names to tensors): ``embed``,
+    ``final_norm``, the stub frontend's projection and ``blocks``, a tuple
+    over the pattern positions of each layer's leaves stacked over the
+    repeats. Leaves are numpy arrays (bfloat16 ones as ``ml_dtypes``
+    arrays)."""
+    named = dict(model.named_parameters()) if isinstance(model, LM) \
+        else dict(model)
+    period = len(cfg.block_pattern)
+    tree: dict = {}
+    per_position: list[dict] = [{} for _ in range(period)]
+    for name, t in named.items():
+        if not name.startswith("layers."):
+            _nest(tree, name, _array(t))
+            continue
+        _, index, rest = name.split(".", 2)
+        i = int(index)
+        per_position[i % period].setdefault(rest, {})[i // period] = t
+    blocks = []
+    for leaves in per_position:
+        stacked: dict = {}
+        for rest, rows in leaves.items():
+            _nest(stacked, rest, np.stack([_array(rows[r])
+                                           for r in range(len(rows))]))
+        blocks.append(stacked)
+    tree["blocks"] = tuple(blocks)
+    return tree

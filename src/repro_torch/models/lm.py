@@ -10,14 +10,25 @@ is one entry per layer, by its kind: the ``(B, max_seq, K, hd)`` K and V
 caches of an attention layer (prefill and decode write them in place),
 ``{h, conv}`` of a Mamba layer, ``{c, n, m, conv}`` of an mLSTM layer and
 ``{c, n, h, m, conv}`` of an sLSTM layer (replaced at every call), plus the
-``(B,)`` int32 positions. The modules are inference-only until
-``training/`` is ported (no parameter asks for gradients).
+``(B,)`` int32 positions.
+
+Parameters are built frozen (no gradient); ``repro_torch.training``'s
+``init_train_state`` turns their gradients on. ``forward_hidden`` is the
+training entry point: the forward up to the final norm, each layer under
+the remat policy asked for.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.core.config import BlockKind, FFNKind, Frontend, ModelConfig
 from repro_torch.device import resolve_device
@@ -139,15 +150,52 @@ _RECURRENT = {
 }
 
 
-def forward(model: LM, inputs: dict, ssm_chunk: int = 128
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full causal forward: ``inputs["tokens"] (B, S)`` (with the stub
-    frontend's ``patch_embeds`` or ``frame_embeds``, and optionally
-    ``positions``) -> ``(fp32 logits (B, S', V_padded), aux)``, ``S'``
-    counting the patches, ``aux`` the reference's MoE load-balance loss
-    summed over the MoE layers (0 without them). ``ssm_chunk`` is the
-    Mamba and mLSTM chunk. Every attention layer runs K4, and every MoE
-    layer's dispatch K2."""
+def _layer(layer: Block, h: torch.Tensor, positions: torch.Tensor,
+           cfg: ModelConfig, ssm_chunk: int):
+    """One residual layer (block, then FFN): ``(h, MoE aux or None)``."""
+    normed = rmsnorm(layer.norm1, h, cfg.norm_eps)
+    if layer.kind == BlockKind.ATTENTION:
+        out = attn_mod.attention(layer.block, normed, positions, cfg)
+    else:
+        out = _RECURRENT[layer.kind](layer.block, normed, cfg,
+                                     chunk=ssm_chunk)
+    return _ffn(layer, h + out, cfg)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the matrix products' outputs, recompute the
+    rest (the reference's ``checkpoint_dots_with_no_batch_dims``)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT = {
+    "block": {},
+    "dots": {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_dots)},
+}
+
+
+def forward_hidden(model: LM, inputs: dict, remat: str = "block",
+                   q_chunk: int = 1024, ssm_chunk: int = 128
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full causal forward up to the final norm: ``(h (B, S', D), aux)``,
+    ``S'`` counting the stub patches, ``aux`` the MoE load-balance loss
+    summed over the MoE layers (0 without them). The unembedding is left to
+    the caller: the training loss fuses it into a sequence-chunked
+    cross-entropy.
+
+    ``remat``: ``"none"`` keeps every activation for the backward;
+    ``"block"`` checkpoints each layer (its input kept, the rest recomputed
+    in the backward; the reference checkpoints a pattern period, which
+    computes the same); ``"dots"`` checkpoints each layer but keeps its
+    matrix products. Under a recompute every attention layer runs K4
+    again, and every MoE layer's dispatch K2. ``q_chunk`` is accepted and
+    unused: K4 tiles its own queries. ``ssm_chunk`` is the Mamba and mLSTM
+    chunk."""
+    if remat != "none" and remat not in _REMAT:
+        raise ValueError(f"remat must be none, block or dots, got {remat!r}")
     cfg = model.cfg
     h = _frontend_embed(model, inputs)
     b, s, _ = h.shape
@@ -156,17 +204,26 @@ def forward(model: LM, inputs: dict, ssm_chunk: int = 128
         positions = _positions(b, s, h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for layer in model.layers:
-        normed = rmsnorm(layer.norm1, h, cfg.norm_eps)
-        if layer.kind == BlockKind.ATTENTION:
-            out = attn_mod.attention(layer.block, normed, positions, cfg)
+        if remat == "none":
+            h, layer_aux = _layer(layer, h, positions, cfg, ssm_chunk)
         else:
-            out = _RECURRENT[layer.kind](layer.block, normed, cfg,
-                                         chunk=ssm_chunk)
-        h, layer_aux = _ffn(layer, h + out, cfg)
+            h, layer_aux = checkpoint(_layer, layer, h, positions, cfg,
+                                      ssm_chunk, use_reentrant=False,
+                                      **_REMAT[remat])
         if layer_aux is not None:
             aux = aux + layer_aux
-    h = rmsnorm(model.final_norm, h, cfg.norm_eps)
-    logits = unembed(model.embed, h, cfg.vocab_size).float()
+    return rmsnorm(model.final_norm, h, cfg.norm_eps), aux
+
+
+def forward(model: LM, inputs: dict, ssm_chunk: int = 128
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full causal forward: ``inputs["tokens"] (B, S)`` (with the stub
+    frontend's ``patch_embeds`` or ``frame_embeds``, and optionally
+    ``positions``) -> ``(fp32 logits (B, S', V_padded), aux)``:
+    ``forward_hidden`` without remat, and the unembedding. Every attention
+    layer runs K4, and every MoE layer's dispatch K2."""
+    h, aux = forward_hidden(model, inputs, remat="none", ssm_chunk=ssm_chunk)
+    logits = unembed(model.embed, h, model.cfg.vocab_size).float()
     return logits, aux
 
 

@@ -111,9 +111,17 @@ def _ssm_inputs(p: Mamba, u: torch.Tensor, cfg: ModelConfig):
 def _scan_chunk(h0: torch.Tensor, a_bar: torch.Tensor, bx: torch.Tensor):
     """The recurrence over one chunk. h0: ``(B, Din, N)``; a_bar, bx:
     ``(B, C, Din, N)`` -> (every position's state ``(B, C, Din, N)``, the
-    last one)."""
-    h_all = torch.empty_like(bx)
+    last one). With gradients off each state is written in place into one
+    buffer (``out=``); autograd refuses ``out=``, so with them on the states
+    are collected and stacked."""
     h = h0
+    if torch.is_grad_enabled():
+        states = []
+        for a_t, bx_t in zip(a_bar.unbind(1), bx.unbind(1)):
+            h = torch.addcmul(bx_t, a_t, h)
+            states.append(h)
+        return torch.stack(states, dim=1), h
+    h_all = torch.empty_like(bx)
     for a_t, bx_t, out in zip(a_bar.unbind(1), bx.unbind(1),
                               h_all.unbind(1)):
         h = torch.addcmul(bx_t, a_t, h, out=out)

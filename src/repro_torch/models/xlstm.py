@@ -7,10 +7,12 @@ The mLSTM forward is the reference's chunkwise form: per chunk an
 attention-like quadratic product plus the carried ``(C, n, m)`` state,
 the stabilizer ``m`` starting at -1e9. The sLSTM runs its recurrence one
 position at a time, as the reference's ``lax.scan`` does; its recurrent
-weights ``r_gates (4, H, dv, dv)`` are laid out once, when they are made or
-loaded, as ``r_step (H, dv, 4 dv)``, so that each step is one batched
-product over the heads. Only the reference's unsharded sLSTM scan is
-ported: its ``shard_map`` branch needs a mesh (ROADMAP Queue 1 item 11.4).
+weights ``r_gates (4, H, dv, dv)`` are laid out as ``(H, dv, 4 dv)``, so
+that each step is one batched product over the heads: with gradients off
+from the buffer ``r_step`` (laid out again whenever ``r_gates`` was loaded
+or updated in place), with them on once per call, inside the graph. Only
+the reference's unsharded sLSTM scan is ported: its ``shard_map`` branch
+needs a mesh (ROADMAP Queue 1 item 11.4).
 """
 
 from __future__ import annotations
@@ -218,8 +220,9 @@ class SLSTM(nn.Module):
     ``conv_w``, ``conv_b``, ``w_gates (d_in, 4 d_in)`` (z, i, f, o),
     ``norm``, ``down`` in the config's dtype, and ``r_gates (4, H, dv, dv)``
     and ``b_gates`` (forget bias 3) in fp32. The buffer ``r_step`` holds
-    ``r_gates`` in the step's layout; it is made again whenever
-    ``r_gates`` is loaded."""
+    ``r_gates`` in the step's layout for the no-grad path; it is made again
+    whenever ``r_gates`` is loaded, or has been written in place (its
+    version counter moved) since the last layout."""
 
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
@@ -243,13 +246,25 @@ class SLSTM(nn.Module):
         self.norm = frozen(torch.ones((d_in,), dtype=dtype, device=device))
         self.down = init_normal((d_in, d), d_in ** -0.5, dtype, generator,
                                 device)
-        self.register_buffer("r_step", _step_layout(self.r_gates),
-                             persistent=False)
+        self.register_buffer("r_step", None, persistent=False)
+        SLSTM._relayout(self)
         self.register_load_state_dict_post_hook(SLSTM._relayout)
 
     @staticmethod
-    def _relayout(module: "SLSTM", incompatible_keys) -> None:
-        module.r_step = _step_layout(module.r_gates)
+    def _relayout(module: "SLSTM", incompatible_keys=None) -> None:
+        with torch.no_grad():
+            module.r_step = _step_layout(module.r_gates)
+        module._r_version = (id(module.r_gates), module.r_gates._version)
+
+    def step_weights(self) -> torch.Tensor:
+        """``r_gates`` in the step's layout: laid out inside the graph when
+        gradients are on (so they reach ``r_gates``), else the buffer, laid
+        out again if ``r_gates`` changed since."""
+        if torch.is_grad_enabled():
+            return _step_layout(self.r_gates)
+        if self._r_version != (id(self.r_gates), self.r_gates._version):
+            SLSTM._relayout(self)
+        return self.r_step
 
 
 def init_slstm(cfg: ModelConfig, generator, device) -> SLSTM:
@@ -273,9 +288,12 @@ def _slstm_scan(p: SLSTM, gates_x: torch.Tensor, h: int, dv: int,
     gx = gates_x.float().view(b, s, 4, h, dv).permute(1, 3, 0, 2, 4) \
         .reshape(s, h, b, 4 * dv)          # [t, h, b, g*dv + w]
     c, n, hid, m = (heads(state[k]) for k in ("c", "n", "h", "m"))
-    hs = gx.new_empty((s, h, b, dv))
-    for gx_t, out in zip(gx.unbind(0), hs.unbind(0)):
-        pre = torch.baddbmm(gx_t, hid, p.r_step).view(h, b, 4, dv)
+    r_step = p.step_weights()
+    grad = torch.is_grad_enabled()
+    # autograd refuses ``out=``: with gradients on the states are stacked
+    hs = [] if grad else gx.new_empty((s, h, b, dv))
+    for t, gx_t in enumerate(gx.unbind(0)):
+        pre = torch.baddbmm(gx_t, hid, r_step).view(h, b, 4, dv)
         zt, li, ft, ot = pre.unbind(2)
         lfm = F.logsigmoid(ft) + m
         m_new = torch.maximum(lfm, li)
@@ -283,12 +301,18 @@ def _slstm_scan(p: SLSTM, gates_x: torch.Tensor, h: int, dv: int,
         f_sc = torch.exp(lfm - m_new)
         c = torch.addcmul(i_sc * torch.tanh(zt), f_sc, c)
         n = torch.maximum(torch.addcmul(i_sc, f_sc, n), torch.exp(-m_new))
-        hid = torch.mul(torch.sigmoid(ot), c / n, out=out)
+        if grad:
+            hid = torch.sigmoid(ot) * (c / n)
+            hs.append(hid)
+        else:
+            hid = torch.mul(torch.sigmoid(ot), c / n, out=hs[t])
         m = m_new
 
     def flat(t):                           # (H, B, dv) -> (B, d_in)
         return t.transpose(0, 1).reshape(b, h * dv)
 
+    if grad:
+        hs = torch.stack(hs)
     hs = hs.permute(2, 0, 1, 3).reshape(b, s, h * dv)
     return hs, tuple(flat(t) for t in (c, n, hid, m))
 

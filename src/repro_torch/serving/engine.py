@@ -12,6 +12,8 @@ The engine runs lockstep continuous batching: one prefill per admitted wave
 decode step over the active batch per step. The reference caches a jitted
 program per shape; the port runs eagerly, and every attention core goes
 through the port's kernels (K4 in prefill, K5 in decode) on the card.
+Prefill and decode run under ``torch.inference_mode()``, so a model whose
+parameters ask for gradients (after training) records no graph.
 
 Recurrent layers (Mamba, mLSTM, sLSTM) keep their states in the same
 decode state. The padded prefill is the reference's contract and the port
@@ -180,10 +182,14 @@ class ServingEngine:
             toks = (req.tokens + req.output)[-self.max_seq:]
             prompt[i, : len(toks)] = toks
             lengths[i] = len(toks)
-        self.state = init_decode_state(self.cfg, b, self.max_seq, self.device)
-        _, self.state = self._prefill(
-            self.model, self.state,
-            {"tokens": torch.from_numpy(prompt).to(self.device)})
+        # no autograd graph, whether or not the model's parameters ask for
+        # gradients (a trained model serves as a frozen one)
+        with torch.inference_mode():
+            self.state = init_decode_state(self.cfg, b, self.max_seq,
+                                           self.device)
+            _, self.state = self._prefill(
+                self.model, self.state,
+                {"tokens": torch.from_numpy(prompt).to(self.device)})
         # prefill advanced every row to max_seq (padded); rewind each row to
         # its last *real* token, which the next decode step re-feeds — it
         # rewrites that slot's K/V and yields the true next-token logits
@@ -202,8 +208,10 @@ class ServingEngine:
                 continue
             seq = req.tokens + req.output
             last[i, 0] = seq[-1]
-        logits, self.state = self._decode(
-            self.model, self.state, torch.from_numpy(last).to(self.device))
+        with torch.inference_mode():
+            logits, self.state = self._decode(
+                self.model, self.state,
+                torch.from_numpy(last).to(self.device))
         # the host read of the argmax ends the step (it waits for the device)
         next_tokens = logits[:, 0].argmax(dim=-1).cpu().numpy()
         step_ms = (time.perf_counter() - t0) * 1e3

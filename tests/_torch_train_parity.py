@@ -1,0 +1,122 @@
+"""Shared by ``test_torch_training.py`` and ``test_torch_train_families.py``:
+one train step of the PyTorch port held against the JAX reference's on the
+same weights and batch.
+
+Both packages run an fp32 smoke config. The reference's weights come from
+its ``init_lm`` and are carried across with ``params_from_numpy``; its
+gradients from ``jax.value_and_grad`` of its ``_loss_fn`` (``remat="none"``,
+no mesh, as its own ``tests/test_training.py`` runs it) and its update from
+its ``apply_updates``, which is its ``train_step`` at one microbatch. The
+port runs ``make_grad_fn`` and ``make_train_step`` under
+``remat="block"``. The port's trees go back to the reference's layout with
+``params_to_numpy``.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+import repro.models.lm as jlm
+from repro.configs import get_config as jconfig
+from repro.core.config import OptimizerConfig as JOptimizerConfig
+from repro.core.config import ParallelConfig as JParallelConfig
+from repro.training import apply_updates as japply_updates
+from repro.training import init_opt_state as jinit_opt_state
+from repro.training.train_step import _loss_fn as jloss_fn
+from repro_torch.configs import get_config as tconfig
+from repro_torch.core.config import OptimizerConfig, ParallelConfig, \
+    ShapeConfig
+from repro_torch.data import SyntheticSource
+from repro_torch.models.convert import params_from_numpy, params_to_numpy
+from repro_torch.training import init_train_state, make_train_step
+from repro_torch.training.train_step import make_grad_fn
+
+SHAPE = ShapeConfig("t", 32, 2, "train")
+Q_CHUNK, SSM_CHUNK = 16, 8
+# loss, ce, aux and grad_norm relative; each gradient leaf's
+# |g - g_ref| / |g_ref| (Frobenius); the updated parameters' abs (the
+# reference's own, tests/test_training.py)
+METRIC_RTOL, GRAD_RTOL, PARAM_ATOL = 1e-4, 1e-4, 5e-3
+
+
+def configs(arch: str):
+    """The reference's and the port's smoke configs of ``arch``, in fp32."""
+    return (dataclasses.replace(jconfig(arch, smoke=True), dtype="float32"),
+            dataclasses.replace(tconfig(arch, smoke=True), dtype="float32"))
+
+
+def reference_params(jcfg):
+    return jax.jit(lambda key: jlm.init_lm(jcfg, key)[0])(
+        jax.random.PRNGKey(0))
+
+
+def port_model(params, tcfg):
+    return params_from_numpy(jax.tree.map(np.asarray, params), tcfg, "cpu")
+
+
+def rel(a, b) -> float:
+    """|a - b| / |b| in float64 (Frobenius); 0 where both are 0."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    den = np.linalg.norm(b)
+    return float(np.linalg.norm(a - b) / den) if den else \
+        float(np.linalg.norm(a))
+
+
+def leaves(tree) -> dict:
+    """``{path: leaf}`` of a reference-layout tree."""
+    return {jax.tree_util.keystr(path): leaf for path, leaf in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def reference_step(jcfg, params, batch, opt_cfg):
+    """The reference's loss, metrics, gradients and updated parameters."""
+    grad_fn = jax.jit(jax.value_and_grad(
+        lambda p, b: jloss_fn(p, b, jcfg, JParallelConfig(remat="none"),
+                              Q_CHUNK, SSM_CHUNK), has_aux=True))
+    (loss, metrics), grads = grad_fn(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    new_params, _, opt_metrics = jax.jit(japply_updates, static_argnums=3)(
+        params, grads, jinit_opt_state(params), opt_cfg)
+    return loss, {**metrics, **opt_metrics}, grads, new_params
+
+
+def check_train_step(arch: str) -> dict:
+    """One train step of ``arch`` in both packages: the port's loss, ce,
+    aux, tokens, grad_norm and lr against the reference's (``METRIC_RTOL``),
+    every gradient leaf (``GRAD_RTOL``) and every updated parameter
+    (``PARAM_ATOL``). Returns the port's gradients in the reference's
+    layout."""
+    jcfg, tcfg = configs(arch)
+    params = reference_params(jcfg)
+    batch = SyntheticSource(tcfg, SHAPE, seed=0).batch(0)
+    jopt, topt = JOptimizerConfig(), OptimizerConfig()
+    jl, jm, jg, jnew = reference_step(jcfg, params, batch, jopt)
+
+    pc = ParallelConfig(remat="block")
+    model = port_model(params, tcfg)
+    init_train_state(tcfg, model)
+    loss, metrics, grads = make_grad_fn(tcfg, pc, Q_CHUNK, SSM_CHUNK)(
+        model, batch)
+    state = init_train_state(tcfg, port_model(params, tcfg))
+    step = make_train_step(tcfg, SHAPE, topt, pc, q_chunk=Q_CHUNK,
+                           ssm_chunk=SSM_CHUNK)
+    state, step_metrics = step(state, batch)
+
+    assert rel(float(loss), float(jl)) <= METRIC_RTOL
+    for k in ("ce", "aux", "tokens"):
+        assert rel(float(metrics[k]), float(jm[k])) <= METRIC_RTOL, k
+    for k in ("loss", "ce", "aux", "tokens", "grad_norm", "lr"):
+        assert rel(float(step_metrics[k]), float(jm.get(k, jl))) \
+            <= METRIC_RTOL, k
+    got = leaves(params_to_numpy(grads, tcfg))
+    want = leaves(jg)
+    assert set(got) == set(want)
+    for path, g in want.items():
+        assert rel(got[path], g) <= GRAD_RTOL, (path, rel(got[path], g))
+    new = leaves(params_to_numpy(state["params"], tcfg))
+    for path, p in leaves(jnew).items():
+        np.testing.assert_allclose(new[path], np.asarray(p), atol=PARAM_ATOL,
+                                   err_msg=path)
+    return got

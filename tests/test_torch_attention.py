@@ -77,8 +77,10 @@ def test_cpu_tensors_never_count_as_launches():
     tattn.reset_launches()
     q = torch.zeros((1, 5, 2, 8))
     tops.flash_attention(q, q, q)
+    tattn.flash_attention_bwd(q, q, q, q, q)
     tops.decode_attention(q[:, 0], q, q, torch.ones((1,), dtype=torch.int32))
-    assert tattn.LAUNCHES == {"flash_attention": 0, "decode_attention": 0}
+    assert tattn.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0,
+                              "decode_attention": 0}
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "head_dim", "groups",

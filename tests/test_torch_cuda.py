@@ -603,6 +603,7 @@ def test_cuda_engine_serves_through_k4_and_k5(cuda_device):
     assert got == want and len(got) == 3
     assert tattn.LAUNCHES == {
         "flash_attention": cfg.num_layers * metrics["prefills"],
+        "flash_attention_bwd": 0,
         "decode_attention": cfg.num_layers * metrics["steps"]}
 
 
@@ -743,6 +744,7 @@ def test_cuda_engine_serves_granite_through_k2(cuda_device):
     assert tpart.LAUNCHES["partition_scatter"] == cfg.num_layers * calls
     assert tattn.LAUNCHES == {
         "flash_attention": cfg.num_layers * metrics["prefills"],
+        "flash_attention_bwd": 0,
         "decode_attention": cfg.num_layers * metrics["steps"]}
 
 
@@ -785,6 +787,7 @@ def test_cuda_engine_serves_recurrent_models(cuda_device, arch):
     assert (attn, moe) == ((2, 2) if arch == RECURRENT[0] else (0, 0))
     assert tattn.LAUNCHES == {
         "flash_attention": attn * metrics["prefills"],
+        "flash_attention_bwd": 0,
         "decode_attention": attn * metrics["steps"]}
     assert tpart.LAUNCHES == {
         "partition_histogram": 0, "fused_probe": 0,
@@ -821,3 +824,158 @@ def test_cuda_recurrent_prefill_then_decode_matches_forward(cuda_device,
     got = torch.cat(got, dim=1)[..., :cfg.vocab_size]
     torch.testing.assert_close(got, want[:, 11:, :cfg.vocab_size],
                                atol=1e-3, rtol=1e-3)
+
+
+# -- K4b (K4's gradient) and training --------------------------------------------
+
+# K4b against its plain version: max |err| over the plain gradient's largest
+# magnitude (bf16 outputs round to 2^-8 of it; fp32 sums differ in order)
+K4B_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _k4b_inputs(seed, b, s, h, kh, hd, dtype, device, causal):
+    """Strided q, k, v (``_qkv_views``), a random d_out and the plain
+    forward's output."""
+    q, k, v = _qkv_views(seed, b, s, h, kh, hd, dtype, device)
+    rng = np.random.default_rng(seed + 1)
+    d_out = torch.from_numpy(rng.standard_normal((b, s, h, hd)).astype(
+        np.float32)).to(device=device, dtype=dtype)
+    return q, k, v, tref.flash_attention_ref(q, k, v, causal=causal), d_out
+
+
+def _grads_close(got, want, dtype):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        scale = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= K4B_TOL[dtype] * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("s", [64, 200, 1024])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64, 128])
+def test_cuda_k4b_matches_plain(cuda_device, hd, s, g, causal, dtype):
+    """K4b on strided q, k, v with K = 2 kv heads of G query heads each,
+    at a tile, a ragged S and S = 1024, against its plain version."""
+    from repro_torch.kernels import attention as tattn
+    args = _k4b_inputs(hd * s + g, 1, s, 2 * g, 2, hd, dtype, cuda_device,
+                       causal)
+    tattn.SHAPES["flash_attention_bwd"].clear()
+    got = tattn.flash_attention_bwd(*args, causal=causal)
+    want = tref.flash_attention_bwd_ref(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert tattn.SHAPES["flash_attention_bwd"] == {
+        (1, s, 2 * g, 2, hd, str(dtype), causal)}
+    _grads_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_k4b_is_the_gradient_of_k4(cuda_device, dtype):
+    """On CUDA tensors that ask for a gradient, ``flash_attention``'s
+    backward is K4b (one launch beside K4's one), and its gradients are
+    autograd's of the plain forward on the CPU."""
+    from repro_torch.kernels import attention as tattn
+    rng = np.random.default_rng(3)
+    b, s, h, kh, hd = 2, 130, 6, 2, 128
+    host = [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd))]
+    w = torch.from_numpy(rng.standard_normal((b, s, h, hd)).astype(
+        np.float32))
+
+    def grads(device):
+        qkv = [torch.from_numpy(a).to(device=device, dtype=dtype)
+               .requires_grad_(True) for a in host]
+        out = tattn.flash_attention(*qkv)
+        (out.float() * w.to(device)).sum().backward()
+        return [t.grad for t in qkv]
+
+    want = [g.to(cuda_device) for g in grads("cpu")]
+    tattn.reset_launches()
+    got = grads(cuda_device)
+    torch.cuda.synchronize()
+    assert tattn.LAUNCHES == {"flash_attention": 1, "flash_attention_bwd": 1,
+                              "decode_attention": 0}
+    _grads_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_k4b_launch_failure_raises(cuda_device):
+    """A K4b launch that fails raises from the backward (no fall back to the
+    plain version), and the C entry point refuses an unknown dtype."""
+    from repro_torch.kernels import attention as tattn
+    entry = tattn._fn("flash_attention_bwd", "fab_flash_attention_bwd")
+    err = entry(*([None] * 8), 1, 64, 2, 2, 64, *([0] * 9), 1, 7, None, None)
+    assert err != 0
+    q = torch.randn((1, 64, 2, 64), device=cuda_device, requires_grad=True)
+    out = tattn.flash_attention(q, q.detach(), q.detach())
+    bound = tattn._BOUND["flash_attention_bwd"]
+    bound["fab_flash_attention_bwd"] = lambda *args: err
+    try:
+        with pytest.raises(RuntimeError, match="flash_attention_bwd kernel "
+                                               "failed"):
+            out.sum().backward()
+    finally:
+        bound["fab_flash_attention_bwd"] = entry
+
+
+TRAIN_ARCHS = ("llama3.2-3b", "granite-moe-1b-a400m", "jamba-v0.1-52b",
+               "xlstm-1.3b", "internvl2-1b", "musicgen-medium")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_cuda_train_step_matches_cpu(cuda_device, arch):
+    """One train step of each family's smoke config in fp32 on the card
+    (K4 twice an attention layer under ``remat="block"``, K4b once, K2
+    twice a MoE layer) gives the CPU's gradients, loss and parameters."""
+    import copy
+
+    from repro_torch.core.config import (
+        OptimizerConfig,
+        ParallelConfig,
+        ShapeConfig,
+    )
+    from repro_torch.data import SyntheticSource
+    from repro_torch.kernels import attention as tattn
+    from repro_torch.models import init_lm
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training.train_step import make_grad_fn
+
+    cfg = _fp32_smoke(arch, drop_free=True)
+    shape = ShapeConfig("t", 32, 2, "train")
+    batch = SyntheticSource(cfg, shape, seed=0).batch(0)
+    pc = ParallelConfig(remat="block")
+    cpu = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = copy.deepcopy(cpu).to(cuda_device)
+    states = [init_train_state(cfg, m) for m in (cpu, card)]
+    grad_fn = make_grad_fn(cfg, pc, ssm_chunk=8)
+    loss_cpu, _, g_cpu = grad_fn(cpu, batch)
+    tattn.reset_launches()
+    tpart.reset_launches()
+    loss_card, _, g_card = grad_fn(card, batch)
+    torch.cuda.synchronize()
+    attn = sum(cfg.block_kind(i).value == "attention"
+               for i in range(cfg.num_layers))
+    moe = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+    assert tattn.LAUNCHES == {"flash_attention": 2 * attn,
+                              "flash_attention_bwd": attn,
+                              "decode_attention": 0}
+    assert tpart.LAUNCHES["partition_scatter"] == 2 * moe
+    assert float(loss_card) == pytest.approx(float(loss_cpu), rel=1e-5)
+    for name, g in g_cpu.items():
+        d = float((g_card[name].cpu() - g).norm() / g.norm())
+        assert d <= 1e-4, (name, d)
+    step = make_train_step(cfg, shape, OptimizerConfig(), pc, ssm_chunk=8)
+    metrics = [step(st, batch)[1] for st in states]
+    assert float(metrics[1]["loss"]) == pytest.approx(
+        float(metrics[0]["loss"]), rel=1e-5)
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        np.testing.assert_allclose(q.detach().cpu().numpy(),
+                                   p.detach().numpy(), atol=5e-3,
+                                   err_msg=name)
