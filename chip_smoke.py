@@ -92,17 +92,22 @@
    MoE router's among them), then 4 (llama) or 3 (granite) timed steps;
    every loss and norm finite and the loss falling; K4 twice an attention
    layer a step (forward and recompute) on its tensor-core route, K4b
-   (its backward) once, K2 twice a MoE layer. Prints step ms, tokens/s,
+   (its backward, reading the log-sum-exp K4 wrote) once on its
+   tensor-core route, K2 twice a MoE layer. Prints step ms, tokens/s,
    peak memory and one profiled step (busy, idle share, top device ops,
    K4's and K4b's shares); for llama one step of two microbatches from a
    fresh state, its loss within 1e-2 of the first step's. Then holds the
    gradients of llama cut to 2 layers at full width in fp32 (1 x 256
-   tokens) on the card against the CPU's, each leaf within 1e-3
-   relative, and K4b against its plain version (bf16 within 2e-2, fp32
-   within 1e-4 of the gradient's largest magnitude) at the train phases'
-   shapes and on edges, timed beside its bound and the library's
-   attention backward at llama's, granite's, an fp32 and two ragged
-   shapes.
+   tokens) on the card against the CPU's (K4b's CUDA-core route), each
+   leaf within 1e-3 relative, and K4b against its plain version (bf16
+   within 2e-2, fp32 within 1e-4 of the gradient's largest magnitude,
+   bit-equal run to run, on the route each shape names) at the train
+   phases' shapes and on edges, timed with K4's log-sum-exp as the
+   autograd backward calls it, beside its bound, the library's attention
+   backward and the earlier CUDA-core design's time, at llama's,
+   granite's, an fp32 and two ragged shapes. K4 is held with its
+   log-sum-exp too: the output bit-equal to the call without it, each
+   row's within 1e-4.
 7. Profiles jamba and xlstm (the models of step 8, on the weights made
    from the same seed) the same way, outside the counted runs, with the
    shares of the Mamba scan, the Mamba decode step and the sLSTM loop,
@@ -241,8 +246,17 @@ GRAD_HOLD_LAYERS, GRAD_HOLD_SEQ, GRAD_HOLD_TOL = 2, 256, 1e-3
 # largest magnitude (bf16 outputs round to 2^-8 of it; fp32 sums differ in
 # order only)
 K4B_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
-# K4b's three device kernels (csrc/flash_attention_bwd.cu)
-K4B_KERNELS = ("stats_kernel", "dkdv_kernel", "dq_kernel")
+# K4b's device kernels (csrc/flash_attention_bwd.cu): the delta pass, then
+# dK, dV and dQ on the tensor-core route or on the CUDA-core one
+K4B_KERNELS = ("delta_kernel", "dkdv_tc_kernel", "dq_tc_kernel",
+               "dkdv_kernel", "dq_kernel")
+# K4b's device ms a call at llama's training shape on its earlier design,
+# three CUDA-core launches in fp32 (H100 80GB HBM3 at 700 W; PERF.md §6),
+# printed beside the new
+K4B_EARLIER_MS = 5.29
+# K4's log-sum-exp against the plain one: fp32 both, sums in another order
+# and exp2 / log2 on the card (values near log S)
+LSE_TOL = 1e-4
 # names of K1-K3's device kernels (csrc/partition.cu)
 PARTITION_KERNELS = ("hist_kernel", "scatter_kernel", "fused_probe_kernel")
 # empty device traces taken again before a measurement gives up (``traced``)
@@ -314,6 +328,18 @@ def device_ms(fn, reps: int = REPS) -> float:
     microseconds of device work."""
     prof, _ = traced(lambda _: [fn() for _i in range(reps)], setup=fn)
     return device_busy(prof)[0] / 1e3 / reps
+
+
+def device_ms_by_kernel(fn, reps: int = REPS) -> tuple[float, dict]:
+    """``device_ms(fn)`` and, from the same trace, each device kernel's ms
+    a call (by name, cut to 40 characters)."""
+    from torch.autograd import DeviceType
+    prof, _ = traced(lambda _: [fn() for _i in range(reps)], setup=fn)
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.key[:40]] = e.self_device_time_total / 1e3 / reps
+    return device_busy(prof)[0] / 1e3 / reps, by_kernel
 
 
 def device_kernels(fn) -> list[tuple[str, float]]:
@@ -806,11 +832,18 @@ def hold_k4(dev, gen, shape) -> float:
     q = _randn(gen, (b, s, h, hd), dt, dev)
     k, v = (_randn(gen, (b, s, kh, hd), dt, dev) for _ in range(2))
     A.SHAPES["flash_attention"].clear()
+    out = A.flash_attention(q, k, v, causal)
     err = _held_close(
-        A.flash_attention(q, k, v, causal),
-        ref.flash_attention_ref(q, k, v, causal), dt,
+        out, ref.flash_attention_ref(q, k, v, causal), dt,
         f"K4 differs from its plain version at B={b} S={s} H={h} K={kh}"
         f" hd={hd} {dt} causal={causal}")
+    # the training forward's call: the same output, and each row's lse
+    out2, lse = A.flash_attention_with_lse(q, k, v, causal)
+    lse_err = float((lse - ref.flash_attention_lse_ref(q, k, v, causal))
+                    .abs().max())
+    require(bits_equal(out, out2) and lse_err <= LSE_TOL,
+            f"K4 with lse at {shape}: output bit-equal "
+            f"{bits_equal(out, out2)}, lse max |err| {lse_err} > {LSE_TOL}")
     took = [sh[-1] for sh in A.SHAPES["flash_attention"]]
     require(took == [route], f"K4 took {took}, expected {route}")
     return err
@@ -2228,27 +2261,35 @@ def recurrent_profiles(dev, cfg, name: str, card: str) -> None:
 
 
 def _k4b_case(dev, gen, shape):
-    """K4b's inputs at ``(B, S, H, K, hd, dtype, causal)``: random q, k, v
-    and d_out, and ``out`` from K4."""
-    import torch
+    """K4b's inputs at ``(B, S, H, K, hd, dtype, causal[, route])``: random
+    q, k, v and d_out, and ``out`` and each row's ``lse`` from one K4 call,
+    as the training forward saves them: ``(q, k, v, out, d_out, causal,
+    lse)``, the autograd backward's call."""
     from repro_torch.kernels import attention as A
-    b, s, h, kh, hd, dt, causal = shape
+    b, s, h, kh, hd, dt, causal = shape[:7]
     q, d_out = (_randn(gen, (b, s, h, hd), dt, dev) for _ in range(2))
     k, v = (_randn(gen, (b, s, kh, hd), dt, dev) for _ in range(2))
-    with torch.no_grad():
-        out = A.flash_attention(q, k, v, causal)
-    return q, k, v, out, d_out, causal
+    out, lse = A.flash_attention_with_lse(q, k, v, causal)
+    return q, k, v, out, d_out, causal, lse
 
 
 def hold_k4b(dev, gen, shape) -> tuple[float, float]:
     """K4b at ``shape`` against its plain version on the same inputs: each
     of dq, dk, dv within ``K4B_TOL`` times the plain gradient's largest
-    magnitude. Returns (max |err|, the largest error over that
+    magnitude, on the route the shape names (where it names one); two calls
+    bit-equal. Returns (max |err|, the largest error over that
     magnitude)."""
     from repro_torch.kernels import attention as A, ref
     args = _k4b_case(dev, gen, shape)
+    A.SHAPES["flash_attention_bwd"].clear()
     got = A.flash_attention_bwd(*args)
-    want = ref.flash_attention_bwd_ref(*args)
+    took = [sh[-1] for sh in A.SHAPES["flash_attention_bwd"]]
+    require(len(shape) < 8 or took == [shape[7]],
+            f"K4b took {took} at {shape}")
+    again = A.flash_attention_bwd(*args)
+    require(all(bits_equal(a, b) for a, b in zip(got, again)),
+            f"K4b's gradients at {shape} differ between two calls")
+    want = ref.flash_attention_bwd_ref(*args[:6])
     err, rel = 0.0, 0.0
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         require(g.shape == w.shape and g.dtype == w.dtype,
@@ -2267,7 +2308,7 @@ def _k4b_bound(shape) -> tuple[float, str]:
     dS K, dS^T Q; 5 x 2 B H S^2 hd, halved when causal) at the rate of the
     dtype, or its bytes (q, o, dO read and dq written with H heads, k, v
     read and dk, dv written with K) at the memory rate."""
-    b, s, h, kh, hd, dt, causal = shape
+    b, s, h, kh, hd, dt, causal = shape[:7]
     elem = 2 if dt == "torch.bfloat16" else 4
     flops = 5 * 2.0 * b * h * s * s * hd / (2 if causal else 1)
     nbytes = (4 * b * s * h + 4 * b * s * kh) * hd * elem
@@ -2281,7 +2322,7 @@ def _sdpa_backward(args):
     backward."""
     import torch
     import torch.nn.functional as F
-    q, k, v, _, d_out, causal = args
+    q, k, v, _, d_out, causal = args[:6]
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
     o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
@@ -2292,20 +2333,25 @@ def _sdpa_backward(args):
 
 
 def check_k4b(dev, gen, main_shapes, card: str) -> dict:
-    """K4b within ``K4B_TOL`` of its plain version at the train phases'
-    shapes and at llama's and granite's training shapes, one fp32 case at
-    hd 128 and a ragged S (causal and full); each timed (call ms, median of
-    20; device ms) beside its bound and the library's attention backward.
-    Returns the kernel row at llama's shape."""
+    """K4b within ``K4B_TOL`` of its plain version, on the route each shape
+    names and bit-equal run to run, at the train phases' shapes and at
+    llama's and granite's training shapes, one fp32 case at hd 128 and
+    ragged S (causal and full) on both routes; each of the last five timed
+    as the autograd backward calls it, with K4's lse got once outside the
+    window (call ms, median of 20; device ms), beside its bound, the
+    library's attention backward and the earlier design's time. Returns the
+    kernel row at llama's shape."""
     from repro_torch.kernels import attention as A, ref
-    cases = [(4, 1024, 24, 8, 128, "torch.bfloat16", True),
-             (4, 1024, 16, 8, 64, "torch.bfloat16", True),
-             (1, 512, 8, 4, 128, "torch.float32", True),
-             (2, 200, 6, 2, 128, "torch.bfloat16", True),
-             (1, 300, 4, 4, 64, "torch.bfloat16", False)]
-    edges = [(3, 130, 6, 2, 32, "torch.bfloat16", True),
-             (1, 77, 2, 2, 8, "torch.float32", False),
-             (2, 65, 3, 1, 16, "torch.float32", True)]
+    cases = [(4, 1024, 24, 8, 128, "torch.bfloat16", True, "tc"),
+             (4, 1024, 16, 8, 64, "torch.bfloat16", True, "tc"),
+             (1, 512, 8, 4, 128, "torch.float32", True, "simt"),
+             (2, 200, 6, 2, 128, "torch.bfloat16", True, "tc"),
+             (1, 300, 4, 4, 64, "torch.bfloat16", False, "tc")]
+    edges = [(3, 130, 6, 2, 32, "torch.bfloat16", True, "simt"),
+             (1, 77, 2, 2, 8, "torch.float32", False, "simt"),
+             (2, 65, 3, 1, 16, "torch.float32", True, "simt"),
+             (1, 3, 3, 1, 128, "torch.bfloat16", True, "tc"),
+             (2, 129, 6, 3, 64, "torch.bfloat16", False, "tc")]
     err = 0.0
     for shape in sorted(main_shapes) + edges:
         err = max(err, hold_k4b(dev, gen, shape)[0])
@@ -2316,19 +2362,25 @@ def check_k4b(dev, gen, main_shapes, card: str) -> dict:
         args = _k4b_case(dev, gen, shape)
         lib = _sdpa_backward(args)
         bnd, by = _k4b_bound(shape)
+        dev_ms, by_kernel = device_ms_by_kernel(
+            lambda: A.flash_attention_bwd(*args))
         r = {"ms": median_ms(lambda: A.flash_attention_bwd(*args)),
-             "device_ms": device_ms(lambda: A.flash_attention_bwd(*args)),
+             "device_ms": dev_ms,
              "plain_ms": median_ms(
-                 lambda: ref.flash_attention_bwd_ref(*args)),
+                 lambda: ref.flash_attention_bwd_ref(*args[:6])),
              "library_ms": median_ms(lib), "library_device_ms": device_ms(lib),
              "bound_ms": bnd, "bound_by": by, "rel_err": rel}
-        b, s, h, kh, hd, dt, causal = shape
+        b, s, h, kh, hd, dt, causal, route = shape
+        earlier = (f", {K4B_EARLIER_MS} device ms on the CUDA cores before"
+                   if shape == cases[0] else "")
         print(f"kernel flash_attention_bwd (B={b} S={s} H={h} K={kh} hd={hd}"
-              f" {dt} causal={causal}): {r['ms']:.4f} ms, device time "
-              f"{r['device_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library backward {r['library_ms']:.4f} ms (device "
+              f" {dt} causal={causal}, route {route}): {r['ms']:.4f} ms, "
+              f"device time {r['device_ms']:.4f} ms{earlier}, plain "
+              f"{r['plain_ms']:.4f} ms, library backward "
+              f"{r['library_ms']:.4f} ms (device "
               f"{r['library_device_ms']:.4f} ms), bound {bnd:.4f} ms ({by}), "
-              f"max |err| / max |grad| {rel:.3g} [{card}]")
+              f"max |err| / max |grad| {rel:.3g}, device ms a call by "
+              f"kernel {json.dumps(by_kernel)} [{card}]")
         if row is None:
             row = {"name": "flash_attention_bwd", "route": "cuda",
                    "source": "src/repro_torch/kernels/csrc/"
@@ -2472,9 +2524,15 @@ def train_phase(dev, arch: str, steps: int, card: str,
     require(launches == want, f"{arch} training: launches {launches} for "
             f"{n} steps, expected {want}")
     shapes = {k: A.SHAPES[k] - before[k] for k in A.SHAPES}
-    require(all(sh[-1] == "tc" for sh in shapes["flash_attention"]),
-            f"{arch} training took K4's CUDA-core route: "
-            f"{sorted(shapes['flash_attention'])}")
+    require(all(sh[-1] == "tc" for name in ("flash_attention",
+                                            "flash_attention_bwd")
+                for sh in shapes[name]),
+            f"{arch} training took a CUDA-core route: {shapes}")
+    # K4b's launches at the step's attention shape all took the tensor cores
+    key = (TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads,
+           cfg.resolved_head_dim, "torch.bfloat16", True)
+    took = {sh[-1] for sh in A.SHAPES["flash_attention_bwd"] if sh[:7] == key}
+    require(took == {"tc"}, f"{arch} training: K4b at {key} took {took}")
     require(all(np.isfinite(losses)) and all(np.isfinite(norms)),
             f"{arch}: losses {losses}, grad norms {norms}")
     require(losses[-1] < losses[0], f"{arch}: the loss did not fall: "
@@ -2522,15 +2580,16 @@ def train_phase(dev, arch: str, steps: int, card: str,
 def grad_hold(dev, card: str) -> dict:
     """llama3.2-3b at full width cut to ``GRAD_HOLD_LAYERS`` layers, in
     fp32, one batch of 1 x ``GRAD_HOLD_SEQ`` tokens: the card's gradients
-    (K4's fp32 route and K4b, ``remat="block"``) against the same model's
-    on the CPU through the plain versions, each leaf within ``GRAD_HOLD_TOL``
-    relative (|g_card - g_cpu| / |g_cpu|, Frobenius). Outside the counted
-    runs: the shapes it launches at are not kept."""
+    (K4's and K4b's fp32 CUDA-core routes, ``remat="block"``) against the
+    same model's on the CPU through the plain versions, each leaf within
+    ``GRAD_HOLD_TOL`` relative (|g_card - g_cpu| / |g_cpu|, Frobenius).
+    Outside the counted runs: the shapes it launches at are not kept."""
     import copy
     import dataclasses
 
     import torch
     from repro_torch.core.config import ParallelConfig
+    from repro_torch.kernels import attention as A
     from repro_torch.models import init_lm
     from repro_torch.training.train_step import make_grad_fn
 
@@ -2547,7 +2606,12 @@ def grad_hold(dev, card: str) -> dict:
     t0 = time.perf_counter()
     loss_cpu, _, g_cpu = grad_fn(cpu_model, batch)
     cpu_s = time.perf_counter() - t0
+    bwd_before = set(A.SHAPES["flash_attention_bwd"])
     loss_card, _, g_card = grad_fn(card_model, batch)
+    took = A.SHAPES["flash_attention_bwd"] - bwd_before
+    require(took and all(sh[-1] == "simt" for sh in took),
+            f"the fp32 gradient hold's K4b launches took {sorted(took)}, "
+            f"not its CUDA-core route")
     rel = {k: float((g_card[k].cpu().double() - g.double()).norm()
                     / g.double().norm()) for k, g in g_cpu.items()}
     worst = max(rel, key=rel.get)

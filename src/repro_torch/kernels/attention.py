@@ -13,17 +13,19 @@ be contiguous), and both read the K kv heads of grouped-query attention in
 place, so neither the prefill's projections nor the decode step's
 ``(B, S, K, hd)`` cache is expanded or copied into another layout first.
 
-K4 has two routes in one library, picked by its C entry point from dtype,
-head dim and alignment: the tensor cores (bf16, hd 64 or 128, rows on 16
-bytes) or the CUDA cores (everything else). A K5 call is two launches, a
-split along the sequence and a combine, through a scratch buffer kept per
-stream, and counts once.
+K4 and K4b each have two routes in one library, picked by the C entry
+point from dtype, head dim and alignment: the tensor cores (bf16, hd 64 or
+128, rows on 16 bytes) or the CUDA cores (everything else). A K5 call is
+two launches, a split along the sequence and a combine, through a scratch
+buffer kept per stream, and counts once.
 
 On CUDA tensors that ask for a gradient, ``flash_attention`` is a
-``torch.autograd.Function``: its forward is K4, and its backward K4b
-(three launches, the rows' statistics into a per-stream scratch, then dK
-and dV, then dQ, counted once). On CPU tensors autograd differentiates the
-plain version. Nothing falls back: a K4b build or launch failure raises.
+``torch.autograd.Function``: its forward is K4, which then also writes each
+query row's log-sum-exp, and its backward K4b, which reads it (three
+launches, ``rowsum(dO * O)`` into a per-stream scratch, then dK and dV,
+then dQ, counted once). K4b has K4's two routes, picked the same way. On
+CPU tensors autograd differentiates the plain version. Nothing falls back:
+a K4b build or launch failure raises.
 
 ``LAUNCHES`` counts wrapper calls that launched their kernel on the card,
 so a run can show that its main path went through the kernels; ``SHAPES``
@@ -50,8 +52,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0,
             "decode_attention": 0}
-# (B, S, H, K, hd, dtype, causal, route) for K4; (B, S, H, K, hd, dtype,
-# causal) for K4b; (B, H, S, K, hd, dtype) for K5
+# (B, S, H, K, hd, dtype, causal, route) for K4 and K4b; (B, H, S, K, hd,
+# dtype) for K5
 SHAPES: dict[str, set] = {k: set() for k in LAUNCHES}
 _COUNT_LOCK = threading.Lock()
 
@@ -62,11 +64,11 @@ _STRIDES = (_LL,) * 9
 # per kernel: source, error-string function, {C function: argument types}
 _LIBS = {
     "flash_attention": ("flash_attention.cu", "fa_error_string", {
-        "fa_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               *_STRIDES, _I, _I, ctypes.POINTER(_I), _P)}),
+        "fa_flash_attention": (_P,) * 5 + (_I,) * 5 + _STRIDES
+        + (_I, _I, ctypes.POINTER(_I), _P)}),
     "flash_attention_bwd": ("flash_attention_bwd.cu", "fab_error_string", {
-        "fab_flash_attention_bwd": (_P,) * 8 + (_I,) * 5 + _STRIDES
-        + (_I, _I, _P, _P)}),
+        "fab_flash_attention_bwd": (_P,) * 9 + (_I,) * 5 + _STRIDES
+        + (_I, _I, _P, ctypes.POINTER(_I), _P)}),
     "decode_attention": ("decode_attention.cu", "da_error_string", {
         "da_split": (_P,), "da_combine": (_P,), "da_chunk": (),
         "da_num_args": ()}),
@@ -161,8 +163,8 @@ def _launch(name: str, entry: str, *args) -> None:
 # accumulator, max and sum): calls on one stream run in order, so the next
 # call's split cannot overwrite it before this call's combine has read it
 _SCRATCH = StreamScratch(torch.float32)
-# K4b's fp32 scratch (per (b, h, row): the log-sum-exp and delta), written
-# by its first launch and read by the two after it on the same stream
+# K4b's fp32 scratch (per (b, h, row): delta = rowsum(dO * O)), written by
+# its first launch and read by the two after it on the same stream
 _BWD_SCRATCH = StreamScratch(torch.float32)
 
 
@@ -193,15 +195,16 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        out = _flash_forward(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _flash_forward(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, d_out, ctx.causal)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, d_out, ctx.causal,
+                                         lse)
         return dq, dk, dv, None
 
 
@@ -223,48 +226,83 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _flash_forward(q, k, v, causal)
 
 
-def _flash_forward(q, k, v, causal) -> torch.Tensor:
-    """K4's launch on checked CUDA inputs."""
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, causal: bool = True):
+    """K4's output and each query row's natural log-sum-exp of its scaled,
+    masked scores, ``(B, H, S)`` fp32: what K4b reads. No gradient. CPU
+    tensors take ``ref.flash_attention_ref`` and
+    ``ref.flash_attention_lse_ref``."""
+    _check_qkv(q, k, v)
+    if _route(q.device) == "plain":
+        return (ref.flash_attention_ref(q, k, v, causal=causal),
+                ref.flash_attention_lse_ref(q, k, v, causal=causal))
+    return _flash_forward(q, k, v, causal, with_lse=True)
+
+
+def _flash_forward(q, k, v, causal, with_lse: bool = False):
+    """K4's launch on checked CUDA inputs: its output, and with
+    ``with_lse`` also the rows' log-sum-exp."""
     b, s, h, hd = q.shape
     kh = k.shape[2]
     dev = q.device
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev) \
+        if with_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     route = ctypes.c_int()
     with on_device(dev):
         _launch("flash_attention", "fa_flash_attention", q.data_ptr(),
-                k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, kh, hd,
+                k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if with_lse else None, b, s, h, kh, hd,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 _DTYPE_CODES[q.dtype], int(bool(causal)),
                 ctypes.byref(route), current_stream(dev))
     _count("flash_attention", (b, s, h, kh, hd, str(q.dtype), bool(causal),
                                "tc" if route.value else "simt"))
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _on_16_bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on 16 bytes (a copy where needed): K4b
+    reads o and d_out 16 bytes a load."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, d_out: torch.Tensor,
-                        causal: bool = True):
+                        causal: bool = True, lse: torch.Tensor | None = None):
     """K4b: the gradient of ``flash_attention(q, k, v, causal)`` whose
     output was ``out``, against ``d_out``: ``(dq, dk, dv)``, contiguous,
     of q's dtype and q's, k's and v's shapes (dk and dv summed over each kv
-    head's query heads). CPU tensors take ``ref.flash_attention_bwd_ref``;
-    CUDA tensors launch K4b or raise. ``out`` and ``d_out`` may have any
-    strides (autograd hands a broadcast ``d_out`` to a sum's input): the
-    kernel reads contiguous copies."""
+    head's query heads). ``lse`` is the rows' log-sum-exp that K4 wrote
+    beside ``out`` (``flash_attention_with_lse``), a contiguous fp32
+    ``(B, H, S)`` tensor; without it a CUDA call first gets it from one K4
+    launch. CPU tensors take ``ref.flash_attention_bwd_ref`` (which needs
+    no ``lse``); CUDA tensors launch K4b or raise. ``out`` and ``d_out``
+    may have any strides (autograd hands a broadcast ``d_out`` to a sum's
+    input): the kernel reads contiguous copies."""
     _check_qkv(q, k, v)
-    # the kernel reads both as contiguous (B, S, H, hd)
-    out, d_out = out.contiguous(), d_out.contiguous()
+    # the kernel reads both as contiguous (B, S, H, hd) on 16 bytes
+    out, d_out = _on_16_bytes(out), _on_16_bytes(d_out)
     for t, name in ((out, "out"), (d_out, "d_out")):
         _check(t, name, 4, q.dtype, q.device)
         if t.shape != q.shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, q "
                              f"{tuple(q.shape)}")
+    b, s, h, hd = q.shape
+    if lse is not None:
+        _check(lse, "lse", 3, torch.float32, q.device)
+        if lse.shape != (b, h, s) or not lse.is_contiguous():
+            raise ValueError(f"lse must be a contiguous ({b}, {h}, {s}) "
+                             f"tensor, got {tuple(lse.shape)} with strides "
+                             f"{lse.stride()}")
     dev = q.device
     if _route(dev) == "plain":
         return ref.flash_attention_bwd_ref(q, k, v, out, d_out, causal)
-    b, s, h, hd = q.shape
+    if lse is None:
+        lse = flash_attention_with_lse(q, k, v, causal)[1]
     kh = k.shape[2]
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
@@ -272,17 +310,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0:
         return dq, dk, dv
     stream = current_stream(dev)
+    route = ctypes.c_int()
     with _BWD_SCRATCH.lock:
-        scratch = _BWD_SCRATCH.get(dev, stream, 2 * b * h * s)
+        scratch = _BWD_SCRATCH.get(dev, stream, b * h * s)
         with on_device(dev):
             _launch("flash_attention_bwd", "fab_flash_attention_bwd",
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                    dv.data_ptr(), b, s, h, kh, hd, *q.stride()[:3],
-                    *k.stride()[:3], *v.stride()[:3], int(bool(causal)),
-                    _DTYPE_CODES[q.dtype], scratch.data_ptr(), stream)
+                    d_out.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), b, s, h, kh, hd,
+                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                    int(bool(causal)), _DTYPE_CODES[q.dtype],
+                    scratch.data_ptr(), ctypes.byref(route), stream)
     _count("flash_attention_bwd", (b, s, h, kh, hd, str(q.dtype),
-                                   bool(causal)))
+                                   bool(causal),
+                                   "tc" if route.value else "simt"))
     return dq, dk, dv
 
 

@@ -2,9 +2,10 @@
 
 Each ``csrc/*.cu`` file has a plain C interface. It is compiled by ``nvcc``
 for ``sm_90a`` at first use into ``build/repro_torch/`` at the root of the
-checkout (named by a hash of the source and the flags, so an edited source
-rebuilds) and loaded with ``ctypes``. Nothing is compiled when a module is
-imported: the machines that run the CPU tests have no ``nvcc``.
+checkout (named by a hash of the source, every ``csrc/*.cuh`` header beside
+it and the flags, so an edited source or header rebuilds) and loaded with
+``ctypes``. Nothing is compiled when a module is imported: the machines
+that run the CPU tests have no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -42,7 +43,10 @@ def nvcc() -> str:
 
 def library_path(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    text = src.read_bytes() + b"".join(
+        b"\0%s\0%s" % (p.name.encode(), p.read_bytes())
+        for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 

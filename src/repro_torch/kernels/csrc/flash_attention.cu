@@ -54,7 +54,13 @@
 // q, k, v are read with their (B, S, heads, hd) strides (the last dimension
 // contiguous), so the caller makes no transposed copy; o is a contiguous
 // (B, S, H, hd) tensor of the input dtype. Output = acc / max(l, 1e-30),
-// as in the reference.
+// as in the reference. Asked for (a non-null pointer: the forward of a
+// training step), each route also writes every query row's natural
+// log-sum-exp, m + log(l), to an fp32 (B, H, S) tensor that K4b reads in
+// place of recomputing it; serving passes null.
+//
+// The TMA, descriptor and wgmma helpers are in hopper.cuh, shared with
+// K4b.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -63,26 +69,19 @@
 
 #include <cmath>
 
+#include "hopper.cuh"
+
 namespace {
 
-struct Strides {
-  long long b, s, h;   // elements; the head_dim stride is 1
-};
-
-// Raise a kernel's dynamic shared-memory limit to what its launches need,
-// once (``allowed`` is the kernel's own static).
-template <typename K>
-cudaError_t allow_smem(K kern, int bytes, int& allowed) {
-  if (bytes <= allowed) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) allowed = bytes;
-  return err;
-}
+using hopper::allow_smem;
+using hopper::rows_aligned;
+using hopper::Strides;
 
 // -- tc: tensor cores (wgmma), bf16, hd 64 / 128 -----------------------------
 
 namespace tc {
+
+using namespace hopper;
 
 constexpr int kWG = 128;                     // threads of a warpgroup
 constexpr int kBQ = 64;                      // q rows per CTA
@@ -90,9 +89,6 @@ constexpr int kBK = 64;                      // keys per tile (== kBQ: the
                                              // diagonal tile of q-tile i is
                                              // k-tile i)
 constexpr int kStages = 2;                   // K/V ring depth
-constexpr int kBox = 64 * 64 * 2;            // one TMA box: 64 rows of 64
-                                             // bf16, one 128-byte swizzle
-                                             // span a row
 
 template <int HD>
 __host__ __device__ constexpr int tile_bytes() {   // one Q, K or V tile
@@ -104,189 +100,21 @@ constexpr int smem_bytes() {   // NWG Q tiles, the K and V rings, barriers,
   return (NWG + 2 * kStages) * tile_bytes<HD>() + 64 + 1024;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// one 64 x 64 box at (head dim c0, row c1, head c2, batch c3) into dst,
-// completing on bar; rows past S arrive as zeros
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-// rows [s0, s0 + 64) of one (b, head) as HD / 64 boxes, kBox bytes apart
+// O += P V: wgmma with P as the register A operand
 template <int HD>
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
-                                          uint32_t bar, int s0, int head,
-                                          int b) {
-#pragma unroll
-  for (int half = 0; half < HD / 64; ++half)
-    tma_load(dst + half * kBox, map, bar, half * 64, s0, head, b);
-}
+using PV = RS<HD>;
 
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout B128
-__device__ __forceinline__ uint64_t desc(uint32_t addr, int lbo, int sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) |
-         ((uint64_t)sbo << 32) | (1ull << 62);
-}
-// K-major (Q, K): 8-row groups 1024 bytes apart; the k16 step kk is 32
-// bytes into a row of box kk / 4
-__device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int kk) {
-  return desc(tile + (kk / 4) * kBox + (kk % 4) * 32, 1, 64);
-}
-// MN-major (V, the transposed B of P V): keys [16 t, 16 t + 16) of the
-// tile, 8-key groups 1024 bytes apart (SBO), boxes of 64 head dims kBox
-// apart (LBO)
-__device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int t) {
-  return desc(tile + t * 16 * 128, kBox / 16, 64);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving reads of an accumulator across the wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 64, fp32) (+)= A (64 x 16, shared, K-major) B (16 x 64, shared,
-// K-major); scale_d = 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 64, fp32) += A (64 x 16, bf16 registers) B (16 x 64, shared,
-// MN-major: the transposed operand)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 128, fp32) += A (64 x 16, bf16 registers) B (16 x 128, shared,
-// MN-major: the transposed operand)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int HD> struct PV;
-template <> struct PV<64> {
-  static __device__ __forceinline__ void run(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-    wgmma_rs_n64(d, a, db);
-  }
-};
-template <> struct PV<128> {
-  static __device__ __forceinline__ void run(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-    wgmma_rs_n128(d, a, db);
-  }
-};
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int HD, int NWG>
+// kLse: also write each row's log-sum-exp (the training forward). The
+// serve path's instantiation (lse null) has no trace of the write: as a
+// runtime branch it cost the serve kernel some 7 % of its time on an
+// H100, its registers laid out anew.
+template <int HD, int NWG, bool kLse>
 __global__ void __launch_bounds__(NWG * kWG + 32, NWG == 1 ? 2 : 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v,
-                __nv_bfloat16* __restrict__ o, int S, int H, int G,
-                float scale_log2, int causal) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int S, int H, int G, float scale_log2, int causal) {
   constexpr int NS = kBK / 8;    // n8 column blocks of S (keys)
   constexpr int NO = HD / 8;     // n8 column blocks of O (head dims)
   constexpr int TB = tile_bytes<HD>();
@@ -448,6 +276,11 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     l += __shfl_xor_sync(~0u, l, 1);
     l += __shfl_xor_sync(~0u, l, 2);
     inv[i] = 1.f / fmaxf(l, 1e-30f);
+    // the row's natural log-sum-exp, for K4b: m and l are in base 2
+    const int row = row_a + i * 8;
+    if (kLse && (lane & 3) == 0 && row < S)
+      lse[((long long)b * H + h) * S + row] =
+          (m_run[i] + log2f(l)) * 0.6931471805599453f;
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -463,67 +296,39 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// cuTensorMapEncodeTiled, found through the runtime (no link to libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a (B, S, heads, HD) bf16 tensor with element strides st, read in boxes of
-// 64 rows x 64 head dims with the 128-byte swizzle; rows past S read zeros
-bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads,
-              int HD, Strides st) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)S,
-                              (cuuint64_t)heads, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2,
-                                 (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {64, 64, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int HD, int NWG>
+template <int HD, int NWG, bool kLse>
 int launch_nwg(const CUtensorMap& mq, const CUtensorMap& mk,
-               const CUtensorMap& mv, void* o, int B, int S, int H, int G,
-               int causal, cudaStream_t stream) {
+               const CUtensorMap& mv, void* o, float* lse, int B, int S,
+               int H, int G, int causal, cudaStream_t stream) {
   static int allowed = 48 * 1024;
   constexpr int smem = smem_bytes<HD, NWG>();
-  auto kern = flash_tc_kernel<HD, NWG>;
+  auto kern = flash_tc_kernel<HD, NWG, kLse>;
   const cudaError_t err = allow_smem(kern, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(B * H / NWG), (unsigned)((S + kBQ - 1) / kBQ));
   kern<<<grid, NWG * kWG + 32, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), S, H, G,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, S, H, G,
       (float)(1.4426950408889634 / sqrt((double)HD)), causal);
   return (int)cudaGetLastError();
+}
+
+template <int HD, int NWG>
+int launch_lse(const CUtensorMap& mq, const CUtensorMap& mk,
+               const CUtensorMap& mv, void* o, float* lse, int B, int S,
+               int H, int G, int causal, cudaStream_t stream) {
+  if (lse != nullptr)
+    return launch_nwg<HD, NWG, true>(mq, mk, mv, o, lse, B, S, H, G, causal,
+                                     stream);
+  return launch_nwg<HD, NWG, false>(mq, mk, mv, o, lse, B, S, H, G, causal,
+                                    stream);
 }
 
 // One CTA serves NWG query heads of one kv head, so each K/V tile it loads
 // is read by NWG warpgroups: 3 when G is a multiple of 3, else 2 when it is
 // even, else 1 (three warpgroups' registers fill an SM).
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int G, Strides qs, Strides ks, Strides vs,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, int G, Strides qs, Strides ks, Strides vs,
            int causal, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, B, S, H, HD, qs) ||
@@ -531,10 +336,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       !make_map(&mv, v, B, S, H / G, HD, vs))
     return (int)cudaErrorInvalidValue;
   if (G % 3 == 0)
-    return launch_nwg<HD, 3>(mq, mk, mv, o, B, S, H, G, causal, stream);
+    return launch_lse<HD, 3>(mq, mk, mv, o, lse, B, S, H, G, causal,
+                                 stream);
   if (G % 2 == 0)
-    return launch_nwg<HD, 2>(mq, mk, mv, o, B, S, H, G, causal, stream);
-  return launch_nwg<HD, 1>(mq, mk, mv, o, B, S, H, G, causal, stream);
+    return launch_lse<HD, 2>(mq, mk, mv, o, lse, B, S, H, G, causal,
+                                 stream);
+  return launch_lse<HD, 1>(mq, mk, mv, o, lse, B, S, H, G, causal,
+                                 stream);
 }
 
 }  // namespace tc
@@ -587,8 +395,9 @@ constexpr int smem_floats() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int S, int H, int G,
-             Strides qs, Strides ks, Strides vs, float scale, int causal) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int S, int H, int G, Strides qs,
+             Strides ks, Strides vs, float scale, int causal) {
   constexpr int LD = HD + 1;
   constexpr int CPT = (HD + 15) / 16;   // accumulator columns per thread
   extern __shared__ float smem[];
@@ -724,12 +533,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (d < HD) orow[d] = from_f32<T>(acc[i][j] / l);
     }
   }
+  // each row's log-sum-exp, for K4b
+  if (lse != nullptr)
+    for (int r = tid; r < kBQ; r += kThreads)
+      if (q0 + r < S)
+        lse[((long long)b * H + h) * S + q0 + r] = sm[r] + logf(sl[r]);
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int G, Strides qs, Strides ks, Strides vs, int causal,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, int G, Strides qs, Strides ks, Strides vs,
+           int causal, cudaStream_t stream) {
   static int allowed = 48 * 1024;
   const int smem = smem_floats<HD>() * (int)sizeof(float);
   auto kern = flash_kernel<T, HD>;
@@ -738,40 +552,36 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   const dim3 grid((unsigned)(B * H), (unsigned)((S + kBQ - 1) / kBQ));
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, G, qs, ks, vs,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, G, qs, ks, vs,
       (float)(1.0 / sqrt((double)HD)), causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-              int B, int S, int H, int G, Strides qs, Strides ks, Strides vs,
-              int causal, cudaStream_t s) {
+              float* lse, int B, int S, int H, int G, Strides qs, Strides ks,
+              Strides vs, int causal, cudaStream_t s) {
   switch (hd) {
     case 8:
-      return launch<T, 8>(q, k, v, o, B, S, H, G, qs, ks, vs, causal, s);
+      return launch<T, 8>(q, k, v, o, lse, B, S, H, G, qs, ks, vs, causal,
+                               s);
     case 16:
-      return launch<T, 16>(q, k, v, o, B, S, H, G, qs, ks, vs, causal, s);
+      return launch<T, 16>(q, k, v, o, lse, B, S, H, G, qs, ks, vs, causal,
+                               s);
     case 32:
-      return launch<T, 32>(q, k, v, o, B, S, H, G, qs, ks, vs, causal, s);
+      return launch<T, 32>(q, k, v, o, lse, B, S, H, G, qs, ks, vs, causal,
+                               s);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, S, H, G, qs, ks, vs, causal, s);
+      return launch<T, 64>(q, k, v, o, lse, B, S, H, G, qs, ks, vs, causal,
+                               s);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, S, H, G, qs, ks, vs, causal, s);
+      return launch<T, 128>(q, k, v, o, lse, B, S, H, G, qs, ks, vs, causal,
+                               s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace simt
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// TMA needs the base and every stride of q, k and v on 16 bytes
-bool rows_aligned(const void* p, Strides st) {
-  return aligned16(p) && st.b % 8 == 0 && st.s % 8 == 0 && st.h % 8 == 0;
-}
 
 }  // namespace
 
@@ -782,14 +592,16 @@ const char* fa_error_string(int err) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements. q and o have
-// H heads, k and v KH, with H % KH == 0. *route is set to the route taken:
-// 1 = tensor cores (tc), 0 = CUDA cores (simt).
+// H heads, k and v KH, with H % KH == 0. lse is null or a contiguous fp32
+// (B, H, S) tensor that gets each query row's natural log-sum-exp of its
+// scaled, masked scores (o is the same either way). *route is set to the
+// route taken: 1 = tensor cores (tc), 0 = CUDA cores (simt).
 int fa_flash_attention(const void* q, const void* k, const void* v, void* o,
-                       int B, int S, int H, int KH, int hd, long long q_sb,
-                       long long q_ss, long long q_sh, long long k_sb,
-                       long long k_ss, long long k_sh, long long v_sb,
-                       long long v_ss, long long v_sh, int dtype, int causal,
-                       int* route, void* stream) {
+                       float* lse, int B, int S, int H, int KH, int hd,
+                       long long q_sb, long long q_ss, long long q_sh,
+                       long long k_sb, long long k_ss, long long k_sh,
+                       long long v_sb, long long v_ss, long long v_sh,
+                       int dtype, int causal, int* route, void* stream) {
   if (KH <= 0 || H % KH != 0) return (int)cudaErrorInvalidValue;
   const int G = H / KH;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
@@ -799,15 +611,17 @@ int fa_flash_attention(const void* q, const void* k, const void* v, void* o,
            rows_aligned(k, ks) && rows_aligned(v, vs);
   if (*route) {
     if (hd == 64)
-      return tc::launch<64>(q, k, v, o, B, S, H, G, qs, ks, vs, causal, s);
-    return tc::launch<128>(q, k, v, o, B, S, H, G, qs, ks, vs, causal, s);
+      return tc::launch<64>(q, k, v, o, lse, B, S, H, G, qs, ks, vs, causal,
+                            s);
+    return tc::launch<128>(q, k, v, o, lse, B, S, H, G, qs, ks, vs, causal,
+                           s);
   }
   if (dtype == 0)
-    return simt::launch_hd<float>(hd, q, k, v, o, B, S, H, G, qs, ks, vs,
-                                  causal, s);
+    return simt::launch_hd<float>(hd, q, k, v, o, lse, B, S, H, G, qs, ks,
+                                  vs, causal, s);
   if (dtype == 1)
-    return simt::launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, S, H, G, qs, ks,
-                                          vs, causal, s);
+    return simt::launch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, B, S, H, G,
+                                          qs, ks, vs, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -91,6 +91,26 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor,
+                            causal: bool = True) -> torch.Tensor:
+    """What K4 writes beside its output when asked (K4b reads it): each
+    query row's natural log-sum-exp of its scaled scores, masked above the
+    diagonal when causal, ``(B, H, S)`` fp32. ``v`` is not read; it is
+    taken so that the call matches ``flash_attention_ref``'s."""
+    hd = q.shape[3]
+    g = q.shape[2] // k.shape[2]
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+    scores = torch.einsum("bqhk,bshk->bhqs", q.float(), k.float())
+    scores = scores * (hd ** -0.5)
+    if causal:
+        s = q.shape[1]
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, float("-inf"))
+    return torch.logsumexp(scores, dim=-1)
+
+
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, out: torch.Tensor,
                             d_out: torch.Tensor, causal: bool = True):

@@ -98,6 +98,11 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
         if mb == 1:
             loss, metrics, grads = grad_fn(model, batch)
         else:
+            rows = next(iter(batch.values())).shape[0]
+            if rows % mb:
+                raise ValueError(f"{mb} microbatches do not divide a batch "
+                                 f"of {rows} rows")
+
             def slice_mb(t, i):
                 n = t.shape[0] // mb
                 return t[i * n:(i + 1) * n]

@@ -21,6 +21,7 @@ from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro_torch.kernels import attention as tattn
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -122,6 +123,66 @@ def test_flash_attention_reads_unexpanded_kv(dtype, causal, g):
     got = tops.flash_attention(tq, tk, tv, causal=causal)
     assert got.dtype == tq.dtype and got.shape == tq.shape
     _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("s", [32, 37])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 3])
+def test_flash_attention_lse_ref_is_the_rows_log_sum_exp(g, causal, s):
+    """What K4 writes for K4b: each row's log-sum-exp of the reference's
+    scaled, masked scores (``repro.kernels.ref.flash_attention_ref``'s,
+    with KV repeated by ``jnp.repeat``), taken in numpy in float64, at
+    1e-6; at a tile-sized and a ragged S. The CPU wrapper gives the same
+    with the plain forward's output."""
+    rng = np.random.default_rng(40 + 10 * g + causal + s)
+    b, kh, hd = 2, 2, 16
+    jq, tq = _pair(rng, (b, s, kh * g, hd), "float32")
+    jk, tk = _pair(rng, (b, s, kh, hd), "float32")
+    _, tv = _pair(rng, (b, s, kh, hd), "float32")
+    scores = jnp.einsum("bqhk,bshk->bhqs", jq, jnp.repeat(jk, g, axis=2),
+                        preferred_element_type=jnp.float32) * (hd ** -0.5)
+    x = np.asarray(scores, np.float64)
+    if causal:
+        x = np.where(np.tril(np.ones((s, s), bool)), x, -np.inf)
+    m = x.max(axis=-1, keepdims=True)
+    want = (m + np.log(np.exp(x - m).sum(axis=-1, keepdims=True)))[..., 0]
+    got = tref.flash_attention_lse_ref(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.float32 and got.shape == (b, kh * g, s)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    out, lse = tattn.flash_attention_with_lse(tq, tk, tv, causal=causal)
+    assert torch.equal(lse, got)
+    assert torch.equal(out, tref.flash_attention_ref(tq, tk, tv, causal))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_on_the_cpu_ignores_lse(dtype, causal):
+    """On CPU tensors K4b's wrapper runs its plain version whether or not
+    it is given K4's ``lse``: the same gradients, bit for bit."""
+    rng = np.random.default_rng(60 + causal)
+    b, s, kh, g, hd = 2, 37, 2, 3, 16
+    _, q = _pair(rng, (b, s, kh * g, hd), dtype)
+    _, k = _pair(rng, (b, s, kh, hd), dtype)
+    _, v = _pair(rng, (b, s, kh, hd), dtype)
+    _, d_out = _pair(rng, (b, s, kh * g, hd), dtype)
+    out = tref.flash_attention_ref(q, k, v, causal=causal)
+    lse = tref.flash_attention_lse_ref(q, k, v, causal=causal)
+    without = tattn.flash_attention_bwd(q, k, v, out, d_out, causal)
+    with_lse = tattn.flash_attention_bwd(q, k, v, out, d_out, causal, lse)
+    for a, w in zip(with_lse, without):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("case", ["shape", "dtype", "strides"])
+def test_flash_attention_bwd_refuses_a_bad_lse(case):
+    """An ``lse`` that is not a contiguous fp32 (B, H, S) tensor raises."""
+    q = torch.zeros((1, 6, 4, 8))
+    kv = torch.zeros((1, 6, 2, 8))
+    lse = {"shape": torch.zeros((1, 6, 4)),
+           "dtype": torch.zeros((1, 4, 6), dtype=torch.float64),
+           "strides": torch.zeros((1, 6, 4)).transpose(1, 2)}[case]
+    with pytest.raises(ValueError, match="lse"):
+        tattn.flash_attention_bwd(q, kv, kv, q, q, True, lse)
 
 
 @pytest.mark.parametrize("kh", [2, 3])

@@ -868,8 +868,9 @@ def test_cuda_k4b_matches_plain(cuda_device, hd, s, g, causal, dtype):
     got = tattn.flash_attention_bwd(*args, causal=causal)
     want = tref.flash_attention_bwd_ref(*args, causal=causal)
     torch.cuda.synchronize()
+    route = "tc" if dtype == torch.bfloat16 and hd in (64, 128) else "simt"
     assert tattn.SHAPES["flash_attention_bwd"] == {
-        (1, s, 2 * g, 2, hd, str(dtype), causal)}
+        (1, s, 2 * g, 2, hd, str(dtype), causal, route)}
     _grads_close(got, want, dtype)
 
 
@@ -910,7 +911,8 @@ def test_cuda_k4b_launch_failure_raises(cuda_device):
     plain version), and the C entry point refuses an unknown dtype."""
     from repro_torch.kernels import attention as tattn
     entry = tattn._fn("flash_attention_bwd", "fab_flash_attention_bwd")
-    err = entry(*([None] * 8), 1, 64, 2, 2, 64, *([0] * 9), 1, 7, None, None)
+    err = entry(*([None] * 9), 1, 64, 2, 2, 64, *([0] * 9), 1, 7, None, None,
+                None)
     assert err != 0
     q = torch.randn((1, 64, 2, 64), device=cuda_device, requires_grad=True)
     out = tattn.flash_attention(q, q.detach(), q.detach())
@@ -922,6 +924,98 @@ def test_cuda_k4b_launch_failure_raises(cuda_device):
             out.sum().backward()
     finally:
         bound["fab_flash_attention_bwd"] = entry
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [64, 200, 1024])
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cuda_k4b_tensor_cores_match_plain(cuda_device, hd, g, s, causal):
+    """K4b's tensor-core route (bf16, hd 64 / 128) as the autograd backward
+    calls it, with the log-sum-exp K4 wrote beside its output, on strided
+    q, k, v with K = 2 kv heads of G query heads each, at a tile, a ragged
+    S and S = 1024, against its plain version."""
+    from repro_torch.kernels import attention as tattn
+    q, k, v = _qkv_views(hd + 10 * s + g, 2, s, 2 * g, 2, hd, torch.bfloat16,
+                         cuda_device)
+    rng = np.random.default_rng(s + g)
+    d_out = torch.from_numpy(rng.standard_normal(q.shape).astype(
+        np.float32)).to(device=cuda_device, dtype=torch.bfloat16)
+    out, lse = tattn.flash_attention_with_lse(q, k, v, causal)
+    tattn.SHAPES["flash_attention_bwd"].clear()
+    got = tattn.flash_attention_bwd(q, k, v, out, d_out, causal, lse)
+    want = tref.flash_attention_bwd_ref(q, k, v, out, d_out, causal)
+    torch.cuda.synchronize()
+    assert [sh[-1] for sh in tattn.SHAPES["flash_attention_bwd"]] == ["tc"]
+    _grads_close(got, want, torch.bfloat16)
+
+
+# K4's lse against the plain log-sum-exp: both in fp32 from the same
+# inputs, sums in another order and exp2 / log2 on the card (values near
+# log S, so 1e-4 is some 100 ulp)
+LSE_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [64, 200])
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"),
+    (torch.float32, 128, "simt"), (torch.bfloat16, 32, "simt")])
+def test_cuda_k4_writes_lse_on_both_routes(cuda_device, dtype, hd, route, s,
+                                           causal):
+    """Asked for it, each of K4's routes writes every row's log-sum-exp,
+    equal to ``flash_attention_lse_ref``'s, and its output is bit-equal to
+    the output of the call that writes none (serving's)."""
+    from repro_torch.kernels import attention as tattn
+    q, k, v = _qkv_views(hd + s, 2, s, 6, 2, hd, dtype, cuda_device)
+    tattn.SHAPES["flash_attention"].clear()
+    out, lse = tattn.flash_attention_with_lse(q, k, v, causal)
+    plain_out = tattn.flash_attention(q, k, v, causal=causal)
+    want = tref.flash_attention_lse_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert {sh[-1] for sh in tattn.SHAPES["flash_attention"]} == {route}
+    assert lse.dtype == torch.float32 and lse.shape == (2, 6, s)
+    assert float((lse - want).abs().max()) <= LSE_TOL
+    assert torch.equal(out, plain_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128),
+                                      (torch.bfloat16, 64),
+                                      (torch.float32, 64)])
+def test_cuda_k4b_gives_the_same_bits_run_to_run(cuda_device, dtype, hd):
+    """K4b writes each gradient element once, with no atomics: two calls on
+    the same inputs give bit-equal dq, dk and dv."""
+    from repro_torch.kernels import attention as tattn
+    q, k, v, _, d_out = _k4b_inputs(7, 2, 333, 6, 2, hd, dtype, cuda_device,
+                                    True)
+    out, lse = tattn.flash_attention_with_lse(q, k, v, True)
+    first = tattn.flash_attention_bwd(q, k, v, out, d_out, True, lse)
+    second = tattn.flash_attention_bwd(q, k, v, out, d_out, True, lse)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(bits), b.view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["shape", "dtype", "device"])
+def test_cuda_k4b_refuses_a_bad_lse(cuda_device, case):
+    """An lse of the wrong shape, dtype or device raises before any
+    launch."""
+    from repro_torch.kernels import attention as tattn
+    q, k, v, out, d_out = _k4b_inputs(8, 1, 64, 4, 2, 64, torch.bfloat16,
+                                      cuda_device, True)
+    lse = {"shape": torch.zeros((1, 64, 4), device=cuda_device),
+           "dtype": torch.zeros((1, 4, 64), device=cuda_device,
+                                dtype=torch.bfloat16),
+           "device": torch.zeros((1, 4, 64))}[case]
+    tattn.reset_launches()
+    with pytest.raises(ValueError, match="lse"):
+        tattn.flash_attention_bwd(q, k, v, out, d_out, True, lse)
+    assert tattn.LAUNCHES["flash_attention_bwd"] == 0
 
 
 TRAIN_ARCHS = ("llama3.2-3b", "granite-moe-1b-a400m", "jamba-v0.1-52b",

@@ -420,6 +420,33 @@ def test_wrappers_refuse_ids_out_of_range(kernel, bad):
             tpart.partition_scatter(ids[:, None], ids, 4)
 
 
+def test_library_name_hashes_the_headers_beside_the_source(monkeypatch,
+                                                          tmp_path):
+    """A built library is named by its source and every ``csrc/*.cuh``
+    (K4 and K4b share ``hopper.cuh``): an edited or added header names
+    another library, so no stale one is loaded; nothing is compiled."""
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    (csrc / "k.cu").write_text('#include "h.cuh"\n')
+    (csrc / "h.cuh").write_text("// one\n")
+    first = build.library_path("k.cu")
+    assert first.parent == tmp_path / "build"
+    assert first.name.startswith("k-") and first.suffix == ".so"
+    assert build.library_path("k.cu") == first
+    (csrc / "h.cuh").write_text("// two\n")
+    second = build.library_path("k.cu")
+    assert second != first
+    (csrc / "g.cuh").write_text("")
+    assert build.library_path("k.cu") not in (first, second)
+    (csrc / "g.cuh").unlink()
+    (csrc / "h.cuh").write_text("// one\n")
+    assert build.library_path("k.cu") == first
+    assert not (tmp_path / "build").exists()
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     tpart.reset_launches()
     ids = torch.zeros(64, dtype=torch.int32)

@@ -295,6 +295,51 @@ def test_microbatches_agree():
                                    atol=5e-3, err_msg=name)
 
 
+@pytest.mark.parametrize("b, mb", [(3, 2), (5, 4)])
+def test_microbatches_that_do_not_divide_the_batch_are_refused(b, mb):
+    """A batch of ``b`` rows in ``mb`` microbatches: the port raises
+    ValueError naming both numbers where it would have dropped the last
+    ``b % mb`` rows; the reference refuses it too (a TypeError from its
+    reshape). No update is made."""
+    jcfg, tcfg = configs("llama3.2-3b")
+    shape = ShapeConfig("t", 32, b, "train")
+    batch = tdata.SyntheticSource(tcfg, shape, seed=4).batch(0)
+    assert batch["tokens"].shape[0] == b
+    _, state = _port_state()
+    before = [p.detach().clone() for p in state["params"].parameters()]
+    step = make_train_step(tcfg, shape, OptimizerConfig(), ParallelConfig(
+        microbatches=mb, remat="none"), q_chunk=16, ssm_chunk=8)
+    with pytest.raises(ValueError, match=rf"\b{mb}\b.*\b{b}\b"):
+        step(state, batch)
+    for a, p in zip(before, state["params"].parameters()):
+        assert torch.equal(a, p)
+    jstep = jtrain.make_train_step(
+        jcfg, jcore.ShapeConfig("t", 32, b, "train"), jcore.OptimizerConfig(),
+        jcore.ParallelConfig(microbatches=mb, remat="none"), q_chunk=16,
+        ssm_chunk=8)
+    jstate = jtrain.init_train_state(jcfg, reference_params(jcfg))
+    with pytest.raises((TypeError, ValueError)):
+        jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+
+
+def test_microbatches_that_divide_the_batch_still_agree():
+    """A batch of 4 rows in 2 microbatches still trains on all four: its
+    loss and grad norm are one batch's, as in
+    ``test_microbatches_agree``."""
+    tcfg, _ = _port_state()
+    shape = ShapeConfig("t", 32, 4, "train")
+    batch = tdata.SyntheticSource(tcfg, shape, seed=6).batch(0)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=0)
+    metrics = []
+    for mb in (1, 2):
+        _, state = _port_state()
+        step = make_train_step(tcfg, shape, opt, ParallelConfig(
+            microbatches=mb, remat="none"), q_chunk=16, ssm_chunk=8)
+        metrics.append(step(state, batch)[1])
+    for k in ("loss", "grad_norm"):
+        _close(float(metrics[1][k]), float(metrics[0][k]), 1e-5)
+
+
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-1b-a400m",
                                   "jamba-v0.1-52b", "xlstm-1.3b"])
 def test_remat_policies_give_equal_gradients(arch):
