@@ -108,6 +108,33 @@
    granite's, an fp32 and two ragged shapes. K4 is held with its
    log-sum-exp too: the output bit-equal to the call without it, each
    row's within 1e-4.
+   Then the planner and the data plane of the mesh, each with the
+   counters set to 0 just before its counted run and read just after:
+   ``plan_cells`` runs the port's decision workflow
+   (``parallel.strategies.build_workflow``) for all ten archs x the four
+   ``SHAPES`` on the reference's 16 x 16 and 2 x 16 x 16 planning meshes
+   and on this one card, priced with the H100's figures and the card's
+   own memory, and requires every ``ParallelConfig`` field resolved
+   (``mlp_mode`` as ``make_rules`` resolves it); one ``plan`` line per
+   arch. ``plan_train_llama3_2_3b`` plans ``llama3.2-3b`` at its
+   published config at 64 x 1024 tokens on this card, checks the rules
+   executable and trains under the plan (its microbatch count the
+   planner's): one untimed and two timed steps, K4 and K4b counted,
+   every loss and norm finite, peak memory printed beside the plan's
+   estimate, the plan's budget (``TRAIN_HBM_SHARE`` of the card's
+   memory) and the card's memory. ``dp_granite_moe_1b_a400m`` spawns
+   two ranks that share the card through ``gloo`` (a ``file://``
+   rendezvous; ``data=2, model=1``), each planning the cell, taking 2 of
+   the train phases' 4 x 1024 rows and running one untimed and two timed
+   data-parallel steps; held against one rank's step on the whole batch
+   in this process (loss and global grad norm within 1e-2, both ranks'
+   parameters bit-equal after the update); each rank's aux within 1e-5
+   of the whole batch's aux of the ranks' router statistics gathered
+   from the same forward, and one rank's own rows' aux outside 1e-5 of
+   it; and the
+   int8 all-reduce of each rank's gradients within 0.02 of each leaf's
+   largest magnitude of the exact one, the ranks agreeing to 1e-6.
+   K2, K4 and K4b are then held at the shapes these phases added.
 7. Profiles jamba and xlstm (the models of step 8, on the weights made
    from the same seed) the same way, outside the counted runs, with the
    shares of the Mamba scan, the Mamba decode step and the sLSTM loop,
@@ -154,6 +181,7 @@ device and the repository's ``src/`` beside this file; imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -239,6 +267,22 @@ TRAIN_STEPS = {SERVE_ARCH: 4, MOE_ARCH: 3}
 # two microbatches against one batch: the same mean over equal token
 # counts, in another order of bf16 sums
 MB_LOSS_RTOL = 1e-2
+# the planned train phase: llama3.2-3b at 64 x 1024 tokens on this card,
+# its microbatch count the planner's
+PLAN_TRAIN_SHAPE = ("card_b64_s1024", 1024, 64)
+PLAN_TRAIN_STEPS = 2
+# the data-parallel phase: granite on DP_RANKS gloo ranks sharing the card,
+# the train phases' batch split over them; one untimed and DP_STEPS timed
+# steps. Held against one rank on the whole batch: loss and grad norm
+# (bf16 sums in another order); the int8 all-reduce (the reference test's
+# bound) and the ranks' agreement. The aux is held within one forward
+# (a second forward may route differently: K2's combine sums bf16 by
+# atomics): each rank's against the whole batch's aux of the ranks'
+# gathered router statistics, which differ only in fp32 rounding, while
+# one rank's own rows' aux (the fault the hold is for) lies far outside
+DP_RANKS, DP_STEPS = 2, 2
+DP_RTOL, DP_AUX_RTOL = 1e-2, 1e-5
+COMPRESSED_BOUND, COMPRESSED_AGREE = 0.02, 1e-6
 # the full-width gradient hold: llama cut to 2 layers, fp32, 1 x 256
 # tokens, card against CPU (both fp32; sums in other orders)
 GRAD_HOLD_LAYERS, GRAD_HOLD_SEQ, GRAD_HOLD_TOL = 2, 256, 1e-3
@@ -2631,6 +2675,415 @@ def grad_hold(dev, card: str) -> dict:
     return res
 
 
+def card_hardware():
+    """``H100_SXM`` with the card's own memory (``total_memory``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.device import H100_SXM
+    return dataclasses.replace(
+        H100_SXM, hbm_bytes=torch.cuda.get_device_properties(0).total_memory)
+
+
+def resolved_plan(cfg, shape, mesh, pc, hw) -> tuple:
+    """``(pc with mlp_mode as make_rules resolves it, the rules)``: the
+    planner leaves ``mlp_mode`` at ``auto`` for ``make_rules``, as the
+    reference's does."""
+    import dataclasses
+
+    from repro_torch.parallel.strategies import make_rules
+    rules = make_rules(mesh, cfg, shape, pc, hw)
+    if pc.mlp_mode == "auto":
+        pc = dataclasses.replace(
+            pc, mlp_mode="seq" if rules.rules["mlp_seq"] else "tp")
+    return pc, rules
+
+
+def plan_cells(card: str) -> dict:
+    """Every arch x the four ``SHAPES`` through the port's decision
+    workflow on the reference's 16 x 16 and 2 x 16 x 16 planning meshes
+    and on this one card, priced with the card's figures: one ``plan``
+    line per arch; every field resolved."""
+    import dataclasses
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.core.config import SHAPES
+    from repro_torch.core.decisions import DecisionContext
+    from repro_torch.launch.mesh import (make_production_mesh,
+                                         make_smoke_mesh)
+    from repro_torch.parallel.strategies import build_workflow
+
+    hw = card_hardware()
+    meshes = {"16x16": make_production_mesh(),
+              "2x16x16": make_production_mesh(multi_pod=True),
+              "1card": make_smoke_mesh()}
+    t0 = time.perf_counter()
+    plans = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        row = {}
+        for sname, shape in SHAPES.items():
+            for mname, mesh in meshes.items():
+                wf = build_workflow(cfg, shape, mesh, hw)
+                (decision,) = wf.run(DecisionContext(),
+                                     lambda *_: None).values()
+                pc, _ = resolved_plan(cfg, shape, mesh,
+                                      decision.extra("parallel_config"), hw)
+                auto = [k for k, v in dataclasses.asdict(pc).items()
+                        if v == "auto"]
+                require(not auto, f"{arch} {sname} {mname}: {auto} left "
+                        f"unresolved")
+                row[f"{sname}@{mname}"] = (
+                    f"{pc.attn_strategy}/{pc.moe_strategy}/{pc.layout}/"
+                    f"fsdp={pc.fsdp}/mb={pc.microbatches}/"
+                    f"{decision.schedule.policy}")
+        plans[arch] = row
+    plan_s = time.perf_counter() - t0
+    for arch, row in plans.items():
+        print(f"plan {arch}: {json.dumps(row)} [{card}]")
+    print(f"plan_cells: {len(plans) * len(SHAPES) * len(meshes)} cells "
+          f"planned in {plan_s:.3f} s with hbm_bytes {hw.hbm_bytes} [{card}]")
+    return {"plan_s": plan_s, "cells": len(plans) * len(SHAPES) * len(meshes)}
+
+
+def plan_train_phase(dev, card: str) -> dict:
+    """llama3.2-3b at its published config at ``PLAN_TRAIN_SHAPE`` on this
+    card, planned by the port's decision workflow with the card's figures,
+    checked executable, then trained under the plan (random weights from
+    seed 0, AdamW at lr 3e-4, no warmup): one untimed and
+    ``PLAN_TRAIN_STEPS`` timed steps, counters set to 0 just before and
+    read just after. Every loss and norm finite; peak memory beside the
+    planner's fixed and activation bytes, its budget and the card's
+    memory."""
+    import torch
+    from repro_torch.core.config import OptimizerConfig, ShapeConfig
+    from repro_torch.core.decisions import DecisionContext
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import partition as K
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel.sharding import require_executable
+    from repro_torch.parallel.strategies import (TRAIN_HBM_SHARE,
+                                                 build_workflow,
+                                                 estimate_activation_bytes,
+                                                 exact_param_bytes_per_chip)
+    from repro_torch.training import make_train_step
+
+    hw = card_hardware()
+    cfg = serve_config(SERVE_ARCH)
+    name, seq, batch_rows = PLAN_TRAIN_SHAPE
+    _, batch = _train_inputs(cfg, dev, batch_rows, seq)
+    shape = ShapeConfig(name, seq, batch_rows, "train")
+    mesh = make_smoke_mesh()
+    (decision,) = build_workflow(cfg, shape, mesh, hw).run(
+        DecisionContext(), lambda *_: None).values()
+    pc, rules = resolved_plan(cfg, shape, mesh,
+                              decision.extra("parallel_config"), hw)
+    require_executable(rules)
+    fixed = exact_param_bytes_per_chip(cfg, rules) * 8.0
+    act = estimate_activation_bytes(cfg, shape, 1, 1, pc.microbatches,
+                                    pc.sequence_sharded_residual)
+    state = _fresh_state(cfg, dev)
+    step = make_train_step(cfg, shape, OptimizerConfig(
+        lr=TRAIN_LR, warmup_steps=0), pc, rules=rules)
+    before = {k: set(v) for k, v in A.SHAPES.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    K.reset_launches()
+    losses, norms, step_ms = [], [], []
+    for i in range(PLAN_TRAIN_STEPS + 1):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        if i:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    launches = {**A.LAUNCHES, **K.LAUNCHES}
+    peak = int(torch.cuda.max_memory_allocated())
+    n, attn = PLAN_TRAIN_STEPS + 1, attention_layers(cfg)
+    mb = pc.microbatches
+    want = {"flash_attention": 2 * attn * mb * n,
+            "flash_attention_bwd": attn * mb * n, "decode_attention": 0,
+            "partition_scatter": 0, "partition_histogram": 0,
+            "fused_probe": 0}
+    require(launches == want, f"planned training: launches {launches}, "
+            f"expected {want}")
+    require(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+            f"planned training: losses {losses}, grad norms {norms}")
+    tokens = batch_rows * seq
+    res = {"plan": {"attn": pc.attn_strategy, "layout": pc.layout,
+                    "fsdp": pc.fsdp, "microbatches": mb, "remat": pc.remat,
+                    "schedule": decision.schedule.policy},
+           "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+           "tokens_per_s": tokens / (np.median(step_ms) / 1e3),
+           "peak_bytes": peak, "planned_fixed_bytes": fixed,
+           "planned_activation_bytes": act,
+           "planned_bytes": fixed + act,
+           "planned_budget_bytes": TRAIN_HBM_SHARE * hw.hbm_bytes,
+           "card_bytes": hw.hbm_bytes,
+           "launches": launches,
+           "shapes": {k: A.SHAPES[k] - before[k] for k in A.SHAPES}}
+    print(f"plan_train {SERVE_ARCH} at {name} ({batch_rows}x{seq}) on one "
+          f"card: plan {json.dumps(res['plan'])} [{card}]")
+    print(f"plan_train {SERVE_ARCH}: step ms "
+          f"{[round(x, 2) for x in step_ms]} (one untimed before), "
+          f"{res['tokens_per_s']:.1f} tokens/s at the median step; peak "
+          f"max_memory_allocated {peak} B against the plan's {fixed:.4g} "
+          f"fixed + {act:.4g} activation = {fixed + act:.4g} B, its budget "
+          f"{res['planned_budget_bytes']:.4g} B (peak over it by "
+          f"{peak - res['planned_budget_bytes']:.4g} B) and the "
+          f"card's {hw.hbm_bytes} B; losses "
+          f"{[round(x, 5) for x in losses]}, grad norms "
+          f"{[round(x, 5) for x in norms]}, launches {launches} [{card}]")
+    del state, step, metrics
+    _release()
+    return res
+
+
+def dp_rank(rank: int, world: int, root: str, arch: str, steps: int,
+            device: str):
+    """One of ``world`` ranks sharing the card through ``gloo``: the
+    data-parallel step of ``arch`` (published config, weights from seed
+    0) on its rows of the train phases' batch, planned on a
+    ``data=world, model=1`` mesh (ZeRO overridden: item 11.4b); then the
+    int8 all-reduce of its own gradients against the exact one. Writes
+    its results to ``root/rank{rank}.json``."""
+    import dataclasses
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.config import OptimizerConfig, ParallelConfig
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import partition as K
+    from repro_torch.launch.mesh import init_distributed, make_smoke_mesh
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import use_rules
+    from repro_torch.parallel.strategies import plan_cell
+    from repro_torch.training import make_train_step
+    from repro_torch.training.train_step import (_rows, make_grad_fn,
+                                                 text_tokens)
+
+    backend = init_distributed(rank, world, f"file://{root}/rendezvous",
+                               device)
+    dev = torch.device(device)
+    cfg = serve_config(arch)
+    shape, batch = _train_inputs(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+    mesh = make_smoke_mesh(model=1)
+    hw = card_hardware()
+    planned = plan_cell(cfg, shape, mesh, hw=hw)
+    pc, overridden = planned, []
+    if planned.layout == "pure_dp" or planned.fsdp == "on":
+        pc = plan_cell(cfg, shape, mesh, ParallelConfig(layout="tp",
+                                                        fsdp="off"), hw=hw)
+        overridden = ["layout=tp", "fsdp=off"]
+    pc, rules = resolved_plan(cfg, shape, mesh, pc, hw)
+    state = _fresh_state(cfg, dev)
+    step = make_train_step(cfg, shape, OptimizerConfig(
+        lr=TRAIN_LR, warmup_steps=0), pc, rules=rules)
+    before = shape_sets()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    K.reset_launches()
+    out = {"rank": rank, "backend": backend, "plan": dataclasses.asdict(
+        planned), "run_plan": dataclasses.asdict(pc),
+        "overridden": overridden, "step_ms": [], "losses": [], "norms": []}
+    for i in range(steps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recording_moe_stats() if i == 0 else contextlib.nullcontext() \
+                as stats:
+            state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(float(metrics["loss"]))
+        out["norms"].append(float(metrics["grad_norm"]))
+        if i == 0:
+            # the last microbatch's forward gives the step's aux
+            out["aux"] = float(metrics["aux"])
+            out["moe_stats"] = [t.double().cpu().tolist()
+                                for t in stats[-moe_layers(cfg):]]
+    out["launches"] = {**A.LAUNCHES, **K.LAUNCHES}
+    out["shapes"] = {k: sorted(v - before[k])
+                     for k, v in shape_sets().items()}
+    out["peak_bytes"] = int(torch.cuda.max_memory_allocated())
+    digest = hashlib.sha256()
+    for _, p in state["params"].named_parameters():
+        digest.update(p.detach().view(-1).view(torch.uint8).cpu().numpy())
+    out["params_sha256"] = digest.hexdigest()
+
+    # this rank's own gradients (its rows' share of the batch's loss)
+    group = mesh.group("data")
+    part = _rows(batch, mesh.axes_index("data"), world)
+    with use_rules(rules):
+        _, _, grads = make_grad_fn(cfg, pc)(state["params"], part,
+                                            text_tokens(batch))
+    flat = [g.float() for g in grads.values()]
+    del grads
+    nbytes = sum(g.numel() * 4 for g in flat)
+    copy = [g.clone() for g in flat]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    C.flat_all_reduce_(copy, group)
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = (time.perf_counter() - t0) * 1e3
+    out["allreduce_bytes"] = nbytes
+    del copy
+    reduce = C.make_compressed_grad_allreduce(mesh, "data")
+    worst, disagree = 0.0, 0.0
+    sign = 1.0 if rank == 0 else -1.0
+    for g in flat:
+        exact = C.all_reduce_(g.clone(), group) / world
+        comp = reduce({"g": g})["g"]
+        worst = max(worst, float((comp - exact).abs().max()
+                                 / exact.abs().max().clamp(min=1e-30)))
+        diff = C.all_reduce_(comp * sign, group)   # rank 0's minus rank 1's
+        disagree = max(disagree, float(diff.abs().max()))
+    out["compressed_rel_err"] = worst
+    out["compressed_ranks_disagree"] = disagree
+    dist.destroy_process_group()
+    with open(f"{root}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+@contextlib.contextmanager
+def recording_moe_stats():
+    """Within the block, every MoE layer's router statistics (``moe_parts``'
+    ``(2, E)`` fraction routed first and mean probability over this rank's
+    tokens) as ``moe.aux_loss`` receives them, in call order."""
+    from repro_torch.models import moe as M
+    plain, seen = M.aux_loss, []
+
+    def recording(stats, cfg, group=None):
+        seen.append(stats.detach().clone())
+        return plain(stats, cfg, group)
+
+    M.aux_loss = recording
+    try:
+        yield seen
+    finally:
+        M.aux_loss = plain
+
+
+def aux_readings(ranks: list, experts: int) -> dict:
+    """From one forward's router statistics of every rank: the aux of the
+    whole batch (each layer's two means over the ranks, as the reference
+    takes them), each rank's step aux relative to it, and the aux of one
+    rank's own rows relative to it (what a rank that skipped the
+    statistics' all-reduce would report)."""
+    stats = np.array([r["moe_stats"] for r in ranks])     # (R, L, 2, E)
+    whole = experts * float((stats.mean(0)[:, 0] * stats.mean(0)[:, 1])
+                            .sum())
+    own = [experts * float((s[:, 0] * s[:, 1]).sum()) for s in stats]
+    return {"whole_batch_aux": whole,
+            "rank_aux_rel": max(abs(r["aux"] - whole) / whole
+                                for r in ranks),
+            "own_rows_aux_rel": min(abs(a - whole) / whole for a in own)}
+
+
+def dp_phase(dev, card: str) -> dict:
+    """granite-moe-1b-a400m's data-parallel step on ``DP_RANKS`` spawned
+    ranks sharing this card through ``gloo`` (``dp_rank``), held against
+    the one-rank step on the whole batch in this process: loss and global
+    grad norm within ``DP_RTOL``; every rank's aux within ``DP_AUX_RTOL``
+    of the whole batch's from the same forward (``aux_readings``), and one
+    rank's own rows' aux outside it; the ranks' parameters bit-equal after
+    the update, the int8 all-reduce within
+    ``COMPRESSED_BOUND`` of each leaf's largest magnitude of the exact one
+    and the ranks agreeing to ``COMPRESSED_AGREE``. A rank that fails
+    fails the phase."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.core.config import OptimizerConfig, ParallelConfig
+    from repro_torch.training import make_train_step
+    from repro_torch.training.optimizer import global_norm
+
+    cfg = serve_config(MOE_ARCH)
+    shape, batch = _train_inputs(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+    saved = shape_sets()
+    state = _fresh_state(cfg, dev)
+    step = make_train_step(cfg, shape, OptimizerConfig(
+        lr=TRAIN_LR, warmup_steps=0), ParallelConfig(remat="block"))
+    loss, metrics, grads = step.grad_step(state["params"], batch)
+    one = {"loss": float(loss), "aux": float(metrics["aux"]),
+           "grad_norm": float(global_norm(grads))}
+    del state, step, grads, metrics
+    restore_shape_sets(saved)
+    _release()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        mp.spawn(dp_rank, args=(DP_RANKS, root, MOE_ARCH, DP_STEPS,
+                                dev.type), nprocs=DP_RANKS, join=True)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(f"{root}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+    r0 = ranks[0]
+    held = {"loss": r0["losses"][0], "one_rank_loss": one["loss"],
+            "grad_norm": r0["norms"][0],
+            "one_rank_grad_norm": one["grad_norm"], "aux": r0["aux"],
+            "one_rank_aux": one["aux"],
+            **aux_readings(ranks, cfg.moe.num_experts),
+            "compressed_rel_err": max(r["compressed_rel_err"]
+                                      for r in ranks),
+            "compressed_ranks_disagree": max(
+                r["compressed_ranks_disagree"] for r in ranks)}
+    plan = {k: r0["plan"][k] for k in ("attn_strategy", "moe_strategy",
+                                        "layout", "fsdp", "microbatches")}
+    print(f"dp {MOE_ARCH}: {DP_RANKS} ranks on one card ({r0['backend']}), "
+          f"planned {json.dumps(plan)}, overridden "
+          f"{r0['overridden'] or 'nothing'} [{card}]")
+    print(f"dp {MOE_ARCH}: held {json.dumps(held)} (loss and grad norm "
+          f"within {DP_RTOL}, each rank's aux within {DP_AUX_RTOL} of the "
+          f"whole batch's from the same forward and one rank's own rows' "
+          f"aux outside it, int8 {COMPRESSED_BOUND} of "
+          f"each leaf's largest magnitude, ranks {COMPRESSED_AGREE}) "
+          f"[{card}]")
+    for r in ranks:
+        print(f"dp {MOE_ARCH} rank {r['rank']}: step ms "
+              f"{[round(x, 2) for x in r['step_ms']]} (the first untimed), "
+              f"all-reduce {r['allreduce_ms']:.2f} ms of "
+              f"{r['allreduce_bytes']} B, peak max_memory_allocated "
+              f"{r['peak_bytes']} B, losses "
+              f"{[round(x, 5) for x in r['losses']]}, launches "
+              f"{r['launches']} [{card}]")
+    rel = lambda a, b: abs(a - b) / abs(b)
+    require(rel(held["loss"], one["loss"]) <= DP_RTOL,
+            f"dp loss {held['loss']} against one rank's {one['loss']}")
+    require(rel(held["grad_norm"], one["grad_norm"]) <= DP_RTOL,
+            f"dp grad norm {held['grad_norm']} against {one['grad_norm']}")
+    require(held["rank_aux_rel"] <= DP_AUX_RTOL,
+            f"dp aux {held['aux']} off the whole batch's "
+            f"{held['whole_batch_aux']} by {held['rank_aux_rel']}")
+    require(held["own_rows_aux_rel"] > DP_AUX_RTOL,
+            f"one rank's own rows' aux is within {DP_AUX_RTOL} of the whole "
+            f"batch's ({held['own_rows_aux_rel']}): the hold cannot tell "
+            f"them apart")
+    require(len({r["params_sha256"] for r in ranks}) == 1,
+            "the ranks' parameters differ after the update")
+    require(held["compressed_rel_err"] <= COMPRESSED_BOUND,
+            f"int8 all-reduce off by {held['compressed_rel_err']}")
+    require(held["compressed_ranks_disagree"] <= COMPRESSED_AGREE,
+            f"ranks' int8 all-reduce differ by "
+            f"{held['compressed_ranks_disagree']}")
+    n, attn, moe = DP_STEPS + 1, attention_layers(cfg), moe_layers(cfg)
+    want = {"flash_attention": 2 * attn * n, "flash_attention_bwd": attn * n,
+            "decode_attention": 0, "partition_scatter": 2 * moe * n,
+            "partition_histogram": 0, "fused_probe": 0}
+    for r in ranks:
+        require(r["launches"] == want, f"dp rank {r['rank']}: launches "
+                f"{r['launches']}, expected {want}")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in want}
+    shapes = {k: {tuple(s) for r in ranks for s in r["shapes"][k]}
+              for k in r0["shapes"]}
+    return {"wall_s": wall, "held": held, "launches": launches,
+            "shapes": shapes, "ranks": ranks}
+
+
 def shape_sets() -> dict:
     """A copy of every kernel's recorded launch shapes (K1-K5)."""
     from repro_torch.kernels import attention as A
@@ -2998,6 +3451,34 @@ def main() -> int:
     print_kernel_rows(rows[-1:], card)
     seconds["train_kernel_checks"] = time.perf_counter() - t0
 
+    # the planner, a planned train step and data parallelism: after the
+    # train phases, before the recurrent ones
+    t0 = time.perf_counter()
+    plan_cells(card)
+    seconds["plan_cells"] = time.perf_counter() - t0
+    print(f"phase plan_cells: {seconds['plan_cells']:.2f} s")
+    t0 = time.perf_counter()
+    planned = plan_train_phase(dev, card)
+    seconds["plan_train_llama3_2_3b"] = time.perf_counter() - t0
+    print(f"phase plan_train_llama3_2_3b: "
+          f"{seconds['plan_train_llama3_2_3b']:.2f} s")
+    t0 = time.perf_counter()
+    dp = dp_phase(dev, card)
+    seconds["dp_granite_moe_1b_a400m"] = time.perf_counter() - t0
+    print(f"phase dp_granite_moe_1b_a400m: "
+          f"{seconds['dp_granite_moe_1b_a400m']:.2f} s")
+    # each kernel held at the shapes these phases launched it at first
+    held = {k: set(v) for k, v in attn_shapes.items()}
+    for k in train_shapes:
+        held[k] |= train_shapes[k]
+    new = {k: (dp["shapes"].get(k, set()) | planned["shapes"].get(k, set()))
+           - held.get(k, set()) for k in shape_sets()}
+    print(f"main-path kernel shapes of the planned and data-parallel "
+          f"phases: { {k: sorted(v) for k, v in new.items()} }")
+    new_err = hold_late_shapes(dev, gen, new)
+    for r in rows:
+        r["max_abs_err"] = max(r["max_abs_err"], new_err[r["name"]])
+
     # jamba at full width, one period of its pattern (Mamba, attention, MoE
     # on K2), then xlstm (mLSTM and sLSTM), then the stub frontends: after
     # everything above, which runs as it did before these existed; each
@@ -3047,7 +3528,8 @@ def main() -> int:
         r["launches"] for r in mix["policies"].values()] + [
         serve["launches"], granite["launches"], fronts["launches"]] + [
         r["launches"] for r in recurrent.values()] + [
-        t["launches"] for t in train.values()]
+        t["launches"] for t in train.values()] + [
+        planned["launches"], dp["launches"]]
     for r in rows:
         r["launches"] = sum(c.get(r["name"], 0) for c in counted)
         for extra in ("shape", "device", "device_ops_per_call", "checked_ms",

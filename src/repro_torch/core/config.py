@@ -6,10 +6,13 @@ input-shape cell, and ``OptimizerConfig``, ``ParallelConfig``,
 ``CheckpointConfig`` and ``RunConfig`` a training run. The dataclasses are
 frozen and field-for-field equal to the reference's, so equality,
 ``resolved_head_dim``, ``param_count`` and ``fingerprint`` agree.
-``ParallelConfig``'s mesh fields (``attn_strategy``, ``moe_strategy``,
-``layout``, ``fsdp``, ``zero2``, ...) are carried and not acted on: the
-port has no mesh yet (ROADMAP Queue 1 item 11.4); its trainer reads
-``microbatches`` and ``remat``.
+``ParallelConfig``'s fields are resolved by the port's planner
+(``repro_torch.parallel.strategies.plan_cell``) and materialized as
+sharding rules (``make_rules``). The trainer reads ``microbatches`` and
+``remat`` and runs the rules' batch split (data parallelism) and the
+pipeline over ``pod``; rules that shard anything else over more than one
+rank (tensor, sequence and expert parallelism, ZeRO, ``zero2``) are
+refused until ROADMAP Queue 1 item 11.4b.
 """
 
 from __future__ import annotations

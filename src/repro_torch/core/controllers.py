@@ -21,6 +21,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Iterable, Mapping, Sequence
 
+from repro_torch.device import H100_SXM
+
 from .decisions import (
     DataDist,
     Decision,
@@ -69,7 +71,8 @@ class GlobalController:
 
     def __init__(self, slots_per_node: Mapping[int, int],
                  pods: Mapping[int, Sequence[int]] | None = None,
-                 link_bw: float = 50e9, intra_bw: float = 819e9):
+                 link_bw: float = H100_SXM.link_bw,
+                 intra_bw: float = H100_SXM.hbm_bw):
         self._lock = threading.RLock()
         self.total = dict(slots_per_node)
         self.used: dict[int, int] = {n: 0 for n in self.total}

@@ -34,6 +34,8 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable, Mapping, Sequence
 
+from repro_torch.device import H100_SXM
+
 
 # ---------------------------------------------------------------------------
 # System knowledge exposed to decision nodes (paper Fig. 5, step 2)
@@ -94,8 +96,8 @@ class NodeStatus:
 
     total_slots: Mapping[int, int] = field(default_factory=dict)
     free_slots: Mapping[int, int] = field(default_factory=dict)
-    link_bw: float = 50e9                 # bytes/s per link (ICI)
-    intra_bw: float = 819e9               # bytes/s local (HBM)
+    link_bw: float = H100_SXM.link_bw     # bytes/s per link (NVLink)
+    intra_bw: float = H100_SXM.hbm_bw     # bytes/s local (HBM)
     pods: Mapping[int, Sequence[int]] = field(default_factory=dict)
 
     @property

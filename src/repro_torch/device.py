@@ -3,12 +3,34 @@
 Every entry point (``execute_query_runtime``, ``Runtime``, the kernel
 wrappers) runs on ``cuda`` unless its caller passes ``device="cpu"``. With
 no card and no explicit CPU request it raises: nothing drops silently to
-the CPU, so a run that claims the card really ran there.
+the CPU, so a run that claims the card really ran there. ``Hardware``
+holds the figures the planners price work with; ``H100_SXM`` is the
+card's.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
+
+
+@dataclass(frozen=True)
+class Hardware:
+    """One accelerator's figures, as the cost models read them: dense bf16
+    FLOP/s, device-memory bytes/s, bytes/s of one link to a peer (one
+    direction) and device-memory bytes."""
+
+    peak_flops: float
+    hbm_bw: float
+    link_bw: float
+    hbm_bytes: float
+
+
+# NVIDIA's H100 SXM5 data sheet: 989 TFLOP/s dense bf16, HBM3 at 3.35 TB/s,
+# NVLink 4 at 900 GB/s a GPU in both directions (450 GB/s each way), 80 GB.
+H100_SXM = Hardware(peak_flops=989e12, hbm_bw=3.35e12, link_bw=450e9,
+                    hbm_bytes=80e9)
 
 
 class NoDeviceError(RuntimeError):

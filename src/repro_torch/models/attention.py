@@ -8,9 +8,10 @@ reference's ``jnp.repeat`` does), the decode path through K5
 On the card those are the CUDA kernels; on CPU tensors their plain
 versions.
 
-The reference's sharding rules (head_tp / seq_tp annotations, the int8 KV
-broadcast of ``_int8_broadcast``) exist only under a multi-device mesh and
-wait for the port of ``parallel/`` (ROADMAP item 11).
+Under data parallelism each rank runs this path on its rows. The
+reference's tensor-parallel attention (head_tp / seq_tp, the int8 KV
+broadcast of ``_int8_broadcast``) needs a ``model`` axis larger than 1 and
+is ROADMAP Queue 1 item 11.4b.
 """
 
 from __future__ import annotations
@@ -27,6 +28,13 @@ class Attention(nn.Module):
     """``wq (d, H, hd)``, ``wk``/``wv (d, K, hd)``, ``wo (H, hd, d)`` and,
     with ``qkv_bias``, ``bq (H, hd)``, ``bk``/``bv (K, hd)``: the
     reference's layouts."""
+
+    AXES = {"wq": ("w_embed", "heads", "qkv"),
+            "wk": ("w_embed", "kv_heads", "qkv"),
+            "wv": ("w_embed", "kv_heads", "qkv"),
+            "wo": ("heads", "qkv", "w_embed"),
+            "bq": ("heads", "qkv"), "bk": ("kv_heads", "qkv"),
+            "bv": ("kv_heads", "qkv")}
 
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()

@@ -13,6 +13,10 @@ leaves over the repeats (``params["blocks"][p][...]`` has a leading
 
 from __future__ import annotations
 
+import functools
+import math
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
@@ -89,6 +93,30 @@ def _nest(tree: dict, name: str, value) -> None:
     tree[leaf] = value
 
 
+def _restack(named: dict, cfg: ModelConfig, leaf, stack) -> dict:
+    """The reference's tree of a mapping keyed by the port's parameter
+    names: ``leaf(value)`` at the top-level names, ``stack(rows)`` at each
+    layer leaf, ``rows`` that leaf's values over the repeats in order."""
+    period = len(cfg.block_pattern)
+    tree: dict = {}
+    per_position: list[dict] = [{} for _ in range(period)]
+    for name, t in named.items():
+        if not name.startswith("layers."):
+            _nest(tree, name, leaf(t))
+            continue
+        _, index, rest = name.split(".", 2)
+        i = int(index)
+        per_position[i % period].setdefault(rest, {})[i // period] = t
+    blocks = []
+    for leaves in per_position:
+        stacked: dict = {}
+        for rest, rows in leaves.items():
+            _nest(stacked, rest, stack([rows[r] for r in range(len(rows))]))
+        blocks.append(stacked)
+    tree["blocks"] = tuple(blocks)
+    return tree
+
+
 def params_to_numpy(model, cfg: ModelConfig) -> dict:
     """The reference's parameter tree of ``model`` (an ``LM``, or a mapping
     from the port's parameter names to tensors): ``embed``,
@@ -98,22 +126,48 @@ def params_to_numpy(model, cfg: ModelConfig) -> dict:
     arrays)."""
     named = dict(model.named_parameters()) if isinstance(model, LM) \
         else dict(model)
-    period = len(cfg.block_pattern)
-    tree: dict = {}
-    per_position: list[dict] = [{} for _ in range(period)]
-    for name, t in named.items():
-        if not name.startswith("layers."):
-            _nest(tree, name, _array(t))
-            continue
-        _, index, rest = name.split(".", 2)
-        i = int(index)
-        per_position[i % period].setdefault(rest, {})[i // period] = t
-    blocks = []
-    for leaves in per_position:
-        stacked: dict = {}
-        for rest, rows in leaves.items():
-            _nest(stacked, rest, np.stack([_array(rows[r])
-                                           for r in range(len(rows))]))
-        blocks.append(stacked)
-    tree["blocks"] = tuple(blocks)
-    return tree
+    return _restack(named, cfg, _array,
+                    lambda rows: np.stack([_array(r) for r in rows]))
+
+
+@dataclass(frozen=True)
+class ParamShape:
+    """A parameter's shape and dtype, with no storage behind it."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+    @property
+    def nbytes(self) -> int:
+        return math.prod(self.shape) * self.dtype.itemsize
+
+
+@functools.lru_cache(maxsize=64)
+def _meta_leaves(cfg: ModelConfig) -> dict:
+    """``{name: (ParamShape, logical axes)}`` of every parameter, read off
+    a model built on the meta device, so none is allocated (the planner
+    walks qwen2-72b at full width). Cached per config; callers copy."""
+    model = LM(cfg, None, torch.device("meta"))
+    out = {}
+    for mod_name, mod in model.named_modules():
+        for leaf, p in mod.named_parameters(recurse=False):
+            name = f"{mod_name}.{leaf}" if mod_name else leaf
+            out[name] = (ParamShape(tuple(p.shape), p.dtype),
+                         type(mod).AXES[leaf])
+    return out
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every parameter, in the reference's tree (the
+    second output of its ``init_lm``): a tuple of axis names (or ``None``)
+    per leaf, ``"layers"`` first on the leaves stacked over the repeats."""
+    axes = {k: a for k, (_, a) in _meta_leaves(cfg).items()}
+    return _restack(axes, cfg, lambda a: a, lambda rows: ("layers",) + rows[0])
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """``ParamShape`` of every parameter in ``param_axes``'s tree (stacked
+    leaves lead with the repeats), without allocating any."""
+    shapes = {k: s for k, (s, _) in _meta_leaves(cfg).items()}
+    return _restack(shapes, cfg, lambda s: s, lambda rows: ParamShape(
+        (len(rows),) + rows[0].shape, rows[0].dtype))

@@ -41,6 +41,8 @@ def init_normal(shape, scale: float, dtype, generator, device) -> nn.Parameter:
 
 
 class RMSNorm(nn.Module):
+    AXES = {"scale": ("embed",)}
+
     def __init__(self, d: int, dtype, device):
         super().__init__()
         self.scale = nn.Parameter(torch.ones((d,), dtype=dtype,
@@ -61,6 +63,8 @@ def rmsnorm(norm: RMSNorm, x: torch.Tensor, eps: float = 1e-5):
 class Embedding(nn.Module):
     """``table (vocab_padded, d)``, plus ``unembed (d, vocab_padded)`` when
     the embeddings are not tied."""
+
+    AXES = {"table": ("vocab", "w_embed"), "unembed": ("w_embed", "vocab")}
 
     def __init__(self, vocab: int, d: int, dtype, generator, device,
                  tie: bool = False):
@@ -125,6 +129,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 class MLP(nn.Module):
+    AXES = {"gate": ("w_embed", "mlp"), "up": ("w_embed", "mlp"),
+            "down": ("mlp", "w_embed")}
+
     def __init__(self, d: int, d_ff: int, dtype, generator, device):
         super().__init__()
         self.gate = init_normal((d, d_ff), d ** -0.5, dtype, generator,

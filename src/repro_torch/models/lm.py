@@ -46,6 +46,7 @@ from repro_torch.models.layers import (
     rmsnorm,
     unembed,
 )
+from repro_torch.parallel.sharding import batch_group
 
 AUDIO_FRAME_DIM = 128   # EnCodec latent dim (stub frontend)
 
@@ -80,6 +81,8 @@ class LM(nn.Module):
     """``embed``, ``final_norm``, the stub frontend's projection
     (``patch_proj (d, d)`` or ``frame_proj (AUDIO_FRAME_DIM, d)``) and the
     ``layers``."""
+
+    AXES = {"patch_proj": ("w_embed", None), "frame_proj": (None, "w_embed")}
 
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
@@ -132,14 +135,14 @@ def _frontend_embed(model: LM, inputs: dict) -> torch.Tensor:
 
 
 def _ffn(layer: Block, h: torch.Tensor, cfg: ModelConfig):
-    """The layer's FFN residual update of ``h`` and its MoE aux loss
-    (``None`` for a dense FFN or none)."""
+    """The layer's FFN residual update of ``h`` and its MoE load-balance
+    statistics (``moe.moe_parts``; ``None`` for a dense FFN or none)."""
     if not hasattr(layer, "ffn"):
         return h, None
     normed = rmsnorm(layer.norm2, h, cfg.norm_eps)
     if isinstance(layer.ffn, moe_mod.MoE):
-        out, aux = moe_mod.moe(layer.ffn, normed, cfg)
-        return h + out, aux
+        out, stats = moe_mod.moe_parts(layer.ffn, normed, cfg)
+        return h + out, stats
     return h + mlp(layer.ffn, normed), None
 
 
@@ -152,7 +155,8 @@ _RECURRENT = {
 
 def _layer(layer: Block, h: torch.Tensor, positions: torch.Tensor,
            cfg: ModelConfig, ssm_chunk: int):
-    """One residual layer (block, then FFN): ``(h, MoE aux or None)``."""
+    """One residual layer (block, then FFN): ``(h, MoE statistics or
+    None)``."""
     normed = rmsnorm(layer.norm1, h, cfg.norm_eps)
     if layer.kind == BlockKind.ATTENTION:
         out = attn_mod.attention(layer.block, normed, positions, cfg)
@@ -182,8 +186,10 @@ def forward_hidden(model: LM, inputs: dict, remat: str = "block",
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full causal forward up to the final norm: ``(h (B, S', D), aux)``,
     ``S'`` counting the stub patches, ``aux`` the MoE load-balance loss
-    summed over the MoE layers (0 without them). The unembedding is left to
-    the caller: the training loss fuses it into a sequence-chunked
+    summed over the MoE layers (0 without them; under rules that split the
+    batch over ranks, each layer's the whole batch's: ``moe.aux_loss``,
+    outside the layer's checkpoint). The unembedding is left to the
+    caller: the training loss fuses it into a sequence-chunked
     cross-entropy.
 
     ``remat``: ``"none"`` keeps every activation for the backward;
@@ -202,16 +208,17 @@ def forward_hidden(model: LM, inputs: dict, remat: str = "block",
     positions = inputs.get("positions")
     if positions is None:
         positions = _positions(b, s, h.device)
+    group = batch_group()
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for layer in model.layers:
         if remat == "none":
-            h, layer_aux = _layer(layer, h, positions, cfg, ssm_chunk)
+            h, stats = _layer(layer, h, positions, cfg, ssm_chunk)
         else:
-            h, layer_aux = checkpoint(_layer, layer, h, positions, cfg,
-                                      ssm_chunk, use_reentrant=False,
-                                      **_REMAT[remat])
-        if layer_aux is not None:
-            aux = aux + layer_aux
+            h, stats = checkpoint(_layer, layer, h, positions, cfg,
+                                  ssm_chunk, use_reentrant=False,
+                                  **_REMAT[remat])
+        if stats is not None:
+            aux = aux + moe_mod.aux_loss(stats, cfg, group)
     return rmsnorm(model.final_norm, h, cfg.norm_eps), aux
 
 

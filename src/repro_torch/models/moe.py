@@ -1,5 +1,5 @@
 """Token-choice top-k MoE with sort-based capacity dispatch (the port of
-``repro/models/moe.py``, its single-device path).
+``repro/models/moe.py``, its local path).
 
 Each batch row's assignments (token, choice) are grouped by expert, stably,
 as the reference's per-row ``argsort`` groups them; an assignment's position
@@ -14,8 +14,13 @@ K2 dispatch to.
 
 The router, the expert products, the gather, the scatter into the buffer
 and the combine are plain tensor operations, as they are plain jnp in the
-reference. The mesh paths (``moe_shard_map``, ``moe_shard_map_local``) and
-the sharding constraints wait for ``parallel/`` (ROADMAP Queue 1 item 11).
+reference. Data parallelism runs this path on each rank's rows, with the
+aux loss's batch means summed over the ranks (``aux_loss``, called by
+``lm.forward_hidden`` outside the layer's checkpoint, so that a
+recomputed layer makes no collective); that is also what the reference's
+``moe_shard_map_local`` computes. The expert-parallel
+all-to-all (``moe_shard_map``, under a ``model`` axis larger than 1) is
+ROADMAP item 11.4b; under ``model=1`` its rules run this local path.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -30,11 +36,17 @@ from repro_torch.core.config import ModelConfig, MoEConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.partition import MAX_SCATTER_PARTITIONS
 from repro_torch.models.layers import init_normal
+from repro_torch.parallel.collectives import replicated_sum
 
 
 class MoE(nn.Module):
     """``router (d, E)`` in fp32, ``gate`` and ``up (E, d, f)`` and
     ``down (E, f, d)`` in the config's dtype: the reference's leaves."""
+
+    AXES = {"router": ("w_embed", None),
+            "gate": ("expert", "w_embed", "mlp"),
+            "up": ("expert", "w_embed", "mlp"),
+            "down": ("expert", "mlp", "w_embed")}
 
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
@@ -161,18 +173,20 @@ def route(p: MoE, x: torch.Tensor, top_k: int):
     return probs, top_p / top_p.sum(dim=-1, keepdim=True), top_i
 
 
-def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig,
-        s_chunk: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
-    """``x (B, S, D)`` -> ``(y, aux)``, ``aux`` the Switch-style
-    load-balance loss (fraction routed first times mean probability). The
-    router and its softmax run in fp32; the sequence is dispatched in
-    chunks of ``s_chunk`` tokens, each with its own capacity."""
+def moe_parts(p: MoE, x: torch.Tensor, cfg: ModelConfig,
+              s_chunk: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x (B, S, D)`` -> ``(y, stats)``: the layer's output and its
+    load-balance statistics ``stats (2, E)``, the fraction of ``x``'s
+    tokens routed first to each expert and each expert's mean probability
+    (``aux_loss`` makes the aux of them). The router and its softmax run
+    in fp32; the sequence is dispatched in chunks of ``s_chunk`` tokens,
+    each with its own capacity."""
     m = cfg.moe
     b, s, _ = x.shape
     e, k = m.num_experts, m.top_k
     probs, top_p, top_i = route(p, x, k)
     frac = F.one_hot(top_i[..., 0], e).float().mean(dim=(0, 1))
-    aux = e * (frac * probs.mean(dim=(0, 1))).sum()
+    stats = torch.stack([frac, probs.mean(dim=(0, 1))])
 
     s_chunk = min(s_chunk, s)
     if s % s_chunk:
@@ -182,4 +196,24 @@ def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     ys = [_moe_chunk(p, x[:, lo:lo + s_chunk], top_p[:, lo:lo + s_chunk],
                      top_i[:, lo:lo + s_chunk], cap)
           for lo in range(0, s, s_chunk)]
-    return (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)), aux
+    return (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)), stats
+
+
+def aux_loss(stats: torch.Tensor, cfg: ModelConfig,
+             group=None) -> torch.Tensor:
+    """The Switch-style load-balance loss of ``moe_parts``'s ``stats``:
+    ``E * sum(fraction routed first * mean probability)``. With ``group``
+    (the ranks a data-parallel batch is split over, each holding as many
+    rows) both means are first summed over the ranks, differentiably, and
+    averaged: the whole batch's, as the reference takes them."""
+    if group is not None:
+        stats = replicated_sum(stats, group) / dist.get_world_size(group)
+    return cfg.moe.num_experts * (stats[0] * stats[1]).sum()
+
+
+def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig,
+        s_chunk: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x (B, S, D)`` -> ``(y, aux)``, ``aux`` the load-balance loss of
+    ``x``'s tokens (``moe_parts``, ``aux_loss``)."""
+    y, stats = moe_parts(p, x, cfg, s_chunk)
+    return y, aux_loss(stats, cfg)

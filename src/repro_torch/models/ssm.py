@@ -37,6 +37,12 @@ class Mamba(nn.Module):
     config's dtype, and ``a_log (Din, N)`` (S4D-real) and ``d_skip`` in
     fp32."""
 
+    AXES = {"in_proj": ("w_embed", "inner"), "conv_w": (None, "inner"),
+            "conv_b": ("inner",), "x_proj": ("inner", None),
+            "dt_proj": (None, "inner"), "dt_bias": ("inner",),
+            "a_log": ("inner", None), "d_skip": ("inner",),
+            "out_proj": ("inner", "w_embed")}
+
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
         d = cfg.d_model

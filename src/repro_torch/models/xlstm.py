@@ -10,9 +10,11 @@ position at a time, as the reference's ``lax.scan`` does; its recurrent
 weights ``r_gates (4, H, dv, dv)`` are laid out as ``(H, dv, 4 dv)``, so
 that each step is one batched product over the heads: with gradients off
 from the buffer ``r_step`` (laid out again whenever ``r_gates`` was loaded
-or updated in place), with them on once per call, inside the graph. Only
-the reference's unsharded sLSTM scan is ported: its ``shard_map`` branch
-needs a mesh (ROADMAP Queue 1 item 11.4).
+or updated in place), with them on once per call, inside the graph. The
+reference's ``shard_map`` sLSTM over the batch axes is this scan on each
+data-parallel rank's rows, its ``r_gates`` gradient summed by the train
+step's all-reduce; its ``inner`` sharding over ``model`` is ROADMAP Queue 1
+item 11.4b.
 """
 
 from __future__ import annotations
@@ -69,6 +71,12 @@ class MLSTM(nn.Module):
     ``wv (d_in, d_in)``, ``norm``, ``down (d_in, d)`` in the config's
     dtype, and the gates ``w_if (d_in, 2H)`` and ``b_if`` (forget biases
     3..6) in fp32."""
+
+    AXES = {"up": ("w_embed", "inner"), "conv_w": (None, "inner"),
+            "conv_b": ("inner",), "wq": ("inner", None),
+            "wk": ("inner", None), "wv": ("inner", "inner"),
+            "w_if": ("inner", None), "b_if": (None,), "norm": ("inner",),
+            "down": ("inner", "w_embed")}
 
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
@@ -223,6 +231,11 @@ class SLSTM(nn.Module):
     ``r_gates`` in the step's layout for the no-grad path; it is made again
     whenever ``r_gates`` is loaded, or has been written in place (its
     version counter moved) since the last layout."""
+
+    AXES = {"up": ("w_embed", "inner"), "conv_w": (None, "inner"),
+            "conv_b": ("inner",), "w_gates": ("inner", "inner"),
+            "r_gates": (None, None, None, None), "b_gates": (None,),
+            "norm": ("inner",), "down": ("inner", "w_embed")}
 
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()

@@ -1,0 +1,194 @@
+"""Logical-axis sharding rules (the port of ``repro/parallel/sharding.py``).
+
+Model code names tensor axes logically (``"batch"``, ``"seq"``,
+``"embed"``, ``"heads"``, ``"expert"``, ...). A ``ShardingRules`` mapping,
+made by the decision nodes of ``repro_torch.parallel.strategies``, binds
+logical names to mesh axes (``repro_torch.launch.mesh.Mesh``). ``spec``
+gives the reference's ``PartitionSpec`` as a tuple (``None``, an axis name
+or a tuple of names per dimension, an axis used once), and ``sharding``
+the bound ``DeviceMesh``'s ``Shard``/``Replicate`` placements.
+
+What runs: a rank holds whole tensors, apart from the batch rows its data
+axes give it, so ``logical_shard`` only checks the rank. The batch split
+(data parallelism over ``data``, and ``pod`` in its data role) and the
+layer split over ``pod`` (``pp_rules``) run; ``require_executable`` refuses
+every rule set that shards another logical axis over a mesh axis larger
+than 1 (tensor, sequence and expert parallelism, ZeRO): that execution
+is ROADMAP item 11.4b.
+
+Canonical logical axes (as in the reference):
+
+  batch      global batch dim (DP: data (+pod))
+  seq        sequence dim (SP under seq_tp)
+  embed      d_model / residual stream (never sharded)
+  heads      attention query heads (TP under head_tp)
+  kv_heads   attention kv heads (TP when divisible)
+  qkv        per-head feature dim (never sharded)
+  mlp        FFN hidden dim (TP column/row)
+  expert     MoE expert dim (EP)
+  cap        MoE capacity dim
+  vocab      vocabulary dim (TP)
+  inner      SSM / xLSTM inner feature dim (TP)
+  state      SSM state dim (never sharded)
+  w_embed    a weight's d_model dim (ZeRO-3 over data)
+  layers     stacked repeats (PP over pod under pp_rules)
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import math
+from typing import Any, Mapping
+
+_RULES: contextvars.ContextVar["ShardingRules | None"] = \
+    contextvars.ContextVar("sharding_rules", default=None)
+
+# rule keys that are switches, not logical axes
+_FLAGS = ("moe_impl", "causal_skip", "kv_compress")
+
+
+class ShardingRules:
+    """Binds logical axis names to mesh axes (or None = replicated)."""
+
+    def __init__(self, mesh, rules: Mapping[str, Any]):
+        self.mesh = mesh
+        self.rules = dict(rules)
+
+    def spec(self, *logical_axes: str | None) -> tuple:
+        """One entry per dimension: ``None``, a mesh axis or a tuple of
+        them; a mesh axis already used by an earlier dimension drops out."""
+        parts: list = []
+        used: set[str] = set()
+        for ax in logical_axes:
+            phys = None if ax is None else self.rules.get(ax)
+            if phys is None:
+                parts.append(None)
+            elif isinstance(phys, (tuple, list)):
+                fresh = tuple(p for p in phys if p not in used)
+                used.update(fresh)
+                # one axis left stands alone, as in a PartitionSpec
+                parts.append(fresh[0] if len(fresh) == 1 else fresh or None)
+            elif phys in used:
+                parts.append(None)
+            else:
+                used.add(phys)
+                parts.append(phys)
+        return tuple(parts)
+
+    def sharding(self, *logical_axes: str | None):
+        """The placements (one per mesh axis: ``Shard(dim)`` or
+        ``Replicate()``) of a tensor with these logical axes on the mesh's
+        ``DeviceMesh``, or ``None`` without one."""
+        if self.mesh is None or getattr(self.mesh, "device_mesh", None) \
+                is None:
+            return None
+        from torch.distributed.tensor import Replicate, Shard
+        dims = {}
+        for dim, part in enumerate(self.spec(*logical_axes)):
+            for axis in (part if isinstance(part, tuple) else (part,)):
+                if axis is not None:
+                    dims[axis] = dim
+        return tuple(Shard(dims[a]) if a in dims else Replicate()
+                     for a in self.mesh.axis_names)
+
+    def axis_size(self, logical: str) -> int:
+        """Number of shards a logical axis is split into."""
+        if self.mesh is None:
+            return 1
+        phys = self.rules.get(logical)
+        if phys is None:
+            return 1
+        if isinstance(phys, (tuple, list)):
+            return int(math.prod(self.mesh.shape[p] for p in phys))
+        return int(self.mesh.shape[phys])
+
+
+@contextlib.contextmanager
+def use_rules(rules: ShardingRules | None):
+    token = _RULES.set(rules)
+    try:
+        yield rules
+    finally:
+        _RULES.reset(token)
+
+
+def current_rules() -> ShardingRules | None:
+    return _RULES.get()
+
+
+def batch_group():
+    """The process group over the mesh axes the current rules split the
+    batch over, or ``None`` when no rule splits it over more than one
+    rank (no rules, no mesh, or batch axes of size 1)."""
+    rules = _RULES.get()
+    if rules is None or rules.mesh is None or rules.axis_size("batch") == 1:
+        return None
+    return rules.mesh.group(rules.rules["batch"])
+
+
+def logical_shard(x, *logical_axes: str | None):
+    """The reference's sharding constraint: here only its rank check. Every
+    tensor a rank holds is already its local shard."""
+    rules = _RULES.get()
+    if rules is not None and rules.mesh is not None \
+            and x.dim() != len(logical_axes):
+        raise ValueError(
+            f"rank mismatch: {tuple(x.shape)} vs logical axes {logical_axes}")
+    return x
+
+
+def pad_to_multiple(n: int, multiple: int) -> int:
+    return int(math.ceil(n / multiple) * multiple)
+
+
+def divisible(n: int, logical: str) -> bool:
+    rules = _RULES.get()
+    if rules is None:
+        return True
+    return n % rules.axis_size(logical) == 0
+
+
+def _is_axes(v) -> bool:
+    return isinstance(v, tuple) and all(isinstance(a, (str, type(None)))
+                                        for a in v)
+
+
+def make_param_sharding(rules: ShardingRules, logical_tree) -> Any:
+    """Map a tree (dicts, lists and tuples) of logical-axis tuples to
+    their placements (``ShardingRules.sharding``)."""
+    if _is_axes(logical_tree):
+        return rules.sharding(*logical_tree)
+    if isinstance(logical_tree, dict):
+        return {k: make_param_sharding(rules, v)
+                for k, v in logical_tree.items()}
+    return type(logical_tree)(make_param_sharding(rules, v)
+                              for v in logical_tree)
+
+
+def require_executable(rules: ShardingRules | None,
+                       pipeline: bool = False) -> None:
+    """Refuse a rule set this port cannot run yet: any logical axis other
+    than ``batch`` (and ``layers``, with ``pipeline``) mapped to mesh axes
+    of more than one rank, or the MoE all-to-all over a ``model`` axis
+    larger than 1. Raises ``NotImplementedError`` naming ROADMAP item
+    11.4b."""
+    if rules is None or rules.mesh is None:
+        return
+    allowed = ("batch", "layers") if pipeline else ("batch",)
+    wide = {}
+    for logical, phys in rules.rules.items():
+        if logical in _FLAGS or logical in allowed or phys is None:
+            continue
+        axes = tuple(phys) if isinstance(phys, (tuple, list)) else (phys,)
+        size = math.prod(int(rules.mesh.shape[a]) for a in axes)
+        if size > 1:
+            wide[logical] = phys
+    if rules.rules.get("moe_impl") == "shard_map_a2a" \
+            and int(rules.mesh.shape.get("model", 1)) > 1:
+        wide["moe_impl"] = "shard_map_a2a"
+    if wide:
+        raise NotImplementedError(
+            f"these rules shard {wide} over mesh axes larger than 1: tensor, "
+            f"sequence and expert parallelism and ZeRO wait for ROADMAP "
+            f"Queue 1 item 11.4b")

@@ -1,11 +1,14 @@
-"""Training of the port: the AdamW optimizer, the chunked cross-entropy and
-the train-step builder (the port of ``repro/training``; the optimizer
-state's sharding, ``opt_state_axes``, waits for a mesh)."""
+"""Training of the port: the AdamW optimizer (and its state's logical
+axes, ``opt_state_axes``), the chunked cross-entropy and the train-step
+builder, data-parallel over the batch axes of the sharding rules it is
+given (the port of ``repro/training``; the GPipe step over ``pod`` is
+``repro_torch.parallel.pipeline``'s)."""
 
 from repro_torch.training.optimizer import (  # noqa: F401
     apply_updates,
     init_opt_state,
     lr_schedule,
+    opt_state_axes,
 )
 from repro_torch.training.losses import chunked_cross_entropy  # noqa: F401
 from repro_torch.training.train_step import (  # noqa: F401

@@ -17,6 +17,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.config import ModelConfig
 from repro_torch.models.layers import Embedding
 
+# At most this many rows of fp32 logits (and their gradient) exist at once,
+# whatever the batch: at B=32 and a 128,256-word vocabulary, 512 positions
+# would be 8.4 GB of logits.
+_MAX_LOGIT_ROWS = 2048
+
 
 def _chunk_terms(hc: torch.Tensor, lc: torch.Tensor, table: torch.Tensor,
                  vocab: int):
@@ -35,15 +40,18 @@ def _chunk_terms(hc: torch.Tensor, lc: torch.Tensor, table: torch.Tensor,
 
 def chunked_cross_entropy(embed: Embedding, h: torch.Tensor,
                           labels: torch.Tensor, cfg: ModelConfig,
-                          chunk: int = 512
+                          chunk: int = 512, total_count=None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """``h (B, S, D)`` final hidden states, ``labels (B, S)`` int (-1 =
     masked) -> ``(mean loss, token count)``, both fp32 scalars. The chunk is
-    the largest divisor of ``S`` not above ``chunk`` (a VLM's text span
-    need not be a multiple of 512)."""
-    s = h.shape[1]
+    the largest divisor of ``S`` not above ``chunk`` nor above
+    ``_MAX_LOGIT_ROWS / B`` (a VLM's text span need not be a multiple of
+    512). With ``total_count`` (a data-parallel
+    rank's rows of a batch of that many tokens) the sum is divided by it:
+    the rank's share of the whole batch's mean."""
+    b, s = h.shape[:2]
     table = embed.table.T if embed.unembed is None else embed.unembed
-    chunk = min(chunk, s)
+    chunk = min(chunk, max(1, _MAX_LOGIT_ROWS // b), s)
     while s % chunk:
         chunk -= 1
     total = h.new_zeros((), dtype=torch.float32)
@@ -54,4 +62,6 @@ def chunked_cross_entropy(embed: Embedding, h: torch.Tensor,
                              use_reentrant=False)
         total = total + part
         count = count + n
-    return total / count.clamp(min=1.0), count
+    denom = count if total_count is None else torch.as_tensor(
+        total_count, dtype=torch.float32, device=h.device)
+    return total / denom.clamp(min=1.0), count

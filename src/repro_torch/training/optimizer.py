@@ -6,15 +6,15 @@ fp32 tensors on the parameters' device, ``step`` a device int32 scalar.
 ``apply_updates`` does the math in fp32 whatever the parameters' dtype and
 writes the parameters in place from the master copy. The learning rate,
 the norm and the clip scale stay device tensors, so a step makes no host
-sync unless its caller reads a metric. The reference's ``opt_state_axes``
-(the state's sharding) waits for ``parallel/`` (ROADMAP Queue 1 item
-11.4).
+sync unless its caller reads a metric. ``opt_state_axes`` gives the state's
+logical axes (those of the parameters), as in the reference.
 """
 
 from __future__ import annotations
 
+import copy
 import math
-from typing import Mapping
+from typing import Any, Mapping
 
 import torch
 
@@ -35,6 +35,13 @@ def init_opt_state(params: Mapping[str, torch.Tensor]) -> dict:
             "v": {k: torch.zeros(p.shape, dtype=torch.float32,
                                  device=p.device) for k, p in params.items()},
         }
+
+
+def opt_state_axes(param_axes: Any) -> dict:
+    """Logical axes for the optimizer state (same sharding as params):
+    ``param_axes`` is ``repro_torch.models.convert.param_axes``'s tree."""
+    return {"step": (), "master": copy.deepcopy(param_axes),
+            "m": copy.deepcopy(param_axes), "v": copy.deepcopy(param_axes)}
 
 
 def lr_schedule(cfg: OptimizerConfig, step, total_steps: int = 10000
@@ -59,16 +66,20 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
 @torch.no_grad()
 def apply_updates(params: Mapping[str, torch.Tensor],
                   grads: Mapping[str, torch.Tensor], state: dict,
-                  cfg: OptimizerConfig, total_steps: int = 10000
+                  cfg: OptimizerConfig, total_steps: int = 10000,
+                  gnorm: torch.Tensor | None = None
                   ) -> tuple[Mapping[str, torch.Tensor], dict, dict]:
     """One AdamW step. ``grads`` (any float dtype) are keyed as ``params``;
     the math is fp32. Updates ``state`` and writes every parameter in place
     from its new master copy; returns ``(params, state, {"grad_norm": the
     pre-clip norm, "lr"})``. Weight decay applies to matrices only
-    (``ndim >= 2``)."""
+    (``ndim >= 2``). ``gnorm``, where given, is the norm to clip by (a
+    pipeline stage holds part of the gradient tree; the norm is the
+    whole tree's)."""
     step = state["step"] + 1
     lr = lr_schedule(cfg, step, total_steps)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.where(gnorm > cfg.grad_clip,
                         cfg.grad_clip / (gnorm + 1e-9),
                         torch.ones_like(gnorm))

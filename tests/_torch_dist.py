@@ -1,0 +1,214 @@
+"""Shared by the port's multi-rank tests (``test_torch_collectives.py``,
+``test_torch_data_parallel.py``, ``test_torch_pp.py``): spawn ``gloo``
+ranks on the CPU and collect what each returns.
+
+``run_ranks(fn, world, tmp_path, *args)`` starts ``world`` processes with
+``torch.multiprocessing.spawn``; each sets ``torch.set_num_threads(1)``,
+joins the process group through a ``file://`` rendezvous under
+``tmp_path`` (so parallel test workers never share a port), calls
+``fn(rank, world, *args)`` and pickles its result next to the rendezvous.
+A rank that raises fails the spawn. ``fn`` must live in a module the
+children can import without JAX: the rank bodies are here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import pickle
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+SEQ, BATCH = 32, 4
+Q_CHUNK, SSM_CHUNK = 16, 8
+
+
+def _child(rank, world, root, device, fn, args):
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import init_distributed
+    init_distributed(rank, world, f"file://{root}/rendezvous", device)
+    try:
+        out = fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{root}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_ranks(fn, world: int, tmp_path, *args, device: str = "cpu") -> list:
+    root = tmp_path / f"ranks{world}_{fn.__name__}"
+    root.mkdir()
+    mp.spawn(_child, args=(world, str(root), device, fn, args),
+             nprocs=world, join=True)
+    out = []
+    for r in range(world):
+        with open(root / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+# -- the model, its batch and the single-rank step -----------------------------
+
+
+def smoke(arch: str):
+    """The port's smoke config of ``arch`` in fp32."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+
+
+def model_of(cfg, device: str = "cpu"):
+    """The port's model with weights from seed 0 (a generator on
+    ``device``), gradients on."""
+    from repro_torch.models import init_lm
+    from repro_torch.training import init_train_state
+    gen = torch.Generator(device=device).manual_seed(0)
+    return init_train_state(cfg, init_lm(cfg, gen, device))
+
+
+def batch_of(cfg, mask_rows: int = 0) -> dict:
+    """Batch 0 of ``SyntheticSource(seed=3)`` at ``BATCH`` x ``SEQ``; with
+    ``mask_rows``, the first that many rows keep a quarter of their labels
+    (so ranks' token counts differ)."""
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.data import SyntheticSource
+    shape = ShapeConfig("t", SEQ, BATCH, "train")
+    batch = SyntheticSource(cfg, shape, seed=3).batch(0)
+    labels = batch["labels"]
+    labels[:mask_rows, labels.shape[1] // 4:] = -1
+    return batch
+
+
+def params_np(model) -> dict:
+    return {k: p.detach().cpu().numpy().copy()
+            for k, p in model.named_parameters()}
+
+
+def step_result(step, state, batch) -> dict:
+    """One step's loss, metrics, gradients (before the update) and the
+    updated parameters, as numpy."""
+    loss, metrics, grads = step.grad_step(state["params"], batch)
+    state, out = step(state, batch)
+    return {"loss": float(loss),
+            "metrics": {k: float(v) for k, v in out.items()},
+            "aux": float(metrics["aux"]), "ce": float(metrics["ce"]),
+            "tokens": float(metrics["tokens"]),
+            "grads": {k: g.cpu().numpy().copy() for k, g in grads.items()},
+            "params": params_np(state["params"])}
+
+
+def single_rank(arch: str, microbatches: int = 1, mask_rows: int = 0,
+                device: str = "cpu") -> dict:
+    """The port's step on the whole batch, no mesh."""
+    from repro_torch.core.config import OptimizerConfig, ParallelConfig
+    from repro_torch.core.config import ShapeConfig
+    from repro_torch.training import make_train_step
+    cfg = smoke(arch)
+    shape = ShapeConfig("t", SEQ, BATCH, "train")
+    step = make_train_step(cfg, shape, OptimizerConfig(), ParallelConfig(
+        remat="block", microbatches=microbatches), q_chunk=Q_CHUNK,
+        ssm_chunk=SSM_CHUNK)
+    return step_result(step, model_of(cfg, device), batch_of(cfg, mask_rows))
+
+
+# -- rank bodies ---------------------------------------------------------------
+
+
+def dp_rank(rank, world, cases, device="cpu"):
+    """Each ``(arch, microbatches, mask_rows)`` case's data-parallel step
+    over a ``data=world, model=1`` mesh under the planner's rules, with the
+    model on ``device``."""
+    from repro_torch.core.config import (OptimizerConfig, ParallelConfig,
+                                         ShapeConfig)
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.convert import param_axes
+    from repro_torch.parallel.sharding import make_param_sharding
+    from repro_torch.parallel.strategies import make_rules, plan_cell
+    from repro_torch.training import make_train_step
+    mesh = make_smoke_mesh(model=1)
+    shape = ShapeConfig("t", SEQ, BATCH, "train")
+    out = {}
+    for arch, microbatches, mask_rows in cases:
+        cfg = smoke(arch)
+        pc = plan_cell(cfg, shape, mesh, ParallelConfig(
+            remat="block", microbatches=microbatches, fsdp="off"))
+        rules = make_rules(mesh, cfg, shape, pc)
+        step = make_train_step(cfg, shape, OptimizerConfig(), pc,
+                               q_chunk=Q_CHUNK, ssm_chunk=SSM_CHUNK,
+                               rules=rules)
+        res = step_result(step, model_of(cfg, device),
+                          batch_of(cfg, mask_rows))
+        res["batch_rule"] = rules.rules["batch"]
+        res["index"] = mesh.axes_index(rules.rules["batch"])
+        res["placements"] = str(rules.sharding("batch", None, "vocab"))
+        res["param_placements"] = str(make_param_sharding(
+            rules, param_axes(cfg))["embed"]["table"])
+        out[(arch, microbatches, mask_rows)] = res
+    return out
+
+
+def compressed_rank(rank, world, shapes, seed, device="cpu"):
+    """``compressed_allreduce`` and the exact sum of per-rank fp32 arrays
+    drawn from ``seed + rank`` (on ``device``), and the codes of the first
+    quantization."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel import collectives as C
+    mesh = Mesh({"data": world})
+    group = mesh.group("data")
+    out = []
+    for shape in shapes:
+        x = np.random.default_rng(seed + rank).standard_normal(shape) \
+            .astype(np.float32) * (1.0 + rank)
+        t = torch.from_numpy(x).to(device)
+        got = C.compressed_allreduce(t, group).cpu()
+        exact = C.all_reduce_(t.clone(), group).cpu()
+        flat = np.pad(x.reshape(-1), (0, (-x.size) % world)).reshape(world, -1)
+        q, scale = C._quantize(torch.from_numpy(flat))
+        out.append({"x": x, "got": got.numpy(), "exact": exact.numpy(),
+                    "q": q.numpy(), "scale": float(scale)})
+    return out
+
+
+def grad_mean_rank(rank, world, seed):
+    """``make_compressed_grad_allreduce`` over ``data`` of a mapping of
+    per-rank gradients, and the exact mean."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel import collectives as C
+    mesh = Mesh({"data": world, "model": 1})
+    rng = np.random.default_rng(seed + rank)
+    grads = {"w": torch.from_numpy(rng.standard_normal((8, 5)).astype(
+        np.float32)), "b": torch.from_numpy(rng.standard_normal(7).astype(
+            np.float32))}
+    got = C.make_compressed_grad_allreduce(mesh, "data")(grads)
+    exact = {k: C.all_reduce_(g.clone(), mesh.group("data")) / world
+             for k, g in grads.items()}
+    return {k: (got[k].numpy(), exact[k].numpy()) for k in grads}
+
+
+def pp_rank(rank, world, arch, microbatches, data):
+    """The GPipe step over ``pod = world // data`` stages (and ``data``
+    ranks): loss, each owned leaf's gradient, the updated parameters."""
+    from repro_torch.core.config import (OptimizerConfig, ParallelConfig,
+                                         ShapeConfig)
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.pipeline import (init_pp_train_state,
+                                               make_pp_train_step, pp_rules)
+    from repro_torch.parallel.sharding import ShardingRules
+    cfg = smoke(arch)
+    shape = ShapeConfig("t", SEQ, BATCH, "train")
+    mesh = Mesh({"pod": world // data, "data": data, "model": 1})
+    rules = pp_rules(ShardingRules(mesh, {"batch": ("pod", "data")}))
+    pc = ParallelConfig(remat="block", microbatches=microbatches)
+    step = make_pp_train_step(cfg, shape, OptimizerConfig(), pc, rules,
+                              q_chunk=Q_CHUNK)
+    state = init_pp_train_state(cfg, model_of(cfg)["params"], mesh)
+    names = list(state["opt"]["master"])
+    _, grads, _ = step.grad_step(state["params"], batch_of(cfg), names)
+    state, metrics = step(state, batch_of(cfg))
+    named = dict(state["params"].named_parameters())
+    return {"loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "names": names, "stage": mesh.coordinate()["pod"],
+            "grads": {k: g.numpy().copy() for k, g in grads.items()},
+            "params": {k: named[k].detach().numpy().copy() for k in names}}

@@ -1,6 +1,7 @@
-"""Shared by ``test_torch_training.py`` and ``test_torch_train_families.py``:
-one train step of the PyTorch port held against the JAX reference's on the
-same weights and batch.
+"""Shared by ``test_torch_training.py``, ``test_torch_train_families.py``,
+``test_torch_data_parallel.py`` and ``test_torch_pp.py``: one train step of
+the PyTorch port held against the JAX reference's on the same weights and
+batch.
 
 Both packages run an fp32 smoke config. The reference's weights come from
 its ``init_lm`` and are carried across with ``params_from_numpy``; its
@@ -22,8 +23,11 @@ import repro.models.lm as jlm
 from repro.configs import get_config as jconfig
 from repro.core.config import OptimizerConfig as JOptimizerConfig
 from repro.core.config import ParallelConfig as JParallelConfig
+from repro.core.config import ShapeConfig as JShapeConfig
 from repro.training import apply_updates as japply_updates
 from repro.training import init_opt_state as jinit_opt_state
+from repro.training import init_train_state as jinit_train_state
+from repro.training import make_train_step as jmake_train_step
 from repro.training.train_step import _loss_fn as jloss_fn
 from repro_torch.configs import get_config as tconfig
 from repro_torch.core.config import OptimizerConfig, ParallelConfig, \
@@ -120,3 +124,40 @@ def check_train_step(arch: str) -> dict:
         np.testing.assert_allclose(new[path], np.asarray(p), atol=PARAM_ATOL,
                                    err_msg=path)
     return got
+
+
+
+def port_named(tree, tcfg) -> dict:
+    """A reference-layout tree as ``{port parameter name: numpy array}``."""
+    model = params_from_numpy(jax.tree.map(np.asarray, tree), tcfg, "cpu")
+    return {k: p.detach().numpy().copy()
+            for k, p in model.named_parameters()}
+
+
+def reference_whole_batch_step(arch: str, model, batch: dict,
+                               microbatches: int = 1) -> dict:
+    """The reference's ``make_train_step`` on the whole ``batch`` from the
+    weights of the port's ``model`` (an ``LM``): its loss and metrics, its
+    gradients (the mean of its microbatches', as its step accumulates
+    them) and its updated parameters, the trees keyed by the port's
+    parameter names. What a data-parallel or pipelined step of the port
+    must give on every rank."""
+    jcfg, tcfg = configs(arch)
+    params = jax.tree.map(jnp.asarray, params_to_numpy(model, tcfg))
+    rows = batch["labels"].shape[0]
+    shape = JShapeConfig("t", batch["labels"].shape[1], rows, "train")
+    pc = JParallelConfig(remat="none", microbatches=microbatches)
+    step = jax.jit(jmake_train_step(jcfg, shape, JOptimizerConfig(), pc,
+                                    q_chunk=Q_CHUNK, ssm_chunk=SSM_CHUNK))
+    state, metrics = step(jinit_train_state(jcfg, params),
+                          {k: jnp.asarray(v) for k, v in batch.items()})
+    grad_fn = jax.jit(jax.grad(
+        lambda p, b: jloss_fn(p, b, jcfg, pc, Q_CHUNK, SSM_CHUNK)[0]))
+    n = rows // microbatches
+    grads = [grad_fn(params, {k: jnp.asarray(v[i * n:(i + 1) * n])
+                              for k, v in batch.items()})
+             for i in range(microbatches)]
+    grads = jax.tree.map(lambda *g: sum(g) / microbatches, *grads)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": port_named(grads, tcfg),
+            "params": port_named(state["params"], tcfg)}

@@ -1073,3 +1073,52 @@ def test_cuda_train_step_matches_cpu(cuda_device, arch):
         np.testing.assert_allclose(q.detach().cpu().numpy(),
                                    p.detach().numpy(), atol=5e-3,
                                    err_msg=name)
+
+
+# -- collectives and data parallelism on the card ------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_compressed_allreduce_one_rank(cuda_device, tmp_path):
+    """The int8 all-reduce on CUDA tensors in a one-rank ``nccl`` group:
+    the two quantizations only (their numpy model within 1e-6 of the
+    largest magnitude), and the exact all-reduce the identity."""
+    from _torch_dist import compressed_rank, run_ranks
+
+    (out,) = run_ranks(compressed_rank, 1, tmp_path, [(257,), (64, 33)], 5,
+                       "cuda", device="cuda")
+    for o in out:
+        x = o["x"].reshape(1, -1)
+        s = np.float32(np.abs(x).max() / 127.0)
+        q = np.clip(np.round(x / s), -127, 127)
+        y = q.astype(np.float32) * s
+        s2 = np.float32(np.abs(y).max() / 127.0)
+        want = (np.clip(np.round(y / s2), -127, 127) * s2).reshape(
+            o["x"].shape)
+        assert np.abs(o["got"] - want).max() <= 1e-6 * np.abs(want).max()
+        np.testing.assert_array_equal(o["exact"], o["x"])
+
+
+@pytest.mark.cuda
+def test_cuda_dp_step_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
+    """Two ``gloo`` ranks share the card (their all-reduces staged through
+    host memory): granite's fp32 smoke step against the one-rank step on
+    the card on the whole batch, loss and aux within 1e-5 relative, every
+    gradient leaf within 1e-4 of its largest magnitude, replicas bit-equal
+    after the update."""
+    import _torch_dist as D
+
+    case = ("granite-moe-1b-a400m", 1, 0)
+    ranks = D.run_ranks(D.dp_rank, 2, tmp_path, [case], "cuda",
+                        device="cuda")
+    ref = D.single_rank(*case, device="cuda")
+    outs = [r[case] for r in ranks]
+    for o in outs:
+        assert o["loss"] == pytest.approx(ref["loss"], rel=1e-5)
+        assert o["aux"] == pytest.approx(ref["aux"], rel=1e-5)
+        for k, g in ref["grads"].items():
+            err = np.abs(o["grads"][k] - g).max() / max(np.abs(g).max(),
+                                                        1e-30)
+            assert err <= 1e-4, (k, err)
+    for k, p in outs[0]["params"].items():
+        assert np.array_equal(outs[1]["params"][k], p), k
