@@ -122,7 +122,8 @@
    planner's): one untimed and two timed steps, K4 and K4b counted,
    every loss and norm finite, peak memory printed beside the plan's
    estimate, the plan's budget (``TRAIN_HBM_SHARE`` of the card's
-   memory) and the card's memory. ``dp_granite_moe_1b_a400m`` spawns
+   memory) and the card's memory; the peak must lie under the budget.
+   ``dp_granite_moe_1b_a400m`` spawns
    two ranks that share the card through ``gloo`` (a ``file://``
    rendezvous; ``data=2, model=1``), each planning the cell, taking 2 of
    the train phases' 4 x 1024 rows and running one untimed and two timed
@@ -134,7 +135,33 @@
    it; and the
    int8 all-reduce of each rank's gradients within 0.02 of each leaf's
    largest magnitude of the exact one, the ranks agreeing to 1e-6.
-   K2, K4 and K4b are then held at the shapes these phases added.
+   Then tensor, sequence and ZeRO-3 parallelism, each phase two ranks
+   that share the card through ``gloo`` (any rank's failure fails the
+   run), each printing its step or decode ms, its collectives' calls,
+   bytes and ms by kind, each rank's peak and its launches:
+   ``tp_train_llama3_2_3b``: llama at full width cut to 8 of its 28
+   layers (two ranks' weights, AdamW state and fp32 accumulators share
+   80 GB), the train phases' batch, ``data=1, model=2``: one step under
+   ``seq_tp`` with ``mlp=model`` and one under ``mlp_seq`` with the int8
+   KV wire (``kv_compress``), each held against the unsharded step on the
+   same weights (loss and grad norm within 1e-2, the leaves each rank holds
+   whole bit-equal across the ranks, the updated weights gathered within
+   2 lr + 2^-7 of each leaf's largest weight, ``tp_param_bound``); K4 and
+   K4b at query offsets 0 and 512 against 1024 keys.
+   ``tp_decode_llama3_2_3b``: llama at its published config, four prompts
+   of 64-512 tokens padded to 512, prefilled under ``seq_tp`` and decoded
+   32 greedy steps under ``decode_kv_shard`` (heads, kv heads, ``mlp``,
+   vocab and the cache's sequence over ``model``; K5 with its
+   log-sum-exp on each rank's half of the cache), fed one rank's tokens
+   and held to its logits (within 0.15, the argmax where its top two lie
+   more than 0.3 apart). ``zero3_train_llama3_2_3b``: the 8-layer llama
+   under ``pure_dp`` on ``data=2`` (``w_embed`` over both ranks), one
+   step, and one under ``zero2`` with ``regather`` at 2 microbatches, each
+   held against the unsharded step at the same microbatch count (loss and
+   grad norm within 1e-2, each rank's slice of the fp32 master weights
+   within 2 lr of the same slice). Then K4 and K4b at a query offset and
+   K5 with its log-sum-exp are timed beside their default calls.
+   K2, K4, K4b and K5 are then held at the shapes these phases added.
 7. Profiles jamba and xlstm (the models of step 8, on the weights made
    from the same seed) the same way, outside the counted runs, with the
    shares of the Mamba scan, the Mamba decode step and the sLSTM loop,
@@ -267,6 +294,33 @@ TRAIN_STEPS = {SERVE_ARCH: 4, MOE_ARCH: 3}
 # two microbatches against one batch: the same mean over equal token
 # counts, in another order of bf16 sums
 MB_LOSS_RTOL = 1e-2
+# the tensor, sequence and ZeRO-3 phases: TP_RANKS gloo ranks sharing the
+# card. Training: llama at full width cut to TP_LAYERS of its 28 layers
+# (two ranks' weights, AdamW state and fp32 accumulators share one card's
+# 80 GB), the train phases' batch, one step a variant, held to the
+# unsharded step within TP_RTOL (bf16 sums in other orders). Decoding:
+# llama at its published config, TP_PROMPT_LENGTHS prompts padded to the
+# longest, TP_DECODE_STEPS steps into a cache of TP_MAX_SEQ positions
+# split along its sequence; logits held to one rank's within LOGIT_TOL,
+# the argmax where one rank's top two lie more than TP_MARGIN apart (the
+# serve bound of PERF.md section 2)
+TP_RANKS, TP_LAYERS, TP_RTOL = 2, 8, 1e-2
+TP_TRAIN_VARIANTS = {
+    "seq_tp_mlp": dict(attn_strategy="seq_tp", mlp_mode="tp",
+                       kv_compress=False, fsdp="off", layout="tp",
+                       remat="block"),
+    "seq_tp_mlp_seq_int8": dict(attn_strategy="seq_tp", mlp_mode="seq",
+                                kv_compress=True, fsdp="off", layout="tp",
+                                remat="block")}
+ZERO_VARIANTS = {
+    "zero3": (dict(layout="pure_dp", attn_strategy="replicated",
+                   fsdp="off", remat="block"), None),
+    "zero2_regather_mb2": (dict(layout="pure_dp",
+                                attn_strategy="replicated", fsdp="off",
+                                remat="block", zero2=True,
+                                microbatches=2), True)}
+TP_PROMPT_LENGTHS = (64, 192, 320, 512)
+TP_MAX_SEQ, TP_DECODE_STEPS, TP_MARGIN = 1024, 32, 0.3
 # the planned train phase: llama3.2-3b at 64 x 1024 tokens on this card,
 # its microbatch count the planner's
 PLAN_TRAIN_SHAPE = ("card_b64_s1024", 1024, 64)
@@ -867,28 +921,35 @@ def _held_close(got, want, dtype_name: str, what: str) -> float:
     return err
 
 
+def _offset(shape) -> tuple[int, int]:
+    """``(S_k, q_offset)`` of a K4 / K4b shape: the fields after the route,
+    or the query rows and 0."""
+    return tuple(shape[8:10]) if len(shape) > 8 else (shape[1], 0)
+
+
 def hold_k4(dev, gen, shape) -> float:
-    """K4 at ``shape`` ``(B, S, H, K, hd, dtype, causal, route)`` within
-    its tolerance of its plain version, on the route named; returns the
-    max |err|."""
+    """K4 at ``shape`` ``(B, S, H, K, hd, dtype, causal, route[, S_k,
+    q_offset])`` within its tolerance of its plain version, on the route
+    named; returns the max |err|."""
     from repro_torch.kernels import attention as A, ref
-    b, s, h, kh, hd, dt, causal, route = shape
+    b, s, h, kh, hd, dt, causal, route = shape[:8]
+    s_k, off = _offset(shape)
     q = _randn(gen, (b, s, h, hd), dt, dev)
-    k, v = (_randn(gen, (b, s, kh, hd), dt, dev) for _ in range(2))
+    k, v = (_randn(gen, (b, s_k, kh, hd), dt, dev) for _ in range(2))
     A.SHAPES["flash_attention"].clear()
-    out = A.flash_attention(q, k, v, causal)
+    out = A.flash_attention(q, k, v, causal, off)
     err = _held_close(
-        out, ref.flash_attention_ref(q, k, v, causal), dt,
+        out, ref.flash_attention_ref(q, k, v, causal, off), dt,
         f"K4 differs from its plain version at B={b} S={s} H={h} K={kh}"
-        f" hd={hd} {dt} causal={causal}")
+        f" hd={hd} {dt} causal={causal} S_k={s_k} q_offset={off}")
     # the training forward's call: the same output, and each row's lse
-    out2, lse = A.flash_attention_with_lse(q, k, v, causal)
-    lse_err = float((lse - ref.flash_attention_lse_ref(q, k, v, causal))
+    out2, lse = A.flash_attention_with_lse(q, k, v, causal, off)
+    lse_err = float((lse - ref.flash_attention_lse_ref(q, k, v, causal, off))
                     .abs().max())
     require(bits_equal(out, out2) and lse_err <= LSE_TOL,
             f"K4 with lse at {shape}: output bit-equal "
             f"{bits_equal(out, out2)}, lse max |err| {lse_err} > {LSE_TOL}")
-    took = [sh[-1] for sh in A.SHAPES["flash_attention"]]
+    took = [sh[7] for sh in A.SHAPES["flash_attention"]]
     require(took == [route], f"K4 took {took}, expected {route}")
     return err
 
@@ -960,19 +1021,32 @@ def _k5_case(dev, gen, shape, length):
 
 
 def hold_k5(dev, gen, shape) -> float:
-    """K5 at ``shape`` ``(B, H, S, K, hd, dtype)``, random lengths with 1
-    and S among them, within its tolerance of its plain version; returns
-    the max |err|."""
+    """K5 at ``shape`` ``(B, H, S, K, hd, dtype[, "lse"])``, random lengths
+    with 1 and S among them (and 0 where it writes its log-sum-exp), within
+    its tolerance of its plain version, the log-sum-exp within
+    ``LSE_TOL``; returns the max |err|."""
     import torch
     from repro_torch.kernels import attention as A, ref
-    b, h, s, kh, hd, dt = shape
+    b, h, s, kh, hd, dt = shape[:6]
+    with_lse = shape[6:] == ("lse",)
     length = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
     length[0], length[-1] = 1, s
-    args = _k5_case(dev, gen, shape, length)
-    return _held_close(
-        A.decode_attention(*args), ref.decode_attention_ref(*args), dt,
-        f"K5 differs from its plain version at B={b} H={h} S={s} K={kh}"
-        f" hd={hd} {dt}")
+    if with_lse and b > 2:
+        length[1] = 0
+    args = _k5_case(dev, gen, shape[:6], length)
+    what = (f"K5 differs from its plain version at B={b} H={h} S={s} K={kh}"
+            f" hd={hd} {dt} lse={with_lse}")
+    if not with_lse:
+        return _held_close(A.decode_attention(*args),
+                           ref.decode_attention_ref(*args), dt, what)
+    out, lse = A.decode_attention(*args, return_lse=True)
+    want, want_lse = ref.decode_attention_ref(*args, return_lse=True)
+    valid = length > 0
+    lse_err = float((lse[valid] - want_lse[valid]).abs().max())
+    require(bool(torch.isneginf(lse[~valid]).all()) and lse_err <= LSE_TOL,
+            f"{what}: lse max |err| {lse_err} > {LSE_TOL}, or not -inf at "
+            f"length 0")
+    return _held_close(out, want, dt, what)
 
 
 def check_k5(dev, gen, main_shapes, lengths) -> dict:
@@ -2305,16 +2379,18 @@ def recurrent_profiles(dev, cfg, name: str, card: str) -> None:
 
 
 def _k4b_case(dev, gen, shape):
-    """K4b's inputs at ``(B, S, H, K, hd, dtype, causal[, route])``: random
-    q, k, v and d_out, and ``out`` and each row's ``lse`` from one K4 call,
-    as the training forward saves them: ``(q, k, v, out, d_out, causal,
-    lse)``, the autograd backward's call."""
+    """K4b's inputs at ``(B, S, H, K, hd, dtype, causal[, route[, S_k,
+    q_offset]])``: random q, k, v and d_out, and ``out`` and each row's
+    ``lse`` from one K4 call, as the training forward saves them: ``(q, k,
+    v, out, d_out, causal, lse, q_offset)``, the autograd backward's
+    call."""
     from repro_torch.kernels import attention as A
     b, s, h, kh, hd, dt, causal = shape[:7]
+    s_k, off = _offset(shape)
     q, d_out = (_randn(gen, (b, s, h, hd), dt, dev) for _ in range(2))
-    k, v = (_randn(gen, (b, s, kh, hd), dt, dev) for _ in range(2))
-    out, lse = A.flash_attention_with_lse(q, k, v, causal)
-    return q, k, v, out, d_out, causal, lse
+    k, v = (_randn(gen, (b, s_k, kh, hd), dt, dev) for _ in range(2))
+    out, lse = A.flash_attention_with_lse(q, k, v, causal, off)
+    return q, k, v, out, d_out, causal, lse, off
 
 
 def hold_k4b(dev, gen, shape) -> tuple[float, float]:
@@ -2327,13 +2403,13 @@ def hold_k4b(dev, gen, shape) -> tuple[float, float]:
     args = _k4b_case(dev, gen, shape)
     A.SHAPES["flash_attention_bwd"].clear()
     got = A.flash_attention_bwd(*args)
-    took = [sh[-1] for sh in A.SHAPES["flash_attention_bwd"]]
+    took = [sh[7] for sh in A.SHAPES["flash_attention_bwd"]]
     require(len(shape) < 8 or took == [shape[7]],
             f"K4b took {took} at {shape}")
     again = A.flash_attention_bwd(*args)
     require(all(bits_equal(a, b) for a, b in zip(got, again)),
             f"K4b's gradients at {shape} differ between two calls")
-    want = ref.flash_attention_bwd_ref(*args[:6])
+    want = ref.flash_attention_bwd_ref(*args[:6], q_offset=args[7])
     err, rel = 0.0, 0.0
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         require(g.shape == w.shape and g.dtype == w.dtype,
@@ -2414,7 +2490,7 @@ def check_k4b(dev, gen, main_shapes, card: str) -> dict:
                  lambda: ref.flash_attention_bwd_ref(*args[:6])),
              "library_ms": median_ms(lib), "library_device_ms": device_ms(lib),
              "bound_ms": bnd, "bound_by": by, "rel_err": rel}
-        b, s, h, kh, hd, dt, causal, route = shape
+        b, s, h, kh, hd, dt, causal, route = shape[:8]
         earlier = (f", {K4B_EARLIER_MS} device ms on the CUDA cores before"
                    if shape == cases[0] else "")
         print(f"kernel flash_attention_bwd (B={b} S={s} H={h} K={kh} hd={hd}"
@@ -2765,7 +2841,8 @@ def plan_train_phase(dev, card: str) -> dict:
     from repro_torch.parallel.strategies import (TRAIN_HBM_SHARE,
                                                  build_workflow,
                                                  estimate_activation_bytes,
-                                                 exact_param_bytes_per_chip)
+                                                 exact_param_bytes_per_chip,
+                                                 state_multiplier)
     from repro_torch.training import make_train_step
 
     hw = card_hardware()
@@ -2778,8 +2855,9 @@ def plan_train_phase(dev, card: str) -> dict:
         DecisionContext(), lambda *_: None).values()
     pc, rules = resolved_plan(cfg, shape, mesh,
                               decision.extra("parallel_config"), hw)
-    require_executable(rules)
-    fixed = exact_param_bytes_per_chip(cfg, rules) * 8.0
+    require_executable(rules, cfg=cfg)
+    fixed = exact_param_bytes_per_chip(cfg, rules) * state_multiplier(shape,
+                                                                      hw)
     act = estimate_activation_bytes(cfg, shape, 1, 1, pc.microbatches,
                                     pc.sequence_sharded_residual)
     state = _fresh_state(cfg, dev)
@@ -2831,11 +2909,14 @@ def plan_train_phase(dev, card: str) -> dict:
           f"{res['tokens_per_s']:.1f} tokens/s at the median step; peak "
           f"max_memory_allocated {peak} B against the plan's {fixed:.4g} "
           f"fixed + {act:.4g} activation = {fixed + act:.4g} B, its budget "
-          f"{res['planned_budget_bytes']:.4g} B (peak over it by "
-          f"{peak - res['planned_budget_bytes']:.4g} B) and the "
+          f"{res['planned_budget_bytes']:.4g} B (peak under it by "
+          f"{res['planned_budget_bytes'] - peak:.4g} B) and the "
           f"card's {hw.hbm_bytes} B; losses "
           f"{[round(x, 5) for x in losses]}, grad norms "
           f"{[round(x, 5) for x in norms]}, launches {launches} [{card}]")
+    require(peak < res["planned_budget_bytes"],
+            f"planned training peaked at {peak} B, over the plan's budget "
+            f"{res['planned_budget_bytes']} B")
     del state, step, metrics
     _release()
     return res
@@ -3082,6 +3163,636 @@ def dp_phase(dev, card: str) -> dict:
               for k in r0["shapes"]}
     return {"wall_s": wall, "held": held, "launches": launches,
             "shapes": shapes, "ranks": ranks}
+
+
+# -- tensor, sequence and ZeRO-3 parallelism: ranks sharing the card -----------
+
+
+def _rank_setup(rank: int, world: int, root: str, layers):
+    """Join the ``gloo`` group of ranks sharing the card; ``(dev, cfg,
+    shape, batch)`` of llama at its published width (``layers`` of them,
+    all where ``None``) and the train phases' batch."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch.mesh import init_distributed
+    init_distributed(rank, world, f"file://{root}/rendezvous", "cuda")
+    dev = torch.device("cuda")
+    cfg = serve_config(SERVE_ARCH)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    shape, batch = _train_inputs(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+    return dev, cfg, shape, batch
+
+
+def _one_rank_step(cfg, dev, shape, batch, microbatches: int = 1):
+    """The unsharded step on the whole batch from seed 0's weights: its
+    loss and grad norm, and the updated parameters and master weights on
+    the host."""
+    from repro_torch.core.config import OptimizerConfig, ParallelConfig
+    from repro_torch.training import make_train_step
+    state = _fresh_state(cfg, dev)
+    step = make_train_step(cfg, shape, OptimizerConfig(
+        lr=TRAIN_LR, warmup_steps=0), ParallelConfig(
+        remat="block", microbatches=microbatches))
+    state, metrics = step(state, batch)
+    out = {"loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]),
+           "params": {k: p.detach().cpu() for k, p in
+                      state["params"].named_parameters()},
+           "master": {k: m.cpu() for k, m in state["opt"]["master"].items()}}
+    del state, step, metrics
+    _release()
+    return out
+
+
+def _sharded_state(cfg, dev, rules) -> dict:
+    """This rank's shards of seed 0's weights under ``rules`` and their
+    AdamW state."""
+    import torch
+    from repro_torch.models import init_lm
+    from repro_torch.models.convert import shard_params
+    from repro_torch.training import init_train_state
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    full = init_lm(cfg, gen, dev)
+    local = shard_params(full, rules)
+    del full
+    _release()
+    return init_train_state(cfg, local)
+
+
+def _timed_step(step, state, batch) -> tuple:
+    """One step with the kernel and collective counters set to 0 just
+    before it: ``(state, metrics, its record)``."""
+    import torch
+    from repro_torch.kernels import attention as A
+    from repro_torch.parallel import collectives as C
+    with own_shapes() as shapes:
+        A.reset_launches()
+        C.reset_collective_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    rec = {"step_ms": (time.perf_counter() - t0) * 1e3,
+           "loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]),
+           "launches": dict(A.LAUNCHES),
+           "collectives": {k: dict(v) for k, v in
+                           C.COLLECTIVE_STATS.items()},
+           "peak_bytes": int(torch.cuda.max_memory_allocated()),
+           "shapes": {k: sorted(v) for k, v in shapes.items()}}
+    return state, metrics, rec
+
+
+@contextlib.contextmanager
+def own_shapes():
+    """Within the block, the kernels' recorded shapes start empty; the dict
+    it yields holds those the block launched (the earlier ones are put
+    back after it)."""
+    saved = shape_sets()
+    restore_shape_sets({k: set() for k in saved})
+    seen: dict = {}
+    try:
+        yield seen
+    finally:
+        seen.update(shape_sets())
+        restore_shape_sets({k: saved[k] | seen[k] for k in saved})
+
+
+def _whole_digest(cfg, rules, named) -> tuple[str, int]:
+    """sha256 of the bits of every leaf this rank holds whole (sharded over
+    no mesh axis), in name order, and their count."""
+    import hashlib
+
+    import torch
+    from repro_torch.parallel.tensor import TensorPlan
+    from repro_torch.training.train_step import leaf_axes
+    plan, axes = TensorPlan(rules), leaf_axes(cfg)
+    digest, n = hashlib.sha256(), 0
+    for k in sorted(named):
+        if not plan.leaf_axes(axes[k]):
+            digest.update(named[k].detach().contiguous().view(-1).view(
+                torch.uint8).cpu().numpy())
+            n += 1
+    return digest.hexdigest(), n
+
+
+def tp_train_rank(rank: int, world: int, root: str, variants: dict):
+    """One of ``world`` ranks sharing the card (``gloo``, ``data=1,
+    model=world``): llama at full width cut to ``TP_LAYERS`` layers, first
+    the unsharded step on the whole batch (each rank its own, from the same
+    seed), then for each variant one step on this rank's shards under the
+    planner's rules for it; rank 0 holds the updated weights, gathered
+    whole, to the unsharded step's within ``tp_param_bound``. Writes
+    ``root/rank{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.config import OptimizerConfig, ParallelConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.convert import gather_named
+    from repro_torch.parallel.sharding import require_executable
+    from repro_torch.parallel.strategies import make_rules
+    from repro_torch.training import make_train_step
+
+    dev, cfg, shape, batch = _rank_setup(rank, world, root, TP_LAYERS)
+    one = _one_rank_step(cfg, dev, shape, batch)
+    mesh = Mesh({"data": 1, "model": world})
+    out = {"rank": rank, "one": {"loss": one["loss"],
+                                 "grad_norm": one["grad_norm"]},
+           "variants": {}}
+    for name, fields in variants.items():
+        pc = ParallelConfig(**fields)
+        rules = make_rules(mesh, cfg, shape, pc)
+        require_executable(rules, cfg=cfg)
+        state = _sharded_state(cfg, dev, rules)
+        step = make_train_step(cfg, shape, OptimizerConfig(
+            lr=TRAIN_LR, warmup_steps=0), pc, rules=rules)
+        state, metrics, rec = _timed_step(step, state, batch)
+        named = dict(state["params"].named_parameters())
+        rec["whole_sha256"], rec["whole_leaves"] = _whole_digest(
+            cfg, rules, named)
+        rec["rules"] = {k: v for k, v in rules.rules.items()
+                        if v is not None}
+        gathered = gather_named(named, cfg, rules)
+        worst, diff = 0.0, 0.0
+        for k, full in gathered.items():
+            want = one["params"][k].to(dev).float()
+            d = float((full.float() - want).abs().max())
+            worst = max(worst, d / tp_param_bound(float(want.abs().max())))
+            diff = max(diff, d)
+        rec["param_max_abs_diff"], rec["param_bound_ratio"] = diff, worst
+        out["variants"][name] = rec
+        del gathered, named, state, step, metrics
+        _release()
+    dist.destroy_process_group()
+    with open(f"{root}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def tp_param_bound(max_abs_weight: float) -> float:
+    """How far one AdamW step's bf16 weights may lie apart when two runs
+    from the same weights differ only in their gradients' rounding: the
+    first step moves each fp32 master weight by ``lr`` times ``m / sqrt(v)
+    = g / |g|`` (+-1, whatever ``|g|``) plus the same weight decay, so a
+    gradient that changes sign moves it ``2 lr`` apart; each copy then
+    rounds to bf16, whose spacing is at most ``2^-7`` of the leaf's largest
+    weight."""
+    return 2 * TRAIN_LR + 2.0 ** -7 * max_abs_weight
+
+
+def _print_rank_records(prefix: str, ranks: list, name: str,
+                        card: str) -> None:
+    for r in ranks:
+        rec = r["variants"][name]
+        coll = {k: {"calls": v["calls"], "bytes": v["bytes"],
+                    "ms": round(v["seconds"] * 1e3, 2)}
+                for k, v in rec["collectives"].items()}
+        print(f"{prefix} {name} rank {r['rank']}: step ms "
+              f"{rec['step_ms']:.2f}, peak max_memory_allocated "
+              f"{rec['peak_bytes']} B, collectives {json.dumps(coll)}, "
+              f"launches {rec['launches']} [{card}]")
+
+
+def _held_step(prefix: str, ranks: list, name: str, key: str) -> dict:
+    """Every rank's loss and grad norm of a variant against its unsharded
+    step's (``key`` in each rank's results), within ``TP_RTOL``; the
+    leaves held whole bit-equal across the ranks."""
+    rel = lambda a, b: abs(a - b) / abs(b)
+    held = {"loss": [], "grad_norm": []}
+    for r in ranks:
+        rec, one = r["variants"][name], r[key]
+        for k in held:
+            held[k].append(rel(rec[k], one[k]))
+            require(held[k][-1] <= TP_RTOL,
+                    f"{prefix} {name} rank {r['rank']}: {k} {rec[k]} "
+                    f"against one rank's {one[k]}")
+    require(len({r["variants"][name]["whole_sha256"] for r in ranks}) == 1,
+            f"{prefix} {name}: the leaves held whole differ across ranks")
+    return {k: max(v) for k, v in held.items()}
+
+
+def _require_launches(prefix: str, ranks: list, name: str,
+                      want: dict) -> None:
+    for r in ranks:
+        got = r["variants"][name]["launches"]
+        require(got == want, f"{prefix} {name} rank {r['rank']}: launches "
+                f"{got}, expected {want}")
+
+
+def _spawn(fn, world: int, root: str, *args) -> tuple[float, list]:
+    """``fn(rank, world, root, *args)`` on ``world`` spawned ranks (one that
+    raises fails the phase); their JSON results and the wall seconds."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    mp.spawn(fn, args=(world, root) + args, nprocs=world, join=True)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        with open(f"{root}/rank{r}.json") as f:
+            ranks.append(json.load(f))
+    return wall, ranks
+
+
+def tp_train_phase(dev, card: str) -> dict:
+    """``tp_train_llama3_2_3b``: ``TP_RANKS`` ranks sharing the card, one
+    step of each ``TP_TRAIN_VARIANTS`` entry (``tp_train_rank``). Held:
+    every rank's loss and grad norm within ``TP_RTOL`` of the unsharded
+    step's; the leaves each rank holds whole bit-equal across the ranks;
+    the updated weights, gathered, within ``tp_param_bound``; K4 twice and
+    K4b once an attention layer, each at a query offset on the rank that
+    holds the sequence's second half."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as root:
+        wall, ranks = _spawn(tp_train_rank, TP_RANKS, root,
+                             TP_TRAIN_VARIANTS)
+    layers = TP_LAYERS
+    want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers,
+            "decode_attention": 0}
+    out = {"wall_s": wall, "held": {}, "launches": {}, "shapes": {}}
+    print(f"tp_train {SERVE_ARCH} ({layers} of 28 layers at full width, "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens): {TP_RANKS} ranks on one card "
+          f"(gloo), {wall:.2f} s; the unsharded step's loss "
+          f"{ranks[0]['one']['loss']:.6f}, grad norm "
+          f"{ranks[0]['one']['grad_norm']:.6f} [{card}]")
+    for name in TP_TRAIN_VARIANTS:
+        _print_rank_records("tp_train", ranks, name, card)
+        held = _held_step("tp_train", ranks, name, "one")
+        rec0 = ranks[0]["variants"][name]
+        held["param_max_abs_diff"] = rec0["param_max_abs_diff"]
+        held["param_bound_ratio"] = rec0["param_bound_ratio"]
+        require(rec0["param_bound_ratio"] <= 1.0,
+                f"tp_train {name}: gathered weights {rec0['param_max_abs_diff']}"
+                f" off the unsharded step's, {rec0['param_bound_ratio']} of "
+                f"the bound")
+        _require_launches("tp_train", ranks, name, want)
+        offsets = {sh[-1] for r in ranks for sh in
+                   r["variants"][name]["shapes"]["flash_attention"]
+                   + r["variants"][name]["shapes"]["flash_attention_bwd"]
+                   if len(sh) > 8}
+        require(offsets == {0, TRAIN_SEQ // TP_RANKS},
+                f"tp_train {name}: K4 / K4b query offsets {offsets}")
+        print(f"tp_train {name}: rules {json.dumps(rec0['rules'])}; held "
+              f"{json.dumps(held)} (loss and grad norm within {TP_RTOL} of "
+              f"the unsharded step's, {rec0['whole_leaves']} leaves held "
+              f"whole bit-equal across the ranks, the gathered weights "
+              f"within 2 lr + 2^-7 max|w| a leaf) [{card}]")
+        out["held"][name] = held
+        for r in ranks:
+            for k, v in r["variants"][name]["launches"].items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+            for k, v in r["variants"][name]["shapes"].items():
+                out["shapes"].setdefault(k, set()).update(map(tuple, v))
+    return out
+
+
+def zero3_train_rank(rank: int, world: int, root: str, variants: dict):
+    """One of ``world`` ranks sharing the card (``gloo``, ``pure_dp`` on
+    ``data=world``): for each variant the unsharded step on the whole
+    batch at its microbatch count (each rank its own, from the same seed),
+    then one step on this rank's 1/world of every weight matrix's embed
+    dimension; its slice of the updated master weights held to the same
+    slice of the unsharded step's. Writes ``root/rank{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.config import OptimizerConfig, ParallelConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.convert import shard_named
+    from repro_torch.parallel.sharding import require_executable
+    from repro_torch.parallel.strategies import make_rules
+    from repro_torch.training import make_train_step
+
+    dev, cfg, shape, batch = _rank_setup(rank, world, root, TP_LAYERS)
+    mesh = Mesh({"data": world, "model": 1})
+    out = {"rank": rank, "variants": {}}
+    for name, (fields, regather) in variants.items():
+        pc = ParallelConfig(**fields)
+        one = _one_rank_step(cfg, dev, shape, batch, pc.microbatches)
+        rules = make_rules(mesh, cfg, shape, pc)
+        require_executable(rules, cfg=cfg)
+        mine = shard_named(one.pop("master"), cfg, rules)
+        out[f"one_{name}"] = {"loss": one["loss"],
+                              "grad_norm": one["grad_norm"]}
+        del one
+        state = _sharded_state(cfg, dev, rules)
+        step = make_train_step(cfg, shape, OptimizerConfig(
+            lr=TRAIN_LR, warmup_steps=0), pc, rules=rules,
+            regather=regather)
+        state, metrics, rec = _timed_step(step, state, batch)
+        rec["whole_sha256"], rec["whole_leaves"] = _whole_digest(
+            cfg, rules, dict(state["params"].named_parameters()))
+        rec["rules"] = {k: v for k, v in rules.rules.items()
+                        if v is not None}
+        diff, apart, total = 0.0, 0, 0
+        for k, m in state["opt"]["master"].items():
+            d = (m - mine[k].to(dev)).abs()
+            diff = max(diff, float(d.max()))
+            apart += int((d > TRAIN_LR).sum())
+            total += d.numel()
+        rec["master_max_abs_diff"] = diff
+        rec["master_moved_apart"] = apart / total
+        out["variants"][name] = rec
+        del state, step, metrics, mine
+        _release()
+    dist.destroy_process_group()
+    with open(f"{root}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def zero3_train_phase(dev, card: str) -> dict:
+    """``zero3_train_llama3_2_3b``: ``TP_RANKS`` ranks sharing the card
+    under ``pure_dp`` (``w_embed`` over both), one step of each
+    ``ZERO_VARIANTS`` entry (``zero3_train_rank``). Held: every rank's loss
+    and grad norm within ``TP_RTOL`` of the unsharded step's at the same
+    microbatch count; the leaves held whole bit-equal across the ranks;
+    each rank's slice of the updated fp32 master weights within ``2 lr``
+    (+ 1e-6) of the same slice of the unsharded step's (``tp_param_bound``
+    without the bf16 rounding); K4 twice and K4b once an attention layer a
+    microbatch."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as root:
+        wall, ranks = _spawn(zero3_train_rank, TP_RANKS, root,
+                             ZERO_VARIANTS)
+    out = {"wall_s": wall, "held": {}, "launches": {}, "shapes": {}}
+    print(f"zero3_train {SERVE_ARCH} ({TP_LAYERS} of 28 layers at full "
+          f"width, {TRAIN_BATCH}x{TRAIN_SEQ} tokens): {TP_RANKS} ranks on "
+          f"one card (gloo), {wall:.2f} s [{card}]")
+    for name, (fields, _) in ZERO_VARIANTS.items():
+        mb = fields.get("microbatches", 1)
+        _print_rank_records("zero3_train", ranks, name, card)
+        held = _held_step("zero3_train", ranks, name, f"one_{name}")
+        bound = 2 * TRAIN_LR + 1e-6
+        for r in ranks:
+            rec = r["variants"][name]
+            require(rec["master_max_abs_diff"] <= bound,
+                    f"zero3_train {name} rank {r['rank']}: master weights "
+                    f"{rec['master_max_abs_diff']} off the unsharded "
+                    f"step's slice (bound {bound})")
+        held["master_max_abs_diff"] = max(
+            r["variants"][name]["master_max_abs_diff"] for r in ranks)
+        held["master_moved_apart"] = max(
+            r["variants"][name]["master_moved_apart"] for r in ranks)
+        _require_launches("zero3_train", ranks, name, {
+            "flash_attention": 2 * TP_LAYERS * mb,
+            "flash_attention_bwd": TP_LAYERS * mb, "decode_attention": 0})
+        rec0 = ranks[0]["variants"][name]
+        print(f"zero3_train {name}: rules {json.dumps(rec0['rules'])}; "
+              f"held {json.dumps(held)} (loss and grad norm within "
+              f"{TP_RTOL} of the unsharded step's at {mb} microbatches, "
+              f"{rec0['whole_leaves']} leaves held whole bit-equal across "
+              f"the ranks, each rank's master slice within {bound}; "
+              f"master_moved_apart: the share of weights more than lr "
+              f"apart, a gradient sign that differs) [{card}]")
+        out["held"][name] = held
+        for r in ranks:
+            for k, v in r["variants"][name]["launches"].items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+            for k, v in r["variants"][name]["shapes"].items():
+                out["shapes"].setdefault(k, set()).update(map(tuple, v))
+    return out
+
+
+def _decode_prompts(cfg):
+    """``TP_PROMPT_LENGTHS`` prompts from seed 5, padded with token 0 to the
+    longest: ``(tokens (B, S) int32, lengths)``."""
+    rng = np.random.default_rng(5)
+    s = max(TP_PROMPT_LENGTHS)
+    tokens = np.zeros((len(TP_PROMPT_LENGTHS), s), np.int32)
+    for i, n in enumerate(TP_PROMPT_LENGTHS):
+        tokens[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    return tokens, np.asarray(TP_PROMPT_LENGTHS, np.int32)
+
+
+def _prefill_then_decode(prefill_model, decode_model, cfg, dev, fed,
+                         prefill_rules=None, decode_rules=None) -> dict:
+    """The padded prompts through ``prefill_step`` (under
+    ``prefill_rules``) into a state made under ``decode_rules``, every
+    row's position rewound to its last prompt token, then one
+    ``decode_step`` a row of ``fed`` (the tokens to feed; where ``None``,
+    each row's last prompt token and then its argmax): the logits, the
+    tokens fed and the step ms."""
+    import torch
+    from repro_torch.models.lm import (decode_step, init_decode_state,
+                                       prefill_step)
+    from repro_torch.parallel.sharding import use_rules
+    tokens, lengths = _decode_prompts(cfg)
+    rows = np.arange(len(lengths))
+    out = {"decode": [], "step_ms": [], "fed": []}
+    with torch.inference_mode():
+        with use_rules(decode_rules):
+            state = init_decode_state(cfg, len(lengths), TP_MAX_SEQ, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with use_rules(prefill_rules):
+            logits, state = prefill_step(
+                prefill_model, state,
+                {"tokens": torch.from_numpy(tokens).to(dev)})
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        out["prefill"] = logits[:, 0].float().cpu()
+        state["pos"] = torch.from_numpy(lengths - 1).to(dev)
+        tok = tokens[rows, lengths - 1]
+        with use_rules(decode_rules):
+            for t in range(TP_DECODE_STEPS):
+                if fed is not None:
+                    tok = fed[t]
+                out["fed"].append(np.asarray(tok))
+                step_in = torch.from_numpy(np.asarray(tok, np.int32)).to(
+                    dev)[:, None]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, state = decode_step(decode_model, state, step_in)
+                torch.cuda.synchronize()
+                out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                out["decode"].append(logits[:, 0].float().cpu())
+                tok = logits[:, 0].argmax(-1).cpu().numpy()
+    return out
+
+
+def tp_decode_rank(rank: int, world: int, root: str, fed: list):
+    """One of ``world`` ranks sharing the card (``gloo``, ``data=1,
+    model=world``): llama at its published config, its shards under the
+    planner's ``seq_tp`` rules for the padded prompts' prefill and under
+    its ``decode_kv_shard`` rules for the decode steps (the cache split
+    along its sequence), fed the tokens ``fed``. Rank 0 writes the logits
+    to ``root/tp_logits.pt``; every rank its record to
+    ``root/rank{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.config import ParallelConfig, ShapeConfig
+    from repro_torch.kernels import attention as A
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import init_lm
+    from repro_torch.models.convert import shard_params
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import require_executable
+    from repro_torch.parallel.strategies import make_rules
+
+    dev, cfg, _, _ = _rank_setup(rank, world, root, None)
+    mesh = Mesh({"data": 1, "model": world})
+    n = len(TP_PROMPT_LENGTHS)
+    prefill_rules = make_rules(mesh, cfg, ShapeConfig(
+        "tp_prefill", max(TP_PROMPT_LENGTHS), n, "prefill"), ParallelConfig(
+        attn_strategy="seq_tp", mlp_mode="tp", fsdp="off"))
+    decode_rules = make_rules(mesh, cfg, ShapeConfig(
+        "tp_decode", TP_MAX_SEQ, n, "decode"), ParallelConfig(
+        attn_strategy="decode_kv_shard", fsdp="off"))
+    for rules in (prefill_rules, decode_rules):
+        require_executable(rules, cfg=cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    full = init_lm(cfg, gen, dev)
+    models = [shard_params(full, r) for r in (prefill_rules, decode_rules)]
+    del full
+    _release()
+    A.reset_launches()
+    C.reset_collective_stats()
+    torch.cuda.reset_peak_memory_stats()
+    with own_shapes() as shapes:
+        res = _prefill_then_decode(*models, cfg, dev, fed, prefill_rules,
+                                   decode_rules)
+    rec = {"rank": rank, "prefill_ms": res["prefill_ms"],
+           "step_ms": res["step_ms"], "launches": dict(A.LAUNCHES),
+           "collectives": {k: dict(v) for k, v in
+                           C.COLLECTIVE_STATS.items()},
+           "peak_bytes": int(torch.cuda.max_memory_allocated()),
+           "shapes": {k: sorted(v) for k, v in shapes.items()},
+           "rules": [{k: v for k, v in r.rules.items() if v is not None}
+                     for r in (prefill_rules, decode_rules)]}
+    if rank == 0:
+        torch.save({"prefill": res["prefill"], "decode": res["decode"]},
+                   f"{root}/tp_logits.pt")
+    dist.destroy_process_group()
+    with open(f"{root}/rank{rank}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def tp_decode_phase(dev, card: str) -> dict:
+    """``tp_decode_llama3_2_3b``: llama at its published config on one rank
+    in this process, the padded prompts prefilled and ``TP_DECODE_STEPS``
+    greedy decode steps; then the same on ``TP_RANKS`` ranks sharing the
+    card (``tp_decode_rank``), fed the same tokens. Held: every logit of
+    the prefill and of each step within ``LOGIT_TOL`` of one rank's, and
+    the argmax equal wherever one rank's top two logits lie more than
+    ``TP_MARGIN`` apart; K4 once a layer (the prefill) and K5 with its
+    log-sum-exp once a layer a step, on every rank."""
+    import tempfile
+
+    import torch
+    from repro_torch.models import init_lm
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cfg = serve_config(SERVE_ARCH)
+    model = init_lm(cfg, gen, dev)
+    saved = shape_sets()
+    one = _prefill_then_decode(model, model, cfg, dev, None)
+    restore_shape_sets(saved)
+    del model
+    _release()
+    with tempfile.TemporaryDirectory() as root:
+        wall, ranks = _spawn(tp_decode_rank, TP_RANKS, root, one["fed"])
+        got = torch.load(f"{root}/tp_logits.pt")
+    worst, disagree, held_rows = 0.0, 0, 0
+    for g, w in zip([got["prefill"]] + got["decode"],
+                    [one["prefill"]] + one["decode"]):
+        worst = max(worst, float((g - w).abs().max()))
+        top2 = w.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > TP_MARGIN
+        held_rows += int(sure.sum())
+        disagree += int((g.argmax(-1) != w.argmax(-1))[sure].sum())
+    layers = cfg.num_layers
+    steps = TP_DECODE_STEPS
+    want = {"flash_attention": layers, "flash_attention_bwd": 0,
+            "decode_attention": layers * steps}
+    for r in ranks:
+        require(r["launches"] == want, f"tp_decode rank {r['rank']}: "
+                f"launches {r['launches']}, expected {want}")
+        require(r["shapes"]["decode_attention"] and all(
+            sh[-1] == "lse" for sh in r["shapes"]["decode_attention"]),
+            f"tp_decode rank {r['rank']}: K5 without its log-sum-exp: "
+            f"{r['shapes']['decode_attention']}")
+    print(f"tp_decode {SERVE_ARCH} (published config, {len(ranks)} ranks on "
+          f"one card, gloo, {wall:.2f} s): prompts {list(TP_PROMPT_LENGTHS)}"
+          f" padded to {max(TP_PROMPT_LENGTHS)}, prefilled under "
+          f"{json.dumps(ranks[0]['rules'][0])}, then {steps} decode steps "
+          f"under {json.dumps(ranks[0]['rules'][1])}; one rank's decode ms "
+          f"a step median {np.median(one['step_ms']):.2f} [{card}]")
+    for r in ranks:
+        coll = {k: {"calls": v["calls"], "bytes": v["bytes"],
+                    "ms": round(v["seconds"] * 1e3, 2)}
+                for k, v in r["collectives"].items()}
+        print(f"tp_decode rank {r['rank']}: prefill {r['prefill_ms']:.2f} "
+              f"ms, decode ms a step median {np.median(r['step_ms']):.2f} "
+              f"(all {[round(x, 2) for x in r['step_ms']]}), peak "
+              f"max_memory_allocated {r['peak_bytes']} B, collectives "
+              f"{json.dumps(coll)}, launches {r['launches']} [{card}]")
+    held = {"logit_max_abs_diff": worst, "argmax_held_rows": held_rows,
+            "argmax_disagree": disagree}
+    print(f"tp_decode {SERVE_ARCH}: held {json.dumps(held)} (every logit "
+          f"within {LOGIT_TOL} of one rank's, the argmax equal where one "
+          f"rank's top two lie more than {TP_MARGIN} apart) [{card}]")
+    require(worst <= LOGIT_TOL, f"tp_decode logits {worst} off one rank's")
+    require(disagree == 0, f"tp_decode: {disagree} argmax differ")
+    require(held_rows > 0, "tp_decode: no row's top two logits lie apart")
+    launches, shapes = {}, {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in r["shapes"].items():
+            shapes.setdefault(k, set()).update(map(tuple, v))
+    return {"wall_s": wall, "held": held, "launches": launches,
+            "shapes": shapes}
+
+
+def offset_kernel_times(dev, gen, card: str) -> None:
+    """K4 and K4b on a rank's half of the queries at its offset against the
+    whole sequence's keys (the ``seq_tp`` training shape), and K5 with its
+    log-sum-exp on a rank's half of the cache (the ``decode_kv_shard``
+    shape), each timed beside the default call at the same shape: call ms
+    (median of 20) and device ms."""
+    import torch
+    from repro_torch.kernels import attention as A, ref
+    b, s, h, kh, hd, dt = TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128, \
+        "torch.bfloat16"
+    half = s // 2
+    q = _randn(gen, (b, s, h, hd), dt, dev)
+    k, v, d_out = (_randn(gen, (b, s, kh, hd), dt, dev),
+                   _randn(gen, (b, s, kh, hd), dt, dev),
+                   _randn(gen, (b, s, h, hd), dt, dev))
+    calls = {"K4 whole (S=1024)": lambda: A.flash_attention(q, k, v),
+             "K4 q rows 512-1023 at offset 512": lambda: A.flash_attention(
+                 q[:, half:], k, v, q_offset=half),
+             "K4 q rows 0-511 at offset 0": lambda: A.flash_attention(
+                 q[:, :half], k, v)}
+    out, lse = A.flash_attention_with_lse(q, k, v)
+    out2, lse2 = A.flash_attention_with_lse(q[:, half:], k, v, True, half)
+    go2 = d_out[:, half:].contiguous()
+    calls["K4b whole (S=1024)"] = lambda: A.flash_attention_bwd(
+        q, k, v, out, d_out, True, lse)
+    calls["K4b q rows 512-1023 at offset 512"] = \
+        lambda: A.flash_attention_bwd(q[:, half:], k, v, out2, go2, True,
+                                      lse2, half)
+    qd = _randn(gen, (b, h, hd), dt, dev)
+    kc, vc = (_randn(gen, (b, TP_MAX_SEQ // 2, kh, hd), dt, dev)
+              for _ in range(2))
+    length = torch.tensor([64, 200, 320, 512], dtype=torch.int32,
+                          device=dev)
+    calls["K5 (S=512)"] = lambda: A.decode_attention(qd, kc, vc, length)
+    calls["K5 with lse (S=512)"] = lambda: A.decode_attention(
+        qd, kc, vc, length, return_lse=True)
+    err = float((A.flash_attention(q[:, half:], k, v, q_offset=half).float()
+                 - ref.flash_attention_ref(q[:, half:], k, v, True,
+                                           half).float()).abs().max())
+    saved = shape_sets()
+    times = {name: {"ms": median_ms(fn), "device_ms": device_ms(fn)}
+             for name, fn in calls.items()}
+    restore_shape_sets(saved)
+    print(f"kernel offset and lse calls (B={b} H={h} K={kh} hd={hd} {dt}, "
+          f"causal; K5 lengths {length.tolist()}): {json.dumps(times)}; K4 at "
+          f"offset 512 max |err| {err:.4g} against its plain version "
+          f"[{card}]")
 
 
 def shape_sets() -> dict:
@@ -3467,14 +4178,29 @@ def main() -> int:
     seconds["dp_granite_moe_1b_a400m"] = time.perf_counter() - t0
     print(f"phase dp_granite_moe_1b_a400m: "
           f"{seconds['dp_granite_moe_1b_a400m']:.2f} s")
+    # tensor, sequence and ZeRO-3 parallelism: two ranks sharing the card,
+    # each phase held against one rank; then the offset and lse calls timed
+    tp_phases = {}
+    for name, fn in (("tp_train_llama3_2_3b", tp_train_phase),
+                     ("tp_decode_llama3_2_3b", tp_decode_phase),
+                     ("zero3_train_llama3_2_3b", zero3_train_phase)):
+        t0 = time.perf_counter()
+        tp_phases[name] = fn(dev, card)
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase {name}: {seconds[name]:.2f} s")
+    offset_kernel_times(dev, gen, card)
     # each kernel held at the shapes these phases launched it at first
     held = {k: set(v) for k, v in attn_shapes.items()}
     for k in train_shapes:
         held[k] |= train_shapes[k]
-    new = {k: (dp["shapes"].get(k, set()) | planned["shapes"].get(k, set()))
+    new = {k: set().union(dp["shapes"].get(k, set()),
+                          planned["shapes"].get(k, set()),
+                          *(ph["shapes"].get(k, set())
+                            for ph in tp_phases.values()))
            - held.get(k, set()) for k in shape_sets()}
-    print(f"main-path kernel shapes of the planned and data-parallel "
-          f"phases: { {k: sorted(v) for k, v in new.items()} }")
+    print(f"main-path kernel shapes of the planned, data-parallel, tensor-"
+          f"parallel and ZeRO-3 phases: "
+          f"{ {k: sorted(v) for k, v in new.items()} }")
     new_err = hold_late_shapes(dev, gen, new)
     for r in rows:
         r["max_abs_err"] = max(r["max_abs_err"], new_err[r["name"]])
@@ -3529,7 +4255,8 @@ def main() -> int:
         serve["launches"], granite["launches"], fronts["launches"]] + [
         r["launches"] for r in recurrent.values()] + [
         t["launches"] for t in train.values()] + [
-        planned["launches"], dp["launches"]]
+        planned["launches"], dp["launches"]] + [
+        ph["launches"] for ph in tp_phases.values()]
     for r in rows:
         r["launches"] = sum(c.get(r["name"], 0) for c in counted)
         for extra in ("shape", "device", "device_ops_per_call", "checked_ms",

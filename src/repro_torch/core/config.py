@@ -8,11 +8,12 @@ frozen and field-for-field equal to the reference's, so equality,
 ``resolved_head_dim``, ``param_count`` and ``fingerprint`` agree.
 ``ParallelConfig``'s fields are resolved by the port's planner
 (``repro_torch.parallel.strategies.plan_cell``) and materialized as
-sharding rules (``make_rules``). The trainer reads ``microbatches`` and
-``remat`` and runs the rules' batch split (data parallelism) and the
-pipeline over ``pod``; rules that shard anything else over more than one
-rank (tensor, sequence and expert parallelism, ZeRO, ``zero2``) are
-refused until ROADMAP Queue 1 item 11.4b.
+sharding rules (``make_rules``). The trainer reads ``microbatches``,
+``remat`` and ``zero2`` and runs the rules' batch split (data
+parallelism), the pipeline over ``pod`` and, for the dense attention
+models, the tensor, sequence and ZeRO-3 splits; expert parallelism and
+the Mamba / xLSTM inner split are refused until ROADMAP Queue 1 item
+11.4c.
 """
 
 from __future__ import annotations

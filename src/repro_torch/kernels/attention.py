@@ -27,6 +27,13 @@ then dQ, counted once). K4b has K4's two routes, picked the same way. On
 CPU tensors autograd differentiates the plain version. Nothing falls back:
 a K4b build or launch failure raises.
 
+K4 and K4b take ``S_q`` query rows against ``S_k`` keys, the query rows at
+positions ``q_offset + i``, so that under the causal mask a rank's block of
+a sequence's queries attends to the whole sequence's keys (the sequence-
+parallel attention of ``repro_torch.models.attention``). K5 writes each
+head's log-sum-exp on request (``return_lse``), by which the outputs of
+ranks that each hold a slice of the cache are combined.
+
 ``LAUNCHES`` counts wrapper calls that launched their kernel on the card,
 so a run can show that its main path went through the kernels; ``SHAPES``
 keeps the distinct shapes (for K4 with its route) each was launched at.
@@ -52,8 +59,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0,
             "decode_attention": 0}
-# (B, S, H, K, hd, dtype, causal, route) for K4 and K4b; (B, H, S, K, hd,
-# dtype) for K5
+# (B, S, H, K, hd, dtype, causal, route) for K4 and K4b, with (S_k,
+# q_offset) after them where S_k differs from S or q_offset is not 0;
+# (B, H, S, K, hd, dtype) for K5, with "lse" after them where it wrote one
 SHAPES: dict[str, set] = {k: set() for k in LAUNCHES}
 _COUNT_LOCK = threading.Lock()
 
@@ -64,10 +72,10 @@ _STRIDES = (_LL,) * 9
 # per kernel: source, error-string function, {C function: argument types}
 _LIBS = {
     "flash_attention": ("flash_attention.cu", "fa_error_string", {
-        "fa_flash_attention": (_P,) * 5 + (_I,) * 5 + _STRIDES
+        "fa_flash_attention": (_P,) * 5 + (_I,) * 7 + _STRIDES
         + (_I, _I, ctypes.POINTER(_I), _P)}),
     "flash_attention_bwd": ("flash_attention_bwd.cu", "fab_error_string", {
-        "fab_flash_attention_bwd": (_P,) * 9 + (_I,) * 5 + _STRIDES
+        "fab_flash_attention_bwd": (_P,) * 9 + (_I,) * 7 + _STRIDES
         + (_I, _I, _P, ctypes.POINTER(_I), _P)}),
     "decode_attention": ("decode_attention.cu", "da_error_string", {
         "da_split": (_P,), "da_combine": (_P,), "da_chunk": (),
@@ -110,8 +118,8 @@ def _decode_chunk() -> int:
 
 # K5's packed int64 arguments (``enum Arg`` in decode_attention.cu): q, k,
 # v, length, part, out, B, S, K, G, hd, n_split, q's two strides, each
-# cache's three, dtype, stream
-_DECODE_ARGS = 22
+# cache's three, dtype, stream, lse
+_DECODE_ARGS = 23
 _OUT_ARG = 5
 
 
@@ -168,10 +176,11 @@ _SCRATCH = StreamScratch(torch.float32)
 _BWD_SCRATCH = StreamScratch(torch.float32)
 
 
-def _check_qkv(q, k, v) -> None:
-    """q ``(B, S, H, hd)``, k and v ``(B, S, K, hd)`` of q's dtype (float32
-    or bfloat16) on q's device, last dimension contiguous, K dividing H,
-    hd in ``HEAD_DIMS``."""
+def _check_qkv(q, k, v, q_offset: int = 0) -> None:
+    """q ``(B, S_q, H, hd)``, k and v ``(B, S_k, K, hd)`` of q's dtype
+    (float32 or bfloat16) on q's device, last dimension contiguous, K
+    dividing H, hd in ``HEAD_DIMS``, ``S_k`` at least 1 (where ``S_q`` is)
+    and ``q_offset`` a non-negative int."""
     if not isinstance(q, torch.Tensor) or q.dim() != 4:
         raise ValueError("q must be a 4-D (B, S, H, hd) tensor")
     if q.dtype not in _DTYPE_CODES:
@@ -180,70 +189,83 @@ def _check_qkv(q, k, v) -> None:
         _check(t, name, 4, q.dtype, q.device)
     b, s, h, hd = q.shape
     kh = k.shape[2]
-    if v.shape != k.shape or (k.shape[0], k.shape[1], k.shape[3]) \
-            != (b, s, hd):
+    if v.shape != k.shape or (k.shape[0], k.shape[3]) != (b, hd) \
+            or (s and not k.shape[1]):
         raise ValueError(f"q, k, v shapes do not fit: {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if not isinstance(q_offset, int) or q_offset < 0:
+        raise ValueError(f"q_offset must be an int >= 0, got {q_offset!r}")
     if kh == 0 or h % kh:
         raise ValueError(f"{h} query heads do not group over {kh} kv heads")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
 
 
+def _shape_key(b, s, h, kh, hd, dtype, causal, route, s_k, q_offset):
+    """K4's and K4b's ``SHAPES`` entry (the module docstring's form)."""
+    key = (b, s, h, kh, hd, str(dtype), bool(causal), route)
+    return key if (s_k, q_offset) == (s, 0) else key + (s_k, q_offset)
+
+
 class _FlashAttention(torch.autograd.Function):
     """K4 forward, K4b backward, on the card."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = _flash_forward(q, k, v, causal, with_lse=True)
+    def forward(ctx, q, k, v, causal, q_offset):
+        out, lse = _flash_forward(q, k, v, causal, q_offset, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.q_offset = causal, q_offset
         return out
 
     @staticmethod
     def backward(ctx, d_out):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, d_out, ctx.causal,
-                                         lse)
-        return dq, dk, dv, None
+                                         lse, ctx.q_offset)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """K4: softmax attention of ``(B, S, H, hd)`` q over ``(B, S, K, hd)``
-    k and v of q's dtype (float32 or bfloat16), H divisible by K; query
-    head i attends through kv head i // (H // K), the reference's
-    ``jnp.repeat(k, H // K, axis=2)`` order. Scaled by ``hd^-0.5``, causal
-    unless ``causal=False``. Any S; hd in ``HEAD_DIMS``. Returns a
-    contiguous ``(B, S, H, hd)`` tensor of q's dtype. On the card, with
-    gradients on and an input that asks for one, its gradient is K4b's."""
-    _check_qkv(q, k, v)
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """K4: softmax attention of ``(B, S_q, H, hd)`` q over
+    ``(B, S_k, K, hd)`` k and v of q's dtype (float32 or bfloat16), H
+    divisible by K; query head i attends through kv head i // (H // K),
+    the reference's ``jnp.repeat(k, H // K, axis=2)`` order. Scaled by
+    ``hd^-0.5``. Causal unless ``causal=False``: query row i sits at
+    position ``q_offset + i`` and sees keys ``0 .. q_offset + i``. Any
+    ``S_q`` and ``S_k >= 1``; hd in ``HEAD_DIMS``. Returns a contiguous
+    ``(B, S_q, H, hd)`` tensor of q's dtype. On the card, with gradients on
+    and an input that asks for one, its gradient is K4b's."""
+    _check_qkv(q, k, v, q_offset)
     if _route(q.device) == "plain":
-        return ref.flash_attention_ref(q, k, v, causal=causal)
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       q_offset=q_offset)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, bool(causal))
-    return _flash_forward(q, k, v, causal)
+        return _FlashAttention.apply(q, k, v, bool(causal), q_offset)
+    return _flash_forward(q, k, v, causal, q_offset)
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, causal: bool = True):
+                             v: torch.Tensor, causal: bool = True,
+                             q_offset: int = 0):
     """K4's output and each query row's natural log-sum-exp of its scaled,
-    masked scores, ``(B, H, S)`` fp32: what K4b reads. No gradient. CPU
+    masked scores, ``(B, H, S_q)`` fp32: what K4b reads. No gradient. CPU
     tensors take ``ref.flash_attention_ref`` and
     ``ref.flash_attention_lse_ref``."""
-    _check_qkv(q, k, v)
+    _check_qkv(q, k, v, q_offset)
     if _route(q.device) == "plain":
-        return (ref.flash_attention_ref(q, k, v, causal=causal),
-                ref.flash_attention_lse_ref(q, k, v, causal=causal))
-    return _flash_forward(q, k, v, causal, with_lse=True)
+        return (ref.flash_attention_ref(q, k, v, causal, q_offset),
+                ref.flash_attention_lse_ref(q, k, v, causal, q_offset))
+    return _flash_forward(q, k, v, causal, q_offset, with_lse=True)
 
 
-def _flash_forward(q, k, v, causal, with_lse: bool = False):
+def _flash_forward(q, k, v, causal, q_offset: int = 0,
+                   with_lse: bool = False):
     """K4's launch on checked CUDA inputs: its output, and with
     ``with_lse`` also the rows' log-sum-exp."""
     b, s, h, hd = q.shape
-    kh = k.shape[2]
+    s_k, kh = k.shape[1], k.shape[2]
     dev = q.device
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=dev) \
@@ -254,12 +276,13 @@ def _flash_forward(q, k, v, causal, with_lse: bool = False):
     with on_device(dev):
         _launch("flash_attention", "fa_flash_attention", q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr() if with_lse else None, b, s, h, kh, hd,
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                lse.data_ptr() if with_lse else None, b, s, s_k, h, kh, hd,
+                q_offset, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 _DTYPE_CODES[q.dtype], int(bool(causal)),
                 ctypes.byref(route), current_stream(dev))
-    _count("flash_attention", (b, s, h, kh, hd, str(q.dtype), bool(causal),
-                               "tc" if route.value else "simt"))
+    _count("flash_attention", _shape_key(b, s, h, kh, hd, q.dtype, causal,
+                                         "tc" if route.value else "simt",
+                                         s_k, q_offset))
     return (out, lse) if with_lse else out
 
 
@@ -272,18 +295,19 @@ def _on_16_bytes(t: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, d_out: torch.Tensor,
-                        causal: bool = True, lse: torch.Tensor | None = None):
-    """K4b: the gradient of ``flash_attention(q, k, v, causal)`` whose
-    output was ``out``, against ``d_out``: ``(dq, dk, dv)``, contiguous,
-    of q's dtype and q's, k's and v's shapes (dk and dv summed over each kv
-    head's query heads). ``lse`` is the rows' log-sum-exp that K4 wrote
-    beside ``out`` (``flash_attention_with_lse``), a contiguous fp32
-    ``(B, H, S)`` tensor; without it a CUDA call first gets it from one K4
-    launch. CPU tensors take ``ref.flash_attention_bwd_ref`` (which needs
+                        causal: bool = True, lse: torch.Tensor | None = None,
+                        q_offset: int = 0):
+    """K4b: the gradient of ``flash_attention(q, k, v, causal, q_offset)``
+    whose output was ``out``, against ``d_out``: ``(dq, dk, dv)``,
+    contiguous, of q's dtype and q's, k's and v's shapes (dk and dv summed
+    over each kv head's query heads). ``lse`` is the rows' log-sum-exp that
+    K4 wrote beside ``out`` (``flash_attention_with_lse``), a contiguous
+    fp32 ``(B, H, S_q)`` tensor; without it a CUDA call first gets it from
+    one K4 launch. CPU tensors take ``ref.flash_attention_bwd_ref`` (which needs
     no ``lse``); CUDA tensors launch K4b or raise. ``out`` and ``d_out``
     may have any strides (autograd hands a broadcast ``d_out`` to a sum's
     input): the kernel reads contiguous copies."""
-    _check_qkv(q, k, v)
+    _check_qkv(q, k, v, q_offset)
     # the kernel reads both as contiguous (B, S, H, hd) on 16 bytes
     out, d_out = _on_16_bytes(out), _on_16_bytes(d_out)
     for t, name in ((out, "out"), (d_out, "d_out")):
@@ -300,10 +324,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{lse.stride()}")
     dev = q.device
     if _route(dev) == "plain":
-        return ref.flash_attention_bwd_ref(q, k, v, out, d_out, causal)
+        return ref.flash_attention_bwd_ref(q, k, v, out, d_out, causal,
+                                           q_offset)
     if lse is None:
-        lse = flash_attention_with_lse(q, k, v, causal)[1]
-    kh = k.shape[2]
+        lse = flash_attention_with_lse(q, k, v, causal, q_offset)[1]
+    s_k, kh = k.shape[1], k.shape[2]
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
@@ -317,26 +342,28 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _launch("flash_attention_bwd", "fab_flash_attention_bwd",
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     d_out.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-                    dk.data_ptr(), dv.data_ptr(), b, s, h, kh, hd,
-                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                    int(bool(causal)), _DTYPE_CODES[q.dtype],
-                    scratch.data_ptr(), ctypes.byref(route), stream)
-    _count("flash_attention_bwd", (b, s, h, kh, hd, str(q.dtype),
-                                   bool(causal),
-                                   "tc" if route.value else "simt"))
+                    dk.data_ptr(), dv.data_ptr(), b, s, s_k, h, kh, hd,
+                    q_offset, *q.stride()[:3], *k.stride()[:3],
+                    *v.stride()[:3], int(bool(causal)),
+                    _DTYPE_CODES[q.dtype], scratch.data_ptr(),
+                    ctypes.byref(route), stream)
+    _count("flash_attention_bwd", _shape_key(
+        b, s, h, kh, hd, q.dtype, causal, "tc" if route.value else "simt",
+        s_k, q_offset))
     return dq, dk, dv
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor,
-                     length: torch.Tensor) -> torch.Tensor:
+                     v_cache: torch.Tensor, length: torch.Tensor,
+                     return_lse: bool = False):
     """K5: one query token per sequence, ``q (B, H, hd)``, against caches
     ``(B, S, K, hd)`` of q's dtype (float32 or bfloat16), masked past the
     int32 ``length (B,)``; H = K * G and query head i attends through kv
     head i // G. ``length`` should lie in ``[0, S]`` (the kernel clamps
     it; it is not checked, which would cost a host sync per call); 0
-    gives zeros. Returns a contiguous ``(B, H, hd)`` tensor of q's
-    dtype."""
+    gives zeros. Returns a contiguous ``(B, H, hd)`` tensor of q's dtype;
+    with ``return_lse`` also each head's natural log-sum-exp of its
+    scaled, unmasked scores, ``(B, H)`` fp32 (``-inf`` at length 0)."""
     if not isinstance(q, torch.Tensor) or q.dim() != 3:
         raise ValueError("q must be a 3-D (B, H, hd) tensor")
     if q.dtype not in _DTYPE_CODES:
@@ -360,9 +387,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if _route(dev) == "plain":
-        return ref.decode_attention_ref(q, k_cache, v_cache, length)
+        return ref.decode_attention_ref(q, k_cache, v_cache, length,
+                                        return_lse)
+    lse = torch.empty((b, h), dtype=torch.float32, device=dev) \
+        if return_lse else None
     if b * h == 0:
-        return torch.empty((b, h, hd), dtype=q.dtype, device=dev)
+        out = torch.empty((b, h, hd), dtype=q.dtype, device=dev)
+        return (out, lse) if return_lse else out
     g = h // kh
     n_split = max(1, -(-s // _decode_chunk()))
     stream = current_stream(dev)
@@ -371,12 +402,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         length.data_ptr(), part.data_ptr(), 0, b, s, kh, g, hd, n_split,
         q.stride(0), q.stride(1), *k_cache.stride()[:3],
-        *v_cache.stride()[:3], _DTYPE_CODES[q.dtype], stream))
+        *v_cache.stride()[:3], _DTYPE_CODES[q.dtype], stream,
+        lse.data_ptr() if return_lse else 0))
     with on_device(dev):
         _launch("decode_attention", "da_split", args.buffer_info()[0])
         # allocated while the split runs
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
         args[_OUT_ARG] = out.data_ptr()
         _launch("decode_attention", "da_combine", args.buffer_info()[0])
-    _count("decode_attention", (b, h, s, kh, hd, str(q.dtype)))
-    return out
+    key = (b, h, s, kh, hd, str(q.dtype))
+    _count("decode_attention", key + ("lse",) if return_lse else key)
+    return (out, lse) if return_lse else out

@@ -31,7 +31,10 @@
 //   shared memory) and the sum l; then every (head, dim) sums its weighted
 //   partials, in a fixed order, divides by max(l, 1e-30) and writes q's
 //   dtype. The fixed order makes the result deterministic; length 0 gives
-//   zeros. It is launched as a programmatic dependent of the split (Hopper's
+//   zeros. Asked for (a non-null lse pointer), it also writes each head's
+//   natural log-sum-exp of its scaled scores, m + log(l), to an fp32
+//   (B, H) tensor (-inf at length 0): what a caller that split the cache
+//   over ranks combines the ranks' outputs by. It is launched as a programmatic dependent of the split (Hopper's
 //   griddepcontrol): its CTAs start while the split runs and wait for the
 //   split's writes, so its launch latency is hidden.
 //
@@ -271,7 +274,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 decode_combine_kernel(const float* __restrict__ part,
                       const int* __restrict__ length, T* __restrict__ o,
-                      int S, int KH, int G, int n_split) {
+                      float* __restrict__ lse, int S, int KH, int G,
+                      int n_split) {
   extern __shared__ float sw[];   // (n_split, G) weights, G inverse sums
   float* sinv = sw + n_split * G;
   const int b = blockIdx.x / KH, kh = blockIdx.x % KH;
@@ -296,6 +300,8 @@ decode_combine_kernel(const float* __restrict__ part,
     }
     den = warp_sum(den);
     if (lane == 0) sinv[g] = n ? 1.f / fmaxf(den, 1e-30f) : 0.f;
+    if (lse != nullptr && lane == 0)
+      lse[(long long)b * KH * G + kh * G + g] = n ? m + logf(den) : -INFINITY;
   }
   __syncthreads();
   for (int i = threadIdx.x; i < G * HD; i += kThreads) {
@@ -335,8 +341,9 @@ int launch_split(const SplitArgs& a, cudaStream_t stream) {
 }
 
 template <typename T, int HD>
-int launch_combine(const void* part, const int* length, void* o, int B,
-                   int S, int KH, int G, int n_split, cudaStream_t stream) {
+int launch_combine(const void* part, const int* length, void* o, float* lse,
+                   int B, int S, int KH, int G, int n_split,
+                   cudaStream_t stream) {
   static int allowed = 48 * 1024;
   const int smem = (n_split + 1) * G * (int)sizeof(float);
   auto combine = decode_combine_kernel<T, HD>;
@@ -354,7 +361,7 @@ int launch_combine(const void* part, const int* length, void* o, int B,
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, combine,
                                  static_cast<const float*>(part), length,
-                                 static_cast<T*>(o), S, KH, G, n_split);
+                                 static_cast<T*>(o), lse, S, KH, G, n_split);
 }
 
 // fn<T, HD>() for a runtime dtype code (0 = float32, 1 = bfloat16) and hd
@@ -383,9 +390,10 @@ struct Split {
 };
 template <typename T, int HD>
 struct Combine {
-  static int run(const void* part, const int* length, void* o, int B, int S,
-                 int KH, int G, int n_split, cudaStream_t s) {
-    return launch_combine<T, HD>(part, length, o, B, S, KH, G, n_split, s);
+  static int run(const void* part, const int* length, void* o, float* lse,
+                 int B, int S, int KH, int G, int n_split, cudaStream_t s) {
+    return launch_combine<T, HD>(part, length, o, lse, B, S, KH, G, n_split,
+                                 s);
   }
 };
 
@@ -397,11 +405,13 @@ bool rows_aligned(const void* p, Strides st, int vec_elems) {
 
 // The packed arguments of da_split and da_combine, in this order. Pointers
 // and the stream are addresses; strides are in elements; dtype 0 = float32,
-// 1 = bfloat16; part is the fp32 scratch described above and out the
-// (B, KH * G, hd) output of the dtype.
+// 1 = bfloat16; part is the fp32 scratch described above, out the
+// (B, KH * G, hd) output of the dtype and lse 0 or the fp32 (B, KH * G)
+// log-sum-exp.
 enum Arg {
   kQ, kKCache, kVCache, kLength, kPart, kOut, kB, kS, kKH, kG, kHD, kNSplit,
-  kQsb, kQsh, kKsb, kKss, kKsh, kVsb, kVss, kVsh, kDtype, kStream, kNumArgs
+  kQsb, kQsh, kKsb, kKss, kKsh, kVsb, kVss, kVsh, kDtype, kStream, kLse,
+  kNumArgs
 };
 
 template <typename P>
@@ -422,7 +432,7 @@ const char* da_error_string(int err) {
 int da_chunk() { return kChunk; }
 
 // da_split and da_combine take their arguments packed in one int64 array
-// (one ctypes argument instead of twenty-two), in the order of ``enum Arg``
+// (one ctypes argument instead of twenty-three), in the order of ``enum Arg``
 // above.
 int da_num_args() { return kNumArgs; }
 
@@ -449,7 +459,8 @@ int da_combine(const long long* a) {
   return dispatch<Combine>((int)a[kDtype], (int)a[kHD],
                            ptr<const void>(a, kPart),
                            ptr<const int>(a, kLength), ptr<void>(a, kOut),
-                           (int)a[kB], (int)a[kS], (int)a[kKH], (int)a[kG],
+                           ptr<float>(a, kLse), (int)a[kB], (int)a[kS],
+                           (int)a[kKH], (int)a[kG],
                            (int)a[kNSplit], ptr<CUstream_st>(a, kStream));
 }
 

@@ -13,6 +13,13 @@
 // the tile) is zero-filled and masked, so any S works. Key 0 lies in the
 // first tile, so no row's running max is still -inf after it.
 //
+// Queries and keys: q has S_q rows and k, v S_k; query row i sits at
+// position q_off + i, so under the causal mask it sees keys 0 .. q_off + i
+// (a rank's block of a sequence against the whole sequence's keys, the
+// sequence-parallel attention; the default call has S_q = S_k, q_off = 0).
+// A q-tile loads the key tiles up to the one holding its last row's
+// position, and masks the one or two tiles the diagonal crosses.
+//
 // GQA: q has H heads, k and v K heads with H % K == 0; query head h reads
 // kv head h / (H / K) in place (the reference's jnp.repeat(k, H / K,
 // axis=2) order), so the caller expands nothing.
@@ -114,7 +121,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                int S, int H, int G, float scale_log2, int causal) {
+                int Sq, int Sk, int q_off, int H, int G, float scale_log2,
+                int causal) {
   constexpr int NS = kBK / 8;    // n8 column blocks of S (keys)
   constexpr int NO = HD / 8;     // n8 column blocks of O (head dims)
   constexpr int TB = tile_bytes<HD>();
@@ -140,8 +148,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   const int qt = gridDim.y - 1 - blockIdx.y;
   const int q0 = qt * kBQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  int n_kt = (S + kBK - 1) / kBK;
-  if (causal) n_kt = min(n_kt, qt + 1);
+  // keys up to the tile of this q-tile's last row's position, q_off + q0 +
+  // kBQ - 1, under the causal mask
+  int n_kt = (Sk + kBK - 1) / kBK;
+  if (causal) n_kt = min(n_kt, (q_off + q0 + kBQ - 1) / kBK + 1);
 
   if (tid == 0) {
     mbar_init(bar_q, 1);
@@ -199,9 +209,12 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_wait0();
     fence_regs(s);
 
-    // scale into the log2 domain; mask the diagonal and a ragged last tile
+    // scale into the log2 domain; mask the tiles the diagonal crosses (one,
+    // or two when q_off is not a multiple of the tile) and a ragged last
+    // tile
     const int k0 = kt * kBK;
-    const bool masked = (causal && kt == qt) || k0 + kBK > S;
+    const bool masked =
+        (causal && k0 + kBK - 1 > q_off + q0) || k0 + kBK > Sk;
 #pragma unroll
     for (int j = 0; j < NS; ++j)
 #pragma unroll
@@ -210,7 +223,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
         if (masked) {
           const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
           const int row = row_a + (e >> 1) * 8;
-          if (col >= S || (causal && col > row)) x = -INFINITY;
+          if (col >= Sk || (causal && col > q_off + row)) x = -INFINITY;
         }
         s[4 * j + e] = x;
       }
@@ -278,16 +291,16 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     inv[i] = 1.f / fmaxf(l, 1e-30f);
     // the row's natural log-sum-exp, for K4b: m and l are in base 2
     const int row = row_a + i * 8;
-    if (kLse && (lane & 3) == 0 && row < S)
-      lse[((long long)b * H + h) * S + row] =
+    if (kLse && (lane & 3) == 0 && row < Sq)
+      lse[((long long)b * H + h) * Sq + row] =
           (m_run[i] + log2f(l)) * 0.6931471805599453f;
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row_a + i * 8;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     __nv_bfloat16* orow =
-        o + (((long long)b * S + row) * H + h) * HD + (lane & 3) * 2;
+        o + (((long long)b * Sq + row) * H + h) * HD + (lane & 3) * 2;
 #pragma unroll
     for (int j = 0; j < NO; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
@@ -296,30 +309,35 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// Seq holds the query rows, the keys and the queries' position offset
+struct Seq {
+  int q, k, off;
+};
+
 template <int HD, int NWG, bool kLse>
 int launch_nwg(const CUtensorMap& mq, const CUtensorMap& mk,
-               const CUtensorMap& mv, void* o, float* lse, int B, int S,
+               const CUtensorMap& mv, void* o, float* lse, int B, Seq sq,
                int H, int G, int causal, cudaStream_t stream) {
   static int allowed = 48 * 1024;
   constexpr int smem = smem_bytes<HD, NWG>();
   auto kern = flash_tc_kernel<HD, NWG, kLse>;
   const cudaError_t err = allow_smem(kern, smem, allowed);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(B * H / NWG), (unsigned)((S + kBQ - 1) / kBQ));
+  const dim3 grid((unsigned)(B * H / NWG), (unsigned)((sq.q + kBQ - 1) / kBQ));
   kern<<<grid, NWG * kWG + 32, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, S, H, G,
-      (float)(1.4426950408889634 / sqrt((double)HD)), causal);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, sq.q, sq.k, sq.off, H,
+      G, (float)(1.4426950408889634 / sqrt((double)HD)), causal);
   return (int)cudaGetLastError();
 }
 
 template <int HD, int NWG>
 int launch_lse(const CUtensorMap& mq, const CUtensorMap& mk,
-               const CUtensorMap& mv, void* o, float* lse, int B, int S,
+               const CUtensorMap& mv, void* o, float* lse, int B, Seq sq,
                int H, int G, int causal, cudaStream_t stream) {
   if (lse != nullptr)
-    return launch_nwg<HD, NWG, true>(mq, mk, mv, o, lse, B, S, H, G, causal,
+    return launch_nwg<HD, NWG, true>(mq, mk, mv, o, lse, B, sq, H, G, causal,
                                      stream);
-  return launch_nwg<HD, NWG, false>(mq, mk, mv, o, lse, B, S, H, G, causal,
+  return launch_nwg<HD, NWG, false>(mq, mk, mv, o, lse, B, sq, H, G, causal,
                                     stream);
 }
 
@@ -328,20 +346,20 @@ int launch_lse(const CUtensorMap& mq, const CUtensorMap& mk,
 // even, else 1 (three warpgroups' registers fill an SM).
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int S, int H, int G, Strides qs, Strides ks, Strides vs,
+           int B, Seq sq, int H, int G, Strides qs, Strides ks, Strides vs,
            int causal, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, B, S, H, HD, qs) ||
-      !make_map(&mk, k, B, S, H / G, HD, ks) ||
-      !make_map(&mv, v, B, S, H / G, HD, vs))
+  if (!make_map(&mq, q, B, sq.q, H, HD, qs) ||
+      !make_map(&mk, k, B, sq.k, H / G, HD, ks) ||
+      !make_map(&mv, v, B, sq.k, H / G, HD, vs))
     return (int)cudaErrorInvalidValue;
   if (G % 3 == 0)
-    return launch_lse<HD, 3>(mq, mk, mv, o, lse, B, S, H, G, causal,
+    return launch_lse<HD, 3>(mq, mk, mv, o, lse, B, sq, H, G, causal,
                                  stream);
   if (G % 2 == 0)
-    return launch_lse<HD, 2>(mq, mk, mv, o, lse, B, S, H, G, causal,
+    return launch_lse<HD, 2>(mq, mk, mv, o, lse, B, sq, H, G, causal,
                                  stream);
-  return launch_lse<HD, 1>(mq, mk, mv, o, lse, B, S, H, G, causal,
+  return launch_lse<HD, 1>(mq, mk, mv, o, lse, B, sq, H, G, causal,
                                  stream);
 }
 
@@ -396,8 +414,9 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o,
-             float* __restrict__ lse, int S, int H, int G, Strides qs,
-             Strides ks, Strides vs, float scale, int causal) {
+             float* __restrict__ lse, int Sq, int Sk, int q_off, int H,
+             int G, Strides qs, Strides ks, Strides vs, float scale,
+             int causal) {
   constexpr int LD = HD + 1;
   constexpr int CPT = (HD + 15) / 16;   // accumulator columns per thread
   extern __shared__ float smem[];
@@ -419,7 +438,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = tid; i < kBQ * HD; i += kThreads) {
     const int r = i / HD, d = i % HD, row = q0 + r;
-    sq[r * LD + d] = row < S ? to_f32(qb[row * qs.s + d]) : 0.f;
+    sq[r * LD + d] = row < Sq ? to_f32(qb[row * qs.s + d]) : 0.f;
   }
   for (int r = tid; r < kBQ; r += kThreads) {
     sm[r] = kNegInf;
@@ -434,15 +453,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
 
-  int n_kt = (S + kBK - 1) / kBK;
-  if (causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);
+  int n_kt = (Sk + kBK - 1) / kBK;
+  if (causal) n_kt = min(n_kt, (q_off + q0 + kBQ - 1) / kBK + 1);
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();   // the previous tile's K, V and P reads are done
     for (int i = tid; i < kBK * HD; i += kThreads) {
       const int r = i / HD, d = i % HD, row = k0 + r;
-      const bool in = row < S;     // rows past S: zeros, never NaN garbage
+      const bool in = row < Sk;    // rows past Sk: zeros, never NaN garbage
       sk[r * LD + d] = in ? to_f32(kb[row * ks.s + d]) : 0.f;
       sv[r * HD + d] = in ? to_f32(vb[row * vs.s + d]) : 0.f;
     }
@@ -473,7 +492,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < 4; ++j) {
           const int r = sy * 4 + i, c = sx + 8 * j;
           const int qi = q0 + r, ki = k0 + c;
-          const bool ok = ki < S && (!causal || ki <= qi);
+          const bool ok = ki < Sk && (!causal || ki <= q_off + qi);
           sp[r * kLDP + c] = ok ? s[i][j] * scale : kNegInf;
         }
     }
@@ -524,9 +543,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = ty * 8 + i, row = q0 + r;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     const float l = fmaxf(sl[r], 1e-30f);
-    T* orow = o + (((long long)b * S + row) * H + h) * HD;
+    T* orow = o + (((long long)b * Sq + row) * H + h) * HD;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int d = tx + 16 * j;
@@ -536,46 +555,46 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // each row's log-sum-exp, for K4b
   if (lse != nullptr)
     for (int r = tid; r < kBQ; r += kThreads)
-      if (q0 + r < S)
-        lse[((long long)b * H + h) * S + q0 + r] = sm[r] + logf(sl[r]);
+      if (q0 + r < Sq)
+        lse[((long long)b * H + h) * Sq + q0 + r] = sm[r] + logf(sl[r]);
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int S, int H, int G, Strides qs, Strides ks, Strides vs,
-           int causal, cudaStream_t stream) {
+           int B, tc::Seq sq, int H, int G, Strides qs, Strides ks,
+           Strides vs, int causal, cudaStream_t stream) {
   static int allowed = 48 * 1024;
   const int smem = smem_floats<HD>() * (int)sizeof(float);
   auto kern = flash_kernel<T, HD>;
   const cudaError_t err = allow_smem(kern, smem, allowed);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(B * H), (unsigned)((S + kBQ - 1) / kBQ));
+  const dim3 grid((unsigned)(B * H), (unsigned)((sq.q + kBQ - 1) / kBQ));
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, G, qs, ks, vs,
-      (float)(1.0 / sqrt((double)HD)), causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq.q, sq.k, sq.off,
+      H, G, qs, ks, vs, (float)(1.0 / sqrt((double)HD)), causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-              float* lse, int B, int S, int H, int G, Strides qs, Strides ks,
-              Strides vs, int causal, cudaStream_t s) {
+              float* lse, int B, tc::Seq sq, int H, int G, Strides qs,
+              Strides ks, Strides vs, int causal, cudaStream_t s) {
   switch (hd) {
     case 8:
-      return launch<T, 8>(q, k, v, o, lse, B, S, H, G, qs, ks, vs, causal,
+      return launch<T, 8>(q, k, v, o, lse, B, sq, H, G, qs, ks, vs, causal,
                                s);
     case 16:
-      return launch<T, 16>(q, k, v, o, lse, B, S, H, G, qs, ks, vs, causal,
+      return launch<T, 16>(q, k, v, o, lse, B, sq, H, G, qs, ks, vs, causal,
                                s);
     case 32:
-      return launch<T, 32>(q, k, v, o, lse, B, S, H, G, qs, ks, vs, causal,
+      return launch<T, 32>(q, k, v, o, lse, B, sq, H, G, qs, ks, vs, causal,
                                s);
     case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, S, H, G, qs, ks, vs, causal,
+      return launch<T, 64>(q, k, v, o, lse, B, sq, H, G, qs, ks, vs, causal,
                                s);
     case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, S, H, G, qs, ks, vs, causal,
+      return launch<T, 128>(q, k, v, o, lse, B, sq, H, G, qs, ks, vs, causal,
                                s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -592,18 +611,24 @@ const char* fa_error_string(int err) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements. q and o have
-// H heads, k and v KH, with H % KH == 0. lse is null or a contiguous fp32
-// (B, H, S) tensor that gets each query row's natural log-sum-exp of its
+// Sq rows and H heads, k and v Sk rows and KH heads, with H % KH == 0 and
+// Sk >= 1. Query row i sits at position q_off + i (q_off >= 0), so under
+// the causal mask it sees keys 0 .. q_off + i: a rank's block of queries
+// against the whole sequence's keys. lse is null or a contiguous fp32
+// (B, H, Sq) tensor that gets each query row's natural log-sum-exp of its
 // scaled, masked scores (o is the same either way). *route is set to the
 // route taken: 1 = tensor cores (tc), 0 = CUDA cores (simt).
 int fa_flash_attention(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int S, int H, int KH, int hd,
-                       long long q_sb, long long q_ss, long long q_sh,
-                       long long k_sb, long long k_ss, long long k_sh,
-                       long long v_sb, long long v_ss, long long v_sh,
-                       int dtype, int causal, int* route, void* stream) {
-  if (KH <= 0 || H % KH != 0) return (int)cudaErrorInvalidValue;
+                       float* lse, int B, int Sq, int Sk, int H, int KH,
+                       int hd, int q_off, long long q_sb, long long q_ss,
+                       long long q_sh, long long k_sb, long long k_ss,
+                       long long k_sh, long long v_sb, long long v_ss,
+                       long long v_sh, int dtype, int causal, int* route,
+                       void* stream) {
+  if (KH <= 0 || H % KH != 0 || Sk < 1 || q_off < 0)
+    return (int)cudaErrorInvalidValue;
   const int G = H / KH;
+  const tc::Seq sq{Sq, Sk, q_off};
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -611,16 +636,16 @@ int fa_flash_attention(const void* q, const void* k, const void* v, void* o,
            rows_aligned(k, ks) && rows_aligned(v, vs);
   if (*route) {
     if (hd == 64)
-      return tc::launch<64>(q, k, v, o, lse, B, S, H, G, qs, ks, vs, causal,
+      return tc::launch<64>(q, k, v, o, lse, B, sq, H, G, qs, ks, vs, causal,
                             s);
-    return tc::launch<128>(q, k, v, o, lse, B, S, H, G, qs, ks, vs, causal,
+    return tc::launch<128>(q, k, v, o, lse, B, sq, H, G, qs, ks, vs, causal,
                            s);
   }
   if (dtype == 0)
-    return simt::launch_hd<float>(hd, q, k, v, o, lse, B, S, H, G, qs, ks,
+    return simt::launch_hd<float>(hd, q, k, v, o, lse, B, sq, H, G, qs, ks,
                                   vs, causal, s);
   if (dtype == 1)
-    return simt::launch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, B, S, H, G,
+    return simt::launch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, B, sq, H, G,
                                           qs, ks, vs, causal, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -60,9 +60,13 @@
 // GFLOP, to keep each output in one CTA without atomics.
 //
 // q, k, v are read with their (B, S, heads, hd) strides (the last dimension
-// contiguous); o and dO are contiguous (B, S, H, hd) on 16 bytes, dq
-// contiguous (B, S, H, hd), dk and dv contiguous (B, S, K, hd), all of the
-// input dtype. Any S: rows and keys past S are zero-filled and masked.
+// contiguous); o and dO are contiguous (B, S_q, H, hd) on 16 bytes, dq
+// contiguous (B, S_q, H, hd), dk and dv contiguous (B, S_k, K, hd), all of
+// the input dtype. K4's contract: S_q query rows at positions q_off + i
+// against S_k keys; a key tile walks the query tiles from the one holding
+// its first key's position, and a tile the diagonal crosses masks the keys
+// after each query's position. Any S_q, S_k: rows and keys past them are
+// zero-filled and masked.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -81,6 +85,12 @@ using hopper::rows_aligned;
 using hopper::Strides;
 
 constexpr float kLog2e = 1.4426950408889634f;
+
+// the query rows, the keys and the queries' position offset: query row i
+// sits at position off + i and, under the causal mask, sees keys 0 .. off + i
+struct Seq {
+  int q, k, off;
+};
 
 // -- 1. delta = rowsum(dO * O), both routes ----------------------------------
 
@@ -238,8 +248,8 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_do,
                const float* __restrict__ lse, const float* __restrict__ delta,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-               int S, int H, int G, float scale, float scale_log2,
-               int causal) {
+               int Sq, int Sk, int q_off, int H, int G, float scale,
+               float scale_log2, int causal) {
   constexpr int NS = kBQ / 8;   // n8 column blocks of S^T (queries)
   constexpr int TB = tile_bytes<HD>();
   extern __shared__ unsigned char smem_raw[];
@@ -262,8 +272,10 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   // the first key tiles see the most query tiles and start first
   const int kt = blockIdx.y, k0 = kt * kBK;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int qt0 = causal ? kt : 0;
-  const int nq = (S + kBQ - 1) / kBQ - qt0;
+  // under the causal mask, the query tiles from the one holding position
+  // k0 (query row k0 - q_off) on
+  const int qt0 = causal && k0 > q_off ? (k0 - q_off) / kBQ : 0;
+  const int nq = max((Sq + kBQ - 1) / kBQ - qt0, 0);
   const int n_it = G * nq;   // (head, query tile) pairs, heads outer
 
   if (tid == 0) {
@@ -286,12 +298,12 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
       const int st = it % kStages, round = it / kStages;
       const int h = kh * G + it / nq, q0 = (qt0 + it % nq) * kBQ;
       if (round > 0) mbar_wait(bar_e + 8 * st, (round - 1) & 1);
-      const long long at = ((long long)b * H + h) * S;
+      const long long at = ((long long)b * H + h) * Sq;
       float* stage = stats + st * 2 * kBQ;
       for (int r = lane; r < kBQ; r += 32) {
         const int row = q0 + r;
-        stage[r] = row < S ? lse[at + row] * kLog2e : INFINITY;
-        stage[kBQ + r] = row < S ? delta[at + row] : 0.f;
+        stage[r] = row < Sq ? lse[at + row] * kLog2e : INFINITY;
+        stage[kBQ + r] = row < Sq ? delta[at + row] : 0.f;
       }
       // each lane's arrival releases its own stores
       if (lane == 0) {
@@ -330,10 +342,10 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     fence_regs(dp);
 
     // P^T = exp(S^T * scale - lse) and dS^T = P^T (dP^T - delta), the lse
-    // and delta of each column's query; the diagonal tile masks the keys
-    // after their query
+    // and delta of each column's query; a tile the diagonal crosses masks
+    // the keys after their query's position
     const float* stage = stats + st * 2 * kBQ;
-    const bool diag = causal && q0 == k0;
+    const bool diag = causal && q_off + q0 < k0 + kBK - 1;
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
       const int c = j * 8 + (lane & 3) * 2;
@@ -342,7 +354,8 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float p = exp2f(s[4 * j + e] * scale_log2 - (e & 1 ? l2.y : l2.x));
-        if (diag && q0 + c + (e & 1) < key_a + (e >> 1) * 8) p = 0.f;
+        if (diag && q_off + q0 + c + (e & 1) < key_a + (e >> 1) * 8)
+          p = 0.f;
         s[4 * j + e] = p;
         dp[4 * j + e] = p * (dp[4 * j + e] - (e & 1 ? d2.y : d2.x));
       }
@@ -364,9 +377,9 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_arrive(bar_e + 8 * st);   // this thread is done with stage st
   }
 
-  const long long at = ((long long)b * S * KH + kh) * HD;
-  store_rows<HD>(dk + at, (long long)KH * HD, acc_dk, key_a, S, scale, lane);
-  store_rows<HD>(dv + at, (long long)KH * HD, acc_dv, key_a, S, 1.f, lane);
+  const long long at = ((long long)b * Sk * KH + kh) * HD;
+  store_rows<HD>(dk + at, (long long)KH * HD, acc_dk, key_a, Sk, scale, lane);
+  store_rows<HD>(dv + at, (long long)KH * HD, acc_dv, key_a, Sk, 1.f, lane);
 }
 
 // 3. dQ of 64 query rows of one (b, h): the consumer warpgroup's warp owns
@@ -379,8 +392,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
              const __grid_constant__ CUtensorMap map_v,
              const __grid_constant__ CUtensorMap map_do,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             __nv_bfloat16* __restrict__ dq, int S, int H, int G, float scale,
-             float scale_log2, int causal) {
+             __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int q_off, int H,
+             int G, float scale, float scale_log2, int causal) {
   constexpr int NS = kBK / 8;   // n8 column blocks of S (keys)
   constexpr int TB = tile_bytes<HD>();
   extern __shared__ unsigned char smem_raw[];
@@ -399,8 +412,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   const int qt = gridDim.y - 1 - blockIdx.y;
   const int q0 = qt * kBQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  int n_kt = (S + kBK - 1) / kBK;
-  if (causal) n_kt = min(n_kt, qt + 1);
+  int n_kt = (Sk + kBK - 1) / kBK;
+  if (causal) n_kt = min(n_kt, (q_off + q0 + kBQ - 1) / kBK + 1);
 
   if (tid == 0) {
     mbar_init(bar_q, 1);
@@ -431,13 +444,13 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   const int row_a = q0 + warp * 16 + (lane >> 2);
-  const long long at = ((long long)b * H + h) * S;
+  const long long at = ((long long)b * H + h) * Sq;
   float l2[2], dl[2];   // this thread's rows' lse (base 2) and delta
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row_a + i * 8;
-    l2[i] = row < S ? lse[at + row] * kLog2e : 0.f;
-    dl[i] = row < S ? delta[at + row] : 0.f;
+    l2[i] = row < Sq ? lse[at + row] * kLog2e : 0.f;
+    dl[i] = row < Sq ? delta[at + row] : 0.f;
   }
   float acc[HD / 2];
 #pragma unroll
@@ -464,10 +477,11 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     fence_regs(s);
     fence_regs(dp);
 
-    // P = exp(S * scale - lse), dS = P (dP - delta); the diagonal tile and
-    // a ragged last tile mask their keys
+    // P = exp(S * scale - lse), dS = P (dP - delta); the tiles the
+    // diagonal crosses and a ragged last tile mask their keys
     const int k0 = kt * kBK;
-    const bool masked = (causal && kt == qt) || k0 + kBK > S;
+    const bool masked =
+        (causal && k0 + kBK - 1 > q_off + q0) || k0 + kBK > Sk;
 #pragma unroll
     for (int j = 0; j < NS; ++j)
 #pragma unroll
@@ -476,7 +490,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
         if (masked) {
           const int col = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
           const int row = row_a + (e >> 1) * 8;
-          if (col >= S || (causal && col > row)) p = 0.f;
+          if (col >= Sk || (causal && col > q_off + row)) p = 0.f;
         }
         dp[4 * j + e] = p * (dp[4 * j + e] - dl[e >> 1]);
       }
@@ -491,21 +505,21 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_arrive(bar_e + 8 * st);   // this thread is done with stage st
   }
 
-  store_rows<HD>(dq + ((long long)b * S * H + h) * HD, (long long)H * HD, acc,
-                 row_a, S, scale, lane);
+  store_rows<HD>(dq + ((long long)b * Sq * H + h) * HD, (long long)H * HD,
+                 acc, row_a, Sq, scale, lane);
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, void* dk,
-           void* dv, int B, int S, int H, int G, Strides qs, Strides ks,
+           void* dv, int B, Seq sq, int H, int G, Strides qs, Strides ks,
            Strides vs, int causal, cudaStream_t stream) {
-  const Strides gs{(long long)S * H * HD, (long long)H * HD, HD};
+  const Strides gs{(long long)sq.q * H * HD, (long long)H * HD, HD};
   CUtensorMap mq, mk, mv, mdo;
-  if (!make_map(&mq, q, B, S, H, HD, qs) ||
-      !make_map(&mk, k, B, S, H / G, HD, ks) ||
-      !make_map(&mv, v, B, S, H / G, HD, vs) ||
-      !make_map(&mdo, dout, B, S, H, HD, gs))
+  if (!make_map(&mq, q, B, sq.q, H, HD, qs) ||
+      !make_map(&mk, k, B, sq.k, H / G, HD, ks) ||
+      !make_map(&mv, v, B, sq.k, H / G, HD, vs) ||
+      !make_map(&mdo, dout, B, sq.q, H, HD, gs))
     return (int)cudaErrorInvalidValue;
   static int allowed_dkdv = 48 * 1024, allowed_dq = 48 * 1024;
   constexpr int smem_dkdv = dkdv_smem_bytes<HD>();
@@ -519,16 +533,17 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const float scale_log2 = scale * kLog2e;
   __nv_bfloat16* tdk = static_cast<__nv_bfloat16*>(dk);
   __nv_bfloat16* tdv = static_cast<__nv_bfloat16*>(dv);
-  k_dkdv<<<dim3((unsigned)(B * (H / G)), (unsigned)((S + kBK - 1) / kBK)),
+  k_dkdv<<<dim3((unsigned)(B * (H / G)), (unsigned)((sq.k + kBK - 1) / kBK)),
            kWG + 32, smem_dkdv, stream>>>(
-      mq, mk, mv, mdo, lse, delta, tdk, tdv, S, H, G, scale, scale_log2,
-      causal);
+      mq, mk, mv, mdo, lse, delta, tdk, tdv, sq.q, sq.k, sq.off, H, G, scale,
+      scale_log2, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  k_dq<<<dim3((unsigned)(B * H), (unsigned)((S + kBQ - 1) / kBQ)), kWG + 32,
-         smem_dq, stream>>>(mq, mk, mv, mdo, lse, delta,
-                            static_cast<__nv_bfloat16*>(dq), S, H, G, scale,
-                            scale_log2, causal);
+  k_dq<<<dim3((unsigned)(B * H), (unsigned)((sq.q + kBQ - 1) / kBQ)),
+         kWG + 32, smem_dq, stream>>>(mq, mk, mv, mdo, lse, delta,
+                                      static_cast<__nv_bfloat16*>(dq), sq.q,
+                                      sq.k, sq.off, H, G, scale, scale_log2,
+                                      causal);
   return (int)cudaGetLastError();
 }
 
@@ -627,13 +642,14 @@ __device__ __forceinline__ void accum_rows(
 }
 
 // P and dS of one (query tile, key tile) pair into sP (optional) and sdS:
-// P = exp(S * scale - lse) where the key is real and visible, else 0;
-// dS = P * (dP - delta)
+// P = exp(S * scale - lse) where the query and key are real and the key
+// visible from the query's position q_off + row, else 0; dS = P * (dP -
+// delta)
 __device__ __forceinline__ void probs(const float (&s)[4][4],
                                       const float (&dp)[4][4],
                                       const float* sL, const float* sD,
                                       float* sP, float* sdS, int q0, int k0,
-                                      int S, float scale, int causal) {
+                                      Seq sq, float scale, int causal) {
   const int sy = threadIdx.x / 16, sx = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -641,7 +657,8 @@ __device__ __forceinline__ void probs(const float (&s)[4][4],
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = sx + 16 * j, key = k0 + c;
-      const bool ok = row < S && key < S && (!causal || key <= row);
+      const bool ok =
+          row < sq.q && key < sq.k && (!causal || key <= sq.off + row);
       const float p = ok ? expf(s[i][j] * scale - sL[r]) : 0.f;
       if (sP != nullptr) sP[r * kLDP + c] = p;
       sdS[r * kLDP + c] = p * (dp[i][j] - sD[r]);
@@ -672,7 +689,7 @@ __global__ void __launch_bounds__(kThreads)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            T* __restrict__ dk, T* __restrict__ dv, int S, int H, int G,
+            T* __restrict__ dk, T* __restrict__ dv, Seq sq, int H, int G,
             Strides qs, Strides ks, Strides vs, float scale, int causal) {
   constexpr int LD = HD + 1;
   constexpr int CPT = cols_per_thread<HD>();
@@ -690,32 +707,32 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.y * kBK;   // the first key tiles see the most rows
   const int tid = threadIdx.x;
 
-  load_rows<T, HD>(sK, k + b * ks.b + kh * ks.h, ks.s, k0, S);
-  load_rows<T, HD>(sV, v + b * vs.b + kh * vs.h, vs.s, k0, S);
+  load_rows<T, HD>(sK, k + b * ks.b + kh * ks.h, ks.s, k0, sq.k);
+  load_rows<T, HD>(sV, v + b * vs.b + kh * vs.h, vs.s, k0, sq.k);
   float acc_dk[4][CPT], acc_dv[4][CPT];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < CPT; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
 
-  const int n_qt = (S + kBQ - 1) / kBQ;
-  const int qt0 = causal ? k0 / kBQ : 0;
+  const int n_qt = (sq.q + kBQ - 1) / kBQ;
+  const int qt0 = causal && k0 > sq.off ? (k0 - sq.off) / kBQ : 0;
   for (int hh = 0; hh < G; ++hh) {
     const int h = kh * G + hh;
     const long long bh = (long long)b * H + h;
     const T* qb = q + b * qs.b + h * qs.h;
-    const T* gb = dout + (long long)b * S * H * HD + (long long)h * HD;
+    const T* gb = dout + (long long)b * sq.q * H * HD + (long long)h * HD;
     for (int qt = qt0; qt < n_qt; ++qt) {
       const int q0 = qt * kBQ;
       __syncthreads();   // the previous tile's reads are done
-      load_rows<T, HD>(sQ, qb, qs.s, q0, S);
-      load_rows<T, HD>(sdO, gb, (long long)H * HD, q0, S);
-      load_stats(sL, sD, lse, delta, bh, q0, S);
+      load_rows<T, HD>(sQ, qb, qs.s, q0, sq.q);
+      load_rows<T, HD>(sdO, gb, (long long)H * HD, q0, sq.q);
+      load_stats(sL, sD, lse, delta, bh, q0, sq.q);
       __syncthreads();
       float s[4][4], dp[4][4];
       dot_tile<HD>(sQ, sK, s);
       dot_tile<HD>(sdO, sV, dp);
-      probs(s, dp, sL, sD, sP, sdS, q0, k0, S, scale, causal);
+      probs(s, dp, sL, sD, sP, sdS, q0, k0, sq, scale, causal);
       __syncthreads();
       accum_rows<HD, true>(sP, sdO, acc_dv);
       accum_rows<HD, true>(sdS, sQ, acc_dk);
@@ -726,8 +743,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty * 4 + i;
-    if (key >= S) continue;
-    const long long at = (((long long)b * S + key) * KH + kh) * HD;
+    if (key >= sq.k) continue;
+    const long long at = (((long long)b * sq.k + key) * KH + kh) * HD;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int d = tx + 16 * j;
@@ -745,7 +762,7 @@ __global__ void __launch_bounds__(kThreads)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, int S, int H, int G, Strides qs, Strides ks,
+          T* __restrict__ dq, Seq sq, int H, int G, Strides qs, Strides ks,
           Strides vs, float scale, int causal) {
   constexpr int LD = HD + 1;
   constexpr int CPT = cols_per_thread<HD>();
@@ -762,10 +779,11 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const long long bh = (long long)b * H + h;
 
-  load_rows<T, HD>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, S);
-  load_rows<T, HD>(sdO, dout + (long long)b * S * H * HD + (long long)h * HD,
-                   (long long)H * HD, q0, S);
-  load_stats(sL, sD, lse, delta, bh, q0, S);
+  load_rows<T, HD>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, sq.q);
+  load_rows<T, HD>(sdO,
+                   dout + (long long)b * sq.q * H * HD + (long long)h * HD,
+                   (long long)H * HD, q0, sq.q);
+  load_stats(sL, sD, lse, delta, bh, q0, sq.q);
   const T* kb = k + b * ks.b + kh * ks.h;
   const T* vb = v + b * vs.b + kh * vs.h;
   float acc[4][CPT];
@@ -774,18 +792,18 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
 
-  int n_kt = (S + kBK - 1) / kBK;
-  if (causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);
+  int n_kt = (sq.k + kBK - 1) / kBK;
+  if (causal) n_kt = min(n_kt, (sq.off + q0 + kBQ - 1) / kBK + 1);
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();   // the previous tile's reads are done
-    load_rows<T, HD>(sK, kb, ks.s, k0, S);
-    load_rows<T, HD>(sV, vb, vs.s, k0, S);
+    load_rows<T, HD>(sK, kb, ks.s, k0, sq.k);
+    load_rows<T, HD>(sV, vb, vs.s, k0, sq.k);
     __syncthreads();
     float s[4][4], dp[4][4];
     dot_tile<HD>(sQ, sK, s);
     dot_tile<HD>(sdO, sV, dp);
-    probs(s, dp, sL, sD, nullptr, sdS, q0, k0, S, scale, causal);
+    probs(s, dp, sL, sD, nullptr, sdS, q0, k0, sq, scale, causal);
     __syncthreads();
     accum_rows<HD, false>(sdS, sK, acc);
   }
@@ -794,8 +812,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
-    if (row >= S) continue;
-    const long long at = (((long long)b * S + row) * H + h) * HD;
+    if (row >= sq.q) continue;
+    const long long at = (((long long)b * sq.q + row) * H + h) * HD;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int d = tx + 16 * j;
@@ -806,7 +824,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, void* dk,
-           void* dv, int B, int S, int H, int G, Strides qs, Strides ks,
+           void* dv, int B, Seq sq, int H, int G, Strides qs, Strides ks,
            Strides vs, int causal, cudaStream_t stream) {
   static int allowed_dkdv = 48 * 1024, allowed_dq = 48 * 1024;
   const int smem_dkdv = smem_bytes<HD>(4, 2);
@@ -822,17 +840,17 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const T* tv = static_cast<const T*>(v);
   const T* tg = static_cast<const T*>(dout);
   const float scale = (float)(1.0 / sqrt((double)HD));
-  const unsigned n_q = (unsigned)((S + kBQ - 1) / kBQ);
-  const unsigned n_k = (unsigned)((S + kBK - 1) / kBK);
+  const unsigned n_q = (unsigned)((sq.q + kBQ - 1) / kBQ);
+  const unsigned n_k = (unsigned)((sq.k + kBK - 1) / kBK);
 
   k_dkdv<<<dim3((unsigned)(B * (H / G)), n_k), kThreads, smem_dkdv,
            stream>>>(tq, tk, tv, tg, lse, delta, static_cast<T*>(dk),
-                     static_cast<T*>(dv), S, H, G, qs, ks, vs, scale,
+                     static_cast<T*>(dv), sq, H, G, qs, ks, vs, scale,
                      causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   k_dq<<<dim3((unsigned)(B * H), n_q), kThreads, smem_dq, stream>>>(
-      tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), S, H, G, qs, ks, vs,
+      tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), sq, H, G, qs, ks, vs,
       scale, causal);
   return (int)cudaGetLastError();
 }
@@ -840,24 +858,24 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v,
               const void* dout, const float* lse, const float* delta,
-              void* dq, void* dk, void* dv, int B, int S, int H, int G,
+              void* dq, void* dk, void* dv, int B, Seq sq, int H, int G,
               Strides qs, Strides ks, Strides vs, int causal,
               cudaStream_t s) {
   switch (hd) {
     case 8:
-      return launch<T, 8>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, G,
+      return launch<T, 8>(q, k, v, dout, lse, delta, dq, dk, dv, B, sq, H, G,
                           qs, ks, vs, causal, s);
     case 16:
-      return launch<T, 16>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H,
+      return launch<T, 16>(q, k, v, dout, lse, delta, dq, dk, dv, B, sq, H,
                            G, qs, ks, vs, causal, s);
     case 32:
-      return launch<T, 32>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H,
+      return launch<T, 32>(q, k, v, dout, lse, delta, dq, dk, dv, B, sq, H,
                            G, qs, ks, vs, causal, s);
     case 64:
-      return launch<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H,
+      return launch<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, sq, H,
                            G, qs, ks, vs, causal, s);
     case 128:
-      return launch<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H,
+      return launch<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, sq, H,
                             G, qs, ks, vs, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -874,24 +892,26 @@ const char* fab_error_string(int err) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements. q, o, dO and
-// dq have H heads, k, v, dk and dv KH, with H % KH == 0. o and dO are
-// contiguous and start on 16 bytes. lse is the fp32 (B, H, S) log-sum-exp
-// that K4 wrote for the same q, k, v. scratch holds B * H * S floats (each
-// row's delta). *route is set to the route taken: 1 = tensor cores (tc),
-// 0 = CUDA cores (simt).
+// dq have Sq rows and H heads, k, v, dk and dv Sk rows and KH heads, with
+// H % KH == 0 and Sk >= 1; query row i sits at position q_off + i (K4's
+// contract). o and dO are contiguous and start on 16 bytes. lse is the
+// fp32 (B, H, Sq) log-sum-exp that K4 wrote for the same q, k, v. scratch
+// holds B * H * Sq floats (each row's delta). *route is set to the route
+// taken: 1 = tensor cores (tc), 0 = CUDA cores (simt).
 int fab_flash_attention_bwd(const void* q, const void* k, const void* v,
                             const void* o, const void* dout,
                             const float* lse, void* dq, void* dk, void* dv,
-                            int B, int S, int H, int KH, int hd,
-                            long long q_sb, long long q_ss, long long q_sh,
-                            long long k_sb, long long k_ss, long long k_sh,
-                            long long v_sb, long long v_ss, long long v_sh,
-                            int causal, int dtype, void* scratch, int* route,
-                            void* stream) {
+                            int B, int Sq, int Sk, int H, int KH, int hd,
+                            int q_off, long long q_sb, long long q_ss,
+                            long long q_sh, long long k_sb, long long k_ss,
+                            long long k_sh, long long v_sb, long long v_ss,
+                            long long v_sh, int causal, int dtype,
+                            void* scratch, int* route, void* stream) {
   if (KH <= 0 || H % KH != 0 || lse == nullptr || (dtype != 0 && dtype != 1)
-      || !aligned16(o) || !aligned16(dout))
+      || !aligned16(o) || !aligned16(dout) || Sk < 1 || q_off < 0)
     return (int)cudaErrorInvalidValue;
   const int G = H / KH;
+  const Seq sq{Sq, Sk, q_off};
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -899,22 +919,22 @@ int fab_flash_attention_bwd(const void* q, const void* k, const void* v,
   *route = dtype == 1 && (hd == 64 || hd == 128) && rows_aligned(q, qs) &&
            rows_aligned(k, ks) && rows_aligned(v, vs);
   int err = dtype == 0
-                ? launch_delta_hd<float>(hd, o, dout, delta, B, S, H, s)
-                : launch_delta_hd<__nv_bfloat16>(hd, o, dout, delta, B, S,
+                ? launch_delta_hd<float>(hd, o, dout, delta, B, Sq, H, s)
+                : launch_delta_hd<__nv_bfloat16>(hd, o, dout, delta, B, Sq,
                                                  H, s);
   if (err != 0) return err;
   if (*route) {
     if (hd == 64)
-      return tc::launch<64>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H,
+      return tc::launch<64>(q, k, v, dout, lse, delta, dq, dk, dv, B, sq, H,
                             G, qs, ks, vs, causal, s);
-    return tc::launch<128>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, G,
-                           qs, ks, vs, causal, s);
+    return tc::launch<128>(q, k, v, dout, lse, delta, dq, dk, dv, B, sq, H,
+                           G, qs, ks, vs, causal, s);
   }
   if (dtype == 0)
     return simt::launch_hd<float>(hd, q, k, v, dout, lse, delta, dq, dk, dv,
-                                  B, S, H, G, qs, ks, vs, causal, s);
+                                  B, sq, H, G, qs, ks, vs, causal, s);
   return simt::launch_hd<__nv_bfloat16>(hd, q, k, v, dout, lse, delta, dq,
-                                        dk, dv, B, S, H, G, qs, ks, vs,
+                                        dk, dv, B, sq, H, G, qs, ks, vs,
                                         causal, s);
 }
 

@@ -34,16 +34,19 @@ _MASK32 = 0xFFFFFFFF
 # -- attention -----------------------------------------------------------------
 
 
-def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
-    """``(B, S, H, hd)`` attention over ``(B, S, K, hd)`` KV, H divisible
-    by K, read in place (K4)."""
-    return _attn.flash_attention(q, k, v, causal=causal)
+def flash_attention(q, k, v, causal: bool = True,
+                    q_offset: int = 0) -> torch.Tensor:
+    """``(B, S_q, H, hd)`` attention over ``(B, S_k, K, hd)`` KV, H
+    divisible by K, read in place, the query rows at positions
+    ``q_offset + i`` (K4)."""
+    return _attn.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
 
 
-def decode_attention(q, k_cache, v_cache, length) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, length, return_lse: bool = False):
     """One query token per sequence ``(B, H, hd)`` against ``(B, S, K, hd)``
-    caches, masked past ``length (B,)`` int32 (K5)."""
-    return _attn.decode_attention(q, k_cache, v_cache, length)
+    caches, masked past ``length (B,)`` int32 (K5); with ``return_lse``
+    also each head's log-sum-exp ``(B, H)`` fp32."""
+    return _attn.decode_attention(q, k_cache, v_cache, length, return_lse)
 
 
 # -- partitioning (the shuffle primitive) --------------------------------------

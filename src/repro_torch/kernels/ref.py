@@ -71,12 +71,22 @@ def fused_probe_ref(probe_keys, v0, v1, build_keys, build_cat, build_valid,
 # -- attention -------------------------------------------------------------------
 
 
+def causal_mask(s_q: int, s_k: int, q_offset: int, device) -> torch.Tensor:
+    """``(S_q, S_k)``: True where key j is visible from query row i at
+    position ``q_offset + i`` (``j <= q_offset + i``)."""
+    rows = torch.arange(s_q, device=device)[:, None] + q_offset
+    return torch.arange(s_k, device=device)[None, :] <= rows
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
-    """K4: q ``(B, S, H, hd)``, k, v ``(B, S, K, hd)`` with H divisible by
-    K -> ``(B, S, H, hd)`` in q's dtype; fp32 scores and softmax. KV is
-    expanded here as the reference expands it (``jnp.repeat(k, H // K,
-    axis=2)``: each kv head ``H // K`` times in a row)."""
+                        causal: bool = True,
+                        q_offset: int = 0) -> torch.Tensor:
+    """K4: q ``(B, S_q, H, hd)``, k, v ``(B, S_k, K, hd)`` with H
+    divisible by K -> ``(B, S_q, H, hd)`` in q's dtype; fp32 scores and
+    softmax; under ``causal`` query row i sits at position ``q_offset + i``
+    (``causal_mask``). KV is expanded here as the reference expands it
+    (``jnp.repeat(k, H // K, axis=2)``: each kv head ``H // K`` times in a
+    row)."""
     s, hd = q.shape[1], q.shape[3]
     g = q.shape[2] // k.shape[2]
     if g > 1:
@@ -84,7 +94,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.einsum("bqhk,bshk->bhqs", q.float(), k.float())
     scores = scores * (hd ** -0.5)
     if causal:
-        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        mask = causal_mask(s, k.shape[1], q_offset, q.device)
         scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqs,bshk->bqhk", probs.to(v.dtype), v)
@@ -92,12 +102,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor,
-                            causal: bool = True) -> torch.Tensor:
+                            v: torch.Tensor, causal: bool = True,
+                            q_offset: int = 0) -> torch.Tensor:
     """What K4 writes beside its output when asked (K4b reads it): each
-    query row's natural log-sum-exp of its scaled scores, masked above the
-    diagonal when causal, ``(B, H, S)`` fp32. ``v`` is not read; it is
-    taken so that the call matches ``flash_attention_ref``'s."""
+    query row's natural log-sum-exp of its scaled scores, masked by
+    ``causal_mask`` when causal, ``(B, H, S_q)`` fp32. ``v`` is not read;
+    it is taken so that the call matches ``flash_attention_ref``'s."""
     hd = q.shape[3]
     g = q.shape[2] // k.shape[2]
     if g > 1:
@@ -105,23 +115,23 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
     scores = torch.einsum("bqhk,bshk->bhqs", q.float(), k.float())
     scores = scores * (hd ** -0.5)
     if causal:
-        s = q.shape[1]
-        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        mask = causal_mask(q.shape[1], k.shape[1], q_offset, q.device)
         scores = scores.masked_fill(~mask, float("-inf"))
     return torch.logsumexp(scores, dim=-1)
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, out: torch.Tensor,
-                            d_out: torch.Tensor, causal: bool = True):
+                            d_out: torch.Tensor, causal: bool = True,
+                            q_offset: int = 0):
     """K4b: the gradient of ``flash_attention_ref`` by the explicit formula,
-    in fp32: with ``P = softmax(Q K^T * scale)`` (masked above the diagonal
-    when causal) and ``delta = rowsum(d_out * out)``, ``dS = P * (d_out
-    V^T - delta)``, ``dq = dS K * scale``, ``dk = dS^T Q * scale`` and
-    ``dv = P^T d_out``, dk and dv summed over each kv head's ``H // K``
-    query heads. Returns ``(dq, dk, dv)`` in q's dtype."""
+    in fp32: with ``P = softmax(Q K^T * scale)`` (masked by
+    ``causal_mask`` when causal) and ``delta = rowsum(d_out * out)``,
+    ``dS = P * (d_out V^T - delta)``, ``dq = dS K * scale``, ``dk = dS^T Q
+    * scale`` and ``dv = P^T d_out``, dk and dv summed over each kv head's
+    ``H // K`` query heads. Returns ``(dq, dk, dv)`` in q's dtype."""
     b, s, h, hd = q.shape
-    kh = k.shape[2]
+    s_k, kh = k.shape[1], k.shape[2]
     g = h // kh
     qf, of, gf = q.float(), out.float(), d_out.float()
     kf = k.float().repeat_interleave(g, dim=2)
@@ -129,7 +139,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     scale = hd ** -0.5
     scores = torch.einsum("bqhd,bshd->bhqs", qf, kf) * scale
     if causal:
-        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        mask = causal_mask(s, s_k, q_offset, q.device)
         scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     dp = torch.einsum("bqhd,bshd->bhqs", gf, vf)
@@ -138,18 +148,20 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dq = torch.einsum("bhqs,bshd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqs,bqhd->bshd", ds, qf) * scale
     dv = torch.einsum("bhqs,bqhd->bshd", probs, gf)
-    dk = dk.view(b, s, kh, g, hd).sum(dim=3)
-    dv = dv.view(b, s, kh, g, hd).sum(dim=3)
+    dk = dk.view(b, s_k, kh, g, hd).sum(dim=3)
+    dv = dv.view(b, s_k, kh, g, hd).sum(dim=3)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor,
-                         length: torch.Tensor) -> torch.Tensor:
+                         v_cache: torch.Tensor, length: torch.Tensor,
+                         return_lse: bool = False):
     """K5: q ``(B, H, hd)``, caches ``(B, S, K, hd)``, length ``(B,)`` valid
     prefix sizes -> ``(B, H, hd)`` in q's dtype. GQA: H = K * G, and query
     head i attends through kv head i // G. A length of 0 gives zeros, as
-    the reference's kernel does (its sum is clamped to 1e-30)."""
+    the reference's kernel does (its sum is clamped to 1e-30). With
+    ``return_lse`` also each head's fp32 log-sum-exp of its scaled valid
+    scores, ``(B, H)``, ``-inf`` at length 0."""
     hd = q.shape[2]
     s, kh = k_cache.shape[1], k_cache.shape[2]
     g = q.shape[1] // kh
@@ -162,4 +174,7 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     scores = scores.masked_fill(~valid[:, None, :], float("-inf"))
     probs = torch.softmax(scores, dim=-1).masked_fill(~valid[:, None, :], 0.)
     out = torch.einsum("bhs,bshk->bhk", probs.to(v_exp.dtype), v_exp)
-    return out.to(q.dtype)
+    out = out.to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(scores, dim=-1)
+    return out

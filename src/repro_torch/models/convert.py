@@ -9,6 +9,12 @@ mapping keyed by the port's parameter names (gradients, the optimizer's
 ``master``, ``m`` and ``v``). The reference stacks each pattern position's
 leaves over the repeats (``params["blocks"][p][...]`` has a leading
 ``repeats`` axis); layer ``r * P + p`` is row ``r`` of position ``p``.
+
+Under sharding rules that split more than the batch, ``shard_params``
+gives a rank its shard of every leaf of a whole model (made from the seed,
+or carried across by ``params_from_numpy``) and ``shard_named`` of any
+mapping keyed by the parameters' names (the optimizer's ``master``, ``m``
+and ``v``); ``gather_named`` is their inverse, for ``params_to_numpy``.
 """
 
 from __future__ import annotations
@@ -171,3 +177,83 @@ def param_shapes(cfg: ModelConfig) -> dict:
     shapes = {k: s for k, (s, _) in _meta_leaves(cfg).items()}
     return _restack(shapes, cfg, lambda s: s, lambda rows: ParamShape(
         (len(rows),) + rows[0].shape, rows[0].dtype))
+
+
+# -- shards ------------------------------------------------------------------
+
+
+def _spec_axes(part) -> tuple[str, ...]:
+    if part is None:
+        return ()
+    return tuple(part) if isinstance(part, (tuple, list)) else (part,)
+
+
+def _cuts(rules, logical: tuple, shape: tuple) -> list:
+    """``(dim, axes, n, index)`` of every dimension of a leaf that ``rules``
+    split over more than one rank (``ShardingRules.spec``), this rank's
+    block index among ``n``; a dimension that does not divide raises."""
+    mesh = rules.mesh
+    cuts = []
+    for dim, part in enumerate(rules.spec(*logical)):
+        axes = tuple(a for a in mesh.axis_names if a in _spec_axes(part)
+                     and int(mesh.shape[a]) > 1)
+        n = math.prod(int(mesh.shape[a]) for a in axes)
+        if n == 1:
+            continue
+        if shape[dim] % n:
+            raise ValueError(f"dimension {dim} ({logical[dim]}) of {shape} "
+                             f"does not split over {n} ranks of {axes}")
+        cuts.append((dim, axes, n, mesh.axes_index(axes)))
+    return cuts
+
+
+def _shard(t: torch.Tensor, cuts: list) -> torch.Tensor:
+    for dim, _, n, index in cuts:
+        step = t.shape[dim] // n
+        t = t.narrow(dim, index * step, step)
+    return t.contiguous()
+
+
+def shard_named(named, cfg: ModelConfig, rules) -> dict:
+    """``{name: this rank's shard}`` of a mapping from the port's parameter
+    names to whole tensors of the parameters' shapes (parameters,
+    gradients, optimizer state): each dimension split over mesh axes ``A``
+    keeps block ``mesh.axes_index(A)`` of ``prod(|A|)``."""
+    leaves = _meta_leaves(cfg)
+    return {k: _shard(t, _cuts(rules, leaves[k][1], tuple(t.shape)))
+            for k, t in dict(named).items()}
+
+
+def shard_params(model: LM, rules) -> LM:
+    """A model holding this rank's shard of every parameter of the whole
+    ``model`` (on its device, gradients off as ``init_lm`` builds them; the
+    whole model is left as it is)."""
+    cfg = model.cfg
+    named = {k: p.detach() for k, p in model.named_parameters()}
+    local = LM(cfg, None, torch.device("meta"))
+    for name, t in shard_named(named, cfg, rules).items():
+        *path, leaf = name.split(".")
+        setattr(local.get_submodule(".".join(path)), leaf,
+                torch.nn.Parameter(t.clone(), requires_grad=False))
+    return local
+
+
+def gather_named(named, cfg: ModelConfig, rules) -> dict:
+    """``shard_named``'s inverse on every rank: each leaf's shards gathered
+    whole over the mesh axes that split it (a collective: every rank calls
+    it with the same names, in the same order). ``named`` is an ``LM`` or
+    a mapping by the parameters' names."""
+    from repro_torch.parallel.collectives import gather_dim
+    named = dict(named.named_parameters()) if isinstance(named, LM) \
+        else dict(named)
+    leaves = _meta_leaves(cfg)
+    out = {}
+    with torch.no_grad():
+        for k, t in named.items():
+            full = t.detach()
+            for dim, axes, _, _ in reversed(_cuts(
+                    rules, leaves[k][1], leaves[k][0].shape)):
+                full = gather_dim(full.contiguous(), dim,
+                                  rules.mesh.group(axes))
+            out[k] = full
+    return out

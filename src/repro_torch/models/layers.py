@@ -6,7 +6,11 @@ Weights keep the reference's layouts (``(d, d_ff)`` projections, a
 leaf for leaf (``repro_torch.models.convert``). Compute runs in the weights'
 dtype with norm, activation and rotation in fp32, cast back, as in the
 reference. The reference's sharding annotations (``logical_shard``) do
-nothing on one device and are not carried over.
+nothing on one device and are not carried over: under sharding rules that
+split more than the batch, each function takes the rank's
+``repro_torch.parallel.tensor.TensorPlan`` (``plan``) and makes the
+collectives GSPMD placed in the reference (``vocab`` and ``mlp`` over
+``model``, the sequence-sharded residual, ZeRO-3's gathers).
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import functools
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.parallel import collectives as C
 
 VOCAB_PAD = 128  # vocab padded to a multiple of this, as in the reference
 
@@ -76,16 +82,58 @@ class Embedding(nn.Module):
             (d, vpad), d ** -0.5, dtype, generator, device)
 
 
-def embed(emb: Embedding, tokens: torch.Tensor) -> torch.Tensor:
-    return emb.table[tokens.long()]
+def embed(emb: Embedding, tokens: torch.Tensor, plan=None) -> torch.Tensor:
+    """The tokens' rows of the table. Under a ``plan`` that splits the
+    vocab, this rank's shard gives its own ids' rows and zeros for the
+    rest: a partial sum over ``plan.vocab`` that the caller reduces
+    (``residual_from_partial``)."""
+    if plan is None:
+        return emb.table[tokens.long()]
+    table = plan.weight(emb, "table")
+    if not plan.vocab:
+        return table[tokens.long()]
+    lo, n = plan.vocab.block(table.shape[0] * plan.vocab.n)
+    local = tokens.long() - lo
+    inside = (local >= 0) & (local < n)
+    return table[local.clamp(0, n - 1)] * inside[..., None].to(table.dtype)
 
 
-def unembed(emb: Embedding, x: torch.Tensor, true_vocab: int):
+def residual_from_partial(h: torch.Tensor, plan) -> torch.Tensor:
+    """``(B, S, D)`` embeddings, a partial sum over ``plan.vocab`` where it
+    is split, as the residual stream the layers take: summed over the vocab
+    ranks, and this rank's block of the sequence where the residual is
+    sequence-sharded (one reduce-scatter, whose backward gives every vocab
+    rank the whole sequence's gradient)."""
+    if plan.vocab:
+        if plan.seq:
+            return C.reduce_scatter_along(h, 1, plan.seq.group)
+        return C.reduce_from(h, plan.vocab.group)
+    if plan.seq:
+        lo, n = plan.seq.block(h.shape[1])
+        return h[:, lo:lo + n]
+    return h
+
+
+def unembed_table(emb: Embedding, plan=None) -> torch.Tensor:
+    """``(D, V)``: the tied table's transpose or the untied unembedding
+    (under a ``plan``, this rank's vocab columns, ``w_embed`` gathered)."""
+    if emb.unembed is None:
+        table = emb.table if plan is None else plan.weight(emb, "table")
+        return table.T
+    return emb.unembed if plan is None else plan.weight(emb, "unembed")
+
+
+def unembed(emb: Embedding, x: torch.Tensor, true_vocab: int, plan=None):
     """Logits over the padded vocab in the weights' dtype; the padded
-    columns read -1e9 (the caller casts to fp32, as the reference does)."""
-    table = emb.table.T if emb.unembed is None else emb.unembed
+    columns read -1e9 (the caller casts to fp32, as the reference does).
+    Under a ``plan`` ``x`` is replicated over the vocab ranks, each
+    computes its vocab columns, and the logits are gathered whole (fp32,
+    with no gradient: serving's and ``forward``'s)."""
+    table = unembed_table(emb, plan)
     logits = x @ table
-    if table.shape[-1] != true_vocab:
+    if plan is not None and plan.vocab:
+        logits = C.gather_dim(logits.float(), -1, plan.vocab.group)
+    if logits.shape[-1] != true_vocab:
         logits = logits.float()
         logits[..., true_vocab:] = -1e9
     return logits
@@ -141,8 +189,29 @@ class MLP(nn.Module):
                                 device)
 
 
-def mlp(m: MLP, x: torch.Tensor) -> torch.Tensor:
-    gate = x @ m.gate
-    up = x @ m.up
+def _swiglu(x, gate_w, up_w, down_w):
+    gate = x @ gate_w
+    up = x @ up_w
     hidden = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-    return hidden @ m.down
+    return hidden @ down_w
+
+
+def mlp(m: MLP, x: torch.Tensor, plan=None) -> torch.Tensor:
+    """The SwiGLU FFN. Under a ``plan`` that splits ``mlp``, ``gate`` and
+    ``up`` are column shards and ``down`` a row shard: the input is
+    replicated over the mlp ranks (``copy_to``) or, from a
+    sequence-sharded residual, gathered along the sequence, and the
+    partial outputs are summed (``reduce_from``) or reduce-scattered back
+    to the sequence blocks. Otherwise (``mlp_seq`` among them) every rank
+    runs the whole FFN on its own positions."""
+    if plan is None:
+        return _swiglu(x, m.gate, m.up, m.down)
+    weights = [plan.weight(m, leaf) for leaf in ("gate", "up", "down")]
+    if not plan.mlp:
+        return _swiglu(x, *weights)
+    if plan.seq:
+        x = C.gather_along(x, 1, plan.seq.group)
+        return C.reduce_scatter_along(_swiglu(x, *weights), 1,
+                                      plan.seq.group)
+    x = C.copy_to(x, plan.mlp.group)
+    return C.reduce_from(_swiglu(x, *weights), plan.mlp.group)

@@ -16,6 +16,21 @@ Parameters are built frozen (no gradient); ``repro_torch.training``'s
 ``init_train_state`` turns their gradients on. ``forward_hidden`` is the
 training entry point: the forward up to the final norm, each layer under
 the remat policy asked for.
+
+Under sharding rules (``use_rules``) that split more than the batch, a
+rank's model holds its shards (``convert.shard_params``) and every entry
+point runs on ``repro_torch.parallel.tensor.TensorPlan`` of the rules,
+resolved once a call and handed to each layer (so a layer recomputed in
+the backward makes the same collectives): the attention and FFN blocks
+of the six dense attention models only; other blocks are ROADMAP item
+11.4c. Under ``seq_tp`` the residual between the layers is this rank's
+block of the sequence. ``forward``, ``prefill_step`` and ``decode_step``
+return the whole logits on every rank and do not split the batch (a
+``data`` axis repeats the work; the serving engine under a mesh is item
+11.4c). A decode state made under rules that split ``cache_seq`` keeps
+each layer's block of the cache and records the split in
+``state["cache_axes"]``; ``prefill_step`` (under any rules on the same
+mesh) fills those blocks.
 """
 
 from __future__ import annotations
@@ -43,10 +58,13 @@ from repro_torch.models.layers import (
     embed,
     init_normal,
     mlp,
+    residual_from_partial,
     rmsnorm,
     unembed,
 )
-from repro_torch.parallel.sharding import batch_group
+from repro_torch.parallel.collectives import gather_along, gather_dim
+from repro_torch.parallel.sharding import batch_group, current_rules
+from repro_torch.parallel.tensor import Split, tensor_plan
 
 AUDIO_FRAME_DIM = 128   # EnCodec latent dim (stub frontend)
 
@@ -121,20 +139,28 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device).expand(b, s)
 
 
-def _frontend_embed(model: LM, inputs: dict) -> torch.Tensor:
+def _frontend_embed(model: LM, inputs: dict, plan=None) -> torch.Tensor:
     """The token embeddings, with the vision stub's projected patches put
     before them, or the audio stub's projected frames added at every
-    position."""
-    h = embed(model.embed, inputs["tokens"])
-    if model.cfg.frontend == Frontend.VISION_STUB.value:
-        patches = inputs["patch_embeds"].to(h.dtype) @ model.patch_proj
-        h = torch.cat([patches, h], dim=1)
-    elif model.cfg.frontend == Frontend.AUDIO_STUB.value:
-        h = h + inputs["frame_embeds"].to(h.dtype) @ model.frame_proj
-    return h
+    position. Under a ``plan`` the embeddings are a partial sum over the
+    vocab ranks until ``residual_from_partial``; the stub's projection,
+    the same on every rank, joins it on the first vocab rank only."""
+    h = embed(model.embed, inputs["tokens"], plan)
+    frontend = model.cfg.frontend
+    if frontend in (Frontend.VISION_STUB.value, Frontend.AUDIO_STUB.value):
+        vision = frontend == Frontend.VISION_STUB.value
+        name = "patch_proj" if vision else "frame_proj"
+        w = getattr(model, name) if plan is None \
+            else plan.weight(model, name)
+        x = inputs["patch_embeds" if vision else "frame_embeds"]
+        extra = x.to(h.dtype) @ w
+        if plan is not None and plan.vocab.index:
+            extra = extra * 0
+        h = torch.cat([extra, h], dim=1) if vision else h + extra
+    return h if plan is None else residual_from_partial(h, plan)
 
 
-def _ffn(layer: Block, h: torch.Tensor, cfg: ModelConfig):
+def _ffn(layer: Block, h: torch.Tensor, cfg: ModelConfig, plan=None):
     """The layer's FFN residual update of ``h`` and its MoE load-balance
     statistics (``moe.moe_parts``; ``None`` for a dense FFN or none)."""
     if not hasattr(layer, "ffn"):
@@ -143,7 +169,7 @@ def _ffn(layer: Block, h: torch.Tensor, cfg: ModelConfig):
     if isinstance(layer.ffn, moe_mod.MoE):
         out, stats = moe_mod.moe_parts(layer.ffn, normed, cfg)
         return h + out, stats
-    return h + mlp(layer.ffn, normed), None
+    return h + mlp(layer.ffn, normed, plan), None
 
 
 _RECURRENT = {
@@ -154,16 +180,38 @@ _RECURRENT = {
 
 
 def _layer(layer: Block, h: torch.Tensor, positions: torch.Tensor,
-           cfg: ModelConfig, ssm_chunk: int):
+           cfg: ModelConfig, ssm_chunk: int, plan=None):
     """One residual layer (block, then FFN): ``(h, MoE statistics or
     None)``."""
     normed = rmsnorm(layer.norm1, h, cfg.norm_eps)
     if layer.kind == BlockKind.ATTENTION:
-        out = attn_mod.attention(layer.block, normed, positions, cfg)
+        out = attn_mod.attention(layer.block, normed, positions, cfg,
+                                 plan=plan)
     else:
         out = _RECURRENT[layer.kind](layer.block, normed, cfg,
                                      chunk=ssm_chunk)
-    return _ffn(layer, h + out, cfg)
+    return _ffn(layer, h + out, cfg, plan)
+
+
+def dense_attention_model(cfg: ModelConfig) -> bool:
+    """Every block attention and no MoE FFN: the models whose rules the
+    port runs over more than the batch."""
+    return cfg.moe is None and all(
+        cfg.block_kind(i) == BlockKind.ATTENTION
+        for i in range(len(cfg.block_pattern)))
+
+
+def plan_for(cfg: ModelConfig, plan=None):
+    """The call's ``TensorPlan`` (``plan``, else the current rules'), or
+    ``None``; a plan for a model other than the dense attention ones is
+    refused."""
+    plan = tensor_plan(current_rules()) if plan is None else plan
+    if plan is not None and not dense_attention_model(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: rules that split more than the batch run the dense "
+            f"attention models only; MoE, Mamba and xLSTM blocks wait for "
+            f"ROADMAP Queue 1 item 11.4c")
+    return plan
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -182,7 +230,7 @@ _REMAT = {
 
 
 def forward_hidden(model: LM, inputs: dict, remat: str = "block",
-                   q_chunk: int = 1024, ssm_chunk: int = 128
+                   q_chunk: int = 1024, ssm_chunk: int = 128, plan=None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full causal forward up to the final norm: ``(h (B, S', D), aux)``,
     ``S'`` counting the stub patches, ``aux`` the MoE load-balance loss
@@ -199,23 +247,28 @@ def forward_hidden(model: LM, inputs: dict, remat: str = "block",
     matrix products. Under a recompute every attention layer runs K4
     again, and every MoE layer's dispatch K2. ``q_chunk`` is accepted and
     unused: K4 tiles its own queries. ``ssm_chunk`` is the Mamba and mLSTM
-    chunk."""
+    chunk. ``plan`` (the current rules' ``TensorPlan`` by default) gives
+    ``h`` as this rank's block of the sequence under ``seq_tp``."""
     if remat != "none" and remat not in _REMAT:
         raise ValueError(f"remat must be none, block or dots, got {remat!r}")
     cfg = model.cfg
-    h = _frontend_embed(model, inputs)
-    b, s, _ = h.shape
+    plan = plan_for(cfg, plan)
+    h = _frontend_embed(model, inputs, plan)
+    b = h.shape[0]
     positions = inputs.get("positions")
     if positions is None:
+        s = h.shape[1] * (plan.seq.n if plan is not None else 1)
         positions = _positions(b, s, h.device)
+    if plan is not None:
+        positions = plan.local_positions(positions)
     group = batch_group()
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for layer in model.layers:
         if remat == "none":
-            h, stats = _layer(layer, h, positions, cfg, ssm_chunk)
+            h, stats = _layer(layer, h, positions, cfg, ssm_chunk, plan)
         else:
             h, stats = checkpoint(_layer, layer, h, positions, cfg,
-                                  ssm_chunk, use_reentrant=False,
+                                  ssm_chunk, plan, use_reentrant=False,
                                   **_REMAT[remat])
         if stats is not None:
             aux = aux + moe_mod.aux_loss(stats, cfg, group)
@@ -229,8 +282,12 @@ def forward(model: LM, inputs: dict, ssm_chunk: int = 128
     ``positions``) -> ``(fp32 logits (B, S', V_padded), aux)``:
     ``forward_hidden`` without remat, and the unembedding. Every attention
     layer runs K4, and every MoE layer's dispatch K2."""
-    h, aux = forward_hidden(model, inputs, remat="none", ssm_chunk=ssm_chunk)
-    logits = unembed(model.embed, h, model.cfg.vocab_size).float()
+    plan = plan_for(model.cfg)
+    h, aux = forward_hidden(model, inputs, remat="none", ssm_chunk=ssm_chunk,
+                            plan=plan)
+    if plan is not None and plan.seq:
+        h = gather_along(h, 1, plan.seq.group)
+    logits = unembed(model.embed, h, model.cfg.vocab_size, plan).float()
     return logits, aux
 
 
@@ -245,17 +302,45 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device) -> dict:
     """Each layer's zeroed state for ``batch`` sequences (K/V caches of
     ``max_seq`` positions for attention, the recurrent state otherwise)
-    and the positions."""
+    and the positions. Under rules that split ``cache_seq`` each cache is
+    this rank's block of the positions, and ``state["cache_axes"]`` names
+    the mesh axes of the split."""
+    plan = plan_for(cfg)
+    split = plan.cache if plan is not None and plan.cache else None
     layers = []
     for i in range(cfg.num_layers):
         kind = cfg.block_kind(i)
         if kind == BlockKind.ATTENTION:
-            k, v = attn_mod.init_kv_cache(cfg, batch, max_seq, device)
+            k, v = attn_mod.init_kv_cache(cfg, batch, max_seq, device,
+                                          cache_split=split)
             layers.append({"k": k, "v": v})
         else:
             layers.append(_INIT_STATE[kind](cfg, batch, device))
-    return {"layers": layers,
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    state = {"layers": layers,
+             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if split is not None:
+        state["cache_axes"] = split.axes
+    return state
+
+
+def _cache_split(state: dict, plan):
+    """The ``Split`` the state's caches were made under, or ``None``."""
+    axes = state.get("cache_axes")
+    if axes is None:
+        return None
+    if plan is None:
+        raise ValueError(f"a cache split over {axes} needs the rules of its "
+                         f"mesh (use_rules)")
+    return Split(plan.mesh, axes)
+
+
+def _last_row(h: torch.Tensor, plan) -> torch.Tensor:
+    """``h[:, -1:]`` of the whole sequence, on every rank (from the last
+    sequence rank where the residual is sequence-sharded)."""
+    last = h[:, -1:]
+    if plan is None or not plan.seq:
+        return last
+    return gather_dim(last, 1, plan.seq.group)[:, -1:]
 
 
 def prefill_step(model: LM, state: dict, inputs: dict, ssm_chunk: int = 128):
@@ -266,15 +351,21 @@ def prefill_step(model: LM, state: dict, inputs: dict, ssm_chunk: int = 128):
     as in the reference. Every attention layer runs K4, and every MoE
     layer's dispatch K2."""
     cfg = model.cfg
-    h = _frontend_embed(model, inputs)
-    b, s, _ = h.shape
+    plan = plan_for(cfg)
+    split = _cache_split(state, plan)
+    h = _frontend_embed(model, inputs, plan)
+    b = h.shape[0]
+    s = h.shape[1] * (plan.seq.n if plan is not None else 1)
     positions = _positions(b, s, h.device)
+    if plan is not None:
+        positions = plan.local_positions(positions)
     layers = []
     for layer, st in zip(model.layers, state["layers"]):
         normed = rmsnorm(layer.norm1, h, cfg.norm_eps)
         if layer.kind == BlockKind.ATTENTION:
             out, _ = attn_mod.prefill_attention(
-                layer.block, (st["k"], st["v"]), normed, positions, cfg)
+                layer.block, (st["k"], st["v"]), normed, positions, cfg,
+                plan, split)
         elif layer.kind == BlockKind.MAMBA:
             out, st = ssm_mod.mamba(layer.block, normed, cfg,
                                     chunk=ssm_chunk, return_state=True)
@@ -282,12 +373,15 @@ def prefill_step(model: LM, state: dict, inputs: dict, ssm_chunk: int = 128):
             out, st = _RECURRENT[layer.kind](layer.block, normed, cfg,
                                              return_state=True)
         layers.append(st)
-        h, _ = _ffn(layer, h + out, cfg)
+        h, _ = _ffn(layer, h + out, cfg, plan)
     h = rmsnorm(model.final_norm, h, cfg.norm_eps)
-    logits = unembed(model.embed, h[:, -1:], cfg.vocab_size).float()
-    return logits, {"layers": layers,
-                    "pos": torch.full((b,), s, dtype=torch.int32,
-                                      device=h.device)}
+    logits = unembed(model.embed, _last_row(h, plan), cfg.vocab_size,
+                     plan).float()
+    out = {"layers": layers,
+           "pos": torch.full((b,), s, dtype=torch.int32, device=h.device)}
+    if "cache_axes" in state:
+        out["cache_axes"] = state["cache_axes"]
+    return logits, out
 
 
 _STEP = {
@@ -304,18 +398,29 @@ def decode_step(model: LM, state: dict, tokens: torch.Tensor):
     attention layer runs K5 on its cache, and every MoE layer's dispatch
     K2."""
     cfg = model.cfg
-    h = embed(model.embed, tokens)
+    plan = plan_for(cfg)
+    if plan is not None and plan.seq:
+        raise ValueError("a decode step under rules that split the sequence "
+                         "of the residual (seq_tp)")
+    split = _cache_split(state, plan)
+    h = embed(model.embed, tokens, plan)
+    if plan is not None:
+        h = residual_from_partial(h, plan)
     positions = state["pos"]
     layers = []
     for layer, st in zip(model.layers, state["layers"]):
         normed = rmsnorm(layer.norm1, h, cfg.norm_eps)
         if layer.kind == BlockKind.ATTENTION:
             out, _ = attn_mod.decode_attention(
-                layer.block, (st["k"], st["v"]), normed, positions, cfg)
+                layer.block, (st["k"], st["v"]), normed, positions, cfg,
+                plan, split)
         else:
             out, st = _STEP[layer.kind](layer.block, st, normed, cfg)
         layers.append(st)
-        h, _ = _ffn(layer, h + out, cfg)
+        h, _ = _ffn(layer, h + out, cfg, plan)
     h = rmsnorm(model.final_norm, h, cfg.norm_eps)
-    logits = unembed(model.embed, h, cfg.vocab_size).float()
-    return logits, {"layers": layers, "pos": positions + 1}
+    logits = unembed(model.embed, h, cfg.vocab_size, plan).float()
+    out = {"layers": layers, "pos": positions + 1}
+    if "cache_axes" in state:
+        out["cache_axes"] = state["cache_axes"]
+    return logits, out

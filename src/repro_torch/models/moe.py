@@ -20,7 +20,7 @@ aux loss's batch means summed over the ranks (``aux_loss``, called by
 recomputed layer makes no collective); that is also what the reference's
 ``moe_shard_map_local`` computes. The expert-parallel
 all-to-all (``moe_shard_map``, under a ``model`` axis larger than 1) is
-ROADMAP item 11.4b; under ``model=1`` its rules run this local path.
+ROADMAP item 11.4c; under ``model=1`` its rules run this local path.
 """
 
 from __future__ import annotations

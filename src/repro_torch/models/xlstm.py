@@ -14,7 +14,7 @@ or updated in place), with them on once per call, inside the graph. The
 reference's ``shard_map`` sLSTM over the batch axes is this scan on each
 data-parallel rank's rows, its ``r_gates`` gradient summed by the train
 step's all-reduce; its ``inner`` sharding over ``model`` is ROADMAP Queue 1
-item 11.4b.
+item 11.4c.
 """
 
 from __future__ import annotations

@@ -1,11 +1,32 @@
 """Collectives of the port: the int8-wire gradient all-reduce (the port of
-``repro/parallel/collectives.py``) and the process-group calls the data
-and pipeline planes make.
+``repro/parallel/collectives.py``), the process-group calls the data and
+pipeline planes make, and the differentiable collectives of tensor and
+sequence parallelism: the explicit form of what GSPMD inserted in the
+reference around its sharded einsums.
+
+The tensor-parallel ones are ``torch.autograd.Function``s over one
+process group (an axis's or a tuple of axes', ``Mesh.group``); each is
+the identity where the group is ``None`` (a split over one rank):
+
+- ``copy_to`` / ``reduce_from``: Megatron's pair, identity forward with a
+  sum of the gradient backward, and the reverse;
+- ``gather_along`` / ``reduce_scatter_along``: the ranks' blocks joined
+  along a dimension, with a sum-and-split backward, and its transpose;
+- ``int8_gather_along``: the twin of the reference's ``_int8_broadcast``
+  (``repro/models/attention.py``): each rank quantizes its block with one
+  scale per row of the last dimension (absmax / 127), the int8 codes and
+  the fp32 scales are gathered and dequantized; its backward is the plain
+  sum-and-split of the gradient (a straight-through estimator).
 
 Every call goes through ``_staged``: under ``gloo`` (the CPU, or ranks that
 share one card) a CUDA tensor is copied to host memory, the collective runs
 there, and the result is copied back, on every call; under ``nccl`` the
-tensor goes as it is. Nothing else picks a path.
+tensor goes as it is. Nothing else picks a path. A collective that fails
+raises on its rank; none is retried or skipped.
+
+``COLLECTIVE_STATS`` counts the calls, bytes (of this rank's tensors) and
+host seconds of every collective by kind, so a run can report what tensor
+parallelism cost it.
 
 ``compressed_allreduce`` is the reference's int8 ring-style all-reduce:
 all_to_all(int8) -> local dequantize-and-sum -> requantize ->
@@ -16,6 +37,7 @@ requantization. As in the reference, the train step does not wire it
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Mapping
 
 import torch
@@ -37,9 +59,34 @@ def _staged(fn: Callable, *tensors: torch.Tensor, group=None):
     return tensors
 
 
-def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place."""
-    _staged(lambda x: dist.all_reduce(x, group=group), t, group=group)
+COLLECTIVE_STATS: dict[str, dict] = {}
+
+
+def reset_collective_stats() -> None:
+    COLLECTIVE_STATS.clear()
+
+
+def _record(kind: str, nbytes: int, seconds: float) -> None:
+    row = COLLECTIVE_STATS.setdefault(kind, {"calls": 0, "bytes": 0,
+                                             "seconds": 0.0})
+    row["calls"] += 1
+    row["bytes"] += int(nbytes)
+    row["seconds"] += seconds
+
+
+def _timed(kind: str, nbytes: int, fn, *tensors, group=None):
+    t0 = time.perf_counter()
+    out = _staged(fn, *tensors, group=group)
+    _record(kind, nbytes, time.perf_counter() - t0)
+    return out
+
+
+def all_reduce_(t: torch.Tensor, group, op=None) -> torch.Tensor:
+    """Sum ``t`` over ``group`` in place (or reduce it by ``op``, a
+    ``dist.ReduceOp``)."""
+    op = dist.ReduceOp.SUM if op is None else op
+    _timed("all_reduce", t.numel() * t.element_size(),
+           lambda x: dist.all_reduce(x, op=op, group=group), t, group=group)
     return t
 
 
@@ -48,8 +95,9 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     rows of ``t.numel()`` elements, a 0-d ``t`` among them)."""
     n = dist.get_world_size(group)
     out = t.new_empty((n, t.numel()))
-    _staged(lambda o, x: dist.all_gather(list(o.unbind(0)), x, group=group),
-            out, t.reshape(-1).contiguous(), group=group)
+    _timed("all_gather", t.numel() * t.element_size(),
+           lambda o, x: dist.all_gather(list(o.unbind(0)), x, group=group),
+           out, t.reshape(-1).contiguous(), group=group)
     return out.view((n,) + tuple(t.shape))
 
 
@@ -57,8 +105,9 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     """``t (n, ...)``: row ``i`` goes to rank ``i``; returns the rows every
     rank sent here, in rank order."""
     out = torch.empty_like(t)
-    _staged(lambda o, x: dist.all_to_all_single(o, x, group=group),
-            out, t.contiguous(), group=group)
+    _timed("all_to_all", t.numel() * t.element_size(),
+           lambda o, x: dist.all_to_all_single(o, x, group=group),
+           out, t.contiguous(), group=group)
     return out
 
 
@@ -176,3 +225,144 @@ def flat_all_reduce_(tensors: list[torch.Tensor], group,
             offset += t.numel()
         i = j
 
+
+
+# -- tensor and sequence parallelism -------------------------------------------
+
+
+def group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+def gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``t`` joined along ``dim`` in rank order (no
+    gradient)."""
+    if group_size(group) == 1:
+        return t
+    parts = all_gather(t.contiguous(), group)           # (n, *t.shape)
+    return torch.cat(list(parts.unbind(0)), dim=dim)
+
+
+def reduce_scatter_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of every rank's ``t``
+    (no gradient): the sum is taken whole and split here, since ``gloo``
+    has no reduce-scatter."""
+    n = group_size(group)
+    if n == 1:
+        return t
+    total = all_reduce_(t.contiguous().clone(), group)
+    return total.chunk(n, dim=dim)[group_rank(group)].contiguous()
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, grad_scale=1.0):
+        ctx.dim, ctx.group, ctx.grad_scale = dim, group, grad_scale
+        return gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = reduce_scatter_dim(grad, ctx.dim, ctx.group)
+        if ctx.grad_scale != 1.0:
+            out = out * ctx.grad_scale
+        return out, None, None, None
+
+
+class _ReduceScatterAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return gather_dim(grad, ctx.dim, ctx.group), None, None
+
+
+def quantize_rows(x: torch.Tensor):
+    """Symmetric int8 codes of ``x`` with one fp32 scale per row of its last
+    dimension, ``absmax / 127`` (at least 1e-9 / 127), and the scales with
+    the last dimension kept (size 1): the reference's ``_int8_broadcast``
+    quantization."""
+    x32 = x.float()
+    scale = torch.clamp(x32.abs().amax(dim=-1, keepdim=True), min=1e-9) \
+        / 127.0
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+class _Int8GatherAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        q, scale = quantize_rows(x)
+        q_all = gather_dim(q, dim, group)
+        s_all = gather_dim(scale, dim, group)
+        return (q_all.float() * s_all).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter_dim(grad, ctx.dim, ctx.group), None, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; the gradient summed over ``group`` backward: a
+    replicated input entering each rank's own part of a computation."""
+    return x if group_size(group) == 1 else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` forward; the identity backward: each rank's
+    partial result summed into one every rank then uses alike."""
+    return x if group_size(group) == 1 else _ReduceFrom.apply(x, group)
+
+
+def gather_along(x: torch.Tensor, dim: int, group,
+                 grad_scale: float = 1.0) -> torch.Tensor:
+    """The ranks' blocks joined along ``dim`` forward; backward, the sum
+    over ``group`` of the gradient, this rank's block of it (times
+    ``grad_scale``: ``1/r`` where each gradient arrives from ``r`` ranks
+    that computed the same thing)."""
+    return x if group_size(group) == 1 else \
+        _GatherAlong.apply(x, dim, group, grad_scale)
+
+
+def reduce_scatter_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``gather_along``'s transpose: this rank's block along ``dim`` of the
+    sum over ``group`` forward, the gradient's blocks joined backward."""
+    return x if group_size(group) == 1 else \
+        _ReduceScatterAlong.apply(x, dim, group)
+
+
+def int8_gather_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``gather_along`` on an int8 wire (``_Int8GatherAlong``): the ranks'
+    blocks quantized per row of the last dimension, gathered with their
+    scales and dequantized to ``x``'s dtype; the backward is
+    ``gather_along``'s."""
+    return x if group_size(group) == 1 else \
+        _Int8GatherAlong.apply(x, dim, group)

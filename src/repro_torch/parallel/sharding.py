@@ -8,13 +8,16 @@ gives the reference's ``PartitionSpec`` as a tuple (``None``, an axis name
 or a tuple of names per dimension, an axis used once), and ``sharding``
 the bound ``DeviceMesh``'s ``Shard``/``Replicate`` placements.
 
-What runs: a rank holds whole tensors, apart from the batch rows its data
-axes give it, so ``logical_shard`` only checks the rank. The batch split
-(data parallelism over ``data``, and ``pod`` in its data role) and the
-layer split over ``pod`` (``pp_rules``) run; ``require_executable`` refuses
-every rule set that shards another logical axis over a mesh axis larger
-than 1 (tensor, sequence and expert parallelism, ZeRO): that execution
-is ROADMAP item 11.4b.
+What runs: the batch split (data parallelism over ``data``, and ``pod`` in
+its data role), the layer split over ``pod`` (``pp_rules``) and, for the
+dense attention models, every split ``make_rules`` gives them: ``heads``,
+``kv_heads``, ``mlp``, ``vocab``, ``seq`` (with ``mlp_seq``),
+``cache_seq`` and ``w_embed`` (ZeRO-3), each rank holding its shards
+(``repro_torch.models.convert.shard_params``) and making the collectives
+of ``repro_torch.parallel.tensor``. ``logical_shard`` only checks the
+rank. ``require_executable`` refuses the rest: the MoE experts' split and
+all-to-all, the Mamba / xLSTM inner split and any split beyond the batch
+of the other models (ROADMAP item 11.4c).
 
 Canonical logical axes (as in the reference):
 
@@ -166,29 +169,60 @@ def make_param_sharding(rules: ShardingRules, logical_tree) -> Any:
                               for v in logical_tree)
 
 
-def require_executable(rules: ShardingRules | None,
-                       pipeline: bool = False) -> None:
-    """Refuse a rule set this port cannot run yet: any logical axis other
-    than ``batch`` (and ``layers``, with ``pipeline``) mapped to mesh axes
-    of more than one rank, or the MoE all-to-all over a ``model`` axis
-    larger than 1. Raises ``NotImplementedError`` naming ROADMAP item
-    11.4b."""
+# logical axes no model of the port runs split over more than one rank yet
+_NOT_YET = ("expert", "expert_act", "inner")
+
+
+def _mesh_axes(rules: ShardingRules, logical: str) -> tuple[str, ...]:
+    """The mesh axes of more than one rank a logical axis is split over."""
+    phys = rules.rules.get(logical)
+    if phys is None:
+        return ()
+    axes = tuple(phys) if isinstance(phys, (tuple, list)) else (phys,)
+    return tuple(a for a in axes if int(rules.mesh.shape[a]) > 1)
+
+
+def require_executable(rules: ShardingRules | None, pipeline: bool = False,
+                       cfg=None) -> None:
+    """Refuse a rule set this port cannot run yet: ``expert``,
+    ``expert_act`` or ``inner`` split over more than one rank, the MoE
+    all-to-all (``moe_impl="shard_map_a2a"``) over a ``model`` axis larger
+    than 1, any split beyond ``batch`` and ``layers`` with ``pipeline``,
+    and, given the model's ``cfg``, any split beyond the batch of a model
+    with a block other than attention or an MoE FFN. Splits the port's
+    ``TensorPlan`` does not lay out (the sequence split beside a head split
+    or beside a vocab or mlp split over other axes, kv heads split without
+    the query heads) are refused too. Raises ``NotImplementedError``
+    naming ROADMAP item 11.4c."""
     if rules is None or rules.mesh is None:
         return
-    allowed = ("batch", "layers") if pipeline else ("batch",)
     wide = {}
-    for logical, phys in rules.rules.items():
-        if logical in _FLAGS or logical in allowed or phys is None:
+    for logical in rules.rules:
+        if logical in _FLAGS or logical in ("batch", "layers"):
             continue
-        axes = tuple(phys) if isinstance(phys, (tuple, list)) else (phys,)
-        size = math.prod(int(rules.mesh.shape[a]) for a in axes)
-        if size > 1:
-            wide[logical] = phys
+        if _mesh_axes(rules, logical):
+            wide[logical] = rules.rules[logical]
+    refused = {k: v for k, v in wide.items() if k in _NOT_YET}
     if rules.rules.get("moe_impl") == "shard_map_a2a" \
             and int(rules.mesh.shape.get("model", 1)) > 1:
-        wide["moe_impl"] = "shard_map_a2a"
-    if wide:
+        refused["moe_impl"] = "shard_map_a2a"
+    if wide and pipeline:
+        refused.update(wide)
+    if wide and cfg is not None:
+        from repro_torch.models.lm import dense_attention_model
+        if not dense_attention_model(cfg):
+            refused.update(wide)
+    seq = _mesh_axes(rules, "seq")
+    if seq and (_mesh_axes(rules, "heads") or _mesh_axes(rules, "kv_heads")
+                or _mesh_axes(rules, "vocab") != seq
+                or _mesh_axes(rules, "mlp") not in ((), seq)):
+        refused["seq"] = rules.rules["seq"]
+    kv = _mesh_axes(rules, "kv_heads")
+    if kv and kv != _mesh_axes(rules, "heads"):
+        refused["kv_heads"] = rules.rules["kv_heads"]
+    if refused:
         raise NotImplementedError(
-            f"these rules shard {wide} over mesh axes larger than 1: tensor, "
-            f"sequence and expert parallelism and ZeRO wait for ROADMAP "
-            f"Queue 1 item 11.4b")
+            f"these rules shard {refused} over mesh axes larger than 1: the "
+            f"MoE experts' split and all-to-all, the Mamba / xLSTM inner "
+            f"split and the other models' tensor parallelism wait for "
+            f"ROADMAP Queue 1 item 11.4c")

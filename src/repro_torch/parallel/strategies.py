@@ -47,9 +47,9 @@ from repro_torch.models.layers import VOCAB_PAD
 from repro_torch.parallel.sharding import ShardingRules, pad_to_multiple
 
 # A train plan's bytes a chip (parameters, gradients and AdamW's state at
-# 16 B a parameter, plus the activation estimate) must fit this share of
-# its memory. The port also keeps fp32 gradient accumulators under
-# microbatches, which the plan does not price (ROADMAP Queue 3).
+# 16 B a parameter plus the trainer's accumulators, ``Hardware.
+# accum_bytes``, plus the activation estimate) must fit this share of its
+# memory.
 TRAIN_HBM_SHARE = 0.8
 
 
@@ -160,6 +160,16 @@ def estimate_activation_bytes(cfg: ModelConfig, shape: ShapeConfig, dp: int,
     return 1.5 * res
 
 
+def state_multiplier(shape: ShapeConfig, hw: Hardware = H100_SXM) -> float:
+    """The planner's bytes a chip over its bf16 parameter bytes: in
+    training (2 + 12 + 2 + ``hw.accum_bytes``) / 2 (the weight, AdamW's
+    fp32 master, m and v, the gradient and the trainer's accumulators), 8
+    under the reference's figures; 1 otherwise."""
+    if shape.mode != "train":
+        return 1.0
+    return (16.0 + hw.accum_bytes) / 2
+
+
 def plan_memory(cfg: ModelConfig, shape: ShapeConfig, mesh,
                 pc_attn: str, fsdp_pref: str, layout: str = "tp",
                 hw: Hardware = H100_SXM) -> tuple[str, int]:
@@ -171,7 +181,7 @@ def plan_memory(cfg: ModelConfig, shape: ShapeConfig, mesh,
     else:
         dp = _prod(mesh.shape[a] for a in mesh.shape if a != "model")
     seq_sharded = pc_attn == "seq_tp" and layout != "pure_dp"
-    state_mult = 8.0 if shape.mode == "train" else 1.0  # (2+12+2)/2 per bf16
+    state_mult = state_multiplier(shape, hw)
 
     def fixed_bytes(fsdp: str) -> float:
         pc = ParallelConfig(attn_strategy=pc_attn, fsdp=fsdp, layout=layout)
@@ -417,7 +427,7 @@ def make_rules(mesh, cfg: ModelConfig, shape: ShapeConfig,
                 rules["expert_act"] = "model"
             elif pc.moe_strategy == "shard_map_a2a" \
                     and shape.seq_len % tp == 0 and shape.mode != "decode":
-                # the explicit shuffle data plane (item 11.4b)
+                # the explicit shuffle data plane (item 11.4c)
                 rules["moe_impl"] = "shard_map_a2a"
         else:  # experts not divisible: fall back to mlp-dim TP inside experts
             rules["expert"] = None

@@ -11,7 +11,9 @@ above 1 the global batch is split into that many slices run in turn, and
 their gradients are summed into fp32 accumulators divided by the count,
 as the reference sums them (``.grad`` would accumulate in the parameters'
 bf16). Under sharding rules that split the batch over ranks the step is
-data-parallel (``make_train_step``).
+data-parallel; under rules that split more (tensor, sequence and ZeRO-3
+parallelism of the dense attention models) each rank holds its shards of
+the parameters and of the optimizer state (``make_train_step``).
 """
 
 from __future__ import annotations
@@ -28,15 +30,21 @@ from repro_torch.core.config import (
     ParallelConfig,
     ShapeConfig,
 )
-from repro_torch.models.lm import LM, forward_hidden
-from repro_torch.parallel.collectives import all_reduce_, flat_all_reduce_
+from repro_torch.models.lm import LM, forward_hidden, plan_for
+from repro_torch.parallel.collectives import (
+    all_reduce_,
+    flat_all_reduce_,
+    gather_dim,
+    reduce_scatter_dim,
+)
 from repro_torch.parallel.sharding import (
     ShardingRules,
     current_rules,
     require_executable,
     use_rules,
 )
-from repro_torch.training.losses import chunked_cross_entropy
+from repro_torch.parallel.tensor import TensorPlan, tensor_plan
+from repro_torch.training.losses import chunked_cross_entropy, vocab_input
 from repro_torch.training.optimizer import apply_updates, init_opt_state
 
 AUX_LOSS_WEIGHT = 0.01
@@ -58,18 +66,21 @@ def _on_device(batch: dict, device: torch.device) -> dict:
 
 
 def _loss_fn(model: LM, batch: dict, cfg: ModelConfig, pc: ParallelConfig,
-             q_chunk: int, ssm_chunk: int, total_count=None):
+             q_chunk: int, ssm_chunk: int, total_count=None, plan=None):
     """``(loss, {"ce", "aux", "tokens"})``: the chunked cross-entropy over
     the text positions (after the vision stub's patches) plus the MoE aux
     loss times ``AUX_LOSS_WEIGHT``. With ``total_count`` (the tokens of the
     whole batch whose rows these are) the cross-entropy is this rank's
-    share of the whole batch's mean."""
+    share of the whole batch's mean. Under a ``TensorPlan`` the loss is
+    the same on every rank of a batch block."""
+    plan = plan_for(cfg, plan)
     h, aux = forward_hidden(model, batch, remat=pc.remat, q_chunk=q_chunk,
-                            ssm_chunk=ssm_chunk)
+                            ssm_chunk=ssm_chunk, plan=plan)
+    h = vocab_input(h, plan)
     if cfg.frontend == Frontend.VISION_STUB.value:
         h = h[:, cfg.stub_patches:]        # loss over text positions only
     ce, count = chunked_cross_entropy(model.embed, h, batch["labels"], cfg,
-                                      total_count=total_count)
+                                      total_count=total_count, plan=plan)
     loss = ce + AUX_LOSS_WEIGHT * aux
     return loss, {"ce": ce, "aux": aux, "tokens": count}
 
@@ -113,6 +124,56 @@ def text_tokens(batch: dict) -> torch.Tensor:
     return (batch["labels"] >= 0).sum().float()
 
 
+def _backward_into(loss: torch.Tensor, wrt: dict, acc: dict,
+                   mb: int) -> None:
+    """``loss.backward()``, each tensor of ``wrt``'s gradient added to
+    ``acc`` of its name in fp32 over ``mb`` the moment autograd has made it,
+    and then dropped: a microbatch's gradients in the parameters' dtype
+    never all exist at once beside the accumulators (the planner prices
+    the accumulators alone, ``Hardware.accum_bytes``)."""
+    def adder(name):
+        def add(t):
+            acc[name].add_(t.grad.float() / mb)
+            t.grad = None
+        return add
+
+    handles = []
+    for name, t in wrt.items():
+        t.grad = None
+        handles.append(t.register_post_accumulate_grad_hook(adder(name)))
+    try:
+        loss.backward()
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def leaf_axes(cfg: ModelConfig) -> dict:
+    """Every parameter's logical axes, by the port's parameter name."""
+    from repro_torch.models.convert import _meta_leaves
+    return {k: a for k, (_, a) in _meta_leaves(cfg).items()}
+
+
+def sharded_global_norm(grads: dict, axes_of: dict,
+                        plan: TensorPlan) -> torch.Tensor:
+    """The fp32 L2 norm of the whole gradient tree whose leaves ``grads``
+    are this rank's shards: each leaf's sum of squares summed over the
+    ranks that hold its other shards (one all-reduce a set of mesh axes),
+    every replicated leaf counted once."""
+    sums: dict[tuple, torch.Tensor] = {}
+    for name, g in grads.items():
+        sharded = plan.leaf_axes(axes_of[name])
+        key = tuple(a for a in plan.mesh.axis_names if a in sharded)
+        sq = torch.linalg.vector_norm(g, dtype=torch.float32).square()
+        sums[key] = sums[key] + sq if key in sums else sq
+    total = None
+    for key, sq in sums.items():
+        if key:
+            sq = all_reduce_(sq.reshape(1).clone(), plan.mesh.group(key))[0]
+        total = sq if total is None else total + sq
+    return total.sqrt()
+
+
 def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
                     opt_cfg: OptimizerConfig, pc: ParallelConfig,
                     total_steps: int = 10000, q_chunk: int = 1024,
@@ -131,67 +192,131 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
     microbatch's on every rank (``models.moe.moe``), and the fp32 gradients
     are summed over the batch axes by one all-reduce a bucket: every rank
     ends the step with the global loss's gradient and the same parameters
-    and optimizer state. Rules that shard anything else over more than one
-    rank are refused (``require_executable``), as is ``regather``: both
-    are ROADMAP item 11.4b."""
+    and optimizer state.
+
+    Rules that split more than the batch (the dense attention models'
+    ``tp``, ``seq_tp``, ``decode_kv_shard`` and ``pure_dp`` cells;
+    ``require_executable`` refuses the rest) run on the model's shards
+    (``convert.shard_params``) through the rules' ``TensorPlan``: each
+    microbatch's gradients are its shards' (ZeRO-3 leaves reduce-scattered
+    by their gathers' backward), summed in fp32; after the last one each
+    leaf is summed over ``TensorPlan.grad_sync_axes`` (one all-reduce a
+    bucket a set of axes), the clip norm is the whole tree's
+    (``sharded_global_norm``) and AdamW updates the shards and their
+    state. With ``pc.zero2`` and a true ``regather`` every ``w_embed``
+    shard is gathered once a step, before the first microbatch, the
+    microbatches' gradients of the gathered weights are summed, and each
+    is reduce-scattered to its shard once (the reference's ``regather``
+    gathers inside the loss of each microbatch; the sum is the same)."""
     rules = current_rules() if rules is None else rules
-    require_executable(rules)
-    if regather is not None:
-        raise NotImplementedError(
-            "regather (ZeRO-2 weight gathering) needs ZeRO sharding: ROADMAP "
-            "Queue 1 item 11.4b")
+    require_executable(rules, cfg=cfg)
+    regather = bool(regather) and pc.zero2
     mb = max(1, pc.microbatches)
     grad_fn = make_grad_fn(cfg, pc, q_chunk, ssm_chunk)
     group, dp, index = _batch_split(rules)
+    axes_of = leaf_axes(cfg)
 
-    def local_step(model: LM, batch: dict):
+    def accumulate(model: LM, batch: dict, wrt: dict, plan):
+        """The microbatches in turn: ``(loss, the last microbatch's
+        metrics, fp32 gradients of ``wrt`` summed over the microbatches and
+        divided by their count, this rank's share of the mean
+        cross-entropy, the aux's mean, the last token count)``."""
         rows = next(iter(batch.values())).shape[0]
-        if mb == 1 and dp == 1:
-            return grad_fn(model, batch)
         if rows % (mb * dp):
             raise ValueError(f"{mb} microbatches over {dp} batch ranks do "
                              f"not divide a batch of {rows} rows")
-        grads, loss, ce_share, aux_mean = None, 0.0, 0.0, 0.0
+        grads = {k: torch.zeros(t.shape, dtype=torch.float32,
+                                device=t.device) for k, t in wrt.items()}
+        loss, ce_share, aux_mean, count = 0.0, 0.0, 0.0, None
         for i in range(mb):
             part = _rows(batch, i, mb)
-            count = None
             if dp > 1:
                 count = text_tokens(part)
                 part = _rows(part, index, dp)
-            mb_loss, metrics, mb_grads = grad_fn(model, part, count)
-            if grads is None:
-                grads = {k: g.float() / mb for k, g in mb_grads.items()}
-            else:
-                for k, g in mb_grads.items():
-                    grads[k].add_(g.float() / mb)
-            del mb_grads
-            loss = loss + mb_loss / mb
+            mb_loss, metrics = _loss_fn(model, part, cfg, pc, q_chunk,
+                                        ssm_chunk, count, plan)
+            _backward_into(mb_loss, wrt, grads, mb)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            loss = loss + mb_loss.detach() / mb
             ce_share = ce_share + metrics["ce"] / mb
             aux_mean = aux_mean + metrics["aux"] / mb
+        return loss, metrics, grads, ce_share, aux_mean, count
+
+    def shared(loss, metrics, ce_share, aux_mean, count):
+        """The ranks' shares of the mean cross-entropy and of the last
+        microbatch's summed over the batch axes (the aux is already every
+        rank's): the whole batch's loss and metrics."""
+        if dp == 1:
+            return loss, metrics
+        shares = torch.stack([ce_share, metrics["ce"]]).float()
+        all_reduce_(shares, group)
+        return (shares[0] + AUX_LOSS_WEIGHT * aux_mean,
+                {"ce": shares[1], "aux": metrics["aux"], "tokens": count})
+
+    def tp_step(model: LM, batch: dict, plan: TensorPlan):
+        """``local_step`` under a ``TensorPlan``: ``(loss, metrics, fp32
+        grads of this rank's shards, the clip norm)``."""
+        named = dict(model.named_parameters())
+        wrt, zero = dict(named), {}
+        if regather:
+            with torch.no_grad():
+                for name, p in named.items():
+                    found = plan.zero_dim_of(axes_of[name])
+                    if found is None:
+                        continue
+                    full = gather_dim(p.detach(), found[0], found[1].group)
+                    plan.gathered[id(p)] = wrt[name] = full.requires_grad_()
+                    zero[name] = found
+        try:
+            loss, metrics, grads, ce_share, aux_mean, count = accumulate(
+                model, batch, wrt, plan)
+        finally:
+            plan.gathered.clear()
+        for name, (dim, split) in zero.items():
+            grads[name] = reduce_scatter_dim(grads[name], dim, split.group) \
+                / plan.repeats(split.axes)
+        buckets: dict[tuple, list] = {}
+        for name, g in grads.items():
+            axes = plan.grad_sync_axes(axes_of[name])
+            if axes:
+                buckets.setdefault(axes, []).append(g)
+        for axes, tensors in buckets.items():
+            flat_all_reduce_(tensors, plan.mesh.group(axes))
+        loss, metrics = shared(loss, metrics, ce_share, aux_mean, count)
+        return loss, metrics, grads, sharded_global_norm(grads, axes_of,
+                                                         plan)
+
+    def local_step(model: LM, batch: dict):
+        if mb == 1 and dp == 1:
+            return grad_fn(model, batch)
+        loss, metrics, grads, ce_share, aux_mean, count = accumulate(
+            model, batch, dict(model.named_parameters()), None)
         if dp > 1:
-            # the ranks' shares of the mean cross-entropy and of the last
-            # microbatch's; the aux is already every rank's
-            shares = torch.stack([ce_share, metrics["ce"]]).float()
-            all_reduce_(shares, group)
             flat_all_reduce_(list(grads.values()), group)
-            loss = shares[0] + AUX_LOSS_WEIGHT * aux_mean
-            metrics = {"ce": shares[1], "aux": metrics["aux"],
-                       "tokens": count}
+        loss, metrics = shared(loss, metrics, ce_share, aux_mean, count)
         return loss, metrics, grads
+
+    def norm_step(model: LM, batch: dict):
+        """``(loss, metrics, grads, the clip norm or None)``."""
+        batch = _on_device(batch, next(model.parameters()).device)
+        plan = tensor_plan(rules)
+        with use_rules(rules):
+            if plan is not None:
+                return tp_step(model, batch, plan)
+            return (*local_step(model, batch), None)
 
     def grad_step(model: LM, batch: dict):
         """``(loss, metrics, grads)`` of one step, before the update: the
-        gradients every rank holds after the all-reduce."""
-        batch = _on_device(batch, next(model.parameters()).device)
-        with use_rules(rules):
-            return local_step(model, batch)
+        gradients every rank holds after the all-reduce (under a
+        ``TensorPlan``, of its shards)."""
+        return norm_step(model, batch)[:3]
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         model = state["params"]
-        loss, metrics, grads = grad_step(model, batch)
+        loss, metrics, grads, gnorm = norm_step(model, batch)
         named = dict(model.named_parameters())
         _, opt, opt_metrics = apply_updates(named, grads, state["opt"],
-                                            opt_cfg, total_steps)
+                                            opt_cfg, total_steps, gnorm)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss

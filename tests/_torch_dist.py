@@ -212,3 +212,159 @@ def pp_rank(rank, world, arch, microbatches, data):
             "names": names, "stage": mesh.coordinate()["pod"],
             "grads": {k: g.numpy().copy() for k, g in grads.items()},
             "params": {k: named[k].detach().numpy().copy() for k in names}}
+
+
+# -- tensor, sequence and ZeRO-3 parallelism -------------------------------------
+
+
+def case_rules(case: dict, mode: str = "train"):
+    """The rules of a tensor-parallel test case: the planner's ``make_rules``
+    on the case's mesh under its ``ParallelConfig`` fields (``pc``, or
+    ``serve_pc`` for the decode rules), with ``override`` set on top."""
+    from repro_torch.core.config import ParallelConfig, ShapeConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.strategies import make_rules
+    cfg = smoke(case["arch"])
+    mesh = Mesh(case["mesh"])
+    if mode == "decode":
+        shape = ShapeConfig(case.get("shape_name", "d"), MAX_SEQ, BATCH,
+                            "decode")
+        pc = ParallelConfig(**case["serve_pc"])
+    else:
+        shape = ShapeConfig("t", SEQ, BATCH, mode)
+        pc = ParallelConfig(**case["pc"])
+    rules = make_rules(mesh, cfg, shape, pc)
+    rules.rules.update(case.get("override" if mode != "decode"
+                                else "serve_override", {}))
+    return cfg, shape, pc, rules
+
+
+MAX_SEQ = 48
+DECODE_STEPS = 3
+
+
+def serve_inputs(cfg) -> dict:
+    """Seeded prompts of ``SEQ`` tokens (with the stub frontend's inputs),
+    the decode tokens and the rewound positions of each decode run."""
+    rng = np.random.default_rng(11)
+    inputs = {"tokens": rng.integers(0, cfg.vocab_size, (BATCH, SEQ))
+              .astype(np.int32)}
+    if cfg.frontend == "vision":
+        inputs["patch_embeds"] = rng.standard_normal(
+            (BATCH, cfg.stub_patches, cfg.d_model)).astype(np.float32)
+    elif cfg.frontend == "audio":
+        inputs["frame_embeds"] = rng.standard_normal(
+            (BATCH, SEQ, 128)).astype(np.float32)
+    steps = [rng.integers(0, cfg.vocab_size, (BATCH, 1)).astype(np.int32)
+             for _ in range(DECODE_STEPS)]
+    # rows at different positions, as the engine's rewind leaves them
+    pos = np.array([SEQ - 1, SEQ // 2, 3, SEQ - 5][:BATCH], np.int32)
+    return {"inputs": inputs, "steps": steps, "pos": pos}
+
+
+def _bits(t: torch.Tensor) -> bytes:
+    return t.detach().contiguous().view(-1).view(torch.uint8).numpy() \
+        .tobytes()
+
+
+def tp_train_rank(rank, world, cases):
+    """Each case's train step on the rank's shards of seed 0's weights:
+    loss, metrics, the gradients and updated parameters gathered whole,
+    and the bits of every leaf the rank holds whole (replicated)."""
+    from repro_torch.core.config import OptimizerConfig
+    from repro_torch.models.convert import gather_named, shard_params
+    from repro_torch.parallel.tensor import TensorPlan
+    from repro_torch.training import init_train_state, make_train_step
+    from repro_torch.training.train_step import leaf_axes
+    out = {}
+    for case in cases:
+        cfg, shape, pc, rules = case_rules(case)
+        full = model_of(cfg)["params"]
+        state = init_train_state(cfg, shard_params(full, rules))
+        step = make_train_step(cfg, shape, OptimizerConfig(), pc,
+                               q_chunk=Q_CHUNK, ssm_chunk=SSM_CHUNK,
+                               regather=case.get("regather"), rules=rules)
+        batch = batch_of(cfg, case.get("mask_rows", 0))
+        loss, metrics, grads = step.grad_step(state["params"], batch)
+        state, step_metrics = step(state, batch)
+        plan = TensorPlan(rules)
+        axes = leaf_axes(cfg)
+        named = dict(state["params"].named_parameters())
+        out[case["id"]] = {
+            "loss": float(loss),
+            "metrics": {k: float(v) for k, v in step_metrics.items()},
+            "grads": {k: g.numpy().copy() for k, g in
+                      gather_named(grads, cfg, rules).items()},
+            "params": {k: p.numpy().copy() for k, p in
+                       gather_named(named, cfg, rules).items()},
+            "whole": {k: _bits(p) for k, p in named.items()
+                      if not plan.leaf_axes(axes[k])},
+            "rules": dict(rules.rules)}
+    return out
+
+
+def tp_serve_rank(rank, world, cases):
+    """Each case's ``forward`` and its prefill (under the case's train-shape
+    rules in prefill mode) into a decode state made under its decode rules,
+    then ``DECODE_STEPS`` decode steps from the rewound positions: every
+    logit, on the rank's shards of seed 0's weights."""
+    from repro_torch.models import init_lm
+    from repro_torch.models import lm as tlm
+    from repro_torch.models.convert import shard_params
+    from repro_torch.parallel.sharding import use_rules
+    out = {}
+    for case in cases:
+        cfg, _, _, prefill_rules = case_rules(case, "prefill")
+        _, _, _, decode_rules = case_rules(case, "decode")
+        full = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+        io = serve_inputs(cfg)
+        inputs = {k: torch.from_numpy(v) for k, v in io["inputs"].items()}
+        res = {}
+        with torch.no_grad():
+            with use_rules(prefill_rules):
+                model = shard_params(full, prefill_rules)
+                res["forward"] = tlm.forward(model, inputs)[0].numpy()
+            with use_rules(decode_rules):
+                state = tlm.init_decode_state(cfg, BATCH, MAX_SEQ, "cpu")
+            res["cache_rows"] = int(state["layers"][0]["k"].shape[1])
+            with use_rules(prefill_rules):
+                logits, state = tlm.prefill_step(model, state, inputs)
+            res["prefill"] = logits.numpy()
+            state["pos"] = torch.from_numpy(io["pos"])
+            res["decode"] = []
+            with use_rules(decode_rules):
+                model = shard_params(full, decode_rules)
+                for tokens in io["steps"]:
+                    logits, state = tlm.decode_step(
+                        model, state, torch.from_numpy(tokens))
+                    res["decode"].append(logits.numpy())
+        res["rules"] = (dict(prefill_rules.rules), dict(decode_rules.rules))
+        out[case["id"]] = res
+    return out
+
+
+def tp_rank(rank, world, train_cases, serve_cases, int8_seed):
+    """``tp_train_rank``, ``tp_serve_rank`` and ``int8_gather_rank`` in one
+    spawn."""
+    return {"train": tp_train_rank(rank, world, train_cases),
+            "serve": tp_serve_rank(rank, world, serve_cases),
+            "int8": int8_gather_rank(rank, world, int8_seed)}
+
+
+def int8_gather_rank(rank, world, seed):
+    """``int8_gather_along`` of a per-rank block along the sequence, the
+    exact gather, and the gradient of a weighted sum through it."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel import collectives as C
+    group = Mesh({"model": world}).group("model")
+    blocks = np.random.default_rng(seed).standard_normal(
+        (world, 2, 5, 3, 16)).astype(np.float32)
+    # each rank weighs the gathered tensor its own way, as each rank's
+    # queries read the gathered keys
+    w = np.random.default_rng(seed + 1 + rank).standard_normal(
+        (2, 5 * world, 3, 16)).astype(np.float32)
+    x = torch.from_numpy(blocks[rank]).requires_grad_(True)
+    got = C.int8_gather_along(x, 1, group)
+    (got * torch.from_numpy(w)).sum().backward()
+    return {"got": got.detach().numpy(), "exact": np.concatenate(
+        list(blocks), axis=1), "grad": x.grad.numpy(), "w": w}

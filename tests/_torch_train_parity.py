@@ -18,6 +18,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+from pytest import approx
 
 import repro.models.lm as jlm
 from repro.configs import get_config as jconfig
@@ -161,3 +162,37 @@ def reference_whole_batch_step(arch: str, model, batch: dict,
     return {"metrics": {k: float(v) for k, v in metrics.items()},
             "grads": port_named(grads, tcfg),
             "params": port_named(state["params"], tcfg)}
+
+
+# a tensor- or sequence-parallel step against the reference's unsharded
+# one, fp32: the same sums in another order (measured at most 2e-6 of a
+# leaf's largest gradient, 1.2e-6 absolute on the updated weights)
+TP_LOSS_RTOL, TP_GRAD_TOL, TP_PARAM_ATOL = 1e-5, 1e-5, 1e-5
+
+
+def held_to_reference(outs, ref, loss_rtol=TP_LOSS_RTOL,
+                      grad_tol=TP_GRAD_TOL):
+    """Every rank's sharded step (``_torch_dist.tp_train_rank``'s results)
+    against the reference's whole-batch step ``ref``
+    (``reference_whole_batch_step``): loss and grad norm within
+    ``loss_rtol`` relative, each gradient leaf within ``grad_tol`` of its
+    largest magnitude, the updated parameters within ``TP_PARAM_ATOL``, and
+    every leaf a rank holds whole bit-equal across the ranks."""
+    for o in outs:
+        assert o["loss"] == approx(ref["metrics"]["loss"], rel=loss_rtol)
+        assert o["metrics"]["grad_norm"] == approx(
+            ref["metrics"]["grad_norm"], rel=loss_rtol)
+        assert set(o["grads"]) == set(ref["grads"])
+        for k, want in ref["grads"].items():
+            err = np.abs(o["grads"][k] - want).max()
+            assert err <= grad_tol * max(np.abs(want).max(), 1e-30), \
+                (k, err)
+        for k, want in ref["params"].items():
+            np.testing.assert_allclose(o["params"][k], want,
+                                       atol=TP_PARAM_ATOL, err_msg=k)
+    whole = [o["whole"] for o in outs]
+    assert whole[0], "no leaf is held whole"
+    for w in whole[1:]:
+        assert w.keys() == whole[0].keys()
+        for k in w:
+            assert w[k] == whole[0][k], f"{k} differs across the ranks"

@@ -225,9 +225,9 @@ def test_models_hand_k4_the_unexpanded_kv(monkeypatch, path):
     seen = []
     real = mattn.ops.flash_attention
 
-    def recording(q, k, v, causal=True):
+    def recording(q, k, v, causal=True, q_offset=0):
         seen.append((q.shape[2], k.shape[2], v.shape[2]))
-        return real(q, k, v, causal=causal)
+        return real(q, k, v, causal=causal, q_offset=q_offset)
 
     monkeypatch.setattr(mattn.ops, "flash_attention", recording)
     model = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")

@@ -911,8 +911,8 @@ def test_cuda_k4b_launch_failure_raises(cuda_device):
     plain version), and the C entry point refuses an unknown dtype."""
     from repro_torch.kernels import attention as tattn
     entry = tattn._fn("flash_attention_bwd", "fab_flash_attention_bwd")
-    err = entry(*([None] * 9), 1, 64, 2, 2, 64, *([0] * 9), 1, 7, None, None,
-                None)
+    err = entry(*([None] * 9), 1, 64, 64, 2, 2, 64, 0, *([0] * 9), 1, 7,
+                None, None, None)
     assert err != 0
     q = torch.randn((1, 64, 2, 64), device=cuda_device, requires_grad=True)
     out = tattn.flash_attention(q, q.detach(), q.detach())
@@ -979,6 +979,108 @@ def test_cuda_k4_writes_lse_on_both_routes(cuda_device, dtype, hd, route, s,
     assert lse.dtype == torch.float32 and lse.shape == (2, 6, s)
     assert float((lse - want).abs().max()) <= LSE_TOL
     assert torch.equal(out, plain_out)
+
+
+# (S_q, S_k, q_offset): a rank's query block against the whole sequence's
+# keys (the sequence-parallel attention), on and off the tile edges, and a
+# block past the keys' end
+OFFSET_CASES = [(64, 128, 64), (100, 300, 200), (77, 154, 77), (64, 64, 0),
+                (33, 200, 5), (130, 130, 70)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk,off", OFFSET_CASES)
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"),
+    (torch.float32, 128, "simt"), (torch.bfloat16, 32, "simt")])
+def test_cuda_k4_and_k4b_at_a_query_offset(cuda_device, dtype, hd, route, sq,
+                                           sk, off, causal):
+    """K4 (with its lse) and K4b on S_q query rows at positions
+    ``q_offset + i`` against S_k keys, on both routes, against their plain
+    versions; the shapes recorded carry (S_k, q_offset)."""
+    from repro_torch.kernels import attention as tattn
+    g, kh, b = 3, 2, 2
+    q = _qkv_views(sq + off, b, sq, kh * g, kh, hd, dtype, cuda_device)[0]
+    _, k, v = _qkv_views(sk + hd, b, sk, kh * g, kh, hd, dtype, cuda_device)
+    rng = np.random.default_rng(sq * sk + off)
+    d_out = torch.from_numpy(rng.standard_normal(q.shape).astype(
+        np.float32)).to(device=cuda_device, dtype=dtype)
+    tattn.SHAPES["flash_attention"].clear()
+    tattn.SHAPES["flash_attention_bwd"].clear()
+    out, lse = tattn.flash_attention_with_lse(q, k, v, causal, off)
+    got = tattn.flash_attention_bwd(q, k, v, out, d_out, causal, lse, off)
+    want_out = tref.flash_attention_ref(q, k, v, causal, off)
+    want_lse = tref.flash_attention_lse_ref(q, k, v, causal, off)
+    want = tref.flash_attention_bwd_ref(q, k, v, out, d_out, causal, off)
+    torch.cuda.synchronize()
+    key = (b, sq, kh * g, kh, hd, str(dtype), causal, route)
+    if (sq, off) != (sk, 0):
+        key += (sk, off)
+    assert tattn.SHAPES["flash_attention"] == {key}
+    assert tattn.SHAPES["flash_attention_bwd"] == {key}
+    assert out.shape == q.shape
+    assert float((out.float() - want_out.float()).abs().max()) \
+        <= ATTN_TOL[dtype]
+    assert float((lse - want_lse).abs().max()) <= LSE_TOL
+    _grads_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_k4_offset_blocks_rebuild_the_whole_attention(cuda_device):
+    """Four query blocks at their offsets, each against all keys, through
+    autograd (K4 forward, K4b backward), give the whole sequence's output
+    and gradients: what two or four sequence-parallel ranks compute."""
+    from repro_torch.kernels import attention as tattn
+    q, k, v = _qkv_views(11, 2, 256, 6, 2, 128, torch.bfloat16, cuda_device)
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    w = torch.randn(q.shape, device=cuda_device)
+    whole = tattn.flash_attention(q, k, v)
+    (whole.float() * w).sum().backward()
+    want = [t.grad.clone() for t in (q, k, v)] + [whole.detach()]
+    for t in (q, k, v):
+        t.grad = None
+    parts = [tattn.flash_attention(q[:, lo:lo + 64], k, v, q_offset=lo)
+             for lo in range(0, 256, 64)]
+    got_out = torch.cat(parts, dim=1)
+    (got_out.float() * w).sum().backward()
+    torch.cuda.synchronize()
+    assert float((got_out.detach().float() - want[3].float()).abs().max()) \
+        <= ATTN_TOL[torch.bfloat16]
+    _grads_close([t.grad for t in (q, k, v)], want[:3], torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("s", [100, 1024])
+def test_cuda_k5_writes_lse(cuda_device, dtype, s):
+    """Asked for it, K5 writes each head's log-sum-exp (``-inf`` at length
+    0) beside an output bit-equal to the call that writes none."""
+    from repro_torch.kernels import attention as tattn
+    lengths = (0, 1, 63, 64, 65, s)
+    b, kh, g, hd = len(lengths), 8, 3, 128
+    rng = np.random.default_rng(s + 1)
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device=cuda_device, dtype=dtype)
+
+    q, kc, vc = t((b, kh * g, hd)), t((b, s, kh, hd)), t((b, s, kh, hd))
+    length = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    tattn.SHAPES["decode_attention"].clear()
+    out, lse = tattn.decode_attention(q, kc, vc, length, return_lse=True)
+    plain = tattn.decode_attention(q, kc, vc, length)
+    want_out, want_lse = tref.decode_attention_ref(q, kc, vc, length, True)
+    torch.cuda.synchronize()
+    assert tattn.SHAPES["decode_attention"] == {
+        (b, kh * g, s, kh, hd, str(dtype), "lse"),
+        (b, kh * g, s, kh, hd, str(dtype))}
+    assert torch.equal(out, plain)
+    assert bool(torch.isneginf(lse[0]).all())
+    assert float((lse[1:] - want_lse[1:]).abs().max()) <= LSE_TOL
+    assert float((out.float() - want_out.float()).abs().max()) \
+        <= ATTN_TOL[dtype]
 
 
 @pytest.mark.cuda

@@ -27,7 +27,7 @@ import _torch_train_parity as P
 from repro_torch.core.config import OptimizerConfig, ParallelConfig, \
     ShapeConfig
 from repro_torch.launch.mesh import Mesh
-from repro_torch.parallel.sharding import ShardingRules
+from repro_torch.parallel.sharding import ShardingRules, require_executable
 from repro_torch.training import make_train_step
 from repro_torch.training.train_step import _rows
 
@@ -158,14 +158,16 @@ def test_microbatches_are_cut_before_the_batch_axes():
 
 
 def test_train_step_refuses_zero_and_regather():
-    """ZeRO's w_embed over data=2 and regather are item 11.4b's."""
-    cfg = D.smoke("llama3.2-3b")
+    """ZeRO's w_embed over data=2, with or without ``zero2`` and
+    ``regather``, runs for a dense attention model (llama) and is refused
+    for an MoE one (granite), naming item 11.4c."""
     shape = ShapeConfig("t", D.SEQ, D.BATCH, "train")
     rules = ShardingRules(Mesh({"data": 2, "model": 1}),
                           {"batch": "data", "w_embed": "data"})
-    with pytest.raises(NotImplementedError, match="11.4b"):
-        make_train_step(cfg, shape, OptimizerConfig(), ParallelConfig(),
-                        rules=rules)
-    with pytest.raises(NotImplementedError, match="11.4b"):
-        make_train_step(cfg, shape, OptimizerConfig(), ParallelConfig(),
-                        regather=lambda p: p)
+    require_executable(rules, cfg=D.smoke("llama3.2-3b"))
+    for pc, regather in ((ParallelConfig(), None),
+                         (ParallelConfig(zero2=True), True)):
+        with pytest.raises(NotImplementedError, match="11.4c"):
+            make_train_step(D.smoke("granite-moe-1b-a400m"), shape,
+                            OptimizerConfig(), pc, rules=rules,
+                            regather=regather)

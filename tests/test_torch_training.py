@@ -376,18 +376,22 @@ def test_train_step_reduces_loss_on_fixed_batch():
 
 def test_eval_step_and_regather():
     """``make_eval_step`` gives the train step's metrics without touching
-    the gradients; ``regather`` needs a mesh and is refused."""
+    the gradients; ``regather`` under ``zero2`` with no mesh (no ZeRO
+    shard to gather) leaves the step's gradients as they are."""
     tcfg, state = _port_state()
     batch = tdata.SyntheticSource(tcfg, SHAPE, seed=2).batch(0)
     pc = ParallelConfig(remat="block")
     metrics = make_eval_step(tcfg, pc)(state["params"], batch)
-    _, want, _ = make_grad_fn(tcfg, pc)(state["params"], batch)
+    _, want, want_grads = make_grad_fn(tcfg, pc)(state["params"], batch)
     for k in ("ce", "aux", "tokens"):
         assert not metrics[k].requires_grad
         _close(float(metrics[k]), float(want[k]), 1e-6)
-    with pytest.raises(NotImplementedError, match="11.4"):
-        make_train_step(tcfg, SHAPE, OptimizerConfig(), pc,
-                        regather=lambda p: p)
+    step = make_train_step(tcfg, SHAPE, OptimizerConfig(),
+                           ParallelConfig(remat="block", zero2=True),
+                           regather=True)
+    _, _, grads = step.grad_step(state["params"], batch)
+    for k, g in want_grads.items():
+        assert torch.equal(grads[k], g), k
 
 
 def test_slstm_no_grad_path_follows_an_update():
