@@ -123,11 +123,11 @@
    every loss and norm finite, peak memory printed beside the plan's
    estimate, the plan's budget (``TRAIN_HBM_SHARE`` of the card's
    memory) and the card's memory; the peak must lie under the budget.
-   ``dp_granite_moe_1b_a400m`` spawns
-   two ranks that share the card through ``gloo`` (a ``file://``
+   ``dp_granite_moe_1b_a400m`` (granite cut to 12 of its 24 layers)
+   spawns two ranks that share the card through ``gloo`` (a ``file://``
    rendezvous; ``data=2, model=1``), each planning the cell, taking 2 of
-   the train phases' 4 x 1024 rows and running one untimed and two timed
-   data-parallel steps; held against one rank's step on the whole batch
+   the train phases' 4 x 1024 rows and running one untimed and one timed
+   data-parallel step; held against one rank's step on the whole batch
    in this process (loss and global grad norm within 1e-2, both ranks'
    parameters bit-equal after the update); each rank's aux within 1e-5
    of the whole batch's aux of the ranks' router statistics gathered
@@ -139,9 +139,9 @@
    that share the card through ``gloo`` (any rank's failure fails the
    run), each printing its step or decode ms, its collectives' calls,
    bytes and ms by kind, each rank's peak and its launches:
-   ``tp_train_llama3_2_3b``: llama at full width cut to 8 of its 28
-   layers (two ranks' weights, AdamW state and fp32 accumulators share
-   80 GB), the train phases' batch, ``data=1, model=2``: one step under
+   ``tp_train_llama3_2_3b``: llama at full width cut to 4 of its 28
+   layers (cut from 8 to keep the script inside its time since the
+   expert-parallel and inner-split phases came in), the train phases' batch, ``data=1, model=2``: one step under
    ``seq_tp`` with ``mlp=model`` and one under ``mlp_seq`` with the int8
    KV wire (``kv_compress``), each held against the unsharded step on the
    same weights (loss and grad norm within 1e-2, the leaves each rank holds
@@ -150,11 +150,11 @@
    K4b at query offsets 0 and 512 against 1024 keys.
    ``tp_decode_llama3_2_3b``: llama at its published config, four prompts
    of 64-512 tokens padded to 512, prefilled under ``seq_tp`` and decoded
-   32 greedy steps under ``decode_kv_shard`` (heads, kv heads, ``mlp``,
+   16 greedy steps under ``decode_kv_shard`` (heads, kv heads, ``mlp``,
    vocab and the cache's sequence over ``model``; K5 with its
    log-sum-exp on each rank's half of the cache), fed one rank's tokens
    and held to its logits (within 0.15, the argmax where its top two lie
-   more than 0.3 apart). ``zero3_train_llama3_2_3b``: the 8-layer llama
+   more than 0.3 apart). ``zero3_train_llama3_2_3b``: the 4-layer llama
    under ``pure_dp`` on ``data=2`` (``w_embed`` over both ranks), one
    step, and one under ``zero2`` with ``regather`` at 2 microbatches, each
    held against the unsharded step at the same microbatch count (loss and
@@ -163,7 +163,8 @@
    K5 with its log-sum-exp are timed beside their default calls.
    K2, K4, K4b and K5 are then held at the shapes these phases added.
 7. Profiles jamba and xlstm (the models of step 8, on the weights made
-   from the same seed) the same way, outside the counted runs, with the
+   from the same seed) the same way (xlstm's decode steps only),
+   outside the counted runs, with the
    shares of the Mamba scan, the Mamba decode step and the sLSTM loop,
    and holds jamba's MoE dispatch on K2 bit-exact at its prefill (8,192
    assignments) and decode (8) shapes over 65 buckets. Before step 8:
@@ -198,7 +199,35 @@
    logits within ``LOGIT_TOL`` of each other, K4 once a layer in each
    call. Then K2, K4 and K5 are held against their plain versions at the
    shapes these phases added.
-9. Prints the ``kernels`` JSON line (K1-K5 and K4b), its launch counts summed over
+9. Expert parallelism and the Mamba / xLSTM inner split, last: each phase
+   two ranks sharing the card through ``gloo``, held against one rank on
+   the same weights, printing its step, prefill or decode ms, its
+   collectives by kind (``all_to_all`` among them), each rank's peak and
+   launches. ``ep_train_granite_moe_1b_a400m``: granite at its published
+   config, drop-free (capacity factor E / top_k), the train phases'
+   batch, one step under its 2 x 16 x 16 ``train_4k`` layout on ``data=1,
+   model=2`` (``seq_tp``, ``mlp_seq``, vocab and experts over ``model``,
+   the all-to-all dispatch on K2) and one under its 16 x 16 ``pure_dp``
+   layout on ``data=2`` (``shard_map_local``, ZeRO-3 over both ranks),
+   held as ``tp_train`` holds llama, each rank's updated shards against
+   the same shards of the unsharded step's; the drops of one forward at
+   the model's capacity factor 1.25 printed, unsharded and under each
+   layout. ``ep_decode_moonshot_v1_16b_a3b``: moonshot at full width cut
+   to 12 of its 48 layers, in fp32, prompts of 64-512 padded to 512,
+   prefilled and decoded 32 steps under its ``decode_32k`` layout (the
+   ``gather`` plane, K5 with its log-sum-exp). ``inner_tp_jamba_v0_1_52b``:
+   jamba at full width cut to layers 0-3 of its period, in fp32, four
+   prompts of 512: ``forward`` and ``prefill_step`` under its
+   ``prefill_32k`` layout (``seq_tp``, ``inner``, the all-to-all), 16
+   decode steps under its ``decode_32k`` one. Both held as ``tp_decode``
+   (and the forward's logits within 0.15), with the bf16 one-rank run's
+   distance from the fp32 one printed (the rounding floor).
+   ``inner_tp_train_xlstm_1_3b``: xlstm at full width cut to 16 of its 48
+   layers, in fp32, one step under ``vocab`` and ``inner`` over ``model``
+   and one under ``pure_dp`` on ``data=2``, held as ``tp_train``, the
+   bf16 one-rank step printed beside. K2, K4, K4b and K5 are then held
+   against their plain versions at the shapes these phases added.
+10. Prints the ``kernels`` JSON line (K1-K5 and K4b), its launch counts summed over
    every phase above, then the seconds of each phase, the card line and,
    as its last line, ``{"ok": true, "device": {...}}``.
 
@@ -277,6 +306,10 @@ SERVE_REQUESTS, SERVE_NEW_TOKENS = 8, 32
 SERVE_BATCH, SERVE_SEQ = 4, 1024
 PROMPT_LENGTHS = (64, 512)
 PROFILE_STEPS = 8
+# the recurrent models whose prefill wave is profiled: xlstm's took 76 s
+# of the profiler's parsing (its sLSTM's ~1,000 steps of ~13 ops), left
+# out since the expert-parallel and inner-split phases came in
+PREFILL_PROFILED = ("jamba-v0.1-52b",)
 # K4/K5 against their plain versions: the reference's kernel tolerances
 # (tests/test_kernels.py:15)
 ATTN_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
@@ -296,15 +329,16 @@ TRAIN_STEPS = {SERVE_ARCH: 4, MOE_ARCH: 3}
 MB_LOSS_RTOL = 1e-2
 # the tensor, sequence and ZeRO-3 phases: TP_RANKS gloo ranks sharing the
 # card. Training: llama at full width cut to TP_LAYERS of its 28 layers
-# (two ranks' weights, AdamW state and fp32 accumulators share one card's
-# 80 GB), the train phases' batch, one step a variant, held to the
+# (8 until the expert-parallel and inner-split phases came in; two ranks'
+# weights, AdamW state and fp32 accumulators share one card's 80 GB), the
+# train phases' batch, one step a variant, held to the
 # unsharded step within TP_RTOL (bf16 sums in other orders). Decoding:
 # llama at its published config, TP_PROMPT_LENGTHS prompts padded to the
 # longest, TP_DECODE_STEPS steps into a cache of TP_MAX_SEQ positions
 # split along its sequence; logits held to one rank's within LOGIT_TOL,
 # the argmax where one rank's top two lie more than TP_MARGIN apart (the
 # serve bound of PERF.md section 2)
-TP_RANKS, TP_LAYERS, TP_RTOL = 2, 8, 1e-2
+TP_RANKS, TP_LAYERS, TP_RTOL = 2, 4, 1e-2
 TP_TRAIN_VARIANTS = {
     "seq_tp_mlp": dict(attn_strategy="seq_tp", mlp_mode="tp",
                        kv_compress=False, fsdp="off", layout="tp",
@@ -320,7 +354,54 @@ ZERO_VARIANTS = {
                                 remat="block", zero2=True,
                                 microbatches=2), True)}
 TP_PROMPT_LENGTHS = (64, 192, 320, 512)
-TP_MAX_SEQ, TP_DECODE_STEPS, TP_MARGIN = 1024, 32, 0.3
+# expert parallelism and the inner split: PAR_RANKS gloo ranks sharing the
+# card, each phase held against one rank on the same weights (the bounds
+# of the tp phases). ep_train: granite at full width and depth, one step
+# under its 2 x 16 x 16 train_4k layout on data=1 x model=2 and one under
+# its 16 x 16 pure_dp layout on data=2, drop-free (E / top_k), the drops at
+# 1.25 printed beside. ep_decode: moonshot at full width cut to 12 of its
+# 48 layers (all 48 are 56.1 GB of bf16 weights, and each rank builds the
+# whole model before it keeps its shards), its decode_32k layout for the
+# prefill and the decode steps. inner_tp_jamba: jamba at full width cut to
+# layers 0-3 of its period (three Mamba layers, one attention layer, MoE
+# FFNs on layers 1 and 3), in fp32 (its bf16 forward moves by more than the
+# bound, PERF.md section 2), forward and prefill under its prefill_32k
+# layout, decode steps under its decode_32k one. inner_tp_train: xlstm at
+# full width cut to 16 of its 48 layers (two periods), one step under its
+# 2 x 16 x 16 layout (vocab and inner over model) and one under pure_dp on
+# data=2
+PAR_RANKS = 2
+PUBLISHED["moonshot-v1-16b-a3b"] = (48, 2048, 16, 16, 128, 1408, 163840,
+                                    "bfloat16", (64, 6, 1408))
+EP_TRAIN_VARIANTS = {
+    "seq_tp_a2a": ({"data": 1, "model": 2},
+                   dict(attn_strategy="seq_tp", moe_strategy="shard_map_a2a",
+                        mlp_mode="seq", fsdp="off", layout="tp",
+                        remat="block")),
+    "pure_dp_local": ({"data": 2, "model": 1},
+                      dict(layout="pure_dp", attn_strategy="replicated",
+                           fsdp="off", remat="dots"))}
+DECODE_PC = dict(attn_strategy="decode_kv_shard", moe_strategy="gather",
+                 fsdp="off")
+EP_DECODE = {"arch": "moonshot-v1-16b-a3b", "layers": 12,
+             "dtype": "float32", "build_dtype": "bfloat16",
+             "lengths": TP_PROMPT_LENGTHS, "steps": 32, "forward": False,
+             "prefill": DECODE_PC, "decode": DECODE_PC}
+INNER_JAMBA = {"arch": HYBRID_ARCH, "layers": 4, "dtype": "float32",
+               "build_dtype": "bfloat16", "lengths": (512,) * 4,
+               "steps": 16, "forward": True,
+               "prefill": dict(attn_strategy="seq_tp",
+                               moe_strategy="shard_map_a2a", mlp_mode="seq",
+                               fsdp="off"),
+               "decode": DECODE_PC}
+XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_DTYPE = 16, "float32"
+XLSTM_TRAIN_VARIANTS = {
+    "vocab_inner": ({"data": 1, "model": 2},
+                    dict(fsdp="off", layout="tp", remat="block")),
+    "pure_dp": ({"data": 2, "model": 1},
+                dict(layout="pure_dp", attn_strategy="replicated",
+                     fsdp="off", remat="dots"))}
+TP_MAX_SEQ, TP_DECODE_STEPS, TP_MARGIN = 1024, 16, 0.3
 # the planned train phase: llama3.2-3b at 64 x 1024 tokens on this card,
 # its microbatch count the planner's
 PLAN_TRAIN_SHAPE = ("card_b64_s1024", 1024, 64)
@@ -334,7 +415,10 @@ PLAN_TRAIN_STEPS = 2
 # atomics): each rank's against the whole batch's aux of the ranks'
 # gathered router statistics, which differ only in fp32 rounding, while
 # one rank's own rows' aux (the fault the hold is for) lies far outside
-DP_RANKS, DP_STEPS = 2, 2
+# granite cut to DP_LAYERS of its 24 layers (the int8 all-reduce's hold
+# moves its gradients through host memory four times), since the
+# expert-parallel and inner-split phases came in
+DP_RANKS, DP_STEPS, DP_LAYERS = 2, 1, 12
 DP_RTOL, DP_AUX_RTOL = 1e-2, 1e-5
 COMPRESSED_BOUND, COMPRESSED_AGREE = 0.02, 1e-6
 # the full-width gradient hold: llama cut to 2 layers, fp32, 1 x 256
@@ -1551,8 +1635,8 @@ class MoeRecorder:
         from repro_torch.models import moe
         self._route, self._dispatch = moe.route, moe.dispatch
 
-        def recording_route(p, x, top_k):
-            out = self._route(p, x, top_k)
+        def recording_route(p, x, top_k, router=None):
+            out = self._route(p, x, top_k, router)
             self.routes.append((self.label, out[2]))
             return out
 
@@ -1612,8 +1696,8 @@ class PinnedRouting:
         from repro_torch.models import moe
         self._route = moe.route
 
-        def pinned_route(p, x, top_k):
-            probs, _, own = self._route(p, x, top_k)
+        def pinned_route(p, x, top_k, router=None):
+            probs, _, own = self._route(p, x, top_k, router)
             top_i = self.pinned[self.layer].to(own.device)
             self.layer += 1
             chosen = torch.zeros_like(probs, dtype=torch.bool)
@@ -2344,8 +2428,9 @@ def recurrent_phase(dev, cfg, card: str, name: str) -> dict:
 
 def recurrent_profiles(dev, cfg, name: str, card: str) -> None:
     """A recurrent model on the weights ``serve_phase`` makes for it (seed
-    0), outside the counted runs: eight decode steps and one prefill wave
-    under ``torch.profiler`` (``profile_decode``, ``profile_prefill``)
+    0), outside the counted runs: eight decode steps and, for the models
+    in ``PREFILL_PROFILED``, one prefill wave under ``torch.profiler``
+    (``profile_decode``, ``profile_prefill``)
     and, for a MoE model, its dispatch on K2 held bit-exact and timed at
     its shapes (``check_moe_dispatch``); the model freed after. The
     script runs these before the recurrent phases: on an H100 every
@@ -2358,8 +2443,10 @@ def recurrent_profiles(dev, cfg, name: str, card: str) -> None:
     gen.manual_seed(0)
     res = {"cfg": cfg, "model": init_lm(cfg, gen, dev),
            "prompts": serve_prompts(cfg)}
-    for what, fn in (("decode", profile_decode), ("prefill",
-                                                  profile_prefill)):
+    kinds = [("decode", profile_decode)]
+    if name in PREFILL_PROFILED:
+        kinds.append(("prefill", profile_prefill))
+    for what, fn in kinds:
         t0 = time.perf_counter()
         prof = fn(res, dev)
         print(f"profile serve {name} {what} ({SERVE_BATCH}x"
@@ -2927,7 +3014,8 @@ def dp_rank(rank: int, world: int, root: str, arch: str, steps: int,
     """One of ``world`` ranks sharing the card through ``gloo``: the
     data-parallel step of ``arch`` (published config, weights from seed
     0) on its rows of the train phases' batch, planned on a
-    ``data=world, model=1`` mesh (ZeRO overridden: item 11.4b); then the
+    ``data=world, model=1`` mesh (its ``pure_dp`` plan overridden: this
+    phase holds data parallelism; ``ep_train`` runs ``pure_dp``); then the
     int8 all-reduce of its own gradients against the exact one. Writes
     its results to ``root/rank{rank}.json``."""
     import dataclasses
@@ -2949,7 +3037,7 @@ def dp_rank(rank: int, world: int, root: str, arch: str, steps: int,
     backend = init_distributed(rank, world, f"file://{root}/rendezvous",
                                device)
     dev = torch.device(device)
-    cfg = serve_config(arch)
+    cfg = dataclasses.replace(serve_config(arch), num_layers=DP_LAYERS)
     shape, batch = _train_inputs(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
     mesh = make_smoke_mesh(model=1)
     hw = card_hardware()
@@ -3064,7 +3152,8 @@ def aux_readings(ranks: list, experts: int) -> dict:
 
 
 def dp_phase(dev, card: str) -> dict:
-    """granite-moe-1b-a400m's data-parallel step on ``DP_RANKS`` spawned
+    """granite-moe-1b-a400m's data-parallel step (cut to ``DP_LAYERS``
+    layers) on ``DP_RANKS`` spawned
     ranks sharing this card through ``gloo`` (``dp_rank``), held against
     the one-rank step on the whole batch in this process: loss and global
     grad norm within ``DP_RTOL``; every rank's aux within ``DP_AUX_RTOL``
@@ -3074,6 +3163,7 @@ def dp_phase(dev, card: str) -> dict:
     ``COMPRESSED_BOUND`` of each leaf's largest magnitude of the exact one
     and the ranks agreeing to ``COMPRESSED_AGREE``. A rank that fails
     fails the phase."""
+    import dataclasses
     import tempfile
 
     import torch
@@ -3082,7 +3172,7 @@ def dp_phase(dev, card: str) -> dict:
     from repro_torch.training import make_train_step
     from repro_torch.training.optimizer import global_norm
 
-    cfg = serve_config(MOE_ARCH)
+    cfg = dataclasses.replace(serve_config(MOE_ARCH), num_layers=DP_LAYERS)
     shape, batch = _train_inputs(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
     saved = shape_sets()
     state = _fresh_state(cfg, dev)
@@ -3115,7 +3205,8 @@ def dp_phase(dev, card: str) -> dict:
                 r["compressed_ranks_disagree"] for r in ranks)}
     plan = {k: r0["plan"][k] for k in ("attn_strategy", "moe_strategy",
                                         "layout", "fsdp", "microbatches")}
-    print(f"dp {MOE_ARCH}: {DP_RANKS} ranks on one card ({r0['backend']}), "
+    print(f"dp {MOE_ARCH} ({DP_LAYERS} of 24 layers): {DP_RANKS} ranks on "
+          f"one card ({r0['backend']}), "
           f"planned {json.dumps(plan)}, overridden "
           f"{r0['overridden'] or 'nothing'} [{card}]")
     print(f"dp {MOE_ARCH}: held {json.dumps(held)} (loss and grad norm "
@@ -3554,31 +3645,37 @@ def zero3_train_phase(dev, card: str) -> dict:
     return out
 
 
-def _decode_prompts(cfg):
-    """``TP_PROMPT_LENGTHS`` prompts from seed 5, padded with token 0 to the
+def _decode_prompts(cfg, lengths=TP_PROMPT_LENGTHS):
+    """Prompts of ``lengths`` tokens from seed 5, padded with token 0 to the
     longest: ``(tokens (B, S) int32, lengths)``."""
     rng = np.random.default_rng(5)
-    s = max(TP_PROMPT_LENGTHS)
-    tokens = np.zeros((len(TP_PROMPT_LENGTHS), s), np.int32)
-    for i, n in enumerate(TP_PROMPT_LENGTHS):
+    s = max(lengths)
+    tokens = np.zeros((len(lengths), s), np.int32)
+    for i, n in enumerate(lengths):
         tokens[i, :n] = rng.integers(0, cfg.vocab_size, n)
-    return tokens, np.asarray(TP_PROMPT_LENGTHS, np.int32)
+    return tokens, np.asarray(lengths, np.int32)
 
 
 def _prefill_then_decode(prefill_model, decode_model, cfg, dev, fed,
-                         prefill_rules=None, decode_rules=None) -> dict:
-    """The padded prompts through ``prefill_step`` (under
-    ``prefill_rules``) into a state made under ``decode_rules``, every
-    row's position rewound to its last prompt token, then one
-    ``decode_step`` a row of ``fed`` (the tokens to feed; where ``None``,
-    each row's last prompt token and then its argmax): the logits, the
-    tokens fed and the step ms."""
+                         prefill_rules=None, decode_rules=None,
+                         lengths=TP_PROMPT_LENGTHS,
+                         steps=TP_DECODE_STEPS) -> dict:
+    """The prompts of ``lengths`` padded to the longest through
+    ``prefill_step`` (under ``prefill_rules``) into a state made under
+    ``decode_rules``, every row's position rewound to its last prompt
+    token where the lengths differ (a recurrent state cannot be rewound:
+    recurrent models take prompts of one length, and decode from the end),
+    then ``steps`` ``decode_step``s a row of ``fed`` (the tokens to feed;
+    where ``None``, each row's last prompt token, or the prefill's argmax
+    where nothing was rewound, and then its argmax): the logits, the tokens
+    fed and the step ms."""
     import torch
     from repro_torch.models.lm import (decode_step, init_decode_state,
                                        prefill_step)
     from repro_torch.parallel.sharding import use_rules
-    tokens, lengths = _decode_prompts(cfg)
+    tokens, lengths = _decode_prompts(cfg, lengths)
     rows = np.arange(len(lengths))
+    rewind = len(set(lengths.tolist())) > 1
     out = {"decode": [], "step_ms": [], "fed": []}
     with torch.inference_mode():
         with use_rules(decode_rules):
@@ -3592,10 +3689,13 @@ def _prefill_then_decode(prefill_model, decode_model, cfg, dev, fed,
         torch.cuda.synchronize()
         out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
         out["prefill"] = logits[:, 0].float().cpu()
-        state["pos"] = torch.from_numpy(lengths - 1).to(dev)
-        tok = tokens[rows, lengths - 1]
+        if rewind:
+            state["pos"] = torch.from_numpy(lengths - 1).to(dev)
+            tok = tokens[rows, lengths - 1]
+        else:
+            tok = out["prefill"].argmax(-1).numpy()
         with use_rules(decode_rules):
-            for t in range(TP_DECODE_STEPS):
+            for t in range(steps):
                 if fed is not None:
                     tok = fed[t]
                 out["fed"].append(np.asarray(tok))
@@ -3744,6 +3844,504 @@ def tp_decode_phase(dev, card: str) -> dict:
             shapes.setdefault(k, set()).update(map(tuple, v))
     return {"wall_s": wall, "held": held, "launches": launches,
             "shapes": shapes}
+
+
+def _timed_step_all(step, state, batch) -> tuple:
+    """``_timed_step`` with K1-K3's counters beside K4, K4b and K5's: the
+    MoE dispatch runs K2."""
+    from repro_torch.kernels import partition as K
+    K.reset_launches()
+    state, metrics, rec = _timed_step(step, state, batch)
+    rec["launches"].update(K.LAUNCHES)
+    return state, metrics, rec
+
+
+@contextlib.contextmanager
+def counting_drops():
+    """Within the block, every MoE dispatch's dropped assignments and all
+    of its assignments, summed: ``{"dropped", "assignments"}``."""
+    from repro_torch.models import moe as M
+    plain, seen = M.dispatch, {"dropped": 0, "assignments": 0}
+
+    def counting(top_i, e, cap):
+        bk = plain(top_i, e, cap)
+        seen["dropped"] += int((~bk.keep).sum())
+        seen["assignments"] += bk.keep.numel()
+        return bk
+
+    M.dispatch = counting
+    try:
+        yield seen
+    finally:
+        M.dispatch = plain
+
+
+def _drops_at(model, cfg, batch, rules=None, factor: float = 1.25) -> dict:
+    """One no-grad ``forward_hidden`` of ``batch`` (remat none) with the MoE
+    capacity factor at ``factor`` under ``rules``: the assignments this
+    rank's dispatches dropped."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models.lm import forward_hidden
+    from repro_torch.parallel.sharding import use_rules
+    saved = model.cfg
+    model.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=factor))
+    try:
+        with torch.no_grad(), use_rules(rules), counting_drops() as seen:
+            forward_hidden(model, batch, remat="none")
+    finally:
+        model.cfg = saved
+    return seen
+
+
+def _shard_bound(one_params: dict, named: dict, cfg, rules, dev) -> tuple:
+    """This rank's updated shards against the same shards of the unsharded
+    step's weights: the max |diff| and its largest ratio to
+    ``tp_param_bound``, leaf by leaf (no collective)."""
+    from repro_torch.models.convert import shard_named
+    worst, diff = 0.0, 0.0
+    for k, p in named.items():
+        want = shard_named({k: one_params[k]}, cfg, rules)[k].to(dev).float()
+        d = float((p.detach().float() - want).abs().max())
+        worst = max(worst, d / tp_param_bound(float(want.abs().max())))
+        diff = max(diff, d)
+    return diff, worst
+
+
+def par_train_rank(rank: int, world: int, root: str, arch: str, layers,
+                   variants: dict, drops: bool, dtype, device: str):
+    """One of ``world`` ranks sharing the card (``gloo``): ``arch`` at its
+    published width (``layers`` of its layers where given; drop-free where
+    it has experts, ``drop_free``), first the unsharded step on the
+    train phases' batch (each rank its own, from the same seed), then for
+    each variant ``(mesh shape, ParallelConfig fields)`` one step on this
+    rank's shards under the planner's rules for it, its updated shards
+    held to the unsharded step's (``_shard_bound``). With ``drops``, the
+    assignments one forward drops at the model's capacity factor 1.25,
+    unsharded and under each variant's rules. With ``dtype`` other than
+    the published one, the model runs in ``dtype`` (weights drawn in fp32,
+    not rounded) and the unsharded step also runs in the published dtype
+    on the same weights rounded: the rounding floor. The model lives on
+    ``device`` (the card). Writes ``root/rank{rank}.json``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.config import OptimizerConfig, ParallelConfig
+    from repro_torch.launch.mesh import Mesh, init_distributed
+    from repro_torch.parallel.sharding import require_executable
+    from repro_torch.parallel.strategies import make_rules
+    from repro_torch.training import make_train_step
+
+    init_distributed(rank, world, f"file://{root}/rendezvous", device)
+    dev = torch.device(device)
+    cfg = drop_free(serve_config(arch))
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    shape, batch = _train_inputs(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+    out = {"rank": rank, "variants": {}}
+    if dtype is not None and dtype != cfg.dtype:
+        low = _one_rank_step(cfg, dev, shape, batch)
+        out["one_low"] = {"dtype": cfg.dtype, "loss": low["loss"],
+                          "grad_norm": low["grad_norm"]}
+        del low
+        _release()
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    if drops:
+        state = _fresh_state(cfg, dev)
+        out["one_drops"] = _drops_at(state["params"], cfg, batch)
+        del state
+        _release()
+    one = _one_rank_step(cfg, dev, shape, batch)
+    out["one"] = {"loss": one["loss"], "grad_norm": one["grad_norm"]}
+    one.pop("master")
+    for name, (mesh_shape, fields) in variants.items():
+        pc = ParallelConfig(**fields)
+        rules = make_rules(Mesh(mesh_shape), cfg, shape, pc)
+        require_executable(rules, cfg=cfg)
+        state = _sharded_state(cfg, dev, rules)
+        drops_125 = _drops_at(state["params"], cfg, batch, rules) \
+            if drops else None
+        step = make_train_step(cfg, shape, OptimizerConfig(
+            lr=TRAIN_LR, warmup_steps=0), pc, rules=rules)
+        state, metrics, rec = _timed_step_all(step, state, batch)
+        named = dict(state["params"].named_parameters())
+        rec["whole_sha256"], rec["whole_leaves"] = _whole_digest(
+            cfg, rules, named)
+        rec["rules"] = {k: v for k, v in rules.rules.items()
+                        if v is not None}
+        rec["mesh"] = mesh_shape
+        rec["param_max_abs_diff"], rec["param_bound_ratio"] = _shard_bound(
+            one["params"], named, cfg, rules, dev)
+        if drops_125 is not None:
+            rec["drops_1.25"] = drops_125
+        out["variants"][name] = rec
+        del named, state, step, metrics
+        _release()
+    dist.destroy_process_group()
+    with open(f"{root}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def par_train_phase(dev, card: str, prefix: str, arch: str, layers,
+                    variants: dict, drops: bool = False,
+                    dtype: str | None = None) -> dict:
+    """``PAR_RANKS`` ranks sharing the card, one step of each variant
+    (``par_train_rank``). Held as ``tp_train`` holds llama: every rank's
+    loss and grad norm within ``TP_RTOL`` of the unsharded step's, the
+    leaves held whole bit-equal across the ranks, every rank's updated
+    shards within ``tp_param_bound``; K4 twice and K4b once an attention
+    layer, K2 once a MoE layer in the forward and again in its recompute
+    (twice under ``remat=block``, the same under ``dots``, which keeps no
+    dispatch)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.core.config import ParallelConfig
+    with tempfile.TemporaryDirectory() as root:
+        wall, ranks = _spawn(par_train_rank, PAR_RANKS, root, arch, layers,
+                             variants, drops, dtype, dev.type)
+    cfg = serve_config(arch)
+    n_layers = layers if layers is not None else cfg.num_layers
+    cut = dataclasses.replace(cfg, num_layers=n_layers)
+    attn, moe = attention_layers(cut), moe_layers(cut)
+    out = {"wall_s": wall, "held": {}, "launches": {}, "shapes": {}}
+    print(f"{prefix} {arch} ({n_layers} of {cfg.num_layers} layers at full "
+          f"width, {dtype or cfg.dtype}, {TRAIN_BATCH}x{TRAIN_SEQ} tokens"
+          f"{', drop-free capacity E / top_k' if cfg.moe else ''}): "
+          f"{PAR_RANKS} ranks on one card (gloo), {wall:.2f} s; the "
+          f"unsharded step's loss {ranks[0]['one']['loss']:.6f}, grad norm "
+          f"{ranks[0]['one']['grad_norm']:.6f} [{card}]")
+    if "one_low" in ranks[0]:
+        low = ranks[0]["one_low"]
+        print(f"{prefix} rounding floor: the unsharded step in "
+              f"{low['dtype']} on the same weights rounded: loss "
+              f"{low['loss']:.6f}, grad norm {low['grad_norm']:.6f} (not "
+              f"held) [{card}]")
+    if drops:
+        print(f"{prefix} capacity drops at factor 1.25 in one forward, "
+              f"unsharded (chunks of 1024): "
+              f"{json.dumps(ranks[0]['one_drops'])} [{card}]")
+    for name, (_, fields) in variants.items():
+        _print_rank_records(prefix, ranks, name, card)
+        held = _held_step(prefix, ranks, name, "one")
+        worst = max(r["variants"][name]["param_bound_ratio"] for r in ranks)
+        held["param_max_abs_diff"] = max(
+            r["variants"][name]["param_max_abs_diff"] for r in ranks)
+        held["param_bound_ratio"] = worst
+        require(worst <= 1.0, f"{prefix} {name}: updated shards "
+                f"{held['param_max_abs_diff']} off the unsharded step's, "
+                f"{worst} of the bound")
+        # a recompute (``block``, or ``dots``, which keeps the matrix
+        # products only) runs K4 and the dispatch's K2 again
+        recompute = 2 if ParallelConfig(**fields).remat != "none" else 1
+        want = {"flash_attention": recompute * attn,
+                "flash_attention_bwd": attn, "decode_attention": 0,
+                "partition_histogram": 0,
+                "partition_scatter": recompute * moe, "fused_probe": 0}
+        _require_launches(prefix, ranks, name, want)
+        rec0 = ranks[0]["variants"][name]
+        if drops:
+            print(f"{prefix} {name} capacity drops at factor 1.25 in one "
+                  f"forward, by rank: "
+                  f"{[r['variants'][name]['drops_1.25'] for r in ranks]} "
+                  f"[{card}]")
+        print(f"{prefix} {name}: mesh {json.dumps(rec0['mesh'])}, rules "
+              f"{json.dumps(rec0['rules'])}; held {json.dumps(held)} (loss "
+              f"and grad norm within {TP_RTOL} of the unsharded step's, "
+              f"{rec0['whole_leaves']} leaves held whole bit-equal across "
+              f"the ranks, each rank's updated shards within 2 lr + 2^-7 "
+              f"max|w| a leaf) [{card}]")
+        out["held"][name] = held
+        for r in ranks:
+            for k, v in r["variants"][name]["launches"].items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+            for k, v in r["variants"][name]["shapes"].items():
+                out["shapes"].setdefault(k, set()).update(map(tuple, v))
+    return out
+
+
+def _shared_shards(full, rules_a, rules_b, dtype):
+    """This rank's shards of ``full`` under two rule sets, as two models
+    in ``dtype``, made leaf by leaf (each of ``full``'s leaves dropped once
+    cut): a leaf cut alike by both is one tensor in both."""
+    import torch
+    from repro_torch.models.convert import (_cuts, _halves, _meta_leaves,
+                                            _shard)
+    from repro_torch.models.lm import LM
+    cfg = full.cfg
+    leaves, halves = _meta_leaves(cfg), _halves(cfg)
+    a, b = (LM(cfg, None, torch.device("meta")) for _ in range(2))
+    def cast(t):           # fp32 leaves (routers, a_log, r_gates) stay
+        return t if t.dtype == torch.float32 else t.to(dtype)
+
+    for name, p in list(full.named_parameters()):
+        *path, leaf = name.split(".")
+        mod = ".".join(path)
+        logical, two = leaves[name][1], name in halves
+        cuts_a = _cuts(rules_a, logical, tuple(p.shape), two)
+        cuts_b = _cuts(rules_b, logical, tuple(p.shape), two)
+        pa = torch.nn.Parameter(cast(_shard(p.detach(), cuts_a)),
+                                requires_grad=False)
+        pb = pa if cuts_a == cuts_b else torch.nn.Parameter(
+            cast(_shard(p.detach(), cuts_b)), requires_grad=False)
+        setattr(a.get_submodule(mod), leaf, pa)
+        setattr(b.get_submodule(mod), leaf, pb)
+        setattr(full.get_submodule(mod), leaf, None)
+        del p
+    return a, b
+
+
+def par_decode_rank(rank: int, world: int, root: str, spec: dict, fed,
+                    device: str):
+    """One of ``world`` ranks sharing the card (``gloo``, ``data=1,
+    model=world``): the model of ``spec`` (``_decode_cfg``), its shards
+    under the planner's rules for the prefill shape (``spec["prefill"]``,
+    ParallelConfig fields) and for the decode shape (``spec["decode"]``),
+    in ``spec["dtype"]``; with ``spec["forward"]``, one ``forward`` of the
+    padded prompts under the prefill rules; then ``_prefill_then_decode``
+    fed the tokens ``fed``. Rank 0 writes the logits to
+    ``root/logits.pt``; every rank its record to ``root/rank{rank}.json``.
+    The model lives on ``device`` (the card)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.config import ParallelConfig, ShapeConfig
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import partition as K
+    from repro_torch.launch.mesh import Mesh, init_distributed
+    from repro_torch.models import forward, init_lm
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import require_executable, use_rules
+    from repro_torch.parallel.strategies import make_rules
+
+    init_distributed(rank, world, f"file://{root}/rendezvous", device)
+    dev = torch.device(device)
+    cfg = _decode_cfg(spec)
+    mesh = Mesh({"data": 1, "model": world})
+    n = len(spec["lengths"])
+    prefill_rules = make_rules(mesh, cfg, ShapeConfig(
+        "par_prefill", max(spec["lengths"]), n, "prefill"),
+        ParallelConfig(**spec["prefill"]))
+    decode_rules = make_rules(mesh, cfg, ShapeConfig(
+        "par_decode", TP_MAX_SEQ, n, "decode"),
+        ParallelConfig(**spec["decode"]))
+    for rules in (prefill_rules, decode_rules):
+        require_executable(rules, cfg=cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    full = init_lm(dataclasses.replace(cfg, dtype=spec["build_dtype"]), gen,
+                   dev)
+    full.cfg = cfg
+    models = _shared_shards(full, prefill_rules, decode_rules,
+                            getattr(torch, spec["dtype"]))
+    del full
+    _release()
+    for m in models:
+        m.cfg = cfg
+    A.reset_launches()
+    K.reset_launches()
+    C.reset_collective_stats()
+    torch.cuda.reset_peak_memory_stats()
+    logits = {}
+    with own_shapes() as shapes:
+        if spec.get("forward"):
+            tokens, _ = _decode_prompts(cfg, spec["lengths"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode(), use_rules(prefill_rules):
+                logits["forward"] = forward(models[0], {
+                    "tokens": torch.from_numpy(tokens).to(dev)})[0][
+                    ..., :cfg.vocab_size].cpu()
+            torch.cuda.synchronize()
+            forward_ms = (time.perf_counter() - t0) * 1e3
+        res = _prefill_then_decode(*models, cfg, dev, fed, prefill_rules,
+                                   decode_rules, spec["lengths"],
+                                   spec["steps"])
+    rec = {"rank": rank, "prefill_ms": res["prefill_ms"],
+           "step_ms": res["step_ms"],
+           "launches": {**A.LAUNCHES, **K.LAUNCHES},
+           "collectives": {k: dict(v) for k, v in
+                           C.COLLECTIVE_STATS.items()},
+           "peak_bytes": int(torch.cuda.max_memory_allocated()),
+           "shapes": {k: sorted(v) for k, v in shapes.items()},
+           "rules": [{k: v for k, v in r.rules.items() if v is not None}
+                     for r in (prefill_rules, decode_rules)]}
+    if spec.get("forward"):
+        rec["forward_ms"] = forward_ms
+    if rank == 0:
+        logits.update(prefill=res["prefill"], decode=res["decode"])
+        torch.save(logits, f"{root}/logits.pt")
+    dist.destroy_process_group()
+    with open(f"{root}/rank{rank}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def _decode_cfg(spec: dict):
+    """``spec["arch"]``'s published config cut to ``spec["layers"]``
+    layers, drop-free where it has experts, in ``spec["dtype"]``."""
+    import dataclasses
+    cfg = drop_free(serve_config(spec["arch"]))
+    return dataclasses.replace(cfg, num_layers=spec["layers"],
+                               dtype=spec["dtype"])
+
+
+def par_decode_phase(dev, card: str, prefix: str, spec: dict) -> dict:
+    """The model of ``spec`` on one rank in this process (built in
+    ``spec["build_dtype"]`` from seed 0 and cast to ``spec["dtype"]``,
+    exactly: every bf16 value is an fp32 value): with ``spec["forward"]``
+    one ``forward`` of the padded prompts, then the prompts prefilled and
+    ``spec["steps"]`` greedy decode steps; then the same on ``PAR_RANKS``
+    ranks sharing the card (``par_decode_rank``), fed the same tokens.
+    Held: every logit within ``LOGIT_TOL`` of one rank's, and the argmax
+    equal wherever one rank's top two logits lie more than ``TP_MARGIN``
+    apart; K4 once an attention layer a prefill (and a forward), K5 with
+    its log-sum-exp once an attention layer a step, K2 once a MoE layer a
+    call, on every rank."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch.models import forward, init_lm
+    from repro_torch.parallel.sharding import use_rules
+    cfg = _decode_cfg(spec)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    built = dataclasses.replace(cfg, dtype=spec["build_dtype"])
+    model = init_lm(built, gen, dev)
+    saved = shape_sets()
+    low = None
+    if spec["dtype"] != spec["build_dtype"]:
+        # the rounding floor: one rank in the build dtype, fed the tokens
+        # it chooses; the held runs are fed the same
+        model.cfg = built
+        low = _prefill_then_decode(model, model, built, dev, None, None,
+                                   None, spec["lengths"], spec["steps"])
+        model = model.to(getattr(torch, spec["dtype"]))
+    model.cfg = cfg
+    one = {}
+    if spec.get("forward"):
+        tokens, _ = _decode_prompts(cfg, spec["lengths"])
+        with torch.inference_mode(), use_rules(None):
+            one["forward"] = forward(model, {"tokens": torch.from_numpy(
+                tokens).to(dev)})[0][..., :cfg.vocab_size].cpu()
+    one.update(_prefill_then_decode(model, model, cfg, dev,
+                                    low["fed"] if low else None, None,
+                                    None, spec["lengths"], spec["steps"]))
+    restore_shape_sets(saved)
+    floor = None
+    if low is not None:
+        floor = max(float((a[..., :cfg.vocab_size]
+                           - b[..., :cfg.vocab_size]).abs().max())
+                    for a, b in zip([low["prefill"]] + low["decode"],
+                                    [one["prefill"]] + one["decode"]))
+    del model
+    _release()
+    with tempfile.TemporaryDirectory() as root:
+        wall, ranks = _spawn(par_decode_rank, PAR_RANKS, root, spec,
+                             one["fed"], dev.type)
+        got = torch.load(f"{root}/logits.pt")
+    pairs = [(got["prefill"], one["prefill"])] + list(zip(got["decode"],
+                                                          one["decode"]))
+    worst, disagree, held_rows = 0.0, 0, 0
+    for g, w in pairs:
+        g, w = g[..., :cfg.vocab_size], w[..., :cfg.vocab_size]
+        worst = max(worst, float((g - w).abs().max()))
+        top2 = w.topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > TP_MARGIN
+        held_rows += int(sure.sum())
+        disagree += int((g.argmax(-1) != w.argmax(-1))[sure].sum())
+    held = {"logit_max_abs_diff": worst, "argmax_held_rows": held_rows,
+            "argmax_disagree": disagree}
+    if spec.get("forward"):
+        held["forward_max_abs_diff"] = float(
+            (got["forward"] - one["forward"]).abs().max())
+    if floor is not None:
+        held[f"{spec['build_dtype']}_one_rank_max_abs_diff"] = floor
+    attn = attention_layers(cfg)
+    moe = moe_layers(cfg)
+    calls = 1 + (1 if spec.get("forward") else 0)
+    want = {"flash_attention": attn * calls, "flash_attention_bwd": 0,
+            "decode_attention": attn * spec["steps"],
+            "partition_histogram": 0,
+            "partition_scatter": moe * (calls + spec["steps"]),
+            "fused_probe": 0}
+    for r in ranks:
+        require(r["launches"] == want, f"{prefix} rank {r['rank']}: "
+                f"launches {r['launches']}, expected {want}")
+        if attn:
+            require(r["shapes"]["decode_attention"] and all(
+                sh[-1] == "lse" for sh in r["shapes"]["decode_attention"]),
+                f"{prefix} rank {r['rank']}: K5 without its log-sum-exp")
+    print(f"{prefix} {spec['arch']} ({cfg.num_layers} of "
+          f"{serve_config(spec['arch']).num_layers} layers at full width, "
+          f"{spec['dtype']}, drop-free capacity E / top_k; {len(ranks)} "
+          f"ranks on one card, gloo, {wall:.2f} s): prompts "
+          f"{list(spec['lengths'])} padded to {max(spec['lengths'])}, "
+          f"prefilled under {json.dumps(ranks[0]['rules'][0])}, then "
+          f"{spec['steps']} decode steps under "
+          f"{json.dumps(ranks[0]['rules'][1])}; one rank's prefill "
+          f"{one['prefill_ms']:.2f} ms, decode ms a step median "
+          f"{np.median(one['step_ms']):.2f} [{card}]")
+    for r in ranks:
+        coll = {k: {"calls": v["calls"], "bytes": v["bytes"],
+                    "ms": round(v["seconds"] * 1e3, 2)}
+                for k, v in r["collectives"].items()}
+        extra = f"forward {r['forward_ms']:.2f} ms, " \
+            if "forward_ms" in r else ""
+        print(f"{prefix} rank {r['rank']}: {extra}prefill "
+              f"{r['prefill_ms']:.2f} ms, decode ms a step median "
+              f"{np.median(r['step_ms']):.2f} (all "
+              f"{[round(x, 2) for x in r['step_ms']]}), peak "
+              f"max_memory_allocated {r['peak_bytes']} B, collectives "
+              f"{json.dumps(coll)}, launches {r['launches']} [{card}]")
+    print(f"{prefix}: held {json.dumps(held)} (every logit within "
+          f"{LOGIT_TOL} of one rank's, the argmax equal where one rank's "
+          f"top two lie more than {TP_MARGIN} apart; the "
+          f"{spec['build_dtype']} one-rank run's distance from the "
+          f"{spec['dtype']} one, where they differ, is printed, not held: "
+          f"the rounding floor) [{card}]")
+    require(worst <= LOGIT_TOL, f"{prefix} logits {worst} off one rank's")
+    require(held.get("forward_max_abs_diff", 0.0) <= LOGIT_TOL,
+            f"{prefix} forward logits {held.get('forward_max_abs_diff')} "
+            f"off one rank's")
+    require(disagree == 0, f"{prefix}: {disagree} argmax differ")
+    require(held_rows > 0, f"{prefix}: no row's top two logits lie apart")
+    launches, shapes = {}, {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in r["shapes"].items():
+            shapes.setdefault(k, set()).update(map(tuple, v))
+    return {"wall_s": wall, "held": held, "launches": launches,
+            "shapes": shapes}
+
+
+def parallel_phases(dev, card: str, seconds: dict) -> dict:
+    """``ep_train_granite_moe_1b_a400m``, ``ep_decode_moonshot_v1_16b_a3b``,
+    ``inner_tp_jamba_v0_1_52b`` and ``inner_tp_train_xlstm_1_3b`` in turn,
+    each timed into ``seconds``."""
+    phases = {
+        "ep_train_granite_moe_1b_a400m": lambda: par_train_phase(
+            dev, card, "ep_train", MOE_ARCH, None, EP_TRAIN_VARIANTS,
+            drops=True),
+        "ep_decode_moonshot_v1_16b_a3b": lambda: par_decode_phase(
+            dev, card, "ep_decode", EP_DECODE),
+        "inner_tp_jamba_v0_1_52b": lambda: par_decode_phase(
+            dev, card, "inner_tp_jamba", INNER_JAMBA),
+        "inner_tp_train_xlstm_1_3b": lambda: par_train_phase(
+            dev, card, "inner_tp_train", XLSTM_ARCH, XLSTM_TRAIN_LAYERS,
+            XLSTM_TRAIN_VARIANTS, dtype=XLSTM_TRAIN_DTYPE)}
+    out = {}
+    for name, fn in phases.items():
+        t0 = time.perf_counter()
+        out[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase {name}: {seconds[name]:.2f} s")
+    return out
 
 
 def offset_kernel_times(dev, gen, card: str) -> None:
@@ -4246,6 +4844,22 @@ def main() -> int:
     for r in rows:
         r["max_abs_err"] = max(r["max_abs_err"], late_err[r["name"]])
 
+    # expert parallelism and the Mamba / xLSTM inner split: two ranks
+    # sharing the card, each phase held against one rank; last, after
+    # every profile
+    par = parallel_phases(dev, card, seconds)
+    seen = shape_sets()
+    for k in seen:
+        seen[k] |= new.get(k, set())
+    par_new = {k: set().union(*(ph["shapes"].get(k, set())
+                                for ph in par.values())) - seen[k]
+               for k in seen}
+    print(f"main-path kernel shapes of the expert-parallel and inner-split "
+          f"phases: { {k: sorted(v) for k, v in par_new.items()} }")
+    par_err = hold_late_shapes(dev, gen, par_new)
+    for r in rows:
+        r["max_abs_err"] = max(r["max_abs_err"], par_err[r["name"]])
+
     # the main path's launches: the queries, the simulator's planning, the
     # process workers', the scheduler's, the serve phases and the frontends
     # (the teacher-forced checks' own are on their lines above)
@@ -4256,7 +4870,8 @@ def main() -> int:
         r["launches"] for r in recurrent.values()] + [
         t["launches"] for t in train.values()] + [
         planned["launches"], dp["launches"]] + [
-        ph["launches"] for ph in tp_phases.values()]
+        ph["launches"] for ph in tp_phases.values()] + [
+        ph["launches"] for ph in par.values()]
     for r in rows:
         r["launches"] = sum(c.get(r["name"], 0) for c in counted)
         for extra in ("shape", "device", "device_ops_per_call", "checked_ms",

@@ -10,10 +10,8 @@ frozen and field-for-field equal to the reference's, so equality,
 (``repro_torch.parallel.strategies.plan_cell``) and materialized as
 sharding rules (``make_rules``). The trainer reads ``microbatches``,
 ``remat`` and ``zero2`` and runs the rules' batch split (data
-parallelism), the pipeline over ``pod`` and, for the dense attention
-models, the tensor, sequence and ZeRO-3 splits; expert parallelism and
-the Mamba / xLSTM inner split are refused until ROADMAP Queue 1 item
-11.4c.
+parallelism), the pipeline over ``pod`` and the tensor, sequence,
+expert, inner and ZeRO-3 splits.
 """
 
 from __future__ import annotations

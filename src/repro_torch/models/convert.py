@@ -15,6 +15,14 @@ gives a rank its shard of every leaf of a whole model (made from the seed,
 or carried across by ``params_from_numpy``) and ``shard_named`` of any
 mapping keyed by the parameters' names (the optimizer's ``master``, ``m``
 and ``v``); ``gather_named`` is their inverse, for ``params_to_numpy``.
+A dimension is cut as the reference's ``spec`` cuts it (an axis used
+once: ``wv`` and ``w_gates``, ``("inner", "inner")``, are split on their
+rows only), into equal blocks, block ``mesh.axes_index(A)`` kept, with one
+exception of layout: the inner dimension of Mamba's ``in_proj`` and of
+the xLSTM blocks' ``up`` holds two halves (the branch ``u`` and the gate
+``z``), and a rank keeps block ``i`` of each half (``SPLIT_HALVES``), so
+that its ``u`` and ``z`` are the same features (the reference's block of
+the joined dimension is resharded by GSPMD before its split).
 """
 
 from __future__ import annotations
@@ -163,6 +171,16 @@ def _meta_leaves(cfg: ModelConfig) -> dict:
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _halves(cfg: ModelConfig) -> frozenset:
+    """The parameters whose ``inner`` dimension holds two halves, each
+    split on its own (a module's ``SPLIT_HALVES``)."""
+    model = LM(cfg, None, torch.device("meta"))
+    return frozenset(
+        f"{mod_name}.{leaf}" for mod_name, mod in model.named_modules()
+        for leaf in getattr(type(mod), "SPLIT_HALVES", ()))
+
+
 def param_axes(cfg: ModelConfig) -> dict:
     """The logical axes of every parameter, in the reference's tree (the
     second output of its ``init_lm``): a tuple of axis names (or ``None``)
@@ -188,10 +206,12 @@ def _spec_axes(part) -> tuple[str, ...]:
     return tuple(part) if isinstance(part, (tuple, list)) else (part,)
 
 
-def _cuts(rules, logical: tuple, shape: tuple) -> list:
-    """``(dim, axes, n, index)`` of every dimension of a leaf that ``rules``
-    split over more than one rank (``ShardingRules.spec``), this rank's
-    block index among ``n``; a dimension that does not divide raises."""
+def _cuts(rules, logical: tuple, shape: tuple, halves: bool = False) -> list:
+    """``(dim, axes, n, index, halves)`` of every dimension of a leaf that
+    ``rules`` split over more than one rank (``ShardingRules.spec``), this
+    rank's block index among ``n``, and whether the dimension is cut as two
+    halves (``halves``: the leaf's ``inner`` dimension); a dimension that
+    does not divide raises."""
     mesh = rules.mesh
     cuts = []
     for dim, part in enumerate(rules.spec(*logical)):
@@ -200,17 +220,23 @@ def _cuts(rules, logical: tuple, shape: tuple) -> list:
         n = math.prod(int(mesh.shape[a]) for a in axes)
         if n == 1:
             continue
-        if shape[dim] % n:
+        two = halves and logical[dim] == "inner"
+        if shape[dim] % (2 * n if two else n):
             raise ValueError(f"dimension {dim} ({logical[dim]}) of {shape} "
                              f"does not split over {n} ranks of {axes}")
-        cuts.append((dim, axes, n, mesh.axes_index(axes)))
+        cuts.append((dim, axes, n, mesh.axes_index(axes), two))
     return cuts
 
 
 def _shard(t: torch.Tensor, cuts: list) -> torch.Tensor:
-    for dim, _, n, index in cuts:
-        step = t.shape[dim] // n
-        t = t.narrow(dim, index * step, step)
+    for dim, _, n, index, two in cuts:
+        if two:
+            t = t.unflatten(dim, (2, t.shape[dim] // 2))
+            step = t.shape[dim + 1] // n
+            t = t.narrow(dim + 1, index * step, step).flatten(dim, dim + 1)
+        else:
+            step = t.shape[dim] // n
+            t = t.narrow(dim, index * step, step)
     return t.contiguous()
 
 
@@ -219,8 +245,9 @@ def shard_named(named, cfg: ModelConfig, rules) -> dict:
     names to whole tensors of the parameters' shapes (parameters,
     gradients, optimizer state): each dimension split over mesh axes ``A``
     keeps block ``mesh.axes_index(A)`` of ``prod(|A|)``."""
-    leaves = _meta_leaves(cfg)
-    return {k: _shard(t, _cuts(rules, leaves[k][1], tuple(t.shape)))
+    leaves, halves = _meta_leaves(cfg), _halves(cfg)
+    return {k: _shard(t, _cuts(rules, leaves[k][1], tuple(t.shape),
+                               k in halves))
             for k, t in dict(named).items()}
 
 
@@ -246,14 +273,19 @@ def gather_named(named, cfg: ModelConfig, rules) -> dict:
     from repro_torch.parallel.collectives import gather_dim
     named = dict(named.named_parameters()) if isinstance(named, LM) \
         else dict(named)
-    leaves = _meta_leaves(cfg)
+    leaves, halves = _meta_leaves(cfg), _halves(cfg)
     out = {}
     with torch.no_grad():
         for k, t in named.items():
             full = t.detach()
-            for dim, axes, _, _ in reversed(_cuts(
-                    rules, leaves[k][1], leaves[k][0].shape)):
-                full = gather_dim(full.contiguous(), dim,
-                                  rules.mesh.group(axes))
+            for dim, axes, _, _, two in reversed(_cuts(
+                    rules, leaves[k][1], leaves[k][0].shape, k in halves)):
+                group = rules.mesh.group(axes)
+                if two:
+                    full = gather_dim(full.unflatten(
+                        dim, (2, full.shape[dim] // 2)).contiguous(),
+                        dim + 1, group).flatten(dim, dim + 1)
+                else:
+                    full = gather_dim(full.contiguous(), dim, group)
             out[k] = full
     return out

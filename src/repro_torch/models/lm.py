@@ -21,16 +21,20 @@ Under sharding rules (``use_rules``) that split more than the batch, a
 rank's model holds its shards (``convert.shard_params``) and every entry
 point runs on ``repro_torch.parallel.tensor.TensorPlan`` of the rules,
 resolved once a call and handed to each layer (so a layer recomputed in
-the backward makes the same collectives): the attention and FFN blocks
-of the six dense attention models only; other blocks are ROADMAP item
-11.4c. Under ``seq_tp`` the residual between the layers is this rank's
-block of the sequence. ``forward``, ``prefill_step`` and ``decode_step``
-return the whole logits on every rank and do not split the batch (a
-``data`` axis repeats the work; the serving engine under a mesh is item
-11.4c). A decode state made under rules that split ``cache_seq`` keeps
-each layer's block of the cache and records the split in
-``state["cache_axes"]``; ``prefill_step`` (under any rules on the same
-mesh) fills those blocks.
+the backward makes the same collectives): attention, Mamba, mLSTM and
+sLSTM blocks, dense and MoE FFNs. Under ``seq_tp`` the residual between
+the layers is this rank's block of the sequence. ``forward``,
+``prefill_step`` and ``decode_step`` return the whole logits on every
+rank and do not split the batch (a ``data`` axis repeats the work; the
+reference's serving engine takes no rules, and neither does the port's).
+A decode state made under rules that split ``cache_seq`` keeps each
+layer's block of the cache and records the split in
+``state["cache_axes"]``; one made under rules that split ``inner`` keeps
+each recurrent layer's block of its state (``ssm.init_mamba_state``,
+``xlstm.init_mlstm_state``, ``xlstm.init_slstm_state``) and records the
+split in ``state["inner_axes"]``. ``prefill_step`` (under any rules on
+the same mesh) fills those blocks: a recurrent state computed under
+another inner split is gathered and cut to the state's.
 """
 
 from __future__ import annotations
@@ -167,7 +171,7 @@ def _ffn(layer: Block, h: torch.Tensor, cfg: ModelConfig, plan=None):
         return h, None
     normed = rmsnorm(layer.norm2, h, cfg.norm_eps)
     if isinstance(layer.ffn, moe_mod.MoE):
-        out, stats = moe_mod.moe_parts(layer.ffn, normed, cfg)
+        out, stats = moe_mod.moe_parts(layer.ffn, normed, cfg, plan=plan)
         return h + out, stats
     return h + mlp(layer.ffn, normed, plan), None
 
@@ -189,29 +193,14 @@ def _layer(layer: Block, h: torch.Tensor, positions: torch.Tensor,
                                  plan=plan)
     else:
         out = _RECURRENT[layer.kind](layer.block, normed, cfg,
-                                     chunk=ssm_chunk)
+                                     chunk=ssm_chunk, plan=plan)
     return _ffn(layer, h + out, cfg, plan)
-
-
-def dense_attention_model(cfg: ModelConfig) -> bool:
-    """Every block attention and no MoE FFN: the models whose rules the
-    port runs over more than the batch."""
-    return cfg.moe is None and all(
-        cfg.block_kind(i) == BlockKind.ATTENTION
-        for i in range(len(cfg.block_pattern)))
 
 
 def plan_for(cfg: ModelConfig, plan=None):
     """The call's ``TensorPlan`` (``plan``, else the current rules'), or
-    ``None``; a plan for a model other than the dense attention ones is
-    refused."""
-    plan = tensor_plan(current_rules()) if plan is None else plan
-    if plan is not None and not dense_attention_model(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: rules that split more than the batch run the dense "
-            f"attention models only; MoE, Mamba and xLSTM blocks wait for "
-            f"ROADMAP Queue 1 item 11.4c")
-    return plan
+    ``None``."""
+    return tensor_plan(current_rules()) if plan is None else plan
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -261,7 +250,7 @@ def forward_hidden(model: LM, inputs: dict, remat: str = "block",
         positions = _positions(b, s, h.device)
     if plan is not None:
         positions = plan.local_positions(positions)
-    group = batch_group()
+    group = batch_group() if plan is None else plan.stats.group
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for layer in model.layers:
         if remat == "none":
@@ -304,10 +293,12 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     ``max_seq`` positions for attention, the recurrent state otherwise)
     and the positions. Under rules that split ``cache_seq`` each cache is
     this rank's block of the positions, and ``state["cache_axes"]`` names
-    the mesh axes of the split."""
+    the mesh axes of the split; under rules that split ``inner`` each
+    recurrent state is this rank's block, ``state["inner_axes"]`` the
+    split's axes."""
     plan = plan_for(cfg)
     split = plan.cache if plan is not None and plan.cache else None
-    layers = []
+    layers, recurrent = [], False
     for i in range(cfg.num_layers):
         kind = cfg.block_kind(i)
         if kind == BlockKind.ATTENTION:
@@ -315,11 +306,14 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                                           cache_split=split)
             layers.append({"k": k, "v": v})
         else:
-            layers.append(_INIT_STATE[kind](cfg, batch, device))
+            recurrent = True
+            layers.append(_INIT_STATE[kind](cfg, batch, device, plan))
     state = {"layers": layers,
              "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if split is not None:
         state["cache_axes"] = split.axes
+    if recurrent and plan is not None and plan.inner:
+        state["inner_axes"] = plan.inner.axes
     return state
 
 
@@ -332,6 +326,48 @@ def _cache_split(state: dict, plan):
         raise ValueError(f"a cache split over {axes} needs the rules of its "
                          f"mesh (use_rules)")
     return Split(plan.mesh, axes)
+
+
+def _inner_split(state: dict, plan):
+    """The inner ``Split`` the state's recurrent blocks were made under, or
+    ``None``."""
+    axes = state.get("inner_axes")
+    if axes is None:
+        return None
+    if plan is None:
+        raise ValueError(f"an inner split over {axes} needs the rules of its "
+                         f"mesh (use_rules)")
+    return Split(plan.mesh, axes)
+
+
+# each recurrent state's tensors split along ``inner``, by the dimension
+# (``"values"``: the mLSTM memory's ``(heads, dk, dv)`` value block)
+_INNER_DIMS = {BlockKind.MAMBA: {"h": 1, "conv": 2},
+               BlockKind.MLSTM: {"c": "values", "conv": 2},
+               BlockKind.SLSTM: {"conv": 2}}
+
+
+def _relayout(kind, st: dict, cfg: ModelConfig, src, dst) -> dict:
+    """A recurrent layer's state computed under the inner split ``src``
+    as the inner split ``dst`` holds it (each a ``Split`` or ``None``):
+    gathered whole over ``src`` and cut to ``dst``'s block."""
+    if (src.axes if src else ()) == (dst.axes if dst else ()):
+        return st
+    out = dict(st)
+    for key, dim in _INNER_DIMS[kind].items():
+        t = st[key]
+        if dim == "values":                # (B, heads, dk, dv) features
+            t = t.permute(0, 2, 1, 3).reshape(t.shape[0], t.shape[2], -1)
+            full = gather_dim(t.contiguous(), 2, src.group) if src else t
+            vals = xlstm_mod.values_of(cfg, dst)
+            mine = full[..., vals.lo:vals.lo + vals.n]
+            out[key] = mine.unflatten(2, (vals.heads, vals.dv)) \
+                .permute(0, 2, 1, 3).contiguous()
+            continue
+        full = gather_dim(t.contiguous(), dim, src.group) if src else t
+        lo, n = dst.block(full.shape[dim]) if dst else (0, full.shape[dim])
+        out[key] = full.narrow(dim, lo, n).contiguous()
+    return out
 
 
 def _last_row(h: torch.Tensor, plan) -> torch.Tensor:
@@ -353,6 +389,8 @@ def prefill_step(model: LM, state: dict, inputs: dict, ssm_chunk: int = 128):
     cfg = model.cfg
     plan = plan_for(cfg)
     split = _cache_split(state, plan)
+    inner = _inner_split(state, plan)
+    mine = plan.inner if plan is not None and plan.inner else None
     h = _frontend_embed(model, inputs, plan)
     b = h.shape[0]
     s = h.shape[1] * (plan.seq.n if plan is not None else 1)
@@ -366,12 +404,13 @@ def prefill_step(model: LM, state: dict, inputs: dict, ssm_chunk: int = 128):
             out, _ = attn_mod.prefill_attention(
                 layer.block, (st["k"], st["v"]), normed, positions, cfg,
                 plan, split)
-        elif layer.kind == BlockKind.MAMBA:
-            out, st = ssm_mod.mamba(layer.block, normed, cfg,
-                                    chunk=ssm_chunk, return_state=True)
         else:
+            kw = {"chunk": ssm_chunk} if layer.kind == BlockKind.MAMBA \
+                else {}
             out, st = _RECURRENT[layer.kind](layer.block, normed, cfg,
-                                             return_state=True)
+                                             return_state=True, plan=plan,
+                                             **kw)
+            st = _relayout(layer.kind, st, cfg, mine, inner)
         layers.append(st)
         h, _ = _ffn(layer, h + out, cfg, plan)
     h = rmsnorm(model.final_norm, h, cfg.norm_eps)
@@ -379,8 +418,9 @@ def prefill_step(model: LM, state: dict, inputs: dict, ssm_chunk: int = 128):
                      plan).float()
     out = {"layers": layers,
            "pos": torch.full((b,), s, dtype=torch.int32, device=h.device)}
-    if "cache_axes" in state:
-        out["cache_axes"] = state["cache_axes"]
+    for key in ("cache_axes", "inner_axes"):
+        if key in state:
+            out[key] = state[key]
     return logits, out
 
 
@@ -403,6 +443,12 @@ def decode_step(model: LM, state: dict, tokens: torch.Tensor):
         raise ValueError("a decode step under rules that split the sequence "
                          "of the residual (seq_tp)")
     split = _cache_split(state, plan)
+    inner = _inner_split(state, plan)
+    mine = plan.inner if plan is not None and plan.inner else None
+    if (inner.axes if inner else ()) != (mine.axes if mine else ()):
+        raise ValueError(f"a decode state split over {inner and inner.axes} "
+                         f"stepped under rules that split inner over "
+                         f"{mine and mine.axes}")
     h = embed(model.embed, tokens, plan)
     if plan is not None:
         h = residual_from_partial(h, plan)
@@ -415,12 +461,13 @@ def decode_step(model: LM, state: dict, tokens: torch.Tensor):
                 layer.block, (st["k"], st["v"]), normed, positions, cfg,
                 plan, split)
         else:
-            out, st = _STEP[layer.kind](layer.block, st, normed, cfg)
+            out, st = _STEP[layer.kind](layer.block, st, normed, cfg, plan)
         layers.append(st)
         h, _ = _ffn(layer, h + out, cfg, plan)
     h = rmsnorm(model.final_norm, h, cfg.norm_eps)
     logits = unembed(model.embed, h, cfg.vocab_size, plan).float()
     out = {"layers": layers, "pos": positions + 1}
-    if "cache_axes" in state:
-        out["cache_axes"] = state["cache_axes"]
+    for key in ("cache_axes", "inner_axes"):
+        if key in state:
+            out[key] = state[key]
     return logits, out

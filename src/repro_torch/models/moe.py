@@ -16,11 +16,34 @@ The router, the expert products, the gather, the scatter into the buffer
 and the combine are plain tensor operations, as they are plain jnp in the
 reference. Data parallelism runs this path on each rank's rows, with the
 aux loss's batch means summed over the ranks (``aux_loss``, called by
-``lm.forward_hidden`` outside the layer's checkpoint, so that a
-recomputed layer makes no collective); that is also what the reference's
-``moe_shard_map_local`` computes. The expert-parallel
-all-to-all (``moe_shard_map``, under a ``model`` axis larger than 1) is
-ROADMAP item 11.4c; under ``model=1`` its rules run this local path.
+``lm.forward_hidden`` outside the layer's checkpoint).
+
+Under rules that split more than the batch (``moe_parts`` with a
+``TensorPlan``) the rules pick one of the reference's three data planes,
+as its ``moe`` does:
+
+- ``moe_shard_map`` (``moe_impl="shard_map_a2a"``, experts over
+  ``model``): each rank dispatches its block of the sequence at that
+  block's capacity and trades ``(tp, B, E_loc, C, D)`` buffers with the
+  experts' owners through two differentiable all-to-alls
+  (``collectives.exchange_rows``): the assignments dropped are the
+  reference's ``moe_shard_map``'s, not its chunked ``moe``'s;
+- ``gather`` (experts over ``model``, no ``moe_impl``; every decode
+  cell): every rank dispatches all its tokens and runs its block of the
+  experts, and the ranks' outputs are summed over ``model``. The
+  reference lets GSPMD assemble the same sum; the port sums each rank's
+  combine of its own experts' rows (one all-reduce of ``(B, S, D)``),
+  which never moves the ``(B, E, C, D)`` buffer;
+- ``moe_shard_map_local`` (``pure_dp``, the batch over the whole mesh):
+  the local path on each rank's rows, in one chunk, the ZeRO-sharded
+  leaves gathered.
+
+The aux statistics are the whole batch's on every plane: each rank's
+tokens' means, averaged over the ranks that hold other tokens
+(``TensorPlan.stats``: the batch axes and a sequence split). The
+reference's ``moe_shard_map`` averages over ``model`` only, which is one
+data shard's aux where ``data`` > 1; under ``data=1`` the two agree
+(ROADMAP Queue 3, "Kept on purpose").
 """
 
 from __future__ import annotations
@@ -36,6 +59,7 @@ from repro_torch.core.config import ModelConfig, MoEConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.partition import MAX_SCATTER_PARTITIONS
 from repro_torch.models.layers import init_normal
+from repro_torch.parallel import collectives as C
 from repro_torch.parallel.collectives import replicated_sum
 
 
@@ -130,73 +154,212 @@ def dispatch_plain(top_i: torch.Tensor, cap: int) -> Dispatch:
     return _bookkeeping(sorted_e, idx - run_start, order, k, cap)
 
 
-def _expert_ffn(p: MoE, buf: torch.Tensor) -> torch.Tensor:
-    """The SwiGLU of every expert over its slots: ``(B, E, C, D)`` ->
-    ``(B, E, C, D)``, one batched product over the experts each
-    (the reference's ``einsum("becd,edf->becf")``)."""
+def _weights(p: MoE, plan) -> dict:
+    """The layer's four leaves as this rank computes with them: its
+    parameters, or under a ``plan`` its shards with ``w_embed`` gathered
+    (``TensorPlan.weight``)."""
+    return {leaf: getattr(p, leaf) if plan is None else plan.weight(p, leaf)
+            for leaf in ("router", "gate", "up", "down")}
+
+
+def _expert_ffn(w: dict, buf: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU of every expert of ``w`` over its slots: ``(B, E, C, D)``
+    -> ``(B, E, C, D)``, one batched product over the experts each (the
+    reference's ``einsum("becd,edf->becf")``)."""
     b, e, c, d = buf.shape
     xs = buf.transpose(0, 1).reshape(e, b * c, d)
-    gate = torch.bmm(xs, p.gate)
-    up = torch.bmm(xs, p.up)
+    gate = torch.bmm(xs, w["gate"])
+    up = torch.bmm(xs, w["up"])
     hidden = F.silu(gate.float()).to(buf.dtype) * up
-    return torch.bmm(hidden, p.down).view(e, b, c, d).transpose(0, 1)
+    return torch.bmm(hidden, w["down"]).view(e, b, c, d).transpose(0, 1)
 
 
-def _moe_chunk(p: MoE, x: torch.Tensor, top_p: torch.Tensor,
-               top_i: torch.Tensor, cap: int) -> torch.Tensor:
-    """One chunk ``x (B, C_s, D)``: dispatch, experts, combine (the
-    reference's ``_dispatch_row``, ``_expert_ffn`` and ``_combine_row``
-    over every row at once)."""
-    b, s, d = x.shape
-    bk = dispatch(top_i, p.router.shape[1], cap)
+def _block(bk: Dispatch, first: int, count: int, total: int):
+    """Each assignment's expert as an index into the block of experts
+    ``[first, first + count)`` of ``total``, and whether it is kept and
+    falls in the block."""
+    if count == total:
+        return bk.sorted_e, bk.keep
+    e = bk.sorted_e - first
+    return e.clamp(0, count - 1), bk.keep & (e >= 0) & (e < count)
+
+
+def _scatter(x: torch.Tensor, bk: Dispatch, cap: int, first: int,
+             count: int, total: int) -> torch.Tensor:
+    """The ``(B, count, C, D)`` dispatch buffer of experts ``[first,
+    first + count)`` of ``total``: each kept assignment's token at its slot
+    (the reference's ``buf.at[sorted_e, slot].add``)."""
+    b, _, d = x.shape
     rows = torch.arange(b, device=x.device)[:, None].expand_as(bk.slot)
-    gathered = x[rows, bk.token_src] * bk.keep[..., None].to(x.dtype)
-    buf = torch.zeros((b, p.router.shape[1], cap, d), dtype=x.dtype,
-                      device=x.device)
-    buf.index_put_((rows, bk.sorted_e, bk.slot), gathered, accumulate=True)
-    out = _expert_ffn(p, buf)
-    back = out[rows, bk.sorted_e, bk.slot]
+    e, keep = _block(bk, first, count, total)
+    gathered = x[rows, bk.token_src] * keep[..., None].to(x.dtype)
+    buf = torch.zeros((b, count, cap, d), dtype=x.dtype, device=x.device)
+    buf.index_put_((rows, e, bk.slot), gathered, accumulate=True)
+    return buf
+
+
+def _combine(out: torch.Tensor, bk: Dispatch, top_p: torch.Tensor, s: int,
+             first: int, total: int) -> torch.Tensor:
+    """Each token's sum of its kept assignments' expert outputs weighted by
+    their routing probabilities, from the ``(B, E', C, D)`` buffer ``out``
+    of experts ``[first, first + E')`` of ``total`` (the others'
+    assignments add 0): the reference's ``_combine_row`` over every
+    row."""
+    b, count, _, d = out.shape
+    rows = torch.arange(b, device=out.device)[:, None].expand_as(bk.slot)
+    e, keep = _block(bk, first, count, total)
+    back = out[rows, e, bk.slot]
     w = top_p.reshape(b, -1).gather(1, bk.order)
-    back = back * (w * bk.keep).to(back.dtype)[..., None]
-    y = torch.zeros_like(x)
+    back = back * (w * keep).to(back.dtype)[..., None]
+    y = out.new_zeros((b, s, d))
     y.view(b * s, d).index_add_(0, (rows * s + bk.token_src).reshape(-1),
                                 back.reshape(-1, d))
     return y
 
 
-def route(p: MoE, x: torch.Tensor, top_k: int):
-    """The router: fp32 probabilities over the experts ``(B, S, E)``, and
-    each token's ``top_k`` experts ``top_i`` with their probabilities
-    renormalized to sum to 1, ``top_p``. Returns ``(probs, top_p, top_i)``."""
-    probs = torch.softmax(x.float() @ p.router, dim=-1)
+def _moe_chunk(w: dict, x: torch.Tensor, top_p: torch.Tensor,
+               top_i: torch.Tensor, cap: int,
+               experts: tuple[int, int] | None = None) -> torch.Tensor:
+    """One chunk ``x (B, C_s, D)``: dispatch, experts, combine (the
+    reference's ``_dispatch_row``, ``_expert_ffn`` and ``_combine_row``
+    over every row at once). ``experts = (first, count)``: the experts of
+    ``w`` (a rank's block under the ``gather`` plane), else all."""
+    e = w["router"].shape[1]
+    first, count = experts or (0, e)
+    bk = dispatch(top_i, e, cap)
+    out = _expert_ffn(w, _scatter(x, bk, cap, first, count, e))
+    return _combine(out, bk, top_p, x.shape[1], first, e)
+
+
+def route(p: MoE, x: torch.Tensor, top_k: int, router=None):
+    """The router (``router``, else ``p.router``): fp32 probabilities over
+    the experts ``(B, S, E)``, and each token's ``top_k`` experts ``top_i``
+    with their probabilities renormalized to sum to 1, ``top_p``. Returns
+    ``(probs, top_p, top_i)``."""
+    probs = torch.softmax(x.float() @ (p.router if router is None
+                                       else router), dim=-1)
     top_p, top_i = torch.topk(probs, top_k, dim=-1)
     return probs, top_p / top_p.sum(dim=-1, keepdim=True), top_i
 
 
+def _stats(probs: torch.Tensor, top_i: torch.Tensor, e: int) -> torch.Tensor:
+    frac = F.one_hot(top_i[..., 0], e).float().mean(dim=(0, 1))
+    return torch.stack([frac, probs.mean(dim=(0, 1))])
+
+
+def _moe_a2a(p: MoE, w: dict, x: torch.Tensor, cfg: ModelConfig, plan):
+    """``moe_shard_map``: each ``expert`` rank dispatches its block of the
+    sequence (the rows it holds where the residual is sequence-sharded,
+    else its ``1/tp`` of a sequence every rank holds, routed whole on
+    every rank and split with ``split_along``) at the capacity of that
+    block, exchanges ``(tp, B, E_loc, C, D)`` buffers with the experts'
+    owners, runs its ``E_loc`` experts over the ``tp * C`` slots every
+    source sent, and exchanges the outputs back; a sequence split here is
+    gathered again (``gather_replicated``)."""
+    m = cfg.moe
+    e, k = m.num_experts, m.top_k
+    ex = plan.expert
+    tp, group = ex.n, ex.group
+    e_loc = e // tp
+    b, s, d = x.shape
+    probs, top_p, top_i = route(p, x, k, w["router"])
+    stats = _stats(probs, top_i, e)
+    if not plan.seq:
+        lo, n = ex.block(s)
+        x = C.split_along(x, 1, group)
+        top_p = C.split_along(top_p, 1, group)
+        top_i = top_i[:, lo:lo + n]
+    s_loc = x.shape[1]
+    cap = capacity(s_loc, m)
+    bk = dispatch(top_i, e, cap)
+    buf = _scatter(x, bk, cap, 0, e, e)
+    send = buf.view(b, tp, e_loc, cap, d).transpose(0, 1).contiguous()
+    recv = C.exchange_rows(send, group)           # (source, B, E_loc, C, D)
+    mine = recv.permute(1, 2, 0, 3, 4).reshape(b, e_loc, tp * cap, d)
+    out = _expert_ffn(w, mine)
+    back = out.view(b, e_loc, tp, cap, d).permute(2, 0, 1, 3, 4) \
+        .contiguous()                             # (source, B, E_loc, C, D)
+    ret = C.exchange_rows(back, group)            # (owner, B, E_loc, C, D)
+    y = _combine(ret.transpose(0, 1).reshape(b, e, cap, d), bk, top_p, s_loc,
+                 0, e)
+    if not plan.seq:
+        y = C.gather_replicated(y, 1, group)
+    return y, stats
+
+
+def _moe_gather(p: MoE, w: dict, x: torch.Tensor, cfg: ModelConfig, plan,
+                s_chunk: int):
+    """The ``gather`` plane: every ``expert`` rank routes and dispatches
+    all its tokens (as the unsharded layer does, chunk by chunk), runs its
+    block of the experts and combines their rows only; the ranks' partial
+    outputs are summed (``reduce_from``). The dispatch input and the
+    routing weights enter through ``copy_to`` (each rank's use is its own),
+    the router runs alike on every rank."""
+    m = cfg.moe
+    ex = plan.expert
+    first, count = ex.block(m.num_experts)
+    probs, top_p, top_i = route(p, x, m.top_k, w["router"])
+    stats = _stats(probs, top_i, m.num_experts)
+    x, top_p = C.copy_to(x, ex.group), C.copy_to(top_p, ex.group)
+    y = _chunked(w, x, top_p, top_i, cfg, s_chunk, (first, count))
+    return C.reduce_from(y, ex.group), stats
+
+
+def _chunked(w: dict, x, top_p, top_i, cfg: ModelConfig, s_chunk: int,
+             experts=None) -> torch.Tensor:
+    s = x.shape[1]
+    s_chunk = min(s_chunk, s)
+    if s % s_chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk "
+                         f"{s_chunk}")
+    cap = capacity(s_chunk, cfg.moe)
+    ys = [_moe_chunk(w, x[:, lo:lo + s_chunk], top_p[:, lo:lo + s_chunk],
+                     top_i[:, lo:lo + s_chunk], cap, experts)
+          for lo in range(0, s, s_chunk)]
+    return ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
+
+
 def moe_parts(p: MoE, x: torch.Tensor, cfg: ModelConfig,
-              s_chunk: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+              s_chunk: int = 1024, plan=None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """``x (B, S, D)`` -> ``(y, stats)``: the layer's output and its
     load-balance statistics ``stats (2, E)``, the fraction of ``x``'s
     tokens routed first to each expert and each expert's mean probability
     (``aux_loss`` makes the aux of them). The router and its softmax run
     in fp32; the sequence is dispatched in chunks of ``s_chunk`` tokens,
-    each with its own capacity."""
-    m = cfg.moe
-    b, s, _ = x.shape
-    e, k = m.num_experts, m.top_k
-    probs, top_p, top_i = route(p, x, k)
-    frac = F.one_hot(top_i[..., 0], e).float().mean(dim=(0, 1))
-    stats = torch.stack([frac, probs.mean(dim=(0, 1))])
+    each with its own capacity.
 
-    s_chunk = min(s_chunk, s)
-    if s % s_chunk:
-        raise ValueError(f"sequence {s} is not a multiple of the chunk "
-                         f"{s_chunk}")
-    cap = capacity(s_chunk, m)
-    ys = [_moe_chunk(p, x[:, lo:lo + s_chunk], top_p[:, lo:lo + s_chunk],
-                     top_i[:, lo:lo + s_chunk], cap)
-          for lo in range(0, s, s_chunk)]
-    return (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)), stats
+    Under a ``plan`` (``parallel.tensor.TensorPlan``) the rules pick the
+    reference's plane: ``moe_impl="shard_map_a2a"`` with the experts split
+    runs ``_moe_a2a`` (capacity per source block, no chunks); the experts
+    split without it, ``_moe_gather``; otherwise every rank runs this
+    local path on its rows, the ZeRO-sharded leaves gathered, in one chunk
+    under ``moe_impl="shard_map_local"`` (the reference's
+    ``moe_shard_map_local``: capacity of the whole local sequence).
+    ``stats`` are then this rank's tokens' (``plan.stats`` names the axes
+    whose ranks hold other tokens)."""
+    m = cfg.moe
+    w = _weights(p, plan)
+    if plan is not None:
+        inside = set(plan.mlp.axes) - set(plan.expert.axes)
+        if inside:
+            raise NotImplementedError(
+                f"the experts split on their mlp dimension over {inside} "
+                f"(num_experts % model != 0; no production cell, ROADMAP "
+                f"Queue 1 item 11.4d)")
+        if plan.moe_impl == "shard_map_a2a" and plan.expert:
+            return _moe_a2a(p, w, x, cfg, plan)
+        if plan.seq:
+            raise NotImplementedError(
+                "an MoE layer under a sequence-sharded residual without the "
+                "all-to-all (no production cell, ROADMAP Queue 1 item 11.4d)")
+        if plan.expert:
+            return _moe_gather(p, w, x, cfg, plan, s_chunk)
+        if plan.moe_impl == "shard_map_local":
+            s_chunk = x.shape[1]
+    probs, top_p, top_i = route(p, x, m.top_k, w["router"])
+    stats = _stats(probs, top_i, m.num_experts)
+    return _chunked(w, x, top_p, top_i, cfg, s_chunk), stats
 
 
 def aux_loss(stats: torch.Tensor, cfg: ModelConfig,
@@ -212,8 +375,10 @@ def aux_loss(stats: torch.Tensor, cfg: ModelConfig,
 
 
 def moe(p: MoE, x: torch.Tensor, cfg: ModelConfig,
-        s_chunk: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+        s_chunk: int = 1024, plan=None) -> tuple[torch.Tensor, torch.Tensor]:
     """``x (B, S, D)`` -> ``(y, aux)``, ``aux`` the load-balance loss of
-    ``x``'s tokens (``moe_parts``, ``aux_loss``)."""
-    y, stats = moe_parts(p, x, cfg, s_chunk)
-    return y, aux_loss(stats, cfg)
+    the tokens of ``x`` (``moe_parts``, ``aux_loss``; under a ``plan``,
+    of every rank's tokens: ``plan.stats``)."""
+    y, stats = moe_parts(p, x, cfg, s_chunk, plan)
+    return y, aux_loss(stats, cfg, None if plan is None else
+                       plan.stats.group)

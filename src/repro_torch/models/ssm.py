@@ -11,6 +11,30 @@ at a time, so the ``(B, C, Din, N)`` fp32 tensors exist for one chunk
 only. Decode is the one-token recurrence. Compute follows the reference's
 dtypes: the projections in the weights' dtype, the selective parameters
 and the state in fp32, ``a_log`` and ``d_skip`` kept fp32.
+
+Under a ``TensorPlan`` whose rules split ``inner`` (over ``model``, or
+``("data", "model")`` under ``long_500k``) each rank holds its block of
+the inner features: ``in_proj``'s columns (its block of the branch ``u``
+and of the gate ``z``: ``convert.shard_params`` keeps block ``i`` of each
+half), ``conv_*``, ``dt_proj``'s columns, ``dt_bias``, ``a_log``,
+``d_skip``, ``x_proj``'s and ``out_proj``'s rows, and the ``(B, Din/n,
+N)`` state. The scan is elementwise in the inner features and needs no
+collective. ``x_proj`` takes the rank's rows, so ``dt``, ``B`` and ``C``
+are partial sums, summed over the inner ranks (forward and backward:
+``collectives.reduce_both``); ``out_proj`` too, so the output is summed
+(``reduce_from``). The input enters through ``copy_to``.
+
+Under ``seq_tp`` (jamba's ``train_4k`` / ``prefill_32k``: ``seq`` and
+``inner`` both over ``model``) the residual is the rank's block of the
+sequence, and the recurrence needs all of it: the block gathers the
+sequence (``gather_along``, whose backward sums the ranks' gradients and
+hands each its block), runs its inner block over the whole sequence and
+hands back its block of the sequence of the summed output
+(``reduce_scatter_along``). Where ``seq`` is split and ``inner`` is not,
+every rank runs the whole block and keeps its positions. The reference's
+``spec`` gives ``model`` to the first logical axis that asks for it: its
+``(batch, seq, inner)`` activations are sequence-sharded, and GSPMD moves
+them; this layout is the port's.
 """
 
 from __future__ import annotations
@@ -21,6 +45,7 @@ from torch import nn
 
 from repro_torch.core.config import ModelConfig, SSMConfig
 from repro_torch.models.layers import frozen, init_normal
+from repro_torch.parallel import collectives as C
 
 
 def _dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
@@ -42,6 +67,7 @@ class Mamba(nn.Module):
             "dt_proj": (None, "inner"), "dt_bias": ("inner",),
             "a_log": ("inner", None), "d_skip": ("inner",),
             "out_proj": ("inner", "w_embed")}
+    SPLIT_HALVES = ("in_proj",)     # u and z: convert.shard_params
 
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
@@ -88,11 +114,20 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.transpose(1, 2), new_state
 
 
-def _selective(p: Mamba, u: torch.Tensor, cfg: ModelConfig):
+def _inner_group(plan):
+    """The process group of the inner split, or ``None``."""
+    return plan.inner.group if plan is not None and plan.inner else None
+
+
+def _selective(p: Mamba, u: torch.Tensor, cfg: ModelConfig, group=None):
     """The step sizes ``dt (B, S, Din)`` (softplus, fp32) and the input and
-    output projections ``b, c (B, S, N)`` (fp32) of each position."""
+    output projections ``b, c (B, S, N)`` (fp32) of each position (under an
+    inner split, ``x_proj``'s partial sums summed over ``group``)."""
     _, n, _, dt_rank = _dims(cfg)
-    dt, b_ssm, c_ssm = (u @ p.x_proj).split([dt_rank, n, n], dim=-1)
+    proj = u @ p.x_proj
+    if group is not None:
+        proj = C.reduce_both(proj, group)
+    dt, b_ssm, c_ssm = proj.split([dt_rank, n, n], dim=-1)
     dt = F.softplus((dt @ p.dt_proj).float() + p.dt_bias.float())
     return dt, b_ssm.float(), c_ssm.float()
 
@@ -107,10 +142,10 @@ def _discretize(p: Mamba, dt: torch.Tensor, b_ssm: torch.Tensor,
     return a_bar, bx
 
 
-def _ssm_inputs(p: Mamba, u: torch.Tensor, cfg: ModelConfig):
+def _ssm_inputs(p: Mamba, u: torch.Tensor, cfg: ModelConfig, group=None):
     """Selective parameters for each position. u: ``(B, S, Din)`` ->
     ``(a_bar, bx, c)``."""
-    dt, b_ssm, c_ssm = _selective(p, u, cfg)
+    dt, b_ssm, c_ssm = _selective(p, u, cfg, group)
     return (*_discretize(p, dt, b_ssm, u), c_ssm)
 
 
@@ -134,22 +169,59 @@ def _scan_chunk(h0: torch.Tensor, a_bar: torch.Tensor, bx: torch.Tensor):
     return h_all, h
 
 
+def _weight(p: Mamba, leaf: str, plan):
+    return getattr(p, leaf) if plan is None else plan.weight(p, leaf)
+
+
+def _enter(x: torch.Tensor, plan):
+    """The block's input on this rank (the module docstring): the whole
+    sequence gathered under a sequence split, through ``copy_to`` under an
+    inner split alone."""
+    if plan is None:
+        return x
+    if plan.seq:
+        return C.gather_along(x, 1, plan.seq.group)
+    if plan.inner:
+        return C.copy_to(x, plan.inner.group)
+    return x
+
+
+def _leave(out: torch.Tensor, plan):
+    """The block's output as the residual takes it: the inner ranks'
+    partial sums summed (and split along a split sequence), or this
+    rank's positions of a whole block's output."""
+    if plan is None:
+        return out
+    if plan.seq:
+        if plan.inner:
+            return C.reduce_scatter_along(out, 1, plan.seq.group)
+        lo, n = plan.seq.block(out.shape[1])
+        return out[:, lo:lo + n]
+    if plan.inner:
+        return C.reduce_from(out, plan.inner.group)
+    return out
+
+
 def mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, chunk: int = 128,
-          return_state: bool = False):
+          return_state: bool = False, plan=None):
     """Train/prefill forward. x: ``(B, S, D)`` -> ``(B, S, D)`` [, the
     final ``{"h", "conv"}`` state]. ``S`` must be a multiple of the chunk
-    (or at most one chunk), as in the reference."""
+    (or at most one chunk), as in the reference. Under a ``plan``, x is
+    the residual as the rank holds it (the module docstring)."""
+    x = _enter(x, plan)
+    group = _inner_group(plan)
     b, s, _ = x.shape
-    d_in, n, _, _ = _dims(cfg)
-    u, z = (x @ p.in_proj).chunk(2, dim=-1)
+    n = _dims(cfg)[1]
+    u, z = (x @ _weight(p, "in_proj", plan)).chunk(2, dim=-1)
     u_raw = u
     u, conv_state = _causal_conv(u, p.conv_w, p.conv_b)
     u = F.silu(u.float()).to(x.dtype)
-    dt, b_ssm, c_ssm = _selective(p, u, cfg)
+    dt, b_ssm, c_ssm = _selective(p, u, cfg, group)
 
     chunk = min(chunk, s)
     assert s % chunk == 0, (s, chunk)
-    h = torch.zeros((b, d_in, n), dtype=torch.float32, device=x.device)
+    h = torch.zeros((b, u.shape[-1], n), dtype=torch.float32,
+                    device=x.device)
     ys = []
     for lo in range(0, s, chunk):
         hi = lo + chunk
@@ -162,7 +234,7 @@ def mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, chunk: int = 128,
     y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
 
     y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
-    out = y @ p.out_proj
+    out = _leave(y @ _weight(p, "out_proj", plan), plan)
     if return_state:
         k = p.conv_w.shape[0]
         tail = u_raw[:, -(k - 1):] if k > 1 else conv_state
@@ -173,8 +245,13 @@ def mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, chunk: int = 128,
 # -- Decode --------------------------------------------------------------------
 
 
-def init_mamba_state(cfg: ModelConfig, batch: int, device) -> dict:
+def init_mamba_state(cfg: ModelConfig, batch: int, device,
+                     plan=None) -> dict:
+    """Zeroed ``{"h" (B, Din, N) fp32, "conv" (B, K - 1, Din)}``; under a
+    ``plan`` that splits ``inner``, this rank's ``Din / n`` features."""
     d_in, n, d_conv, _ = _dims(cfg)
+    if plan is not None and plan.inner:
+        d_in = plan.inner.block(d_in)[1]
     return {
         "h": torch.zeros((batch, d_in, n), dtype=torch.float32,
                          device=device),
@@ -184,14 +261,19 @@ def init_mamba_state(cfg: ModelConfig, batch: int, device) -> dict:
 
 
 def mamba_step(p: Mamba, state: dict, x: torch.Tensor,
-               cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
-    """One decode step. x: ``(B, 1, D)`` -> ``(out, new state)``."""
-    u, z = (x @ p.in_proj).chunk(2, dim=-1)
+               cfg: ModelConfig, plan=None) -> tuple[torch.Tensor, dict]:
+    """One decode step. x: ``(B, 1, D)`` -> ``(out, new state)`` (under a
+    ``plan`` that splits ``inner``, the state this rank's block)."""
+    if plan is not None and plan.seq:
+        raise ValueError("a decode step under a sequence split")
+    x = _enter(x, plan)
+    u, z = (x @ _weight(p, "in_proj", plan)).chunk(2, dim=-1)
     u, conv_state = _causal_conv(u, p.conv_w, p.conv_b, state["conv"])
     u = F.silu(u.float()).to(x.dtype)
-    a_bar, bx, c_ssm = _ssm_inputs(p, u, cfg)
+    a_bar, bx, c_ssm = _ssm_inputs(p, u, cfg, _inner_group(plan))
     h = a_bar[:, 0] * state["h"] + bx[:, 0]
     y = (h @ c_ssm[:, 0, :, None])[..., 0]
     y = y + p.d_skip * u[:, 0].float()
     y = y[:, None].to(x.dtype) * F.silu(z.float()).to(x.dtype)
-    return y @ p.out_proj, {"h": h, "conv": conv_state}
+    return _leave(y @ _weight(p, "out_proj", plan), plan), \
+        {"h": h, "conv": conv_state}

@@ -13,8 +13,34 @@ from the buffer ``r_step`` (laid out again whenever ``r_gates`` was loaded
 or updated in place), with them on once per call, inside the graph. The
 reference's ``shard_map`` sLSTM over the batch axes is this scan on each
 data-parallel rank's rows, its ``r_gates`` gradient summed by the train
-step's all-reduce; its ``inner`` sharding over ``model`` is ROADMAP Queue 1
-item 11.4c.
+step's all-reduce.
+
+Under a ``TensorPlan`` whose rules split ``inner`` (over ``model``, or
+``("data", "model")`` under ``long_500k``), each rank holds block ``i``
+of ``n`` of the inner features: of ``up``'s branch ``u`` and gate ``z``
+(``convert.shard_params`` keeps block ``i`` of each half), of ``conv_*``,
+``norm`` and ``down``'s rows, and the rows of ``wq``, ``wk``, ``wv``,
+``w_if`` and ``w_gates`` (their products are partial sums). The value
+features ``(H, dv)`` flattened split the same way (``_values``): a rank
+holds whole heads, or part of one head's ``dv`` where ``n`` exceeds the
+heads.
+
+- mLSTM: ``q``, ``k`` and the gates are summed over the inner ranks
+  (``reduce_both``: each rank uses them its own way) and held whole, so
+  the normalizer ``n`` and the stabilizer ``m`` are replicated, as in the
+  reference; ``v`` is reduce-scattered to the rank's value block, and the
+  memory ``C`` and the output are that block's. The head norm's sum of
+  squares is summed over the inner ranks where a head's ``dv`` is split.
+- sLSTM: the gates' input part is summed over the inner ranks and the
+  recurrence runs whole on every rank with ``r_gates`` replicated (the
+  reference's ``shard_map`` takes ``gates_x`` with ``P(batch, None,
+  None)``); each rank hands only its block of the hidden states to the
+  head norm, the ``z`` gate and ``down``. So each rank's ``r_gates``
+  gradient is partial (``INNER_PARTIAL``: the train step sums it over
+  the inner axes).
+
+``down``'s partial outputs are summed (``reduce_from``); the input enters
+through ``copy_to``.
 """
 
 from __future__ import annotations
@@ -23,9 +49,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from typing import NamedTuple
+
 from repro_torch.core.config import ModelConfig, XLSTMConfig
 from repro_torch.models.layers import frozen, init_normal
-from repro_torch.models.ssm import _causal_conv
+from repro_torch.models.ssm import _causal_conv, _enter, _leave, _weight
+from repro_torch.parallel import collectives as C
 
 
 def _dims(cfg: ModelConfig) -> tuple[int, int, int, int, int]:
@@ -36,30 +65,94 @@ def _dims(cfg: ModelConfig) -> tuple[int, int, int, int, int]:
     return d_in, h, qk, qk // h, d_in // h      # d_in, H, qk, dk, dv
 
 
-def _headnorm(h: torch.Tensor, scale: torch.Tensor,
-              eps: float = 1e-6) -> torch.Tensor:
-    """Per-head RMS norm. h: ``(..., H, dv)``; scale: ``(H*dv,)``."""
+class Values(NamedTuple):
+    """A rank's value features: block ``[lo, lo + n)`` of the flattened
+    ``(H, dv)``, that is ``dv`` features of each of heads ``[h0, h0 +
+    heads)``; ``group``, the inner split's process group where a head's
+    ``dv`` is split over ranks (its norm then sums over them), else
+    ``None``."""
+
+    lo: int
+    n: int
+    h0: int
+    heads: int
+    dv: int
+    group: object
+
+    @property
+    def head_slice(self) -> slice:
+        return slice(self.h0, self.h0 + self.heads)
+
+
+def _values(cfg: ModelConfig, plan=None) -> Values:
+    """This rank's ``Values`` (all of them without an inner split)."""
+    return values_of(cfg, None if plan is None else plan.inner)
+
+
+def values_of(cfg: ModelConfig, split) -> Values:
+    """The ``Values`` of this rank's block of an inner split ``split`` (a
+    ``tensor.Split``; all of them where it is ``None`` or one rank)."""
+    d_in, h, _, _, dv = _dims(cfg)
+    if split is None or not split:
+        return Values(0, d_in, 0, h, dv, None)
+    lo, n = split.block(d_in)
+    if n % dv == 0:
+        return Values(lo, n, lo // dv, n // dv, dv, None)
+    if dv % n == 0:
+        return Values(lo, n, lo // dv, 1, n, split.group)
+    raise NotImplementedError(f"an inner block of {n} features over heads "
+                              f"of {dv}")
+
+
+def _headnorm(h: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+              vals: Values | None = None, dims: tuple[int, int] = (0, 0)
+              ) -> torch.Tensor:
+    """Per-head RMS norm. h: ``(..., H, dv)``; scale: ``(H*dv,)``. With
+    ``vals`` whose head's ``dv`` is split over ranks (``dims``: the heads
+    and ``dv`` whole), the head's sum of squares is summed over the inner
+    ranks first: every rank puts its own at its head's slot of an
+    ``(..., H, 1)`` tensor of zeros, one sum over ``vals.group``."""
     h32 = h.float()
-    rms = torch.rsqrt(h32.square().mean(dim=-1, keepdim=True) + eps)
+    if vals is None or vals.group is None:
+        rms = torch.rsqrt(h32.square().mean(dim=-1, keepdim=True) + eps)
+    else:
+        heads, dv = dims
+        ss = F.pad(h32.square().sum(dim=-1, keepdim=True),
+                   (0, 0, vals.h0, heads - vals.h0 - vals.heads))
+        total = C.reduce_both(ss, vals.group)[..., vals.head_slice, :]
+        rms = torch.rsqrt(total / dv + eps)
     out = (h32 * rms).flatten(-2)
     return (out * scale.float()).to(scale.dtype)
 
 
-def _up_conv(p, x: torch.Tensor, conv_state=None):
+def _up_conv(p, x: torch.Tensor, conv_state=None, plan=None):
     """The shared front of both blocks: the up projection split into the
     branch ``u`` and the gate ``z``, and ``silu`` of the causal conv of
     ``u``. Returns ``(u, z, conv, new conv state)``."""
-    u, z = (x @ p.up).chunk(2, dim=-1)
+    u, z = (x @ _weight(p, "up", plan)).chunk(2, dim=-1)
     c, conv_state = _causal_conv(u, p.conv_w, p.conv_b, conv_state)
     return u, z, F.silu(c.float()).to(x.dtype), conv_state
 
 
-def _down(p, hid: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """Head norm of ``hid (B, S, H, dv)``, the ``silu(z)`` gate and the
-    down projection."""
-    y = _headnorm(hid, p.norm)
+def _down(p, hid: torch.Tensor, z: torch.Tensor, cfg: ModelConfig,
+          plan=None) -> torch.Tensor:
+    """Head norm of ``hid (B, S, heads, dv)``, the ``silu(z)`` gate and the
+    down projection (under a ``plan``, the rank's value block's, the
+    partial outputs summed)."""
+    vals = _values(cfg, plan)
+    _, heads, _, _, dv = _dims(cfg)
+    y = _headnorm(hid, p.norm, vals=vals, dims=(heads, dv))
     y = y * F.silu(z.float()).to(y.dtype)
-    return y @ p.down
+    return _leave(y @ _weight(p, "down", plan), plan)
+
+
+def _summed(part: torch.Tensor, group, bias=None) -> torch.Tensor:
+    """Partial sums over the inner ranks summed (plus ``bias``, which
+    every rank adds alike), for each rank to use its own way."""
+    if group is None:
+        return part if bias is None else part + bias
+    total = C.reduce_from(part, group)
+    return C.copy_to(total if bias is None else total + bias, group)
 
 
 # =========================== mLSTM =============================================
@@ -77,6 +170,7 @@ class MLSTM(nn.Module):
             "wk": ("inner", None), "wv": ("inner", "inner"),
             "w_if": ("inner", None), "b_if": (None,), "norm": ("inner",),
             "down": ("inner", "w_embed")}
+    SPLIT_HALVES = ("up",)          # u and z: convert.shard_params
 
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
@@ -110,36 +204,49 @@ def init_mlstm(cfg: ModelConfig, generator, device) -> MLSTM:
 
 
 def _mlstm_qkv_gates(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
-                     conv_state=None):
+                     conv_state=None, plan=None):
     """Shared pre-processing. x: ``(B, S, D)`` -> q, k ``(B, S, H, dk)``
-    (k scaled by ``dk ** -0.5``), v ``(B, S, H, dv)``, log_i, log_f
-    ``(B, S, H)`` fp32, z, and the conv state."""
-    _, h, _, dk, dv = _dims(cfg)
+    (k scaled by ``dk ** -0.5``), v ``(B, S, heads, dv)`` (the rank's value
+    block, ``_values``), log_i, log_f ``(B, S, H)`` fp32, z, and the conv
+    state."""
+    _, h, _, dk, _ = _dims(cfg)
+    vals = _values(cfg, plan)
+    group = plan.inner.group if plan is not None and plan.inner else None
+    x = _enter(x, plan)
     b, s, _ = x.shape
-    u, z, c, conv_state = _up_conv(p, x, conv_state)
-    q = (c @ p.wq).view(b, s, h, dk)
-    k = (c @ p.wk).view(b, s, h, dk)
-    v = (u @ p.wv).view(b, s, h, dv)
-    gates = c.float() @ p.w_if + p.b_if
+    u, z, c, conv_state = _up_conv(p, x, conv_state, plan)
+    q = _summed(c @ p.wq, group).view(b, s, h, dk)
+    k = _summed(c @ p.wk, group).view(b, s, h, dk)
+    v = u @ p.wv
+    if group is not None:
+        v = C.reduce_scatter_along(v, -1, group)
+    v = v.view(b, s, vals.heads, vals.dv)
+    gates = _summed(c.float() @ p.w_if, group, p.b_if)
     log_i, raw_f = gates.view(b, s, 2, h).unbind(2)
     return q, k * dk ** -0.5, v, log_i, F.logsigmoid(raw_f), z, conv_state
 
 
 def mlstm(p: MLSTM, x: torch.Tensor, cfg: ModelConfig, chunk: int = 256,
-          return_state: bool = False):
+          return_state: bool = False, plan=None):
     """Chunkwise-parallel mLSTM forward. x: ``(B, S, D)`` -> ``(B, S, D)``
     [, the final ``{"c", "n", "m", "conv"}`` state]. ``S`` must be a
-    multiple of the chunk (or at most one chunk), as in the reference."""
-    b, s, _ = x.shape
-    _, h, _, dk, dv = _dims(cfg)
-    q, k, v, log_i, log_f, z, conv_tail = _mlstm_qkv_gates(p, x, cfg)
+    multiple of the chunk (or at most one chunk), as in the reference.
+    Under a ``plan`` that splits ``inner``, ``C`` and the output are the
+    rank's value block's (``hs``: its heads), ``n`` and ``m`` whole."""
+    _, h, _, dk, _ = _dims(cfg)
+    vals = _values(cfg, plan)
+    hs = vals.head_slice
+    q, k, v, log_i, log_f, z, conv_tail = _mlstm_qkv_gates(
+        p, x, cfg, plan=plan)
+    b, s = q.shape[:2]
 
     chunk = min(chunk, s)
     assert s % chunk == 0
     dev = x.device
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
                         device=dev).tril()
-    c_mat = torch.zeros((b, h, dk, dv), dtype=torch.float32, device=dev)
+    c_mat = torch.zeros((b, vals.heads, dk, vals.dv), dtype=torch.float32,
+                        device=dev)
     n_vec = torch.zeros((b, h, dk), dtype=torch.float32, device=dev)
     m = torch.full((b, h), -1e9, dtype=torch.float32, device=dev)
     outs = []
@@ -156,61 +263,68 @@ def mlstm(p: MLSTM, x: torch.Tensor, cfg: ModelConfig, chunk: int = 256,
 
         qf = q[:, lo:hi].transpose(1, 2).float()       # (B,H,C,dk)
         kf = k[:, lo:hi].transpose(1, 2).float()
-        vf = v[:, lo:hi].transpose(1, 2).float()       # (B,H,C,dv)
-        scores = (qf @ kf.transpose(-1, -2)) * w
-        num = scores @ vf + alpha[..., None] * (qf @ c_mat)
+        vf = v[:, lo:hi].transpose(1, 2).float()       # (B,heads,C,dv)
+        qh, kh = qf[:, hs], kf[:, hs]
+        scores = (qh @ kh.transpose(-1, -2)) * w[:, hs]
+        num = scores @ vf + alpha[:, hs, :, None] * (qh @ c_mat)
         n_t = w @ kf + alpha[..., None] * n_vec[:, :, None]
         den = torch.maximum((qf * n_t).sum(dim=-1).abs(), torch.exp(-m_t))
-        outs.append((num / den[..., None]).transpose(1, 2))  # (B,C,H,dv)
+        outs.append((num / den[:, hs, :, None]).transpose(1, 2))
 
         # the carry at the chunk's end
         w_last = torch.exp(g - mx[..., -1:])           # (B,H,C)
-        c_mat = alpha[..., -1, None, None] * c_mat \
-            + (kf * w_last[..., None]).transpose(-1, -2) @ vf
+        c_mat = alpha[:, hs, -1, None, None] * c_mat \
+            + (kh * w_last[:, hs, :, None]).transpose(-1, -2) @ vf
         n_vec = n_t[:, :, -1]
         m = m_t[..., -1]
     h_all = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
-    out = _down(p, h_all, z)
+    out = _down(p, h_all, z, cfg, plan)
     if return_state:
         return out, {"c": c_mat, "n": n_vec, "m": m, "conv": conv_tail}
     return out
 
 
-def init_mlstm_state(cfg: ModelConfig, batch: int, device) -> dict:
-    d_in, h, _, dk, dv = _dims(cfg)
+def init_mlstm_state(cfg: ModelConfig, batch: int, device,
+                     plan=None) -> dict:
+    """Zeroed ``{c (B, H, dk, dv), n (B, H, dk), m (B, H) fp32, conv}``;
+    under a ``plan`` that splits ``inner``, ``c`` of the rank's value
+    block and ``conv`` of its inner features."""
+    d_in, h, _, dk, _ = _dims(cfg)
+    vals = _values(cfg, plan)
     x = cfg.xlstm or XLSTMConfig()
     f32 = dict(dtype=torch.float32, device=device)
     return {
-        "c": torch.zeros((batch, h, dk, dv), **f32),
+        "c": torch.zeros((batch, vals.heads, dk, vals.dv), **f32),
         "n": torch.zeros((batch, h, dk), **f32),
         "m": torch.full((batch, h), -1e9, **f32),
-        "conv": torch.zeros((batch, x.conv_kernel - 1, d_in),
+        "conv": torch.zeros((batch, x.conv_kernel - 1, vals.n),
                             dtype=getattr(torch, cfg.dtype), device=device),
     }
 
 
 def mlstm_step(p: MLSTM, state: dict, x: torch.Tensor,
-               cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+               cfg: ModelConfig, plan=None) -> tuple[torch.Tensor, dict]:
     """One decode step. x: ``(B, 1, D)`` -> ``(out, new state)``."""
+    hs = _values(cfg, plan).head_slice
     q, k, v, log_i, log_f, z, conv_state = _mlstm_qkv_gates(
-        p, x, cfg, state["conv"])
+        p, x, cfg, state["conv"], plan)
     qf = q[:, 0].float()                   # (B,H,dk)
     kf = k[:, 0].float()
-    vf = v[:, 0].float()                   # (B,H,dv)
+    vf = v[:, 0].float()                   # (B,heads,dv)
     li, lf = log_i[:, 0], log_f[:, 0]      # (B,H)
 
     m_new = torch.maximum(lf + state["m"], li)
     f_sc = torch.exp(lf + state["m"] - m_new)
     i_sc = torch.exp(li - m_new)
-    c_new = f_sc[..., None, None] * state["c"] \
-        + i_sc[..., None, None] * kf[..., :, None] * vf[..., None, :]
+    c_new = f_sc[:, hs, None, None] * state["c"] \
+        + i_sc[:, hs, None, None] * kf[:, hs, :, None] * vf[..., None, :]
     n_new = f_sc[..., None] * state["n"] + i_sc[..., None] * kf
-    num = (qf[..., None, :] @ c_new)[..., 0, :]
+    num = (qf[:, hs, None, :] @ c_new)[..., 0, :]
     den = torch.maximum((qf * n_new).sum(dim=-1).abs(), torch.exp(-m_new))
-    h_out = (num / den[..., None])[:, None]          # (B,1,H,dv)
-    return _down(p, h_out, z), {"c": c_new, "n": n_new, "m": m_new,
-                                "conv": conv_state}
+    h_out = (num / den[:, hs, None])[:, None]        # (B,1,heads,dv)
+    return _down(p, h_out, z, cfg, plan), {"c": c_new, "n": n_new,
+                                           "m": m_new, "conv": conv_state}
 
 
 # =========================== sLSTM =============================================
@@ -236,6 +350,10 @@ class SLSTM(nn.Module):
             "conv_b": ("inner",), "w_gates": ("inner", "inner"),
             "r_gates": (None, None, None, None), "b_gates": (None,),
             "norm": ("inner",), "down": ("inner", "w_embed")}
+    SPLIT_HALVES = ("up",)          # u and z: convert.shard_params
+    # leaves the inner split leaves whole whose gradient each inner rank
+    # only partly computes (``TensorPlan.grad_sync_axes``)
+    INNER_PARTIAL = ("r_gates",)
 
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
@@ -330,8 +448,13 @@ def _slstm_scan(p: SLSTM, gates_x: torch.Tensor, h: int, dv: int,
     return hs, tuple(flat(t) for t in (c, n, hid, m))
 
 
-def init_slstm_state(cfg: ModelConfig, batch: int, device) -> dict:
+def init_slstm_state(cfg: ModelConfig, batch: int, device,
+                     plan=None) -> dict:
+    """Zeroed ``{c, n (ones), h, m (B, d_in) fp32, conv}``: the recurrence
+    runs whole on every rank, so only ``conv`` is the rank's inner block
+    under a ``plan`` that splits ``inner``."""
     d_in = _dims(cfg)[0]
+    n_conv = _values(cfg, plan).n
     x = cfg.xlstm or XLSTMConfig()
     f32 = dict(dtype=torch.float32, device=device)
     return {
@@ -339,31 +462,40 @@ def init_slstm_state(cfg: ModelConfig, batch: int, device) -> dict:
         "n": torch.ones((batch, d_in), **f32),
         "h": torch.zeros((batch, d_in), **f32),
         "m": torch.zeros((batch, d_in), **f32),
-        "conv": torch.zeros((batch, x.conv_kernel - 1, d_in),
+        "conv": torch.zeros((batch, x.conv_kernel - 1, n_conv),
                             dtype=getattr(torch, cfg.dtype), device=device),
     }
 
 
-def _slstm_core(p: SLSTM, x: torch.Tensor, cfg: ModelConfig, state: dict):
+def _slstm_core(p: SLSTM, x: torch.Tensor, cfg: ModelConfig, state: dict,
+                plan=None):
     _, h, _, _, dv = _dims(cfg)
-    _, z, c, conv_state = _up_conv(p, x, state["conv"])
-    gates_x = (c @ p.w_gates).float() + p.b_gates
+    vals = _values(cfg, plan)
+    group = plan.inner.group if plan is not None and plan.inner else None
+    x = _enter(x, plan)
+    _, z, c, conv_state = _up_conv(p, x, state["conv"], plan)
+    if group is None:
+        gates_x = (c @ p.w_gates).float() + p.b_gates
+    else:
+        gates_x = _summed((c @ p.w_gates).float(), group, p.b_gates)
     hs, carry = _slstm_scan(p, gates_x, h, dv, state)
     new_state = dict(zip(("c", "n", "h", "m"), carry), conv=conv_state)
-    out = _down(p, hs.view(*hs.shape[:2], h, dv).to(x.dtype), z)
+    mine = hs[..., vals.lo:vals.lo + vals.n]
+    out = _down(p, mine.view(*hs.shape[:2], vals.heads, vals.dv)
+                .to(x.dtype), z, cfg, plan)
     return out, new_state
 
 
 def slstm(p: SLSTM, x: torch.Tensor, cfg: ModelConfig, chunk: int = 0,
-          return_state: bool = False):
+          return_state: bool = False, plan=None):
     """sLSTM forward from the initial state. x: ``(B, S, D)``; ``chunk``
     is taken and ignored, as in the reference."""
-    out, state = _slstm_core(p, x, cfg,
-                             init_slstm_state(cfg, x.shape[0], x.device))
+    out, state = _slstm_core(p, x, cfg, init_slstm_state(
+        cfg, x.shape[0], x.device, plan), plan)
     return (out, state) if return_state else out
 
 
 def slstm_step(p: SLSTM, state: dict, x: torch.Tensor,
-               cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+               cfg: ModelConfig, plan=None) -> tuple[torch.Tensor, dict]:
     """One decode step. x: ``(B, 1, D)`` -> ``(out, new state)``."""
-    return _slstm_core(p, x, cfg, state)
+    return _slstm_core(p, x, cfg, state, plan)

@@ -9,9 +9,17 @@ process group (an axis's or a tuple of axes', ``Mesh.group``); each is
 the identity where the group is ``None`` (a split over one rank):
 
 - ``copy_to`` / ``reduce_from``: Megatron's pair, identity forward with a
-  sum of the gradient backward, and the reverse;
+  sum of the gradient backward, and the reverse; ``reduce_both``, the
+  sum both ways (partial sums each rank then uses its own way);
 - ``gather_along`` / ``reduce_scatter_along``: the ranks' blocks joined
   along a dimension, with a sum-and-split backward, and its transpose;
+- ``split_along`` / ``gather_replicated``: this rank's block of a
+  replicated tensor, the blocks' gradients gathered backward, and its
+  transpose, the blocks joined forward and this rank's block of a
+  gradient every rank holds alike taken backward (no collective);
+- ``exchange_rows``: ``all_to_all`` (row ``i`` of ``(n, ...)`` to rank
+  ``i``) whose backward is the inverse exchange, the same call on the
+  gradient: the expert-parallel MoE's dispatch and return;
 - ``int8_gather_along``: the twin of the reference's ``_int8_broadcast``
   (``repro/models/attention.py``): each rank quantizes its block with one
   scale per row of the last dimension (absmax / 127), the int8 codes and
@@ -279,6 +287,41 @@ class _ReduceFrom(torch.autograd.Function):
         return grad, None
 
 
+class _SplitAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n, i = group_size(group), group_rank(group)
+        return x.chunk(n, dim=dim)[i].contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return gather_dim(grad.contiguous(), ctx.dim, ctx.group), None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return gather_dim(x.contiguous(), dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n, i = group_size(ctx.group), group_rank(ctx.group)
+        return grad.chunk(n, dim=ctx.dim)[i].contiguous(), None, None
+
+
+class _ExchangeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_to_all(grad.contiguous(), ctx.group), None
+
+
 class _GatherAlong(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group, grad_scale=1.0):
@@ -357,6 +400,38 @@ def reduce_scatter_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     sum over ``group`` forward, the gradient's blocks joined backward."""
     return x if group_size(group) == 1 else \
         _ReduceScatterAlong.apply(x, dim, group)
+
+
+def reduce_both(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of partial sums, which each rank then uses its
+    own way: forward and backward an all-reduce (``reduce_from`` then
+    ``copy_to``)."""
+    return copy_to(reduce_from(x, group), group)
+
+
+def split_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x``, which every rank of
+    ``group`` holds alike; backward, the blocks' gradients gathered whole
+    (each rank's part of the computation downstream is its own)."""
+    return x if group_size(group) == 1 else \
+        _SplitAlong.apply(x, dim, group)
+
+
+def gather_replicated(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' blocks joined along ``dim`` for a computation every rank
+    of ``group`` then runs alike: backward, this rank's block of the
+    gradient, which every rank holds whole and alike (``gather_along``
+    would sum ``n`` equal copies)."""
+    return x if group_size(group) == 1 else \
+        _GatherReplicated.apply(x, dim, group)
+
+
+def exchange_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """``all_to_all`` of ``x (n, ...)`` (row ``i`` to rank ``i``; the rows
+    every rank sent here, in rank order), differentiable: the backward
+    sends each gradient row back where its row came from, the same
+    exchange. Recorded under ``all_to_all`` in ``COLLECTIVE_STATS``."""
+    return x if group_size(group) == 1 else _ExchangeRows.apply(x, group)
 
 
 def int8_gather_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:

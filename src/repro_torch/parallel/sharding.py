@@ -9,15 +9,16 @@ or a tuple of names per dimension, an axis used once), and ``sharding``
 the bound ``DeviceMesh``'s ``Shard``/``Replicate`` placements.
 
 What runs: the batch split (data parallelism over ``data``, and ``pod`` in
-its data role), the layer split over ``pod`` (``pp_rules``) and, for the
-dense attention models, every split ``make_rules`` gives them: ``heads``,
+its data role), the layer split over ``pod`` (``pp_rules``) and every
+split ``make_rules`` gives a production cell of the ten models: ``heads``,
 ``kv_heads``, ``mlp``, ``vocab``, ``seq`` (with ``mlp_seq``),
-``cache_seq`` and ``w_embed`` (ZeRO-3), each rank holding its shards
+``cache_seq``, ``w_embed`` (ZeRO-3), ``expert`` with the MoE plane
+``moe_impl`` picks (``shard_map_a2a``, ``gather``, ``shard_map_local``)
+and ``inner`` (Mamba, mLSTM, sLSTM), each rank holding its shards
 (``repro_torch.models.convert.shard_params``) and making the collectives
 of ``repro_torch.parallel.tensor``. ``logical_shard`` only checks the
-rank. ``require_executable`` refuses the rest: the MoE experts' split and
-all-to-all, the Mamba / xLSTM inner split and any split beyond the batch
-of the other models (ROADMAP item 11.4c).
+rank. ``require_executable`` refuses the rule sets no production cell
+reaches (ROADMAP item 11.4d).
 
 Canonical logical axes (as in the reference):
 
@@ -169,10 +170,6 @@ def make_param_sharding(rules: ShardingRules, logical_tree) -> Any:
                               for v in logical_tree)
 
 
-# logical axes no model of the port runs split over more than one rank yet
-_NOT_YET = ("expert", "expert_act", "inner")
-
-
 def _mesh_axes(rules: ShardingRules, logical: str) -> tuple[str, ...]:
     """The mesh axes of more than one rank a logical axis is split over."""
     phys = rules.rules.get(logical)
@@ -184,16 +181,20 @@ def _mesh_axes(rules: ShardingRules, logical: str) -> tuple[str, ...]:
 
 def require_executable(rules: ShardingRules | None, pipeline: bool = False,
                        cfg=None) -> None:
-    """Refuse a rule set this port cannot run yet: ``expert``,
-    ``expert_act`` or ``inner`` split over more than one rank, the MoE
-    all-to-all (``moe_impl="shard_map_a2a"``) over a ``model`` axis larger
-    than 1, any split beyond ``batch`` and ``layers`` with ``pipeline``,
-    and, given the model's ``cfg``, any split beyond the batch of a model
-    with a block other than attention or an MoE FFN. Splits the port's
-    ``TensorPlan`` does not lay out (the sequence split beside a head split
-    or beside a vocab or mlp split over other axes, kv heads split without
-    the query heads) are refused too. Raises ``NotImplementedError``
-    naming ROADMAP item 11.4c."""
+    """Refuse a rule set this port does not run, none of which a
+    production cell of the planner reaches: ``expert_act`` split over more
+    than one rank (the reference's GSPMD ``all_to_all`` strategy, its
+    baseline profile only), the MoE all-to-all (``moe_impl=
+    "shard_map_a2a"``) over a ``model`` axis larger than 1 without the
+    experts split over ``model`` alone, any split beyond ``batch`` and
+    ``layers`` with ``pipeline``, and splits the port's ``TensorPlan``
+    does not lay out: the sequence split beside a head split or beside a
+    vocab or mlp split over other axes, kv heads split without the query
+    heads, ``inner`` split beside a sequence split over other axes. Given
+    the model's ``cfg``: an MoE model's experts split on their mlp
+    dimension (``num_experts % model != 0``) and an MoE layer under a
+    sequence split without the all-to-all. Raises ``NotImplementedError``
+    naming ROADMAP item 11.4d."""
     if rules is None or rules.mesh is None:
         return
     wide = {}
@@ -202,16 +203,15 @@ def require_executable(rules: ShardingRules | None, pipeline: bool = False,
             continue
         if _mesh_axes(rules, logical):
             wide[logical] = rules.rules[logical]
-    refused = {k: v for k, v in wide.items() if k in _NOT_YET}
+    refused = {}
+    if "expert_act" in wide:
+        refused["expert_act"] = wide["expert_act"]
     if rules.rules.get("moe_impl") == "shard_map_a2a" \
-            and int(rules.mesh.shape.get("model", 1)) > 1:
+            and int(rules.mesh.shape.get("model", 1)) > 1 \
+            and _mesh_axes(rules, "expert") != ("model",):
         refused["moe_impl"] = "shard_map_a2a"
     if wide and pipeline:
         refused.update(wide)
-    if wide and cfg is not None:
-        from repro_torch.models.lm import dense_attention_model
-        if not dense_attention_model(cfg):
-            refused.update(wide)
     seq = _mesh_axes(rules, "seq")
     if seq and (_mesh_axes(rules, "heads") or _mesh_axes(rules, "kv_heads")
                 or _mesh_axes(rules, "vocab") != seq
@@ -220,9 +220,19 @@ def require_executable(rules: ShardingRules | None, pipeline: bool = False,
     kv = _mesh_axes(rules, "kv_heads")
     if kv and kv != _mesh_axes(rules, "heads"):
         refused["kv_heads"] = rules.rules["kv_heads"]
+    inner = _mesh_axes(rules, "inner")
+    if inner and seq and inner != seq:
+        refused["inner"] = rules.rules["inner"]
+    if cfg is not None and cfg.moe is not None:
+        inside = rules.spec("expert", "w_embed", "mlp")[2]
+        inside = tuple(inside) if isinstance(inside, tuple) else (inside,)
+        if any(a is not None and int(rules.mesh.shape[a]) > 1
+               for a in inside):
+            refused["mlp"] = rules.rules["mlp"]
+        if seq and rules.rules.get("moe_impl") != "shard_map_a2a":
+            refused["seq"] = rules.rules["seq"]
     if refused:
         raise NotImplementedError(
-            f"these rules shard {refused} over mesh axes larger than 1: the "
-            f"MoE experts' split and all-to-all, the Mamba / xLSTM inner "
-            f"split and the other models' tensor parallelism wait for "
-            f"ROADMAP Queue 1 item 11.4c")
+            f"these rules shard {refused} over mesh axes larger than 1, a "
+            f"layout no production cell reaches: ROADMAP Queue 1 item "
+            f"11.4d")

@@ -427,7 +427,7 @@ def make_rules(mesh, cfg: ModelConfig, shape: ShapeConfig,
                 rules["expert_act"] = "model"
             elif pc.moe_strategy == "shard_map_a2a" \
                     and shape.seq_len % tp == 0 and shape.mode != "decode":
-                # the explicit shuffle data plane (item 11.4c)
+                # the explicit shuffle data plane (``models.moe``)
                 rules["moe_impl"] = "shard_map_a2a"
         else:  # experts not divisible: fall back to mlp-dim TP inside experts
             rules["expert"] = None

@@ -2,8 +2,11 @@
 batch: tensor parallelism (``heads``, ``kv_heads``, ``mlp`` and ``vocab``
 over ``model``), the sequence-sharded residual of ``seq_tp`` (``seq``,
 with ``mlp_seq``), the sequence-sharded decode cache (``cache_seq``, over
-``model`` or ``("data", "model")``) and ZeRO-3 (``w_embed`` over ``data``
-or the whole mesh).
+``model`` or ``("data", "model")``), ZeRO-3 (``w_embed`` over ``data``
+or the whole mesh), expert parallelism (``expert`` over ``model``, with
+the MoE plane ``moe_impl`` picks: ``models/moe.py``) and the Mamba /
+xLSTM inner split (``inner`` over ``model`` or ``("data", "model")``:
+``models/ssm.py``, ``models/xlstm.py``).
 
 The reference names each tensor's logical axes and lets GSPMD place the
 collectives. Here ``TensorPlan`` resolves the rules once, outside any
@@ -21,7 +24,14 @@ asks it for the process groups and for its weights:
   sequence-sharded, the sequence axes for every leaf not sharded over them
   (each rank saw only its positions), or, under ``head_tp`` with kv heads
   that do not divide, the head axes for the kv projections (each rank used
-  only its query heads' kv heads).
+  only its query heads' kv heads), or, where a recurrent block's
+  ``inner`` is split, the inner axes for the block's leaves that the
+  split does not cut and whose gradient each inner rank only partly
+  computes (``partial``: the sLSTM's replicated ``r_gates``, whose
+  recurrence each rank runs whole but feeds back only its own slice).
+  A leaf sharded over ``expert`` is not summed over ``model``: the
+  all-to-all's backward brings each rank every source's gradient of its
+  experts.
 
 A rank holds a parameter's shard as ``ShardingRules.spec`` cuts it
 (``repro_torch.models.convert.shard_params``): a dimension split over
@@ -94,7 +104,13 @@ class TensorPlan:
         self.mlp = _split(rules, "mlp")
         self.vocab = _split(rules, "vocab")
         self.cache = _split(rules, "cache_seq")
+        self.expert = _split(rules, "expert")
+        self.inner = _split(rules, "inner")
+        self.moe_impl = r.get("moe_impl")
         self.mlp_seq = bool(_split(rules, "mlp_seq"))
+        # the axes along which ranks hold other tokens: what the MoE's
+        # router statistics are averaged over (``stats``)
+        self.stats = Split(self.mesh, self.batch.axes + self.seq.axes)
         self.kv_compress = bool(r.get("kv_compress"))
         self.gathered: dict[int, object] = {}
         self._zero: dict[tuple, object] = {}
@@ -112,6 +128,20 @@ class TensorPlan:
                     f"{self.seq.axes}")
         if self.kv_heads and self.kv_heads.axes != self.heads.axes:
             raise NotImplementedError("kv heads split without the heads")
+        if _split(rules, "expert_act"):
+            raise NotImplementedError(
+                "the GSPMD all-to-all strategy's expert_act split (no "
+                "production cell; ROADMAP Queue 1 item 11.4d)")
+        if self.inner and self.seq and self.inner.axes != self.seq.axes:
+            raise NotImplementedError(
+                f"inner over {self.inner.axes} beside the sequence over "
+                f"{self.seq.axes} (ROADMAP Queue 1 item 11.4d)")
+        if self.moe_impl == "shard_map_a2a" and self.seq \
+                and self.seq.axes != self.expert.axes:
+            raise NotImplementedError(
+                f"the MoE all-to-all over {self.expert.axes} beside the "
+                f"sequence over {self.seq.axes} (ROADMAP Queue 1 item "
+                f"11.4d)")
 
     # -- parameters ------------------------------------------------------------
 
@@ -162,15 +192,20 @@ class TensorPlan:
             out.update(_axes(part))
         return {a for a in out if int(self.mesh.shape[a]) > 1}
 
-    def grad_sync_axes(self, logical: tuple) -> tuple[str, ...]:
+    def grad_sync_axes(self, logical: tuple,
+                       partial: bool = False) -> tuple[str, ...]:
         """The mesh axes to sum a leaf's gradient over after the backward
-        (the module docstring), in mesh order."""
+        (the module docstring), in mesh order. ``partial``: the leaf is one
+        of a recurrent block's that the inner split leaves whole but each
+        inner rank only partly differentiates."""
         sharded = self.leaf_axes(logical)
         need = set(self.batch.axes) - sharded
         if self.seq and not sharded & set(self.seq.axes):
             need |= set(self.seq.axes)
         if self.heads and not self.kv_heads and "kv_heads" in logical:
             need |= set(self.heads.axes)
+        if partial and self.inner:
+            need |= set(self.inner.axes) - sharded
         return tuple(a for a in self.mesh.axis_names
                      if a in need and int(self.mesh.shape[a]) > 1)
 

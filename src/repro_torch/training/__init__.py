@@ -1,9 +1,9 @@
 """Training of the port: the AdamW optimizer (and its state's logical
 axes, ``opt_state_axes``), the chunked cross-entropy and the train-step
 builder, data-parallel over the batch axes of the sharding rules it is
-given and, for the dense attention models, tensor-, sequence- and
-ZeRO-3-parallel over the rest (the port of ``repro/training``; the GPipe
-step over ``pod`` is ``repro_torch.parallel.pipeline``'s)."""
+given and tensor-, sequence-, expert-, inner- and ZeRO-3-parallel over
+the rest (the port of ``repro/training``; the GPipe step over ``pod`` is
+``repro_torch.parallel.pipeline``'s)."""
 
 from repro_torch.training.optimizer import (  # noqa: F401
     apply_updates,

@@ -11,9 +11,9 @@ above 1 the global batch is split into that many slices run in turn, and
 their gradients are summed into fp32 accumulators divided by the count,
 as the reference sums them (``.grad`` would accumulate in the parameters'
 bf16). Under sharding rules that split the batch over ranks the step is
-data-parallel; under rules that split more (tensor, sequence and ZeRO-3
-parallelism of the dense attention models) each rank holds its shards of
-the parameters and of the optimizer state (``make_train_step``).
+data-parallel; under rules that split more (tensor, sequence, expert and
+inner parallelism and ZeRO-3) each rank holds its shards of the
+parameters and of the optimizer state (``make_train_step``).
 """
 
 from __future__ import annotations
@@ -154,6 +154,14 @@ def leaf_axes(cfg: ModelConfig) -> dict:
     return {k: a for k, (_, a) in _meta_leaves(cfg).items()}
 
 
+def inner_partial_leaves(model: LM) -> set[str]:
+    """The parameters a recurrent block's inner split leaves whole whose
+    gradient each inner rank only partly computes (a module's
+    ``INNER_PARTIAL``: the sLSTM's ``r_gates``)."""
+    return {f"{mod_name}.{leaf}" for mod_name, mod in model.named_modules()
+            for leaf in getattr(type(mod), "INNER_PARTIAL", ())}
+
+
 def sharded_global_norm(grads: dict, axes_of: dict,
                         plan: TensorPlan) -> torch.Tensor:
     """The fp32 L2 norm of the whole gradient tree whose leaves ``grads``
@@ -194,9 +202,10 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
     ends the step with the global loss's gradient and the same parameters
     and optimizer state.
 
-    Rules that split more than the batch (the dense attention models'
-    ``tp``, ``seq_tp``, ``decode_kv_shard`` and ``pure_dp`` cells;
-    ``require_executable`` refuses the rest) run on the model's shards
+    Rules that split more than the batch (every production cell's:
+    ``tp``, ``seq_tp``, ``decode_kv_shard``, the experts' and the
+    recurrent blocks' inner splits, ``pure_dp``; ``require_executable``
+    refuses the rest) run on the model's shards
     (``convert.shard_params``) through the rules' ``TensorPlan``: each
     microbatch's gradients are its shards' (ZeRO-3 leaves reduce-scattered
     by their gathers' backward), summed in fp32; after the last one each
@@ -276,8 +285,9 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
             grads[name] = reduce_scatter_dim(grads[name], dim, split.group) \
                 / plan.repeats(split.axes)
         buckets: dict[tuple, list] = {}
+        partial = inner_partial_leaves(model)
         for name, g in grads.items():
-            axes = plan.grad_sync_axes(axes_of[name])
+            axes = plan.grad_sync_axes(axes_of[name], name in partial)
             if axes:
                 buckets.setdefault(axes, []).append(g)
         for axes, tensors in buckets.items():

@@ -14,6 +14,7 @@ children can import without JAX: the rank bodies are here.
 from __future__ import annotations
 
 import dataclasses
+import math
 import pickle
 
 import numpy as np
@@ -52,10 +53,15 @@ def run_ranks(fn, world: int, tmp_path, *args, device: str = "cpu") -> list:
 # -- the model, its batch and the single-rank step -----------------------------
 
 
-def smoke(arch: str):
-    """The port's smoke config of ``arch`` in fp32."""
+def smoke(arch: str, capacity_factor: float | None = None):
+    """The port's smoke config of ``arch`` in fp32 (an MoE model's capacity
+    factor replaced by ``capacity_factor`` where given)."""
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
+    return cfg
 
 
 def model_of(cfg, device: str = "cpu"):
@@ -224,7 +230,7 @@ def case_rules(case: dict, mode: str = "train"):
     from repro_torch.core.config import ParallelConfig, ShapeConfig
     from repro_torch.launch.mesh import Mesh
     from repro_torch.parallel.strategies import make_rules
-    cfg = smoke(case["arch"])
+    cfg = smoke(case["arch"], case.get("capacity_factor"))
     mesh = Mesh(case["mesh"])
     if mode == "decode":
         shape = ShapeConfig(case.get("shape_name", "d"), MAX_SEQ, BATCH,
@@ -326,7 +332,8 @@ def tp_serve_rank(rank, world, cases):
                 res["forward"] = tlm.forward(model, inputs)[0].numpy()
             with use_rules(decode_rules):
                 state = tlm.init_decode_state(cfg, BATCH, MAX_SEQ, "cpu")
-            res["cache_rows"] = int(state["layers"][0]["k"].shape[1])
+            caches = [st["k"] for st in state["layers"] if "k" in st]
+            res["cache_rows"] = int(caches[0].shape[1]) if caches else 0
             with use_rules(prefill_rules):
                 logits, state = tlm.prefill_step(model, state, inputs)
             res["prefill"] = logits.numpy()
@@ -368,3 +375,202 @@ def int8_gather_rank(rank, world, seed):
     (got * torch.from_numpy(w)).sum().backward()
     return {"got": got.detach().numpy(), "exact": np.concatenate(
         list(blocks), axis=1), "grad": x.grad.numpy(), "w": w}
+
+
+# -- expert parallelism and the inner split, layer by layer ---------------------
+
+
+def _leaf_shard(rules, logical, t, halves: bool = False):
+    from repro_torch.models.convert import _cuts, _shard
+    return _shard(t, _cuts(rules, logical, tuple(t.shape), halves))
+
+
+def _leaf_whole(rules, logical, t, halves: bool = False):
+    """A leaf's (or a gradient's) shards gathered whole (``gather_named``
+    for one leaf)."""
+    from repro_torch.parallel.collectives import gather_dim
+    full = t.detach()
+    for dim, axes, _, _, two in reversed(_cuts_of(rules, logical,
+                                                  full.shape, halves)):
+        group = rules.mesh.group(axes)
+        if two:
+            full = gather_dim(full.unflatten(dim, (2, full.shape[dim] // 2))
+                              .contiguous(), dim + 1, group).flatten(
+                dim, dim + 1)
+        else:
+            full = gather_dim(full.contiguous(), dim, group)
+    return full
+
+
+def _cuts_of(rules, logical, local_shape, halves):
+    """``convert._cuts`` of a leaf whose shard has ``local_shape``."""
+    from repro_torch.models.convert import _cuts
+    whole = list(local_shape)
+    for dim, part in enumerate(rules.spec(*logical)):
+        axes = part if isinstance(part, tuple) else (part,)
+        whole[dim] *= math.prod(int(rules.mesh.shape[a]) for a in axes
+                                if a is not None)
+    return _cuts(rules, logical, tuple(whole), halves)
+
+
+def _sync(plan, logical, g, partial: bool = False):
+    """A leaf's gradient summed over ``plan.grad_sync_axes`` (as the train
+    step sums it)."""
+    from repro_torch.parallel.collectives import all_reduce_
+    axes = plan.grad_sync_axes(logical, partial)
+    return all_reduce_(g.clone(), plan.mesh.group(axes)) if axes else g
+
+
+def _activation_block(plan, t, seq: bool = True):
+    """This rank's rows (batch split) and positions (sequence split) of a
+    whole ``(B, S, ...)`` array."""
+    lo, n = plan.batch.block(t.shape[0]) if plan.batch else (0, t.shape[0])
+    t = t[lo:lo + n]
+    if seq and plan.seq:
+        lo, n = plan.seq.block(t.shape[1])
+        t = t[:, lo:lo + n]
+    return t
+
+
+def _activation_whole(plan, t, seq: bool = True):
+    from repro_torch.parallel.collectives import gather_dim
+    if seq and plan.seq:
+        t = gather_dim(t.contiguous(), 1, plan.seq.group)
+    if plan.batch:
+        t = gather_dim(t.contiguous(), 0, plan.batch.group)
+    return t
+
+
+def ep_rank(rank, world, cases, arrays):
+    """Each case's MoE layer (``models.moe.moe_parts`` under the case's
+    rules) on the rank's shards of the seeded leaves in ``arrays`` and its
+    block of ``x``: the output and ``x``'s gradient gathered whole, the
+    aux, every leaf's gradient (summed over ``grad_sync_axes`` as the train
+    step sums it) gathered whole, and the assignments the rank's
+    dispatches dropped. The loss is ``sum(y * g) + aux``."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import moe as M
+    from repro_torch.parallel.sharding import ShardingRules
+    from repro_torch.parallel.tensor import TensorPlan
+    data = np.load(arrays)
+    out = {}
+    for case in cases:
+        cfg = smoke(case["arch"], case["capacity_factor"])
+        mesh = Mesh(case["mesh"])
+        rules = ShardingRules(mesh, case["rules"])
+        plan = TensorPlan(rules)
+        prefix = case["arch"]
+        layer = M.MoE(cfg, torch.Generator().manual_seed(0), "cpu")
+        leaves = {}
+        for leaf in ("router", "gate", "up", "down"):
+            whole = torch.from_numpy(data[f"{prefix}/{leaf}"])
+            leaves[leaf] = torch.nn.Parameter(
+                _leaf_shard(rules, M.MoE.AXES[leaf], whole))
+            setattr(layer, leaf, leaves[leaf])
+        x = _activation_block(plan, torch.from_numpy(
+            data[f"{prefix}/x"])).requires_grad_(True)
+        g = _activation_block(plan, torch.from_numpy(data[f"{prefix}/g"]))
+        dropped = []
+        plain = M.dispatch
+
+        def counting(top_i, e, cap):
+            bk = plain(top_i, e, cap)
+            dropped.append(int((~bk.keep).sum()))
+            return bk
+
+        M.dispatch = counting
+        try:
+            y, stats = M.moe_parts(layer, x, cfg, plan=plan)
+        finally:
+            M.dispatch = plain
+        aux = M.aux_loss(stats, cfg, plan.stats.group)
+        loss = (y * g).sum() + aux
+        grads = torch.autograd.grad(loss, list(leaves.values()) + [x])
+        res = {"aux": float(aux.detach()), "dropped": sum(dropped),
+               "rules": dict(rules.rules),
+               "y": _activation_whole(plan, y.detach()).numpy(),
+               "dx": _activation_whole(plan, grads[-1]).numpy(),
+               "grads": {}}
+        for leaf, gr in zip(leaves, grads):
+            gr = _sync(plan, M.MoE.AXES[leaf], gr)
+            res["grads"][leaf] = _leaf_whole(rules, M.MoE.AXES[leaf],
+                                             gr).numpy()
+        out[case["id"]] = res
+    return out
+
+
+BLOCK_ARCH = {"mamba": "jamba-v0.1-52b", "mlstm": "xlstm-1.3b",
+              "slstm": "xlstm-1.3b"}
+
+
+def block_module(kind: str, cfg):
+    """The port's ``kind`` block of ``cfg`` from seed 0 and its forward,
+    step and kind (``lm.BlockKind``)."""
+    from repro_torch.core.config import BlockKind
+    from repro_torch.models import ssm, xlstm
+    gen = torch.Generator().manual_seed(0)
+    return {"mamba": (ssm.Mamba(cfg, gen, "cpu"), ssm.mamba, ssm.mamba_step,
+                      BlockKind.MAMBA),
+            "mlstm": (xlstm.MLSTM(cfg, gen, "cpu"), xlstm.mlstm,
+                      xlstm.mlstm_step, BlockKind.MLSTM),
+            "slstm": (xlstm.SLSTM(cfg, gen, "cpu"), xlstm.slstm,
+                      xlstm.slstm_step, BlockKind.SLSTM)}[kind]
+
+
+def inner_rank(rank, world, cases, arrays, chunk):
+    """Each case's recurrent block (``kind``) under the case's rules on the
+    rank's shards of the seeded leaves in ``arrays`` and its block of
+    ``x`` (its positions under a sequence split): the output, its final
+    state and one ``*_step`` from it gathered whole, and the gradients of
+    ``sum(out * g)`` with respect to every leaf (summed over
+    ``grad_sync_axes`` as the train step sums them) and ``x``."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.lm import _relayout
+    from repro_torch.parallel.sharding import ShardingRules
+    from repro_torch.parallel.tensor import TensorPlan
+    data = np.load(arrays)
+    out = {}
+    for case in cases:
+        kind = case["kind"]
+        cfg = smoke(BLOCK_ARCH[kind])
+        mesh = Mesh(case["mesh"])
+        rules = ShardingRules(mesh, case["rules"])
+        plan = TensorPlan(rules)
+        block, fwd, step, bkind = block_module(kind, cfg)
+        axes = type(block).AXES
+        halves = getattr(type(block), "SPLIT_HALVES", ())
+        partial = getattr(type(block), "INNER_PARTIAL", ())
+        leaves = {}
+        for leaf in axes:
+            whole = torch.from_numpy(data[f"{kind}/{leaf}"])
+            leaves[leaf] = torch.nn.Parameter(_leaf_shard(
+                rules, axes[leaf], whole, leaf in halves))
+            setattr(block, leaf, leaves[leaf])
+        x = _activation_block(plan, torch.from_numpy(
+            data[f"{kind}/x"])).requires_grad_(True)
+        g = _activation_block(plan, torch.from_numpy(data[f"{kind}/g"]))
+        kw = {"chunk": chunk} if kind != "slstm" else {}
+        y, state = fwd(block, x, cfg, return_state=True, plan=plan, **kw)
+        grads = torch.autograd.grad((y * g).sum(), list(leaves.values())
+                                    + [x])
+        res = {"y": _activation_whole(plan, y.detach()).numpy(),
+               "dx": _activation_whole(plan, grads[-1]).numpy(),
+               "grads": {}, "rules": dict(rules.rules)}
+        for leaf, gr in zip(leaves, grads):
+            gr = _sync(plan, axes[leaf], gr, leaf in partial)
+            res["grads"][leaf] = _leaf_whole(
+                rules, axes[leaf], gr, leaf in halves).numpy()
+        inner = plan.inner if plan.inner else None
+        state = {k: v.detach() for k, v in state.items()}
+        res["state"] = {k: _activation_whole(plan, v, seq=False).numpy()
+                        for k, v in _relayout(bkind, state, cfg, inner,
+                                              None).items()}
+        if not plan.seq:
+            with torch.no_grad():
+                x1 = torch.from_numpy(data[f"{kind}/x1"])
+                y1, state1 = step(block, state, x1, cfg, plan)
+            res["step"] = y1.numpy()
+            res["step_state"] = {k: v.numpy() for k, v in _relayout(
+                bkind, state1, cfg, inner, None).items()}
+        out[case["id"]] = res
+    return out

@@ -46,10 +46,17 @@ Q_CHUNK, SSM_CHUNK = 16, 8
 METRIC_RTOL, GRAD_RTOL, PARAM_ATOL = 1e-4, 1e-4, 5e-3
 
 
-def configs(arch: str):
-    """The reference's and the port's smoke configs of ``arch``, in fp32."""
-    return (dataclasses.replace(jconfig(arch, smoke=True), dtype="float32"),
-            dataclasses.replace(tconfig(arch, smoke=True), dtype="float32"))
+def configs(arch: str, capacity_factor: float | None = None):
+    """The reference's and the port's smoke configs of ``arch``, in fp32
+    (an MoE model's capacity factor replaced where given)."""
+    out = []
+    for get in (jconfig, tconfig):
+        cfg = dataclasses.replace(get(arch, smoke=True), dtype="float32")
+        if capacity_factor is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=capacity_factor))
+        out.append(cfg)
+    return tuple(out)
 
 
 def reference_params(jcfg):
@@ -136,14 +143,15 @@ def port_named(tree, tcfg) -> dict:
 
 
 def reference_whole_batch_step(arch: str, model, batch: dict,
-                               microbatches: int = 1) -> dict:
+                               microbatches: int = 1,
+                               capacity_factor: float | None = None) -> dict:
     """The reference's ``make_train_step`` on the whole ``batch`` from the
     weights of the port's ``model`` (an ``LM``): its loss and metrics, its
     gradients (the mean of its microbatches', as its step accumulates
     them) and its updated parameters, the trees keyed by the port's
     parameter names. What a data-parallel or pipelined step of the port
-    must give on every rank."""
-    jcfg, tcfg = configs(arch)
+    must give on every rank (``capacity_factor`` as in ``configs``)."""
+    jcfg, tcfg = configs(arch, capacity_factor)
     params = jax.tree.map(jnp.asarray, params_to_numpy(model, tcfg))
     rows = batch["labels"].shape[0]
     shape = JShapeConfig("t", batch["labels"].shape[1], rows, "train")

@@ -24,11 +24,8 @@ import pytest
 
 import _torch_dist as D
 import _torch_train_parity as P
-from repro_torch.core.config import OptimizerConfig, ParallelConfig, \
-    ShapeConfig
 from repro_torch.launch.mesh import Mesh
 from repro_torch.parallel.sharding import ShardingRules, require_executable
-from repro_torch.training import make_train_step
 from repro_torch.training.train_step import _rows
 
 LOSS_RTOL, GRAD_TOL, PARAM_ATOL = 1e-6, 1e-5, 1e-6
@@ -157,17 +154,31 @@ def test_microbatches_are_cut_before_the_batch_axes():
     assert got == [[2, 3], [6, 7]]
 
 
-def test_train_step_refuses_zero_and_regather():
-    """ZeRO's w_embed over data=2, with or without ``zero2`` and
-    ``regather``, runs for a dense attention model (llama) and is refused
-    for an MoE one (granite), naming item 11.4c."""
-    shape = ShapeConfig("t", D.SEQ, D.BATCH, "train")
+ZERO_GRANITE = [{"id": f"zero3-data-granite{tag}",
+                 "arch": "granite-moe-1b-a400m",
+                 "mesh": {"data": 2, "model": 1},
+                 "pc": dict(attn_strategy="replicated", fsdp="on",
+                            remat="block", **pc), "regather": regather}
+                for tag, pc, regather in (("", {}, None),
+                                          ("-zero2-regather",
+                                           {"zero2": True}, True))]
+
+
+def test_train_step_refuses_zero_and_regather(tmp_path):
+    """ZeRO's w_embed over data=2, with and without ``zero2`` and
+    ``regather``, is admitted for an MoE model (granite) as for a dense
+    one (llama), and granite's step runs on two ranks: the MoE layers on
+    their gathered leaves, held to the reference's unsharded step as the
+    tensor-parallel cases are (``P.held_to_reference``)."""
     rules = ShardingRules(Mesh({"data": 2, "model": 1}),
                           {"batch": "data", "w_embed": "data"})
     require_executable(rules, cfg=D.smoke("llama3.2-3b"))
-    for pc, regather in ((ParallelConfig(), None),
-                         (ParallelConfig(zero2=True), True)):
-        with pytest.raises(NotImplementedError, match="11.4c"):
-            make_train_step(D.smoke("granite-moe-1b-a400m"), shape,
-                            OptimizerConfig(), pc, rules=rules,
-                            regather=regather)
+    cfg = D.smoke("granite-moe-1b-a400m")
+    require_executable(rules, cfg=cfg)
+    outs = D.run_ranks(D.tp_train_rank, 2, tmp_path, ZERO_GRANITE)
+    ref = P.reference_whole_batch_step(
+        "granite-moe-1b-a400m", D.model_of(cfg)["params"], D.batch_of(cfg))
+    for case in ZERO_GRANITE:
+        got = [o[case["id"]] for o in outs]
+        assert got[0]["rules"]["w_embed"] == "data"
+        P.held_to_reference(got, ref)

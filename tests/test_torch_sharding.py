@@ -9,7 +9,7 @@ port's default is the H100's. Cells are chosen to cover every branch of
 the decision node (named beside each); the reference plans on a shape-only
 mesh, as its own tests do. No parameter is allocated: qwen2-72b is planned
 at full width. The refusals of ``require_executable`` name ROADMAP item
-11.4c.
+11.4d.
 """
 
 import dataclasses
@@ -264,17 +264,21 @@ def test_mesh_axes_index_is_row_major():
 
 @pytest.mark.parametrize("case", ["head_tp", "w_embed", "shard_map_a2a"])
 def test_require_executable_refuses_what_waits_for_11_4b(case):
-    """What the dense half of item 11.4b left: head TP of an MoE model on
-    model=2 (its experts split), ZeRO's w_embed over data=2 of an MoE model
-    (granite; llama's same rules run), the MoE all-to-all over model=2:
-    each names item 11.4c."""
+    """What the dense half of item 11.4b left, admitted since the expert
+    and inner splits run (item 11.4c): head TP of an MoE model on model=2
+    (moonshot, its experts split), ZeRO's w_embed over data=2 of an MoE
+    model (granite, as llama's), the MoE all-to-all over model=2 with the
+    experts over model (granite's ``seq_tp`` rules). The all-to-all
+    without the experts split, which no production cell reaches (and the
+    reference's ``moe_shard_map`` cannot run: its local experts would not
+    match its buffers), stays refused, naming item 11.4d."""
     shape = tcore.SHAPES["train_4k"]
-    cfg = None
     if case == "head_tp":
+        cfg = tconfig("moonshot-v1-16b-a3b")
         mesh = Mesh({"data": 1, "model": 2})
-        rules = tstrat.make_rules(mesh, tconfig("moonshot-v1-16b-a3b"),
-                                  shape, tcore.ParallelConfig(
-                                      attn_strategy="head_tp", fsdp="off"))
+        rules = tstrat.make_rules(mesh, cfg, shape, tcore.ParallelConfig(
+            attn_strategy="head_tp", fsdp="off"))
+        assert rules.rules["expert"] == "model"
     elif case == "w_embed":
         mesh = Mesh({"data": 2, "model": 1})
         rules = tstrat.make_rules(mesh, tconfig("llama3.2-3b"), shape,
@@ -285,10 +289,16 @@ def test_require_executable_refuses_what_waits_for_11_4b(case):
         cfg = tconfig("granite-moe-1b-a400m")
     else:
         mesh = Mesh({"data": 1, "model": 2})
-        rules = ShardingRules(mesh, {"batch": "data",
-                                     "moe_impl": "shard_map_a2a"})
-    with pytest.raises(NotImplementedError, match="11.4c"):
-        require_executable(rules, cfg=cfg)
+        with pytest.raises(NotImplementedError, match="11.4d"):
+            require_executable(ShardingRules(
+                mesh, {"batch": "data", "moe_impl": "shard_map_a2a"}))
+        cfg = tconfig("granite-moe-1b-a400m")
+        rules = tstrat.make_rules(mesh, cfg, shape, tcore.ParallelConfig(
+            attn_strategy="seq_tp", moe_strategy="shard_map_a2a",
+            fsdp="off"))
+        assert rules.rules["moe_impl"] == "shard_map_a2a"
+        assert rules.rules["expert"] == "model"
+    require_executable(rules, cfg=cfg)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

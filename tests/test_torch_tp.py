@@ -206,16 +206,20 @@ DENSE_ARCHS = ("llama3.2-3b", "qwen1.5-4b", "mistral-nemo-12b", "qwen2-72b",
 
 def test_require_executable_admits_every_dense_cell():
     """Every (arch x shape) cell the port's planner lays out on the
-    reference's 16 x 16 and 2 x 16 x 16 planning meshes: the rules of the
-    six dense attention models' 48 cells are admitted, those of the other
-    32 (MoE, Mamba, xLSTM) refused, naming item 11.4c; every admitted cell
-    that splits more than the batch does so within the port's layouts."""
+    reference's 16 x 16 and 2 x 16 x 16 planning meshes is admitted: the
+    six dense attention models' 48 cells and, since the expert and inner
+    splits run, the 32 of the MoE, Mamba and xLSTM models. The layouts
+    seen: ``pure_dp`` (replicated attention), ``seq_tp``,
+    ``decode_kv_shard``, ``head_tp`` (moonshot's train and prefill) and
+    no attention at all (xlstm); the MoE planes ``shard_map_a2a``,
+    ``shard_map_local`` and ``gather``; ``inner`` over ``model`` and over
+    ``("data", "model")``."""
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.core.config import SHAPES
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.parallel.sharding import require_executable
     from repro_torch.parallel.strategies import make_rules, plan_cell
-    admitted, refused, strategies = [], [], set()
+    admitted, strategies, planes, inner = [], set(), set(), set()
     for arch in ARCH_IDS:
         cfg = get_config(arch)
         for shape in SHAPES.values():
@@ -223,17 +227,16 @@ def test_require_executable_admits_every_dense_cell():
                 mesh = make_production_mesh(multi_pod=multi_pod)
                 pc = plan_cell(cfg, shape, mesh)
                 rules = make_rules(mesh, cfg, shape, pc)
-                cell = (arch, shape.name, multi_pod)
-                try:
-                    require_executable(rules, cfg=cfg)
-                except NotImplementedError as e:
-                    assert "11.4c" in str(e)
-                    refused.append(cell)
-                else:
-                    admitted.append(cell)
-                    strategies.add((pc.layout, pc.attn_strategy))
-    assert len(admitted) == 48 and len(refused) == 32
-    assert {a for a, _, _ in admitted} == set(DENSE_ARCHS)
-    assert not {a for a, _, _ in refused} & set(DENSE_ARCHS)
+                require_executable(rules, cfg=cfg)
+                admitted.append((arch, shape.name, multi_pod))
+                strategies.add((pc.layout, pc.attn_strategy))
+                if cfg.moe is not None:
+                    planes.add(rules.rules.get("moe_impl") or "gather")
+                inner.add(rules.rules.get("inner"))
+    assert len(admitted) == 80
+    assert {a for a, _, _ in admitted} == set(ARCH_IDS) >= set(DENSE_ARCHS)
     assert strategies == {("pure_dp", "replicated"), ("tp", "seq_tp"),
-                          ("tp", "decode_kv_shard")}
+                          ("tp", "decode_kv_shard"), ("tp", "head_tp"),
+                          ("tp", "none")}
+    assert planes == {"shard_map_a2a", "shard_map_local", "gather"}
+    assert inner == {None, "model", ("data", "model")}
