@@ -108,6 +108,21 @@
    granite's, an fp32 and two ragged shapes. K4 is held with its
    log-sum-exp too: the output bit-equal to the call without it, each
    row's within 1e-4.
+   Then ``ckpt_train_llama3_2_3b``, with the counters set to 0 just
+   before and read just after: ``llama3.2-3b`` at full width cut to 2 of
+   its 28 layers, 4 x 1024 tokens a step from ``SyntheticSource(seed=1)``,
+   6 steps uninterrupted and then from the same start under
+   ``repro_torch.ckpt.Supervisor`` (a checkpoint every 3 steps, 2 kept,
+   the starting state's first; a fault at step 4, so one restore of step
+   3's), into a fresh temporary directory that must have room for three
+   checkpoints and is removed after; every parameter and optimizer leaf
+   held bit-equal to the uninterrupted run's, K4 twice and K4b once an
+   attention layer a step. Prints the checkpoint's bytes, the host copy's,
+   the write's and the load's seconds and GB/s and the free disk. Then
+   ``repro_torch.launch.train.main`` at its smoke config (12 steps, a loss
+   every 4, a checkpoint every 6), and ``--steps 6`` then ``--resume
+   --steps 12``: the resumed losses of steps 8 and 12 bit-equal to the
+   uninterrupted run's.
    Then the planner and the data plane of the mesh, each with the
    counters set to 0 just before its counted run and read just after:
    ``plan_cells`` runs the port's decision workflow
@@ -182,18 +197,19 @@
    a wave and a step. ``serve_xlstm_1_3b``: ``xlstm-1.3b`` at its full
    config (48 layers, 7 mLSTM : 1 sLSTM, d_model 2048, 4 heads, vocab
    50304), the same requests; no K1-K5 launch. Each is held at the model
-   level, not against the engine's tokens (the engine's padded prefill
-   feeds a recurrent state its pad tokens, ROADMAP Queue 3): each
-   request's prompt through ``prefill_step`` (its longest prefix that the
+   level: each request's prompt through ``prefill_step`` (its longest prefix that the
    mLSTM's prefill chunk of 256 takes, the rest teacher-forced), then its
    generated tokens teacher-forced through ``decode_step``, the logits at
    the 32 generated positions within ``LOGIT_TOL`` of one ``forward`` over
    the sequence (jamba drop-free and pinned to the routing its decode path
    chose), both on their weights cast to fp32: in bf16 each model's own
    forward moves by more than ``LOGIT_TOL`` between batch 1 and batch 2.
-   Prints that bf16 rounding floor, whether the engine's tokens are the
-   greedy continuation for one request (they are not expected to be), and
-   jamba's drops. ``frontends``: ``internvl2-1b`` (256 stub patches) and
+   Prints that bf16 rounding floor, whether the bf16 engine's tokens are
+   the greedy continuation for one request, and jamba's drops. Then, on
+   the fp32 weights, the engine (its padded prefill passing each row's
+   length) serves that request alone, 8 new tokens, each held to the
+   argmax of one teacher-forced ``forward`` wherever its top two logits
+   lie more than 0.3 apart. ``frontends``: ``internvl2-1b`` (256 stub patches) and
    ``musicgen-medium`` (frame embeddings) at their full configs, batch 2,
    one ``forward`` and one ``prefill_step`` each, the last position's
    logits within ``LOGIT_TOL`` of each other, K4 once a layer in each
@@ -222,13 +238,14 @@
    decode steps under its ``decode_32k`` one. Both held as ``tp_decode``
    (and the forward's logits within 0.15), with the bf16 one-rank run's
    distance from the fp32 one printed (the rounding floor).
-   ``inner_tp_train_xlstm_1_3b``: xlstm at full width cut to 16 of its 48
-   layers, in fp32, one step under ``vocab`` and ``inner`` over ``model``
+   ``inner_tp_train_xlstm_1_3b``: xlstm at full width cut to 8 of its 48
+   layers (one period of its pattern), in fp32, one step under ``vocab`` and ``inner`` over ``model``
    and one under ``pure_dp`` on ``data=2``, held as ``tp_train``, the
    bf16 one-rank step printed beside. K2, K4, K4b and K5 are then held
    against their plain versions at the shapes these phases added.
 10. Prints the ``kernels`` JSON line (K1-K5 and K4b), its launch counts summed over
-   every phase above, then the seconds of each phase, the card line and,
+   every phase above, then the seconds of each phase, the script's
+   seconds from the build's start, the card line and,
    as its last line, ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line is printed. Needs a CUDA
@@ -367,7 +384,8 @@ TP_PROMPT_LENGTHS = (64, 192, 320, 512)
 # FFNs on layers 1 and 3), in fp32 (its bf16 forward moves by more than the
 # bound, PERF.md section 2), forward and prefill under its prefill_32k
 # layout, decode steps under its decode_32k one. inner_tp_train: xlstm at
-# full width cut to 16 of its 48 layers (two periods), one step under its
+# full width cut to 8 of its 48 layers (one period, 7 mLSTM and 1 sLSTM;
+# 16 until the checkpoint phase came in), one step under its
 # 2 x 16 x 16 layout (vocab and inner over model) and one under pure_dp on
 # data=2
 PAR_RANKS = 2
@@ -394,7 +412,7 @@ INNER_JAMBA = {"arch": HYBRID_ARCH, "layers": 4, "dtype": "float32",
                                moe_strategy="shard_map_a2a", mlp_mode="seq",
                                fsdp="off"),
                "decode": DECODE_PC}
-XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_DTYPE = 16, "float32"
+XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_DTYPE = 8, "float32"
 XLSTM_TRAIN_VARIANTS = {
     "vocab_inner": ({"data": 1, "model": 2},
                     dict(fsdp="off", layout="tp", remat="block")),
@@ -443,6 +461,17 @@ LSE_TOL = 1e-4
 PARTITION_KERNELS = ("hist_kernel", "scatter_kernel", "fused_probe_kernel")
 # empty device traces taken again before a measurement gives up (``traced``)
 PROFILE_TRIES = 3
+# the checkpoint phase: llama at full width cut to CKPT_LAYERS layers (its
+# checkpoint 8.33 GB: bf16 weights and fp32 master, m and v), CKPT_STEPS
+# steps uninterrupted and again under the supervisor, a checkpoint every
+# CKPT_EVERY steps (CKPT_KEEP kept) and a fault at step CKPT_FAULT_AT
+CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, CKPT_KEEP, CKPT_FAULT_AT = 2, 6, 3, 2, 4
+# the training CLI on the card: the contract of its CPU test
+CLI_ARGS = ("--batch", "2", "--seq", "32", "--log-every", "4",
+            "--ckpt-every", "6")
+# the repaired padded prefill on the card: one request's new tokens held
+# to the greedy continuation where the top two logits lie this far apart
+ENGINE_NEW_TOKENS, GREEDY_MARGIN = 8, 0.3
 # the process phase: smoke_large's query on this many worker processes
 PROCESS_WORKERS = 4
 # the scheduler phase: six queries sharing one runtime, two of them urgent
@@ -559,11 +588,14 @@ def tensor_core_instructions(libs: dict) -> dict:
 
 
 def bits_equal(a, b) -> bool:
+    """``a`` and ``b`` bit for bit (floats compared as integers of their
+    width, so that -0.0, +0.0 and NaNs are told apart)."""
     import torch
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
+    if a.dtype in ints:
+        a, b = a.view(ints[a.dtype]), b.view(ints[b.dtype])
     return bool(torch.equal(a, b))
 
 
@@ -1823,12 +1855,12 @@ def serve_phase(dev, cfg, model=None, rec: MoeRecorder | None = None
     if rec is not None:
         prefill = engine._prefill
 
-        def recording_prefill(model_, state, inputs):
+        def recording_prefill(model_, state, inputs, **kw):
             rec.label = ("prefill", len(waves))
             waves.append([None if r is None else
                           (r.req_id, len(r.tokens) + len(r.output))
                           for r in engine.active])
-            return prefill(model_, state, inputs)
+            return prefill(model_, state, inputs, **kw)
 
         engine._prefill = recording_prefill
     for i, prompt in enumerate(prompts):
@@ -2295,8 +2327,9 @@ def greedy_check(res: dict, dev) -> dict:
     """For the request with the shortest prompt: the greedy continuation
     of its prompt (``prefill_step`` of its longest allowed prefix, the rest
     of the prompt teacher-forced, then its own argmax fed back) beside the
-    engine's tokens. They are not expected to be equal for a recurrent
-    model (the padded prefill, ROADMAP Queue 3)."""
+    engine's tokens, in the served bf16 model: printed, not held (the two
+    paths round bf16 in other orders; ``engine_greedy_hold`` holds the
+    engine in fp32)."""
     import torch
     from repro_torch.models import decode_step, init_decode_state, \
         prefill_step
@@ -2321,6 +2354,54 @@ def greedy_check(res: dict, dev) -> dict:
     return {"request": req.req_id, "prompt": n, "equal": greedy == req.output,
             "first_difference": first, "engine_first8": req.output[:8],
             "greedy_first8": greedy[:8]}
+
+
+def engine_greedy_hold(res: dict, dev) -> dict:
+    """The repaired padded prefill on the card: the engine serves the
+    request with the shortest prompt alone, ``ENGINE_NEW_TOKENS`` new
+    tokens at a ``max_seq`` of the next multiple of the mLSTM's prefill
+    chunk (the prompt padded to it, each row's length passed), on the
+    model the caller built (its fp32 weights; a MoE drop-free). Its tokens
+    must be the greedy continuation of one teacher-forced ``forward`` over
+    the prompt and the tokens: the argmax at every generated position
+    where ``forward``'s top two logits lie more than ``GREEDY_MARGIN``
+    apart (at least one such position)."""
+    import torch
+    from repro_torch.models import forward
+    from repro_torch.serving import Request, ServingEngine
+    cfg, model = res["cfg"], res["model"]
+    req = min(res["done"], key=lambda r: len(r.tokens))
+    n = len(req.tokens)
+    max_seq = -(-(n + ENGINE_NEW_TOKENS) // MLSTM_PREFILL_CHUNK) \
+        * MLSTM_PREFILL_CHUNK
+    model.cfg = drop_free(cfg)
+    t0 = time.perf_counter()
+    try:
+        engine = ServingEngine(model.cfg, model, max_batch=1,
+                               max_seq=max_seq, device=dev)
+        engine.submit(Request(req.req_id, list(req.tokens),
+                              max_new_tokens=ENGINE_NEW_TOKENS))
+        out = engine.run(max_steps=4 * ENGINE_NEW_TOKENS)[0].output
+        seq = req.tokens + out[:-1]
+        lg, _ = forward(model, {"tokens": torch.tensor([seq], device=dev)},
+                        ssm_chunk=len(seq))
+    finally:
+        model.cfg = cfg
+    top = lg[0, n - 1:n - 1 + ENGINE_NEW_TOKENS, :cfg.vocab_size].topk(2)
+    margin = (top.values[:, 0] - top.values[:, 1]).cpu()
+    argmax = top.indices[:, 0].cpu()
+    held = margin > GREEDY_MARGIN
+    wrong = [j for j in range(len(out))
+             if held[j] and int(argmax[j]) != out[j]]
+    got = {"request": req.req_id, "prompt": n, "max_seq": max_seq,
+           "tokens": out, "greedy": argmax.tolist(),
+           "held_positions": int(held.sum()),
+           "min_margin": float(margin.min()),
+           "seconds": time.perf_counter() - t0}
+    require(len(out) == ENGINE_NEW_TOKENS and bool(held.any())
+            and not wrong, f"the engine's tokens are not the greedy "
+            f"continuation at positions {wrong}: {json.dumps(got)}")
+    return got
 
 
 def drop_free(cfg):
@@ -2394,9 +2475,8 @@ def recurrent_phase(dev, cfg, card: str, name: str) -> dict:
             f"a {name} prefill took K4's CUDA-core route: "
             f"{sorted(shapes['flash_attention'])}")
     greedy = greedy_check(res, dev)
-    print(f"serve {name} greedy: the engine's tokens against the greedy "
-          f"continuation of the prompt (not expected equal: the engine "
-          f"prefills padded to max_seq, ROADMAP Queue 3): "
+    print(f"serve {name} greedy (bf16, printed): the engine's tokens "
+          f"against the greedy continuation of the prompt: "
           f"{json.dumps(greedy)}")
     lap("greedy")
     floor = rounding_floor(res, dev)
@@ -2412,6 +2492,11 @@ def recurrent_phase(dev, cfg, card: str, name: str) -> dict:
     res["model"].cfg = res["cfg"] = dataclasses.replace(cfg, dtype="float32")
     tf = check_recurrent(res, dev)
     lap("check")
+    engine = engine_greedy_hold(res, dev)
+    print(f"serve {name} engine greedy (fp32, held where the top two "
+          f"logits lie more than {GREEDY_MARGIN} apart): "
+          f"{json.dumps(engine)} [{card}]")
+    lap("engine_greedy")
     res["cfg"] = cfg
     print_serve(res, tf, f"serve {name}", f"{name} model-level (fp32) ",
                 card)
@@ -2835,6 +2920,171 @@ def grad_hold(dev, card: str) -> dict:
     del cpu_model, card_model, g_cpu, g_card
     restore_shape_sets(saved)
     _release()
+    return res
+
+
+def train_leaves(state) -> dict:
+    """``{name: tensor}`` of every parameter and optimizer leaf of a port
+    train state."""
+    out = {f"params.{k}": p.detach()
+           for k, p in state["params"].named_parameters()}
+    out["opt.step"] = state["opt"]["step"]
+    for key in ("master", "m", "v"):
+        out.update({f"opt.{key}.{k}": t
+                    for k, t in state["opt"][key].items()})
+    return out
+
+
+def ckpt_cli(dev, root: Path, card: str) -> dict:
+    """``repro_torch.launch.train.main`` on the card at its smoke config
+    under the contract of its CPU test (``CLI_ARGS``: 12 steps of 2 x 32
+    tokens, a loss every 4, a checkpoint every 6), then ``--steps 6`` and
+    ``--resume --steps 12`` in another directory: the resumed run's
+    losses at steps 8 and 12 must equal the uninterrupted run's, bit for
+    bit."""
+    from repro_torch.launch.train import main as train_main
+    t0 = time.perf_counter()
+    whole = train_main([*CLI_ARGS, "--steps", "12", "--ckpt",
+                        str(root / "cli_whole")])
+    first = train_main([*CLI_ARGS, "--steps", "6", "--ckpt",
+                        str(root / "cli_split")])
+    rest = train_main([*CLI_ARGS, "--steps", "12", "--resume", "--ckpt",
+                       str(root / "cli_split")])
+    out = {"losses": whole, "resumed": first + rest,
+           "seconds": time.perf_counter() - t0}
+    print(f"ckpt cli: {json.dumps(out)} [{card}]")
+    require(len(whole) == 3 and all(np.isfinite(whole)),
+            f"the CLI logged {whole}")
+    require(first == whole[:1] and rest == whole[1:],
+            f"the resumed CLI's losses {first} + {rest} against the "
+            f"uninterrupted run's {whole}")
+    return out
+
+
+def ckpt_phase(dev, card: str) -> dict:
+    """Checkpoint and restart on the card (``repro_torch.ckpt``), with the
+    counters set to 0 just before and read just after: llama3.2-3b at its
+    published width cut to ``CKPT_LAYERS`` of its 28 layers, random
+    weights from seed 0, ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens a step
+    from ``SyntheticSource(seed=1)`` (step ``i``'s batch at step ``i``),
+    AdamW at ``TRAIN_LR``, ``remat="block"``. ``CKPT_STEPS`` steps of the
+    plain train step, uninterrupted; then the same start under the
+    ``Supervisor`` (a checkpoint every ``CKPT_EVERY`` steps, ``CKPT_KEEP``
+    kept, the starting state's before the first step) with a fault raised
+    at step ``CKPT_FAULT_AT``, so that it restores step ``CKPT_EVERY``'s.
+    The checkpoints go to a fresh temporary directory on local disk, which
+    must have room for three of them first, and which is removed after.
+    Held: one restart, and every parameter and optimizer leaf bit-equal to
+    the uninterrupted run's (K4b on its tensor-core route sums in a fixed
+    order: no atomics). Prints the checkpoint's bytes, the seconds and
+    GB/s of the host copy on the train thread, of the write and of the
+    load, and the free disk space. Then the training CLI (``ckpt_cli``)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.ckpt import Supervisor
+    from repro_torch.core.config import (OptimizerConfig, ParallelConfig,
+                                         ShapeConfig)
+    from repro_torch.data import SyntheticSource
+    from repro_torch.kernels import attention as A
+    from repro_torch.kernels import partition as K
+    from repro_torch.training import make_train_step
+
+    cfg = dataclasses.replace(serve_config(SERVE_ARCH),
+                              num_layers=CKPT_LAYERS)
+    shape = ShapeConfig("chip_ckpt", TRAIN_SEQ, TRAIN_BATCH, "train")
+    source = SyntheticSource(cfg, shape, seed=1)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in source.batch(i).items()}
+               for i in range(CKPT_STEPS)]
+    step = make_train_step(cfg, shape, OptimizerConfig(
+        lr=TRAIN_LR, warmup_steps=0), ParallelConfig(remat="block"),
+        total_steps=CKPT_STEPS)
+    before = {k: set(v) for k, v in A.SHAPES.items()}
+    A.reset_launches()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    whole = _fresh_state(cfg, dev)
+    for i in range(CKPT_STEPS):
+        whole, _ = step(whole, batches[i])
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in train_leaves(whole).values())
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        free = shutil.disk_usage(root).free
+        print(f"ckpt: a checkpoint of {CKPT_LAYERS} layers takes {nbytes} "
+              f"B; {free} B free on the disk of {root} [{card}]")
+        require(free >= 3 * nbytes, f"{free} B free under {root}, less "
+                f"than three checkpoints of {nbytes} B")
+        armed = {"on": True}
+
+        def fault(i):
+            if i == CKPT_FAULT_AT and armed["on"]:
+                armed["on"] = False
+                raise RuntimeError("simulated node failure")
+
+        sup = Supervisor(step, lambda i: batches[i], str(root / "sup"),
+                         ckpt_every=CKPT_EVERY, keep=CKPT_KEEP)
+        t0 = time.perf_counter()
+        state, final = sup.run(_fresh_state(cfg, dev), CKPT_STEPS,
+                               fault_hook=fault)
+        torch.cuda.synchronize()
+        sup_s = time.perf_counter() - t0
+        kept = sorted(p.name for p in (root / "sup").iterdir())
+        require(final == CKPT_STEPS and sup.restarts == 1,
+                f"the supervised run ended at step {final} after "
+                f"{sup.restarts} restarts")
+        require(kept == [f"step_{s:09d}" for s in
+                         (CKPT_STEPS - CKPT_EVERY, CKPT_STEPS)],
+                f"checkpoints kept: {kept}")
+        got, want = train_leaves(state), train_leaves(whole)
+        differ = [k for k in want if not bits_equal(got[k], want[k])]
+        require(not differ, f"the restored run differs from the "
+                f"uninterrupted one in {len(differ)} leaves: {differ[:8]}")
+        n_leaves = len(want)
+        # K4 twice an attention layer a step (forward and recompute), K4b
+        # once: the uninterrupted steps, and the supervised ones with the
+        # steps from the restored checkpoint to the fault run again
+        n = 2 * CKPT_STEPS + CKPT_FAULT_AT - CKPT_EVERY
+        launches = {**A.LAUNCHES, **K.LAUNCHES}
+        want_launches = {"flash_attention": 2 * CKPT_LAYERS * n,
+                         "flash_attention_bwd": CKPT_LAYERS * n,
+                         "decode_attention": 0, "partition_scatter": 0,
+                         "partition_histogram": 0, "fused_probe": 0}
+        require(launches == want_launches, f"checkpoint phase launches "
+                f"{launches} for {n} steps, expected {want_launches}")
+        del state, whole, got, want
+        _release()
+        cli = ckpt_cli(dev, root, card)
+        launches = {**A.LAUNCHES, **K.LAUNCHES}
+        cli["launches"] = {k: v - want_launches[k]
+                           for k, v in launches.items()}
+        require(cli["launches"]["flash_attention"] > 0
+                and cli["launches"]["flash_attention_bwd"] > 0,
+                f"the CLI launched {cli['launches']}")
+    finally:
+        shutil.rmtree(root)
+    saves = sup.checkpointer.stats
+    gb = nbytes / 1e9
+    res = {"layers": CKPT_LAYERS, "checkpoint_bytes": nbytes,
+           "free_disk_bytes": free, "uninterrupted_s": whole_s,
+           "supervised_s": sup_s, "restarts": sup.restarts,
+           "step_ms": [x * 1e3 for x in sup.step_times],
+           "saves": [{"step": r["step"], "copy_s": r["copy_s"],
+                      "copy_gb_per_s": gb / r["copy_s"],
+                      "write_s": r["write_s"],
+                      "write_gb_per_s": gb / r["write_s"]} for r in saves],
+           "load_s": sup.restore_seconds,
+           "load_gb_per_s": [gb / x for x in sup.restore_seconds],
+           "leaves_bit_equal": n_leaves,
+           "launches": launches, "cli": cli,
+           "shapes": {k: A.SHAPES[k] - before[k] for k in A.SHAPES}}
+    shown = {k: v for k, v in res.items() if k not in ("shapes", "cli")}
+    print(f"ckpt_train_llama3_2_3b: {json.dumps(shown)} [{card}]")
     return res
 
 
@@ -4570,6 +4820,7 @@ def main() -> int:
             f"needs exactly one visible card, sees {torch.cuda.device_count()}"
             " (set CUDA_VISIBLE_DEVICES)")
     dev = torch.device("cuda")
+    started = time.perf_counter()
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -4760,6 +5011,13 @@ def main() -> int:
     print_kernel_rows(rows[-1:], card)
     seconds["train_kernel_checks"] = time.perf_counter() - t0
 
+    # checkpoint and restart, and the training CLI: after the train phases
+    t0 = time.perf_counter()
+    ckpt = ckpt_phase(dev, card)
+    seconds["ckpt_train_llama3_2_3b"] = time.perf_counter() - t0
+    print(f"phase ckpt_train_llama3_2_3b: "
+          f"{seconds['ckpt_train_llama3_2_3b']:.2f} s")
+
     # the planner, a planned train step and data parallelism: after the
     # train phases, before the recurrent ones
     t0 = time.perf_counter()
@@ -4793,11 +5051,12 @@ def main() -> int:
         held[k] |= train_shapes[k]
     new = {k: set().union(dp["shapes"].get(k, set()),
                           planned["shapes"].get(k, set()),
+                          ckpt["shapes"].get(k, set()),
                           *(ph["shapes"].get(k, set())
                             for ph in tp_phases.values()))
            - held.get(k, set()) for k in shape_sets()}
-    print(f"main-path kernel shapes of the planned, data-parallel, tensor-"
-          f"parallel and ZeRO-3 phases: "
+    print(f"main-path kernel shapes of the checkpoint, planned, data-"
+          f"parallel, tensor-parallel and ZeRO-3 phases: "
           f"{ {k: sorted(v) for k, v in new.items()} }")
     new_err = hold_late_shapes(dev, gen, new)
     for r in rows:
@@ -4869,7 +5128,7 @@ def main() -> int:
         serve["launches"], granite["launches"], fronts["launches"]] + [
         r["launches"] for r in recurrent.values()] + [
         t["launches"] for t in train.values()] + [
-        planned["launches"], dp["launches"]] + [
+        ckpt["launches"], planned["launches"], dp["launches"]] + [
         ph["launches"] for ph in tp_phases.values()] + [
         ph["launches"] for ph in par.values()]
     for r in rows:
@@ -4879,6 +5138,8 @@ def main() -> int:
             r.pop(extra, None)
     print(json.dumps({"kernels": rows}))
     print(f"phase seconds: {json.dumps(seconds)}")
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s from the "
+          f"build's start to this line")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

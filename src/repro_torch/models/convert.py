@@ -6,7 +6,8 @@ key)[0]), cfg, device)`` gives the port's ``LM`` with the reference's
 weights, so both packages can be run on the same model;
 ``params_to_numpy(model, cfg)`` is its inverse, and also restacks any
 mapping keyed by the port's parameter names (gradients, the optimizer's
-``master``, ``m`` and ``v``). The reference stacks each pattern position's
+``master``, ``m`` and ``v``); ``opt_state_from_numpy`` carries the
+reference's optimizer state across the same way. The reference stacks each pattern position's
 leaves over the repeats (``params["blocks"][p][...]`` has a leading
 ``repeats`` axis); layer ``r * P + p`` is row ``r`` of position ``p``.
 
@@ -55,6 +56,21 @@ def _flatten(tree, prefix: str, out: dict) -> None:
             out[f"{prefix}{key}"] = val
 
 
+def _unstack(tree: dict) -> dict:
+    """``{port parameter name: array}`` of a reference-layout tree (row
+    ``r`` of position ``p`` of ``blocks`` is layer ``r * P + p``)."""
+    flat: dict = {}
+    _flatten({k: v for k, v in tree.items() if k != "blocks"}, "", flat)
+    period = len(tree["blocks"])
+    for p, stacked in enumerate(tree["blocks"]):
+        leaves: dict = {}
+        _flatten(stacked, "", leaves)
+        for name, arr in leaves.items():
+            for r in range(arr.shape[0]):
+                flat[f"layers.{r * period + p}.{name}"] = arr[r]
+    return flat
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> LM:
     """The port's model holding the weights of a reference parameter tree
     whose leaves are numpy arrays (bfloat16 leaves as ``ml_dtypes``
@@ -63,15 +79,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> LM:
     such as Mamba's ``a_log`` or sLSTM's ``r_gates``, stay fp32). Raises if
     a leaf is missing, left over or of another shape or dtype."""
     dev = resolve_device(device)
-    flat: dict[str, np.ndarray] = {}
-    _flatten({k: v for k, v in tree.items() if k != "blocks"}, "", flat)
-    period = len(tree["blocks"])
-    for p, stacked in enumerate(tree["blocks"]):
-        leaves: dict[str, np.ndarray] = {}
-        _flatten(stacked, "", leaves)
-        for name, arr in leaves.items():
-            for r in range(arr.shape[0]):
-                flat[f"layers.{r * period + p}.{name}"] = arr[r]
+    flat = _unstack(tree)
     model = LM(cfg, None, torch.device("meta"))
     want = dict(model.named_parameters())
     if set(flat) != set(want):
@@ -90,6 +98,28 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> LM:
         state[name] = torch.nn.Parameter(t, requires_grad=False)
     model.load_state_dict(state, assign=True)
     return model
+
+
+def opt_state_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """The port's optimizer state (``training.init_opt_state``'s layout:
+    ``step``, and ``master``, ``m`` and ``v`` keyed by the port's parameter
+    names) of the reference's, whose leaves are numpy arrays. Raises if a
+    leaf is missing, left over or of another shape than the parameter's."""
+    dev = resolve_device(device)
+    shapes = {k: s for k, (s, _) in _meta_leaves(cfg).items()}
+    out = {"step": _tensor(tree["step"], dev)}
+    for key in ("master", "m", "v"):
+        flat = _unstack(tree[key])
+        if set(flat) != set(shapes):
+            raise ValueError(f"{key}: trees differ: missing "
+                             f"{sorted(set(shapes) - set(flat))}, left over "
+                             f"{sorted(set(flat) - set(shapes))}")
+        for name, arr in flat.items():
+            if tuple(arr.shape) != shapes[name].shape:
+                raise ValueError(f"{key}.{name}: shape {arr.shape}, "
+                                 f"expected {shapes[name].shape}")
+        out[key] = {name: _tensor(flat[name], dev) for name in shapes}
+    return out
 
 
 def _array(t: torch.Tensor) -> np.ndarray:

@@ -379,13 +379,28 @@ def _last_row(h: torch.Tensor, plan) -> torch.Tensor:
     return gather_dim(last, 1, plan.seq.group)[:, -1:]
 
 
-def prefill_step(model: LM, state: dict, inputs: dict, ssm_chunk: int = 128):
+def prefill_step(model: LM, state: dict, inputs: dict, ssm_chunk: int = 128,
+                 lengths: torch.Tensor | None = None):
     """Process whole prompts (``forward``'s inputs) at positions
     ``[0, S')``, fill every layer's state, and return ``(fp32 logits of the
     last position (B, 1, V_padded), state)`` with every row at position
     ``S'``. ``ssm_chunk`` is the Mamba chunk; the mLSTM keeps its own 256,
     as in the reference. Every attention layer runs K4, and every MoE
-    layer's dispatch K2."""
+    layer's dispatch K2.
+
+    ``lengths`` (``(B,)``, or ``None``): each row's real length in a batch
+    of prompts padded to ``S'`` (the serving engine's). Each recurrent
+    block (Mamba, mLSTM, sLSTM) then leaves row ``b``'s state unchanged at
+    every position from ``lengths[b] - 1`` on (the blocks' ``stop``), and
+    the row is left at position ``lengths[b] - 1`` (0 for an empty row):
+    the decode step that follows feeds the row's last real token once,
+    which rewrites an attention layer's cache slot there and steps a
+    recurrent state that has taken in exactly the tokens before it. The
+    returned logits are then those of position ``S' - 1``, not the rows'.
+    A recurrent block sees the whole sequence (it gathers a sequence
+    split), so ``stop`` counts positions of the whole sequence on every
+    rank; under an inner split each rank masks its own block of features.
+    MoE layers still route the pad tokens."""
     cfg = model.cfg
     plan = plan_for(cfg)
     split = _cache_split(state, plan)
@@ -397,6 +412,10 @@ def prefill_step(model: LM, state: dict, inputs: dict, ssm_chunk: int = 128):
     positions = _positions(b, s, h.device)
     if plan is not None:
         positions = plan.local_positions(positions)
+    stop = None
+    if lengths is not None:
+        stop = (torch.as_tensor(lengths, device=h.device).long() - 1) \
+            .clamp(min=0)
     layers = []
     for layer, st in zip(model.layers, state["layers"]):
         normed = rmsnorm(layer.norm1, h, cfg.norm_eps)
@@ -409,15 +428,16 @@ def prefill_step(model: LM, state: dict, inputs: dict, ssm_chunk: int = 128):
                 else {}
             out, st = _RECURRENT[layer.kind](layer.block, normed, cfg,
                                              return_state=True, plan=plan,
-                                             **kw)
+                                             stop=stop, **kw)
             st = _relayout(layer.kind, st, cfg, mine, inner)
         layers.append(st)
         h, _ = _ffn(layer, h + out, cfg, plan)
     h = rmsnorm(model.final_norm, h, cfg.norm_eps)
     logits = unembed(model.embed, _last_row(h, plan), cfg.vocab_size,
                      plan).float()
-    out = {"layers": layers,
-           "pos": torch.full((b,), s, dtype=torch.int32, device=h.device)}
+    pos = torch.full((b,), s, dtype=torch.int32, device=h.device) \
+        if stop is None else stop.to(torch.int32)
+    out = {"layers": layers, "pos": pos}
     for key in ("cache_axes", "inner_axes"):
         if key in state:
             out[key] = state[key]

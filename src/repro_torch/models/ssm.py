@@ -114,6 +114,27 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.transpose(1, 2), new_state
 
 
+def active_positions(stop: torch.Tensor, s: int) -> torch.Tensor:
+    """``(B, S)`` bool: position ``t`` of row ``b`` lies before
+    ``stop[b]``."""
+    return torch.arange(s, device=stop.device)[None, :] < stop[:, None]
+
+
+def conv_tail(u_raw: torch.Tensor, k: int, stop: torch.Tensor,
+              init: torch.Tensor | None = None) -> torch.Tensor:
+    """The causal conv's state of each row after it has taken in positions
+    ``[0, stop[b])`` of ``u_raw (B, S, Din)`` only: the row's ``k - 1``
+    inputs before ``stop[b]``, gathered row by row, with ``init`` (the
+    state before position 0; zeros by default) in front of position 0."""
+    b, _, d = u_raw.shape
+    if init is None:
+        init = u_raw.new_zeros((b, k - 1, d))
+    padded = torch.cat([init.to(u_raw.dtype), u_raw], dim=1)
+    rows = stop.to(device=u_raw.device, dtype=torch.long)[:, None] \
+        + torch.arange(k - 1, device=u_raw.device)
+    return padded.gather(1, rows[..., None].expand(b, k - 1, d))
+
+
 def _inner_group(plan):
     """The process group of the inner split, or ``None``."""
     return plan.inner.group if plan is not None and plan.inner else None
@@ -203,11 +224,18 @@ def _leave(out: torch.Tensor, plan):
 
 
 def mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, chunk: int = 128,
-          return_state: bool = False, plan=None):
+          return_state: bool = False, plan=None, stop=None):
     """Train/prefill forward. x: ``(B, S, D)`` -> ``(B, S, D)`` [, the
     final ``{"h", "conv"}`` state]. ``S`` must be a multiple of the chunk
     (or at most one chunk), as in the reference. Under a ``plan``, x is
-    the residual as the rank holds it (the module docstring)."""
+    the residual as the rank holds it (the module docstring).
+
+    ``stop`` (``(B,)`` positions of the whole sequence, or ``None``): row
+    ``b``'s state takes in positions ``[0, stop[b])`` only. From
+    ``stop[b]`` on its step size is 0, so ``a_bar = 1`` and ``bx = 0`` and
+    ``h`` passes through unchanged, and the conv state is the row's
+    ``K - 1`` inputs before ``stop[b]`` (``conv_tail``). The outputs at
+    those positions are not the model's."""
     x = _enter(x, plan)
     group = _inner_group(plan)
     b, s, _ = x.shape
@@ -217,6 +245,8 @@ def mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, chunk: int = 128,
     u, conv_state = _causal_conv(u, p.conv_w, p.conv_b)
     u = F.silu(u.float()).to(x.dtype)
     dt, b_ssm, c_ssm = _selective(p, u, cfg, group)
+    if stop is not None:
+        dt = torch.where(active_positions(stop, s)[..., None], dt, 0.0)
 
     chunk = min(chunk, s)
     assert s % chunk == 0, (s, chunk)
@@ -237,7 +267,10 @@ def mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, chunk: int = 128,
     out = _leave(y @ _weight(p, "out_proj", plan), plan)
     if return_state:
         k = p.conv_w.shape[0]
-        tail = u_raw[:, -(k - 1):] if k > 1 else conv_state
+        if stop is not None:
+            tail = conv_tail(u_raw, k, stop)
+        else:
+            tail = u_raw[:, -(k - 1):] if k > 1 else conv_state
         return out, {"h": h, "conv": tail.to(conv_state.dtype)}
     return out
 

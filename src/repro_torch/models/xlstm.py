@@ -53,7 +53,14 @@ from typing import NamedTuple
 
 from repro_torch.core.config import ModelConfig, XLSTMConfig
 from repro_torch.models.layers import frozen, init_normal
-from repro_torch.models.ssm import _causal_conv, _enter, _leave, _weight
+from repro_torch.models.ssm import (
+    _causal_conv,
+    _enter,
+    _leave,
+    _weight,
+    active_positions,
+    conv_tail,
+)
 from repro_torch.parallel import collectives as C
 
 
@@ -203,18 +210,25 @@ def init_mlstm(cfg: ModelConfig, generator, device) -> MLSTM:
     return MLSTM(cfg, generator, device)
 
 
+# the input gate's log at a position a row's state does not take in: a
+# large finite "keep" (-inf would make NaN of the chunk's cummax and exp)
+KEEP_LOG_I = -1e30
+
+
 def _mlstm_qkv_gates(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
-                     conv_state=None, plan=None):
+                     conv_state=None, plan=None, stop=None):
     """Shared pre-processing. x: ``(B, S, D)`` -> q, k ``(B, S, H, dk)``
     (k scaled by ``dk ** -0.5``), v ``(B, S, heads, dv)`` (the rank's value
     block, ``_values``), log_i, log_f ``(B, S, H)`` fp32, z, and the conv
-    state."""
+    state. With ``stop`` (``mlstm``), the gates keep the state from each
+    row's ``stop`` on (``log_i = KEEP_LOG_I``, ``log_f = 0``) and the conv
+    state is the row's inputs before it (``conv_tail``)."""
     _, h, _, dk, _ = _dims(cfg)
     vals = _values(cfg, plan)
     group = plan.inner.group if plan is not None and plan.inner else None
     x = _enter(x, plan)
     b, s, _ = x.shape
-    u, z, c, conv_state = _up_conv(p, x, conv_state, plan)
+    u, z, c, conv_new = _up_conv(p, x, conv_state, plan)
     q = _summed(c @ p.wq, group).view(b, s, h, dk)
     k = _summed(c @ p.wk, group).view(b, s, h, dk)
     v = u @ p.wv
@@ -223,21 +237,33 @@ def _mlstm_qkv_gates(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
     v = v.view(b, s, vals.heads, vals.dv)
     gates = _summed(c.float() @ p.w_if, group, p.b_if)
     log_i, raw_f = gates.view(b, s, 2, h).unbind(2)
-    return q, k * dk ** -0.5, v, log_i, F.logsigmoid(raw_f), z, conv_state
+    log_f = F.logsigmoid(raw_f)
+    if stop is not None:
+        active = active_positions(stop, s)[..., None]
+        log_i = torch.where(active, log_i, KEEP_LOG_I)
+        log_f = torch.where(active, log_f, 0.0)
+        conv_new = conv_tail(u, p.conv_w.shape[0], stop, conv_state)
+    return q, k * dk ** -0.5, v, log_i, log_f, z, conv_new
 
 
 def mlstm(p: MLSTM, x: torch.Tensor, cfg: ModelConfig, chunk: int = 256,
-          return_state: bool = False, plan=None):
+          return_state: bool = False, plan=None, stop=None):
     """Chunkwise-parallel mLSTM forward. x: ``(B, S, D)`` -> ``(B, S, D)``
     [, the final ``{"c", "n", "m", "conv"}`` state]. ``S`` must be a
     multiple of the chunk (or at most one chunk), as in the reference.
     Under a ``plan`` that splits ``inner``, ``C`` and the output are the
-    rank's value block's (``hs``: its heads), ``n`` and ``m`` whole."""
+    rank's value block's (``hs``: its heads), ``n`` and ``m`` whole.
+
+    ``stop`` (``(B,)`` positions of the whole sequence, or ``None``): row
+    ``b``'s state takes in positions ``[0, stop[b])`` only. From there on
+    the input gate is "keep" and the forget gate 1 (``log_f = 0``), so
+    ``C``, ``n`` and the stabilizer ``m`` carry through unchanged; the
+    outputs at those positions are not the model's."""
     _, h, _, dk, _ = _dims(cfg)
     vals = _values(cfg, plan)
     hs = vals.head_slice
-    q, k, v, log_i, log_f, z, conv_tail = _mlstm_qkv_gates(
-        p, x, cfg, plan=plan)
+    q, k, v, log_i, log_f, z, conv_last = _mlstm_qkv_gates(
+        p, x, cfg, plan=plan, stop=stop)
     b, s = q.shape[:2]
 
     chunk = min(chunk, s)
@@ -281,7 +307,7 @@ def mlstm(p: MLSTM, x: torch.Tensor, cfg: ModelConfig, chunk: int = 256,
 
     out = _down(p, h_all, z, cfg, plan)
     if return_state:
-        return out, {"c": c_mat, "n": n_vec, "m": m, "conv": conv_tail}
+        return out, {"c": c_mat, "n": n_vec, "m": m, "conv": conv_last}
     return out
 
 
@@ -403,10 +429,13 @@ def init_slstm(cfg: ModelConfig, generator, device) -> SLSTM:
 
 
 def _slstm_scan(p: SLSTM, gates_x: torch.Tensor, h: int, dv: int,
-                state: dict):
+                state: dict, stop=None):
     """The recurrence over ``gates_x (B, S, 4 d_in)``, the input's part of
     the gates (fp32), from ``state``. Returns the hidden states
     ``(B, S, d_in)`` and the final ``(c, n, h, m)``, each ``(B, d_in)``.
+    With ``stop`` (``(B,)``), row ``b`` keeps its previous ``(c, n, h, m)``
+    at every position from ``stop[b]`` on (``torch.where`` after the
+    step's arithmetic, which is left as it is).
 
     Inside the loop every tensor is laid out head-major, ``(H, B, dv)``, so
     that the step's recurrent product is one ``baddbmm`` of the heads'
@@ -421,6 +450,9 @@ def _slstm_scan(p: SLSTM, gates_x: torch.Tensor, h: int, dv: int,
     c, n, hid, m = (heads(state[k]) for k in ("c", "n", "h", "m"))
     r_step = p.step_weights()
     grad = torch.is_grad_enabled()
+    # each position's rows that take it in, as (1, B, 1) against (H, B, dv)
+    keep = None if stop is None \
+        else active_positions(stop, s).T[:, None, :, None]
     # autograd refuses ``out=``: with gradients on the states are stacked
     hs = [] if grad else gx.new_empty((s, h, b, dv))
     for t, gx_t in enumerate(gx.unbind(0)):
@@ -430,14 +462,19 @@ def _slstm_scan(p: SLSTM, gates_x: torch.Tensor, h: int, dv: int,
         m_new = torch.maximum(lfm, li)
         i_sc = torch.exp(li - m_new)
         f_sc = torch.exp(lfm - m_new)
-        c = torch.addcmul(i_sc * torch.tanh(zt), f_sc, c)
-        n = torch.maximum(torch.addcmul(i_sc, f_sc, n), torch.exp(-m_new))
+        c_new = torch.addcmul(i_sc * torch.tanh(zt), f_sc, c)
+        n_new = torch.maximum(torch.addcmul(i_sc, f_sc, n),
+                              torch.exp(-m_new))
         if grad:
-            hid = torch.sigmoid(ot) * (c / n)
-            hs.append(hid)
+            h_new = torch.sigmoid(ot) * (c_new / n_new)
+            hs.append(h_new)
         else:
-            hid = torch.mul(torch.sigmoid(ot), c / n, out=hs[t])
-        m = m_new
+            h_new = torch.mul(torch.sigmoid(ot), c_new / n_new, out=hs[t])
+        if keep is None:
+            c, n, hid, m = c_new, n_new, h_new, m_new
+        else:
+            c, n, hid, m = (torch.where(keep[t], new, old) for new, old in (
+                (c_new, c), (n_new, n), (h_new, hid), (m_new, m)))
 
     def flat(t):                           # (H, B, dv) -> (B, d_in)
         return t.transpose(0, 1).reshape(b, h * dv)
@@ -468,17 +505,19 @@ def init_slstm_state(cfg: ModelConfig, batch: int, device,
 
 
 def _slstm_core(p: SLSTM, x: torch.Tensor, cfg: ModelConfig, state: dict,
-                plan=None):
+                plan=None, stop=None):
     _, h, _, _, dv = _dims(cfg)
     vals = _values(cfg, plan)
     group = plan.inner.group if plan is not None and plan.inner else None
     x = _enter(x, plan)
-    _, z, c, conv_state = _up_conv(p, x, state["conv"], plan)
+    u, z, c, conv_state = _up_conv(p, x, state["conv"], plan)
+    if stop is not None:
+        conv_state = conv_tail(u, p.conv_w.shape[0], stop, state["conv"])
     if group is None:
         gates_x = (c @ p.w_gates).float() + p.b_gates
     else:
         gates_x = _summed((c @ p.w_gates).float(), group, p.b_gates)
-    hs, carry = _slstm_scan(p, gates_x, h, dv, state)
+    hs, carry = _slstm_scan(p, gates_x, h, dv, state, stop)
     new_state = dict(zip(("c", "n", "h", "m"), carry), conv=conv_state)
     mine = hs[..., vals.lo:vals.lo + vals.n]
     out = _down(p, mine.view(*hs.shape[:2], vals.heads, vals.dv)
@@ -487,11 +526,14 @@ def _slstm_core(p: SLSTM, x: torch.Tensor, cfg: ModelConfig, state: dict,
 
 
 def slstm(p: SLSTM, x: torch.Tensor, cfg: ModelConfig, chunk: int = 0,
-          return_state: bool = False, plan=None):
+          return_state: bool = False, plan=None, stop=None):
     """sLSTM forward from the initial state. x: ``(B, S, D)``; ``chunk``
-    is taken and ignored, as in the reference."""
+    is taken and ignored, as in the reference. ``stop`` (``(B,)``, or
+    ``None``): row ``b``'s state takes in positions ``[0, stop[b])`` only
+    and is kept from there on (``_slstm_scan``); its conv state is the
+    row's inputs before ``stop[b]``."""
     out, state = _slstm_core(p, x, cfg, init_slstm_state(
-        cfg, x.shape[0], x.device, plan), plan)
+        cfg, x.shape[0], x.device, plan), plan, stop)
     return (out, state) if return_state else out
 
 

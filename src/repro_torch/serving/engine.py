@@ -16,12 +16,17 @@ Prefill and decode run under ``torch.inference_mode()``, so a model whose
 parameters ask for gradients (after training) records no graph.
 
 Recurrent layers (Mamba, mLSTM, sLSTM) keep their states in the same
-decode state. The padded prefill is the reference's contract and the port
-keeps it: a recurrent state takes in every pad token and then the last
-real token a second time, so for such models the engine's tokens are not
-the greedy continuation of the prompt (ROADMAP Queue 3). A model with a
-stub frontend is refused when the engine is built: the engine feeds token
-ids only (the reference fails at its first prefill).
+decode state. The prompts are padded to ``max_seq`` with token 0, and the
+engine passes each row's real length to ``prefill_step`` (``lengths``):
+a recurrent state takes in the row's tokens before its last real one and
+none of the pads, an attention cache masks the pads, and every row is
+left at its last real token, which the next decode step feeds once. So
+every model's tokens are the greedy continuation of its prompt. The
+reference's engine prefills without lengths and rewinds the positions
+alone, so its recurrent states take in every pad and the last real token
+twice. A model with a stub frontend is refused when the engine is built:
+the engine feeds token ids only (the reference fails at its first
+prefill).
 """
 
 from __future__ import annotations
@@ -183,19 +188,18 @@ class ServingEngine:
             prompt[i, : len(toks)] = toks
             lengths[i] = len(toks)
         # no autograd graph, whether or not the model's parameters ask for
-        # gradients (a trained model serves as a frozen one)
+        # gradients (a trained model serves as a frozen one). With the
+        # lengths, prefill leaves each row at its last *real* token, which
+        # the next decode step feeds: it rewrites that slot's K/V, steps
+        # the recurrent states (which took in no pad) and yields the true
+        # next-token logits (the padded-position prefill logits are garbage)
         with torch.inference_mode():
             self.state = init_decode_state(self.cfg, b, self.max_seq,
                                            self.device)
             _, self.state = self._prefill(
                 self.model, self.state,
-                {"tokens": torch.from_numpy(prompt).to(self.device)})
-        # prefill advanced every row to max_seq (padded); rewind each row to
-        # its last *real* token, which the next decode step re-feeds — it
-        # rewrites that slot's K/V and yields the true next-token logits
-        # (the padded-position prefill logits are garbage)
-        self.state["pos"] = torch.from_numpy(
-            np.maximum(lengths - 1, 0)).to(self.device)
+                {"tokens": torch.from_numpy(prompt).to(self.device)},
+                lengths=torch.from_numpy(lengths).to(self.device))
 
     def _step(self) -> list[Request]:
         if all(r is None for r in self.active):

@@ -574,3 +574,161 @@ def inner_rank(rank, world, cases, arrays, chunk):
                 bkind, state1, cfg, inner, None).items()}
         out[case["id"]] = res
     return out
+
+
+# -- checkpoints under ranks --------------------------------------------------
+
+
+def ckpt_leaves(state, cfg, rules=None) -> dict:
+    """Every leaf of a train state (parameters, ``opt.step``, ``master``,
+    ``m`` and ``v``), gathered whole under ``rules``, as numpy."""
+    from repro_torch.models.convert import gather_named
+
+    def whole(named):
+        named = dict(named)
+        if rules is not None:
+            named = gather_named(named, cfg, rules)
+        return {k: v.detach().numpy().copy() for k, v in named.items()}
+
+    out = {f"params.{k}": v for k, v in
+           whole(state["params"].named_parameters()).items()}
+    out["opt.step"] = state["opt"]["step"].numpy().copy()
+    for key in ("master", "m", "v"):
+        out.update({f"opt.{key}.{k}": v
+                    for k, v in whole(state["opt"][key]).items()})
+    return out
+
+
+def ckpt_save_rank(rank, world, case, ckpt_dir, steps, fault_at, every):
+    """The case's train step on the rank's shards of seed 0's weights,
+    over batches ``0..steps-1`` of ``SyntheticSource(seed=3)``: once
+    uninterrupted, and once from seed 0 again under a ``Supervisor`` that
+    checkpoints into ``ckpt_dir`` every ``every`` steps, with a fault
+    raised on this rank (on every rank alike) at step ``fault_at``. Both
+    final states gathered whole, the restarts and the final step."""
+    from repro_torch.ckpt import Supervisor
+    from repro_torch.core.config import OptimizerConfig
+    from repro_torch.data import SyntheticSource
+    from repro_torch.models.convert import shard_params
+    from repro_torch.training import init_train_state, make_train_step
+    cfg, shape, pc, rules = case_rules(case)
+    source = SyntheticSource(cfg, shape, seed=3)
+    step = make_train_step(cfg, shape, OptimizerConfig(), pc,
+                           q_chunk=Q_CHUNK, ssm_chunk=SSM_CHUNK, rules=rules)
+
+    def fresh():
+        return init_train_state(cfg, shard_params(model_of(cfg)["params"],
+                                                  rules))
+
+    state = fresh()
+    for i in range(steps):
+        state, _ = step(state, source.batch(i))
+    uninterrupted = ckpt_leaves(state, cfg, rules)
+    armed = {"on": True}
+
+    def fault(i):
+        if i == fault_at and armed["on"]:
+            armed["on"] = False
+            raise RuntimeError("simulated node failure")
+
+    sup = Supervisor(step, source.batch, ckpt_dir, ckpt_every=every,
+                     rules=rules)
+    state, final = sup.run(fresh(), steps, fault_hook=fault)
+    return {"uninterrupted": uninterrupted,
+            "supervised": ckpt_leaves(state, cfg, rules),
+            "restarts": sup.restarts, "final": final}
+
+
+def ckpt_restore_rank(rank, world, case, ckpt_dir):
+    """The newest checkpoint in ``ckpt_dir`` restored under the case's
+    rules into the rank's shards of seed 1's weights, then one step of
+    the case's train step on the next batch: the restored and the stepped
+    state gathered whole, the loss and the checkpoint's ``extra``."""
+    from repro_torch.ckpt import load_checkpoint
+    from repro_torch.core.config import OptimizerConfig
+    from repro_torch.data import SyntheticSource
+    from repro_torch.models import init_lm
+    from repro_torch.models.convert import shard_params
+    from repro_torch.training import init_train_state, make_train_step
+    cfg, shape, pc, rules = case_rules(case)
+    full = init_lm(cfg, torch.Generator().manual_seed(1), "cpu")
+    state = init_train_state(cfg, shard_params(full, rules))
+    state, extra = load_checkpoint(ckpt_dir, like=state, rules=rules)
+    restored = ckpt_leaves(state, cfg, rules)
+    step = make_train_step(cfg, shape, OptimizerConfig(), pc,
+                           q_chunk=Q_CHUNK, ssm_chunk=SSM_CHUNK, rules=rules)
+    state, metrics = step(state, SyntheticSource(cfg, shape, seed=3)
+                          .batch(extra["step"]))
+    return {"restored": restored, "stepped": ckpt_leaves(state, cfg, rules),
+            "loss": float(metrics["loss"]), "extra": extra}
+
+
+# -- the padded prefill with each row's length --------------------------------
+
+PREFILL_LENGTHS = (SEQ, 13, 1, 20)
+
+
+def lengths_inputs(cfg, lengths=PREFILL_LENGTHS):
+    """Prompts of ``lengths`` tokens from seed 5 padded to ``SEQ`` with
+    token 0, and each row's last real token ``(B, 1)``."""
+    rng = np.random.default_rng(5)
+    tokens = np.zeros((len(lengths), SEQ), np.int32)
+    for i, n in enumerate(lengths):
+        tokens[i, :n] = rng.integers(1, cfg.vocab_size, n)
+    last = np.array([[tokens[i, n - 1]] for i, n in enumerate(lengths)],
+                    np.int32)
+    return tokens, last
+
+
+def recurrent_states(state, cfg, plan=None) -> dict:
+    """``{"layer.key": array}`` of every recurrent layer's state, whole
+    (gathered over the inner split the state was made under: a
+    collective under a plan)."""
+    from repro_torch.core.config import BlockKind
+    from repro_torch.models import lm as tlm
+    inner = tlm._inner_split(state, plan)
+    out = {}
+    for i, st in enumerate(state["layers"]):
+        kind = cfg.block_kind(i)
+        if kind == BlockKind.ATTENTION:
+            continue
+        for key, v in tlm._relayout(kind, st, cfg, inner, None).items():
+            out[f"{i}.{key}"] = v.detach().numpy().copy()
+    return out
+
+
+def prefill_lengths_rank(rank, world, cases):
+    """Each case's prefill of ``lengths_inputs``'s padded prompts with
+    their lengths, under the case's prefill rules into a decode state made
+    under its decode rules, then one decode step of each row's last real
+    token under the decode rules: the positions, every recurrent state
+    gathered whole and the decode logits, on the rank's shards of seed 0's
+    weights."""
+    from repro_torch.models import init_lm
+    from repro_torch.models import lm as tlm
+    from repro_torch.models.convert import shard_params
+    from repro_torch.parallel.sharding import use_rules
+    out = {}
+    for case in cases:
+        cfg, _, _, prefill_rules = case_rules(case, "prefill")
+        _, _, _, decode_rules = case_rules(case, "decode")
+        full = init_lm(cfg, torch.Generator().manual_seed(0), "cpu")
+        tokens, last = lengths_inputs(cfg)
+        with torch.no_grad():
+            with use_rules(decode_rules):
+                state = tlm.init_decode_state(cfg, BATCH, MAX_SEQ, "cpu")
+            with use_rules(prefill_rules):
+                model = shard_params(full, prefill_rules)
+                _, state = tlm.prefill_step(
+                    model, state, {"tokens": torch.from_numpy(tokens)},
+                    ssm_chunk=SSM_CHUNK,
+                    lengths=torch.tensor(PREFILL_LENGTHS))
+            with use_rules(decode_rules):
+                plan = tlm.plan_for(cfg)
+                states = recurrent_states(state, cfg, plan)
+                model = shard_params(full, decode_rules)
+                logits, _ = tlm.decode_step(model, state,
+                                            torch.from_numpy(last))
+        out[case["id"]] = {"pos": state["pos"].numpy().copy(),
+                           "states": states, "decode": logits.numpy()}
+    return out

@@ -164,18 +164,46 @@ def _fp32(arch: str, drop_free: bool = False):
         jax.tree.map(np.asarray, params), tcfg, "cpu")
 
 
+def _reference_greedy(jcfg, params, prompts, outputs) -> list[list[int]]:
+    """The reference ``forward``'s argmax at each position where
+    ``outputs[i]`` generated a token after ``prompts[i]``, teacher-forced:
+    one forward over every prompt followed by its output but the last,
+    right-padded (causal, and MoE drop-free: a pad reaches no earlier
+    position). It equals ``outputs`` exactly where every output is the
+    greedy continuation of its prompt."""
+    import jax.numpy as jnp
+    seqs = [list(p) + list(o[:-1]) for p, o in zip(prompts, outputs)]
+    n = max(map(len, seqs))
+    toks = np.zeros((len(seqs), n), np.int32)
+    for i, seq in enumerate(seqs):
+        toks[i, :len(seq)] = seq
+    lg, _ = jlm.forward(params, {"tokens": jnp.asarray(toks)}, jcfg,
+                        remat="none", ssm_chunk=n)
+    top = np.asarray(jnp.argmax(lg[..., :jcfg.vocab_size], axis=-1))
+    return [top[i, len(p) - 1:len(p) - 1 + len(o)].tolist()
+            for i, (p, o) in enumerate(zip(prompts, outputs))]
+
+
 @pytest.mark.parametrize("arch", RECURRENT)
 def test_engine_matches_reference_on_recurrent_models(arch):
-    """Both engines give the same tokens, counters and decisions with the
-    recurrent states in the decode state (three waves, one half full)."""
-    jcfg, params, tcfg, model = _fp32(arch)
+    """With the recurrent states in the decode state (three waves, one
+    half full; every wave re-prefilled padded to ``max_seq`` with each
+    row's length), the port's engine gives every request the greedy
+    continuation of its prompt by the reference's ``forward``, and the
+    reference engine's counters and batching decisions (the reference's
+    engine feeds its recurrent states the pads, so its tokens are not
+    held: ``test_padded_prefill_fault_recurrent_engine_is_not_greedy``).
+    jamba's MoE drop-free, so that only the padding is under test."""
+    jcfg, params, tcfg, model = _fp32(arch, drop_free=True)
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, 100, n).tolist() for n in (11, 5, 17, 3, 6)]
     want = _serve(jeng, jcfg, params, prompts, 3, max_batch=2, max_seq=32)
     got = _serve(teng, tcfg, model, prompts, 3, max_batch=2, max_seq=32,
                  device="cpu")
     assert len(got[0]) == len(prompts)
-    assert got == want
+    assert got[1:] == want[1:]
+    outputs = [got[0][i] for i in range(len(prompts))]
+    assert _reference_greedy(jcfg, params, prompts, outputs) == outputs
 
 
 def _greedy(model, prompt: list[int], new: int) -> list[int]:
@@ -191,20 +219,29 @@ def _greedy(model, prompt: list[int], new: int) -> list[int]:
                                          ("xlstm-1.3b", False),
                                          ("jamba-v0.1-52b", False)])
 def test_padded_prefill_fault_recurrent_engine_is_not_greedy(arch, greedy):
-    """The engine prefills at ``max_seq`` with the prompt padded by token 0,
-    then rewinds to the last real token and feeds it again. An attention
-    cache masks the pads and rewrites the slot, so llama's tokens are the
-    greedy continuation; a recurrent state has taken in every pad and then
-    the last token twice, so xlstm's and jamba's are not (ROADMAP Queue 3:
-    the reference's contract, kept by the port; jamba's MoE drop-free, so
-    that only the padding differs)."""
-    _, _, cfg, model = _fp32(arch, drop_free=True)
+    """Both engines prefill at ``max_seq`` with the prompt padded by token
+    0. The port's passes each row's length, so its recurrent states take
+    in no pad and it decodes the greedy continuation on all three models
+    (its own ``forward``'s and the reference's). The reference's rewinds
+    the positions alone: an attention cache masks the pads, so llama's
+    tokens are greedy (``greedy``), but a recurrent state has taken in
+    every pad and then the last token twice, so xlstm's and jamba's are
+    not (the reference's fault, which the JAX package keeps; jamba's MoE
+    drop-free, so that only the padding differs)."""
+    jcfg, params, cfg, model = _fp32(arch, drop_free=True)
     prompt = np.random.default_rng(3).integers(0, 100, 10).tolist()
     engine = teng.ServingEngine(cfg, model, max_batch=1, max_seq=32,
                                 device="cpu")
     engine.submit(teng.Request(0, list(prompt), max_new_tokens=4))
     got = engine.run(max_steps=64)[0].output
-    assert (got == _greedy(model, prompt, 4)) == greedy
+    assert got == _greedy(model, prompt, 4)
+    assert _reference_greedy(jcfg, params, [prompt], [got]) == [got]
+    ref = jeng.ServingEngine(jcfg, params, max_batch=1, max_seq=32,
+                             slo_ms=LOOSE_SLO_MS)
+    ref.submit(jeng.Request(0, list(prompt), max_new_tokens=4))
+    out = ref.run(max_steps=64)[0].output
+    assert (_reference_greedy(jcfg, params, [prompt], [out]) == [out]) \
+        == greedy
 
 
 @pytest.mark.parametrize("arch", ["internvl2-1b", "musicgen-medium"])
