@@ -424,6 +424,10 @@ TP_MAX_SEQ, TP_DECODE_STEPS, TP_MARGIN = 1024, 16, 0.3
 # its microbatch count the planner's
 PLAN_TRAIN_SHAPE = ("card_b64_s1024", 1024, 64)
 PLAN_TRAIN_STEPS = 2
+# the dry-run phase: the traced peak of the plan_train cell against the
+# peak that phase measured (max_memory_allocated: blocks rounded up to 512
+# bytes, and cuBLAS's workspaces, which the trace does not see)
+DRYRUN_PEAK_RTOL = 0.05
 # the data-parallel phase: granite on DP_RANKS gloo ranks sharing the card,
 # the train phases' batch split over them; one untimed and DP_STEPS timed
 # steps. Held against one rank on the whole batch: loss and grad norm
@@ -571,6 +575,15 @@ def bound_ms(nbytes: float, ops: float = 0.0,
             "operations" if t_ops > t_bytes else "bytes")
 
 
+def work_bound(work: tuple[float, float],
+               ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    """``bound_ms`` of a kernel's ``(FLOPs, bytes)``, as its kernel module
+    gives them (``partition.*_work``, ``attention.*_work``: the one source
+    the dry-run's count reads too)."""
+    flops, nbytes = work
+    return bound_ms(nbytes, flops, ops_per_s)
+
+
 def tensor_core_instructions(libs: dict) -> dict:
     """``{source: {"HMMA": n, "HGMMA": n}}`` from ``cuobjdump -sass`` of each
     built library; empty where the toolkit has no ``cuobjdump``."""
@@ -677,7 +690,7 @@ def check_k1(dev, gen, main_shapes) -> dict:
     ops = device_kernels(lambda: K.partition_histogram(ids, p, False))
     require(len(ops) == 1, f"a K1 call ran {len(ops)} device ops: "
             f"{ops}")
-    b, by = bound_ms(n * 4 + p * 4)
+    b, by = work_bound(K.histogram_work(n, p))
     return {"name": "partition_histogram", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/partition.cu",
             "replaces": "src/repro/kernels/partition.py:35",
@@ -759,7 +772,7 @@ def check_k2(dev, gen, main_shapes) -> dict:
     ops = device_kernels(lambda: K.partition_scatter(rows, ids, p, False))
     require(len(ops) <= 2, f"a K2 call ran {len(ops)} device ops: "
             f"{ops}")
-    b, by = bound_ms(n * 4 + n * 4 + n * 4 + p * 4)
+    b, by = work_bound(K.scatter_work(n, p))
     return {"name": "partition_scatter", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/partition.cu",
             "replaces": "src/repro/kernels/partition.py:136",
@@ -993,7 +1006,7 @@ def check_k3(dev, gen, main_shapes) -> dict:
     second = {"shape": f"N={n2} M={m2} G={g0}",
               "ms": median_ms(lambda: K.fused_probe(*args, g0)),
               "device_ms": device_ms(lambda: K.fused_probe(*args, g0)),
-              "bound_ms": bound_ms(n2 * 12 + m2 * 12 + n2 * 8)[0]}
+              "bound_ms": work_bound(K.fused_probe_work(n2, m2))[0]}
     n, m, g = _largest(main_shapes)
     args = _probe_input(dev, gen, n, m, m - m // 10, False)
     err = max(err, held_exact(K.fused_probe(*args, g),
@@ -1004,7 +1017,7 @@ def check_k3(dev, gen, main_shapes) -> dict:
     # bytes alone: a hash probe reads each probe and build column once and
     # writes group and weight, and needs none of the N*M compares of the
     # one-hot probe the TPU kernel does
-    b, by = bound_ms(n * 12 + m * 12 + n * 8)
+    b, by = work_bound(K.fused_probe_work(n, m))
     return {"name": "fused_probe", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/partition.cu",
             "replaces": "src/repro/kernels/partition.py:75",
@@ -1101,12 +1114,9 @@ def check_k4(dev, gen, main_shapes) -> dict:
     err = max(err, _held_close(A.flash_attention(q, k, v, causal),
                                ref.flash_attention_ref(q, k, v, causal), dt,
                                "K4 differs from its plain version (timed)"))
-    elem = q.element_size()
-    flops = (2.0 if causal else 4.0) * b * h * s * s * hd
-    # q and o with H heads, k and v with K, each moved once
-    bnd, by = bound_ms((2 * b * s * h + 2 * b * s * kh) * hd * elem, flops,
-                       BF16_OPS_PER_S if dt == "torch.bfloat16"
-                       else FP32_OPS_PER_S)
+    bnd, by = work_bound(
+        A.flash_attention_work(b, s, h, kh, hd, q.element_size(), causal),
+        BF16_OPS_PER_S if dt == "torch.bfloat16" else FP32_OPS_PER_S)
     g = h // kh
     qt, kt, vt = (x.transpose(1, 2) for x in (
         q, k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)))
@@ -1202,11 +1212,8 @@ def check_k5(dev, gen, main_shapes, lengths) -> dict:
                                ref.decode_attention_ref(*args), dt,
                                "K5 differs from its plain version (timed)"))
     q, kc, vc, length = args
-    elem = q.element_size()
-    keys = int(sum(lengths))
-    bnd, by = bound_ms(2 * b * h * hd * elem + 4 * b
-                       + 2 * keys * kh * hd * elem,
-                       4.0 * keys * h * hd, BF16_OPS_PER_S)
+    bnd, by = work_bound(A.decode_attention_work(
+        b, h, kh, hd, q.element_size(), int(sum(lengths))), BF16_OPS_PER_S)
     mask = (torch.arange(s, device=dev)[None, :] < length[:, None])
     q4, k4, v4 = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
     m4 = mask[:, None, None, :]
@@ -2596,16 +2603,14 @@ def hold_k4b(dev, gen, shape) -> tuple[float, float]:
 
 
 def _k4b_bound(shape) -> tuple[float, str]:
-    """K4b's bound: its five products (Q K^T recomputed, dO V^T, P^T dO,
-    dS K, dS^T Q; 5 x 2 B H S^2 hd, halved when causal) at the rate of the
-    dtype, or its bytes (q, o, dO read and dq written with H heads, k, v
-    read and dk, dv written with K) at the memory rate."""
+    """K4b's bound (``attention.flash_attention_bwd_work``: its five
+    products at the rate of the dtype, or its bytes at the memory rate)."""
+    from repro_torch.kernels import attention as A
     b, s, h, kh, hd, dt, causal = shape[:7]
     elem = 2 if dt == "torch.bfloat16" else 4
-    flops = 5 * 2.0 * b * h * s * s * hd / (2 if causal else 1)
-    nbytes = (4 * b * s * h + 4 * b * s * kh) * hd * elem
-    return bound_ms(nbytes, flops, BF16_OPS_PER_S if elem == 2
-                    else FP32_OPS_PER_S)
+    return work_bound(A.flash_attention_bwd_work(b, s, h, kh, hd, elem,
+                                                 causal),
+                      BF16_OPS_PER_S if elem == 2 else FP32_OPS_PER_S)
 
 
 def _sdpa_backward(args):
@@ -3238,7 +3243,8 @@ def plan_train_phase(dev, card: str) -> dict:
            "planned_budget_bytes": TRAIN_HBM_SHARE * hw.hbm_bytes,
            "card_bytes": hw.hbm_bytes,
            "launches": launches,
-           "shapes": {k: A.SHAPES[k] - before[k] for k in A.SHAPES}}
+           "shapes": {k: A.SHAPES[k] - before[k] for k in A.SHAPES},
+           "pc": pc, "rules": rules, "shape": shape}
     print(f"plan_train {SERVE_ARCH} at {name} ({batch_rows}x{seq}) on one "
           f"card: plan {json.dumps(res['plan'])} [{card}]")
     print(f"plan_train {SERVE_ARCH}: step ms "
@@ -3752,7 +3758,9 @@ def tp_train_phase(dev, card: str) -> dict:
     layers = TP_LAYERS
     want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers,
             "decode_attention": 0}
-    out = {"wall_s": wall, "held": {}, "launches": {}, "shapes": {}}
+    out = {"wall_s": wall, "held": {}, "launches": {}, "shapes": {},
+           "collectives": {name: ranks[0]["variants"][name]["collectives"]
+                           for name in TP_TRAIN_VARIANTS}}
     print(f"tp_train {SERVE_ARCH} ({layers} of 28 layers at full width, "
           f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens): {TP_RANKS} ranks on one card "
           f"(gloo), {wall:.2f} s; the unsharded step's loss "
@@ -3786,6 +3794,86 @@ def tp_train_phase(dev, card: str) -> dict:
                 out["launches"][k] = out["launches"].get(k, 0) + v
             for k, v in r["variants"][name]["shapes"].items():
                 out["shapes"].setdefault(k, set()).update(map(tuple, v))
+    return out
+
+
+def dryrun_phase(planned: dict, tp: dict, card: str) -> dict:
+    """``dryrun_plan_train_llama3_2_3b``: the dry-run's trace
+    (``repro_torch.launch.dryrun``, meta tensors, no kernel launched) of
+    the cell ``plan_train_phase`` ran, under the plan it ran (one rank, the
+    card's figures), and of ``tp_train_phase``'s layout on a fake process
+    group of ``TP_RANKS``, held against what those phases measured, reusing
+    their results: the kernel calls of ``PLAN_TRAIN_STEPS + 1`` traced
+    steps equal ``plan_train``'s launches; the collective calls and result
+    bytes by kind equal ``tp_train``'s rank 0's, each variant; the traced
+    peak lies within ``DRYRUN_PEAK_RTOL`` of ``max_memory_allocated()``.
+    Prints the traced FLOPs a step beside the measured median step, and
+    the achieved FLOP/s as a share of ``H100_SXM.peak_flops``."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.core.config import ParallelConfig, ShapeConfig
+    from repro_torch.device import H100_SXM
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.dispatch_analysis import collective_costs
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.strategies import make_rules
+
+    cfg = serve_config(SERVE_ARCH)
+    fn, args = dryrun.build_step(cfg, planned["shape"], planned["pc"],
+                                 planned["rules"])
+    rec = dryrun.traced_fields(fn, args)
+    del fn, args
+    steps = PLAN_TRAIN_STEPS + 1
+    predicted = {k: rec["kernel_launches"].get(k, 0) * steps
+                 for k in planned["launches"]}
+    require(predicted == planned["launches"],
+            f"dryrun: {steps} traced steps launch {predicted}, plan_train "
+            f"launched {planned['launches']}")
+    peak, traced = planned["peak_bytes"], rec["peak_bytes"]
+    require(abs(traced - peak) <= DRYRUN_PEAK_RTOL * peak,
+            f"dryrun: traced peak {traced} B against plan_train's measured "
+            f"{peak} B, outside {DRYRUN_PEAK_RTOL}")
+    step_s = float(np.median(planned["step_ms"])) / 1e3
+    achieved = rec["flops_per_device"] / step_s
+    out = {"trace_s": rec["trace_s"], "flops": rec["flops_per_device"],
+           "attention_flops": rec["attention_flops"],
+           "kernel_launches": rec["kernel_launches"],
+           "peak_bytes": traced, "measured_peak_bytes": peak,
+           "peak_ratio": traced / peak, "step_s": step_s,
+           "achieved_flops_per_s": achieved,
+           "peak_share": achieved / H100_SXM.peak_flops, "tp": {}}
+    print(f"dryrun {SERVE_ARCH} plan_train cell (one rank, plan "
+          f"{json.dumps(planned['plan'])}): traced in {rec['trace_s']:.2f} s "
+          f"on the host; {rec['flops_per_device']:.6g} FLOPs a step "
+          f"({rec['attention_flops']:.6g} in K4 and K4b), the measured "
+          f"median step {step_s * 1e3:.2f} ms: {achieved:.6g} FLOP/s, "
+          f"{out['peak_share']:.4f} of H100_SXM's {H100_SXM.peak_flops:.4g}; "
+          f"kernel calls x{steps} {predicted} equal plan_train's; traced peak "
+          f"{traced} B against max_memory_allocated {peak} B (ratio "
+          f"{out['peak_ratio']:.4f}) [{card}]")
+    tcfg = dataclasses.replace(cfg, num_layers=TP_LAYERS)
+    shape = ShapeConfig("chip_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    mesh = Mesh({"data": 1, "model": TP_RANKS})
+    dryrun.fake_world(TP_RANKS)
+    try:
+        for name, fields in TP_TRAIN_VARIANTS.items():
+            pc = ParallelConfig(**fields)
+            fn, args = dryrun.build_step(tcfg, shape, pc,
+                                         make_rules(mesh, tcfg, shape, pc))
+            t = dryrun.traced_fields(fn, args)
+            want_bytes, want_counts = collective_costs(tp["collectives"][name])
+            got = {"calls": t["collective_counts"],
+                   "result_bytes": t["collective_bytes_by_kind"]}
+            require(got == {"calls": want_counts, "result_bytes": want_bytes},
+                    f"dryrun tp_train {name}: traced collectives {got}, rank "
+                    f"0 made {want_counts} calls of {want_bytes} B")
+            out["tp"][name] = {"trace_s": t["trace_s"], **got}
+            print(f"dryrun tp_train {name} (rank 0 of {TP_RANKS}, fake "
+                  f"process group): collectives {json.dumps(got)} equal the "
+                  f"real rank 0's; traced in {t['trace_s']:.2f} s [{card}]")
+    finally:
+        dist.destroy_process_group()
     return out
 
 
@@ -5045,6 +5133,11 @@ def main() -> int:
         seconds[name] = time.perf_counter() - t0
         print(f"phase {name}: {seconds[name]:.2f} s")
     offset_kernel_times(dev, gen, card)
+    t0 = time.perf_counter()
+    dryrun_phase(planned, tp_phases["tp_train_llama3_2_3b"], card)
+    seconds["dryrun_plan_train_llama3_2_3b"] = time.perf_counter() - t0
+    print(f"phase dryrun_plan_train_llama3_2_3b: "
+          f"{seconds['dryrun_plan_train_llama3_2_3b']:.2f} s")
     # each kernel held at the shapes these phases launched it at first
     held = {k: set(v) for k, v in attn_shapes.items()}
     for k in train_shapes:

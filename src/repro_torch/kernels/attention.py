@@ -37,6 +37,12 @@ ranks that each hold a slice of the cache are combined.
 ``LAUNCHES`` counts wrapper calls that launched their kernel on the card,
 so a run can show that its main path went through the kernels; ``SHAPES``
 keeps the distinct shapes (for K4 with its route) each was launched at.
+
+``flash_attention_work``, ``flash_attention_bwd_work`` and
+``decode_attention_work`` give the work each kernel's function does, the
+FLOPs and the bytes it must move: ``chip_smoke.py`` prices each kernel's
+bound with them, and a dispatch trace (``kernels.traced``, meta tensors)
+counts them in place of a launch.
 """
 
 from __future__ import annotations
@@ -48,13 +54,15 @@ import threading
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, traced
 from repro_torch.kernels.build import load
 from repro_torch.kernels.streams import (StreamScratch, current_stream,
                                          on_device)
 
 # head dimensions the kernels are instantiated for (csrc ``launch_hd``)
 HEAD_DIMS = (8, 16, 32, 64, 128)
+# keys a K5 split CTA takes (``kChunk`` in decode_attention.cu)
+DECODE_CHUNK = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0,
@@ -113,7 +121,11 @@ def _decode_chunk() -> int:
     if n_args != _DECODE_ARGS:
         raise RuntimeError(f"decode_attention.cu packs {n_args} arguments, "
                            f"the wrapper {_DECODE_ARGS}")
-    return _fn("decode_attention", "da_chunk")()
+    chunk = _fn("decode_attention", "da_chunk")()
+    if chunk != DECODE_CHUNK:
+        raise RuntimeError(f"decode_attention.cu splits {chunk} keys a CTA, "
+                           f"the wrapper {DECODE_CHUNK}")
+    return chunk
 
 
 # K5's packed int64 arguments (``enum Arg`` in decode_attention.cu): q, k,
@@ -138,9 +150,54 @@ def _count(name: str, shape: tuple) -> None:
 def _route(dev: torch.device) -> str:
     if dev.type == "cpu":
         return "plain"
-    if dev.type == "cuda":
+    if dev.type == "cuda" or (dev.type == "meta"
+                              and traced.TRACER is not None):
         return "cuda"
     raise ValueError(f"no attention kernel for device {dev}")
+
+
+def _pairs(s: int, s_k: int, causal: bool, q_offset: int) -> float:
+    """The (query, key) pairs a call scores: every one, or under the
+    causal mask the rows' visible keys, ``s * (q_offset + s / 2)`` (half
+    the square at offset 0) and at most ``s * s_k``."""
+    return float(s * s_k) if not causal \
+        else min(float(s * s_k), s * (q_offset + s / 2))
+
+
+def flash_attention_work(b: int, s: int, h: int, kh: int, hd: int,
+                         elem: int, causal: bool = True,
+                         s_k: int | None = None,
+                         q_offset: int = 0) -> tuple[float, float]:
+    """K4's ``(FLOPs, bytes)``: its two products (``Q K^T`` and ``P V``),
+    2 FLOPs a multiply-add, over the pairs it scores (``_pairs``); q and o
+    with H heads, k and v with K, each moved once (``elem`` bytes an
+    element)."""
+    s_k = s if s_k is None else s_k
+    return (4.0 * b * h * hd * _pairs(s, s_k, causal, q_offset),
+            float((2 * b * s * h + 2 * b * s_k * kh) * hd * elem))
+
+
+def flash_attention_bwd_work(b: int, s: int, h: int, kh: int, hd: int,
+                             elem: int, causal: bool = True,
+                             s_k: int | None = None,
+                             q_offset: int = 0) -> tuple[float, float]:
+    """K4b's ``(FLOPs, bytes)``: its five products (``Q K^T`` recomputed,
+    ``dO V^T``, ``P^T dO``, ``dS K``, ``dS^T Q``) over K4's pairs; q, o and
+    dO read and dq written with H heads, k and v read and dk, dv written
+    with K."""
+    s_k = s if s_k is None else s_k
+    return (10.0 * b * h * hd * _pairs(s, s_k, causal, q_offset),
+            float((4 * b * s * h + 4 * b * s_k * kh) * hd * elem))
+
+
+def decode_attention_work(b: int, h: int, kh: int, hd: int, elem: int,
+                          keys: int) -> tuple[float, float]:
+    """K5's ``(FLOPs, bytes)`` for ``keys`` cached positions in all (the
+    rows' lengths summed): q read and o written, the lengths, and each
+    key's k and v of the K kv heads read once; two products of 2 FLOPs a
+    multiply-add per key, head and head dimension."""
+    return (4.0 * keys * h * hd,
+            float(2 * b * h * hd * elem + 4 * b + 2 * keys * kh * hd * elem))
 
 
 def _check(t, name: str, ndim: int, dtype, device) -> None:
@@ -267,6 +324,20 @@ def _flash_forward(q, k, v, causal, q_offset: int = 0,
     b, s, h, hd = q.shape
     s_k, kh = k.shape[1], k.shape[2]
     dev = q.device
+    if traced.tracing(q):
+        def card():
+            out = torch.empty_like(q, memory_format=torch.contiguous_format)
+            return (out, torch.empty((b, h, s), dtype=torch.float32,
+                                     device=dev)) if with_lse else out
+
+        def plain():
+            out = ref.flash_attention_ref(q, k, v, causal, q_offset)
+            return (out, ref.flash_attention_lse_ref(
+                q, k, v, causal, q_offset)) if with_lse else out
+
+        return traced.kernel("flash_attention", *flash_attention_work(
+            b, s, h, kh, hd, q.element_size(), causal, s_k, q_offset),
+            card, plain)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=dev) \
         if with_lse else None
@@ -329,6 +400,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse is None:
         lse = flash_attention_with_lse(q, k, v, causal, q_offset)[1]
     s_k, kh = k.shape[1], k.shape[2]
+    if traced.tracing(q):
+        def card():
+            traced.scratch("flash_attention_bwd", b * h * s, torch.float32)
+            return tuple(torch.empty_like(
+                t, memory_format=torch.contiguous_format) for t in (q, k, v))
+
+        return traced.kernel("flash_attention_bwd", *flash_attention_bwd_work(
+            b, s, h, kh, hd, q.element_size(), causal, s_k, q_offset),
+            card, lambda: ref.flash_attention_bwd_ref(
+                q, k, v, out, d_out, causal, q_offset))
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
@@ -389,6 +470,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if _route(dev) == "plain":
         return ref.decode_attention_ref(q, k_cache, v_cache, length,
                                         return_lse)
+    if traced.tracing(q):
+        # the lengths are data: the trace counts every cached position
+        def card():
+            n_split = max(1, -(-s // DECODE_CHUNK))
+            traced.scratch("decode_attention",
+                           b * kh * n_split * (h // max(kh, 1)) * (hd + 2),
+                           torch.float32)
+            out = torch.empty_like(q, memory_format=torch.contiguous_format)
+            return (out, torch.empty((b, h), dtype=torch.float32,
+                                     device=dev)) if return_lse else out
+
+        return traced.kernel("decode_attention", *decode_attention_work(
+            b, h, kh, hd, q.element_size(), b * s), card,
+            lambda: ref.decode_attention_ref(q, k_cache, v_cache, length,
+                                             return_lse))
     lse = torch.empty((b, h), dtype=torch.float32, device=dev) \
         if return_lse else None
     if b * h == 0:

@@ -19,6 +19,12 @@ call, so no call clears anything, and K2's per-tile and per-chunk bases,
 which each call writes in full and whose size K2's entry point asks for.
 K3 is one launch and keeps no scratch: each of its CTAs builds a hash table
 of the build side in its shared memory.
+
+``histogram_work``, ``scatter_work`` and ``fused_probe_work`` give the
+work each kernel's function does (no arithmetic to speak of: the bytes it
+must move); ``chip_smoke.py`` prices each kernel's bound with them, and a
+dispatch trace (``kernels.traced``, meta tensors) counts them in place of a
+launch, skipping the range check, which reads the ids.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, traced
 from repro_torch.kernels.build import load
 from repro_torch.kernels.streams import (StreamScratch, current_stream,
                                          on_device)
@@ -135,6 +141,30 @@ def _check(t, name: str, dtype, ndim: int, device=None) -> None:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
+def histogram_work(n: int, p: int) -> tuple[float, float]:
+    """K1's ``(FLOPs, bytes)``: the ids read, the counts written."""
+    return 0.0, float(n * 4 + p * 4)
+
+
+def scatter_work(n: int, p: int, row_bytes: int = 4) -> tuple[float, float]:
+    """K2's ``(FLOPs, bytes)``: the rows read and written, the ids read and
+    the offsets written."""
+    return 0.0, float(2 * n * row_bytes + n * 4 + p * 4)
+
+
+def fused_probe_work(n: int, m: int) -> tuple[float, float]:
+    """K3's ``(FLOPs, bytes)``: the probe side's keys, v0 and v1 and the
+    build side's keys, cats and valid flags read once, group and weight
+    written (a hash probe needs none of the N x M compares of the TPU
+    kernel's one-hot probe)."""
+    return 0.0, float(n * 12 + m * 12 + n * 8)
+
+
+def _counters_scratch() -> None:
+    """K1's and K2's accumulator and ticket, under a trace."""
+    traced.scratch("partition_counters", MAX_HIST_PARTITIONS + 1, torch.int32)
+
+
 def _route(dev: torch.device) -> str:
     if dev.type == "cpu":
         return "plain"
@@ -198,6 +228,13 @@ def partition_histogram(part_ids: torch.Tensor, num_partitions: int,
         raise ValueError(f"num_partitions must be in [1, "
                          f"{MAX_HIST_PARTITIONS}], got {p}")
     dev = part_ids.device
+    if traced.tracing(part_ids):
+        def card():
+            _counters_scratch()
+            return torch.empty((p,), dtype=torch.int32, device=dev)
+
+        return traced.kernel("partition_histogram",
+                             *histogram_work(part_ids.shape[0], p), card)
     route = _route(dev)
     if check_ids:
         _check_ids(part_ids, p)
@@ -235,6 +272,14 @@ def partition_scatter(rows: torch.Tensor, part_ids: torch.Tensor,
         raise ValueError(f"num_partitions must be in [1, "
                          f"{MAX_SCATTER_PARTITIONS}], got {p}")
     dev = rows.device
+    if traced.tracing(rows):
+        def card():
+            _counters_scratch()
+            return (torch.empty_like(rows),
+                    torch.empty((p,), dtype=torch.int32, device=dev))
+
+        return traced.kernel("partition_scatter", *scatter_work(
+            n, p, rows.shape[1] * rows.element_size()), card)
     route = _route(dev)
     if check_ids:
         _check_ids(part_ids, p)
@@ -291,6 +336,13 @@ def fused_probe(probe_keys, v0, v1, build_keys, build_cat, build_valid,
     g = int(num_groups)
     if g <= 0:
         raise ValueError(f"num_groups must be positive, got {g}")
+    if traced.tracing(probe_keys):
+        return traced.kernel(
+            "fused_probe", *fused_probe_work(n, m),
+            lambda: (torch.empty((n,), dtype=torch.int32, device=dev),
+                     torch.empty((n,), dtype=torch.float32, device=dev)),
+            lambda: ref.fused_probe_ref(probe_keys, v0, v1, build_keys,
+                                        build_cat, build_valid, g))
     if _route(dev) == "plain":
         return ref.fused_probe_ref(probe_keys, v0, v1, build_keys, build_cat,
                                    build_valid, g)

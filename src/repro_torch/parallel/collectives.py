@@ -32,9 +32,12 @@ there, and the result is copied back, on every call; under ``nccl`` the
 tensor goes as it is. Nothing else picks a path. A collective that fails
 raises on its rank; none is retried or skipped.
 
-``COLLECTIVE_STATS`` counts the calls, bytes (of this rank's tensors) and
-host seconds of every collective by kind, so a run can report what tensor
-parallelism cost it.
+``COLLECTIVE_STATS`` counts the calls, bytes (of this rank's tensors),
+result bytes (what the call leaves on this rank: ``n`` times the bytes of
+an all-gather over ``n`` ranks) and host seconds of every collective by
+kind, so a run can report what tensor parallelism cost it. ``_record`` is
+the one point every call passes; a dispatch trace
+(``repro_torch.launch.dispatch_analysis``) counts there too.
 
 ``compressed_allreduce`` is the reference's int8 ring-style all-reduce:
 all_to_all(int8) -> local dequantize-and-sum -> requantize ->
@@ -51,13 +54,20 @@ from typing import Callable, Mapping
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import traced as _traced
+
 
 def _staged(fn: Callable, *tensors: torch.Tensor, group=None):
     """Run ``fn(*tensors)`` (a collective that writes into its tensor
     arguments) and return them. Under ``gloo``, CUDA tensors go through
-    host copies, written back to the originals after the call."""
-    if dist.get_backend(group) != "gloo" \
-            or not any(t.is_cuda for t in tensors):
+    host copies, written back to the originals after the call. Under the
+    ``fake`` backend (a dry-run's process group, ``launch/dryrun.py``)
+    nothing is called or copied: it moves no data, and a point-to-point
+    call would find no backend for a meta tensor."""
+    backend = dist.get_backend(group)
+    if backend == "fake":
+        return tensors
+    if backend != "gloo" or not any(t.is_cuda for t in tensors):
         fn(*tensors)
         return tensors
     host = [t.cpu() for t in tensors]
@@ -74,18 +84,29 @@ def reset_collective_stats() -> None:
     COLLECTIVE_STATS.clear()
 
 
-def _record(kind: str, nbytes: int, seconds: float) -> None:
+def _record(kind: str, nbytes: int, seconds: float,
+            result_bytes: int) -> None:
     row = COLLECTIVE_STATS.setdefault(kind, {"calls": 0, "bytes": 0,
+                                             "result_bytes": 0,
                                              "seconds": 0.0})
     row["calls"] += 1
     row["bytes"] += int(nbytes)
+    row["result_bytes"] += int(result_bytes)
     row["seconds"] += seconds
+    if _traced.TRACER is not None:
+        _traced.TRACER.collective(kind, int(result_bytes))
 
 
-def _timed(kind: str, nbytes: int, fn, *tensors, group=None):
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _timed(kind: str, nbytes: int, fn, *tensors, group=None,
+           result_bytes: int | None = None):
     t0 = time.perf_counter()
     out = _staged(fn, *tensors, group=group)
-    _record(kind, nbytes, time.perf_counter() - t0)
+    _record(kind, nbytes, time.perf_counter() - t0,
+            nbytes if result_bytes is None else result_bytes)
     return out
 
 
@@ -93,7 +114,7 @@ def all_reduce_(t: torch.Tensor, group, op=None) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place (or reduce it by ``op``, a
     ``dist.ReduceOp``)."""
     op = dist.ReduceOp.SUM if op is None else op
-    _timed("all_reduce", t.numel() * t.element_size(),
+    _timed("all_reduce", _nbytes(t),
            lambda x: dist.all_reduce(x, op=op, group=group), t, group=group)
     return t
 
@@ -103,9 +124,10 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     rows of ``t.numel()`` elements, a 0-d ``t`` among them)."""
     n = dist.get_world_size(group)
     out = t.new_empty((n, t.numel()))
-    _timed("all_gather", t.numel() * t.element_size(),
+    _timed("all_gather", _nbytes(t),
            lambda o, x: dist.all_gather(list(o.unbind(0)), x, group=group),
-           out, t.reshape(-1).contiguous(), group=group)
+           out, t.reshape(-1).contiguous(), group=group,
+           result_bytes=_nbytes(out))
     return out.view((n,) + tuple(t.shape))
 
 
@@ -113,7 +135,7 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     """``t (n, ...)``: row ``i`` goes to rank ``i``; returns the rows every
     rank sent here, in rank order."""
     out = torch.empty_like(t)
-    _timed("all_to_all", t.numel() * t.element_size(),
+    _timed("all_to_all", _nbytes(t),
            lambda o, x: dist.all_to_all_single(o, x, group=group),
            out, t.contiguous(), group=group)
     return out
@@ -122,7 +144,9 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
 def exchange(send: torch.Tensor | None, dst: int | None,
              recv: torch.Tensor | None, src: int | None, group) -> None:
     """One ``batch_isend_irecv`` of ``send`` to global rank ``dst`` and
-    into ``recv`` from global rank ``src`` (either may be absent)."""
+    into ``recv`` from global rank ``src`` (either may be absent), recorded
+    as a ``collective_permute`` of the tensor's bytes (what the reference's
+    ``ppermute`` leaves on every rank of the shift)."""
     tensors = [t for t in (send, recv) if t is not None]
     if not tensors:
         return
@@ -137,8 +161,10 @@ def exchange(send: torch.Tensor | None, dst: int | None,
         for work in dist.batch_isend_irecv(ops):
             work.wait()
 
-    _staged(run, *[t.contiguous() if t is send else t for t in tensors],
-            group=group)
+    nbytes = max(_nbytes(t) for t in tensors)
+    _timed("collective_permute", nbytes, run,
+           *[t.contiguous() if t is send else t for t in tensors],
+           group=group)
 
 
 class _ReplicatedSum(torch.autograd.Function):
