@@ -373,13 +373,18 @@ ZERO_VARIANTS = {
 TP_PROMPT_LENGTHS = (64, 192, 320, 512)
 # expert parallelism and the inner split: PAR_RANKS gloo ranks sharing the
 # card, each phase held against one rank on the same weights (the bounds
-# of the tp phases). ep_train: granite at full width and depth, one step
-# under its 2 x 16 x 16 train_4k layout on data=1 x model=2 and one under
-# its 16 x 16 pure_dp layout on data=2, drop-free (E / top_k), the drops at
-# 1.25 printed beside. ep_decode: moonshot at full width cut to 12 of its
-# 48 layers (all 48 are 56.1 GB of bf16 weights, and each rank builds the
-# whole model before it keeps its shards), its decode_32k layout for the
-# prefill and the decode steps. inner_tp_jamba: jamba at full width cut to
+# of the tp phases). ep_train: granite at full width cut to 12 of its 24
+# layers (24 until the baseline variant came in: its all-to-alls move a
+# whole chunk's buffer), one step under its 2 x 16 x 16 train_4k layout on
+# data=1 x model=2, one under its 16 x 16 pure_dp layout on data=2 and one
+# under its baseline-profile train_4k layout on data=1 x model=2 (GSPMD's
+# all_to_all plane), drop-free (E / top_k), the drops at 1.25 printed
+# beside. ep_decode:
+# moonshot at full width cut to 12 of its 48 layers (all 48 are 56.1 GB of
+# bf16 weights, and each rank builds the whole model before it keeps its
+# shards), one forward under its baseline-profile prefill_32k layout
+# (head_tp, all_to_all), its decode_32k layout for the prefill and the
+# decode steps. inner_tp_jamba: jamba at full width cut to
 # layers 0-3 of its period (three Mamba layers, one attention layer, MoE
 # FFNs on layers 1 and 3), in fp32 (its bf16 forward moves by more than the
 # bound, PERF.md section 2), forward and prefill under its prefill_32k
@@ -389,6 +394,7 @@ TP_PROMPT_LENGTHS = (64, 192, 320, 512)
 # 2 x 16 x 16 layout (vocab and inner over model) and one under pure_dp on
 # data=2
 PAR_RANKS = 2
+EP_TRAIN_LAYERS = 12
 PUBLISHED["moonshot-v1-16b-a3b"] = (48, 2048, 16, 16, 128, 1408, 163840,
                                     "bfloat16", (64, 6, 1408))
 EP_TRAIN_VARIANTS = {
@@ -398,12 +404,27 @@ EP_TRAIN_VARIANTS = {
                         remat="block")),
     "pure_dp_local": ({"data": 2, "model": 1},
                       dict(layout="pure_dp", attn_strategy="replicated",
-                           fsdp="off", remat="dots"))}
+                           fsdp="off", remat="dots")),
+    # the planner's baseline profile's train_4k layout: GSPMD's all_to_all
+    # plane (expert_act over model), the unsharded layer's chunks
+    "seq_tp_all_to_all": ({"data": 1, "model": 2},
+                          dict(attn_strategy="seq_tp",
+                               moe_strategy="all_to_all", layout="tp",
+                               mlp_mode="tp", fsdp="off", remat="block"))}
 DECODE_PC = dict(attn_strategy="decode_kv_shard", moe_strategy="gather",
                  fsdp="off")
 EP_DECODE = {"arch": "moonshot-v1-16b-a3b", "layers": 12,
              "dtype": "float32", "build_dtype": "bfloat16",
-             "lengths": TP_PROMPT_LENGTHS, "steps": 32, "forward": False,
+             "lengths": TP_PROMPT_LENGTHS, "steps": 32,
+             # the baseline profile's prefill_32k layout: head_tp, GSPMD's
+             # all_to_all plane
+             "forward": dict(attn_strategy="head_tp",
+                             moe_strategy="all_to_all", layout="tp",
+                             mlp_mode="tp", fsdp="off"),
+             # drop-free, each rank's dispatch buffer holds every expert's
+             # capacity of a chunk, S slots: at 4 x 512 tokens 1.07 GB of
+             # fp32 an all-to-all through host memory; 2 x 64 is 67 MB
+             "forward_lengths": (32, 64),
              "prefill": DECODE_PC, "decode": DECODE_PC}
 INNER_JAMBA = {"arch": HYBRID_ARCH, "layers": 4, "dtype": "float32",
                "build_dtype": "bfloat16", "lengths": (512,) * 4,
@@ -828,7 +849,8 @@ def check_moe_dispatch(dev, gen, res: dict) -> dict:
                     f"differs from its plain version at S={s}")
         y = moe.moe(layer, x, cfg)[0]
         dispatch = moe.dispatch
-        moe.dispatch = lambda t, e, c: moe.dispatch_plain(t, c)
+        moe.dispatch = lambda t, e, c, start=None: moe.dispatch_plain(
+            t, c, start)
         try:
             y_plain = moe.moe(layer, x, cfg)[0]
         finally:
@@ -1679,8 +1701,8 @@ class MoeRecorder:
             self.routes.append((self.label, out[2]))
             return out
 
-        def recording_dispatch(top_i, num_experts, cap):
-            bk = self._dispatch(top_i, num_experts, cap)
+        def recording_dispatch(top_i, num_experts, cap, start=None):
+            bk = self._dispatch(top_i, num_experts, cap, start)
             self.calls.append((self.label, top_i.shape[1], bk.token_src,
                                bk.keep))
             return bk
@@ -4201,8 +4223,8 @@ def counting_drops():
     from repro_torch.models import moe as M
     plain, seen = M.dispatch, {"dropped": 0, "assignments": 0}
 
-    def counting(top_i, e, cap):
-        bk = plain(top_i, e, cap)
+    def counting(top_i, e, cap, start=None):
+        bk = plain(top_i, e, cap, start)
         seen["dropped"] += int((~bk.keep).sum())
         seen["assignments"] += bk.keep.numel()
         return bk
@@ -4214,10 +4236,45 @@ def counting_drops():
         M.dispatch = plain
 
 
+@contextlib.contextmanager
+def moe_plane_collectives():
+    """Within the block, the collectives the MoE layer's expert-parallel
+    planes (``moe._moe_a2a``, ``moe._moe_gather``) make inside their calls
+    (a forward's; a backward's are made after), by kind: ``{kind: {"calls",
+    "bytes", "seconds"}}``."""
+    from repro_torch.models import moe as M
+    from repro_torch.parallel import collectives as C
+    seen: dict = {}
+    saved = M._moe_a2a, M._moe_gather
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            before = {k: dict(v) for k, v in C.COLLECTIVE_STATS.items()}
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                for kind, row in C.COLLECTIVE_STATS.items():
+                    was = before.get(kind, {})
+                    acc = seen.setdefault(kind, {"calls": 0, "bytes": 0,
+                                                 "seconds": 0.0})
+                    for f in acc:
+                        acc[f] += row[f] - was.get(f, 0)
+        return call
+
+    M._moe_a2a, M._moe_gather = map(counted, saved)
+    try:
+        yield seen
+    finally:
+        M._moe_a2a, M._moe_gather = saved
+        for kind in [k for k, v in seen.items() if not v["calls"]]:
+            del seen[kind]
+
+
 def _drops_at(model, cfg, batch, rules=None, factor: float = 1.25) -> dict:
     """One no-grad ``forward_hidden`` of ``batch`` (remat none) with the MoE
     capacity factor at ``factor`` under ``rules``: the assignments this
-    rank's dispatches dropped."""
+    rank's dispatches dropped, and the collectives its MoE planes made
+    (``moe_plane_collectives``)."""
     import dataclasses
 
     import torch
@@ -4227,10 +4284,13 @@ def _drops_at(model, cfg, batch, rules=None, factor: float = 1.25) -> dict:
     model.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, capacity_factor=factor))
     try:
-        with torch.no_grad(), use_rules(rules), counting_drops() as seen:
+        with torch.no_grad(), use_rules(rules), counting_drops() as seen, \
+                moe_plane_collectives() as coll:
             forward_hidden(model, batch, remat="none")
     finally:
         model.cfg = saved
+    if coll:
+        seen["plane_collectives"] = coll
     return seen
 
 
@@ -4382,10 +4442,20 @@ def par_train_phase(dev, card: str, prefix: str, arch: str, layers,
         _require_launches(prefix, ranks, name, want)
         rec0 = ranks[0]["variants"][name]
         if drops:
+            by_rank = [dict(r["variants"][name]["drops_1.25"])
+                       for r in ranks]
+            planes = [d.pop("plane_collectives", {}) for d in by_rank]
             print(f"{prefix} {name} capacity drops at factor 1.25 in one "
-                  f"forward, by rank: "
-                  f"{[r['variants'][name]['drops_1.25'] for r in ranks]} "
-                  f"[{card}]")
+                  f"forward, by rank: {by_rank} (summed "
+                  f"{sum(d['dropped'] for d in by_rank)}; unsharded "
+                  f"{ranks[0]['one_drops']['dropped']}) [{card}]")
+            for r, coll in zip(ranks, planes):
+                shown = {k: {"calls": v["calls"], "bytes": v["bytes"],
+                             "ms": round(v["seconds"] * 1e3, 2)}
+                         for k, v in coll.items()}
+                print(f"{prefix} {name} rank {r['rank']}: the MoE planes' "
+                      f"collectives in that forward, by kind: "
+                      f"{json.dumps(shown)} [{card}]")
         print(f"{prefix} {name}: mesh {json.dumps(rec0['mesh'])}, rules "
               f"{json.dumps(rec0['rules'])}; held {json.dumps(held)} (loss "
               f"and grad norm within {TP_RTOL} of the unsharded step's, "
@@ -4399,6 +4469,15 @@ def par_train_phase(dev, card: str, prefix: str, arch: str, layers,
             for k, v in r["variants"][name]["shapes"].items():
                 out["shapes"].setdefault(k, set()).update(map(tuple, v))
     return out
+
+
+def same_cuts(cfg, rules_a, rules_b) -> bool:
+    """Whether two rule sets cut every leaf of ``cfg`` alike."""
+    from repro_torch.models.convert import _cuts, _halves, _meta_leaves
+    leaves, halves = _meta_leaves(cfg), _halves(cfg)
+    return all(_cuts(rules_a, logical, tuple(shape.shape), name in halves)
+               == _cuts(rules_b, logical, tuple(shape.shape), name in halves)
+               for name, (shape, logical) in leaves.items())
 
 
 def _shared_shards(full, rules_a, rules_b, dtype):
@@ -4439,7 +4518,9 @@ def par_decode_rank(rank: int, world: int, root: str, spec: dict, fed,
     under the planner's rules for the prefill shape (``spec["prefill"]``,
     ParallelConfig fields) and for the decode shape (``spec["decode"]``),
     in ``spec["dtype"]``; with ``spec["forward"]``, one ``forward`` of the
-    padded prompts under the prefill rules; then ``_prefill_then_decode``
+    padded prompts under the prefill rules (or, where ``spec["forward"]``
+    gives ``ParallelConfig`` fields, under their rules at the prefill
+    shape, on the prefill's shards); then ``_prefill_then_decode``
     fed the tokens ``fed``. Rank 0 writes the logits to
     ``root/logits.pt``; every rank its record to ``root/rank{rank}.json``.
     The model lives on ``device`` (the card)."""
@@ -4467,7 +4548,16 @@ def par_decode_rank(rank: int, world: int, root: str, spec: dict, fed,
     decode_rules = make_rules(mesh, cfg, ShapeConfig(
         "par_decode", TP_MAX_SEQ, n, "decode"),
         ParallelConfig(**spec["decode"]))
-    for rules in (prefill_rules, decode_rules):
+    forward_rules = prefill_rules
+    if isinstance(spec.get("forward"), dict):
+        lengths = forward_lengths(spec)
+        forward_rules = make_rules(mesh, cfg, ShapeConfig(
+            "par_forward", max(lengths), len(lengths), "prefill"),
+            ParallelConfig(**spec["forward"]))
+        require(same_cuts(cfg, forward_rules, prefill_rules),
+                f"the forward's rules cut the leaves otherwise than the "
+                f"prefill's: {forward_rules.rules}")
+    for rules in (prefill_rules, decode_rules, forward_rules):
         require_executable(rules, cfg=cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -4487,10 +4577,10 @@ def par_decode_rank(rank: int, world: int, root: str, spec: dict, fed,
     logits = {}
     with own_shapes() as shapes:
         if spec.get("forward"):
-            tokens, _ = _decode_prompts(cfg, spec["lengths"])
+            tokens, _ = _decode_prompts(cfg, forward_lengths(spec))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with torch.inference_mode(), use_rules(prefill_rules):
+            with torch.inference_mode(), use_rules(forward_rules):
                 logits["forward"] = forward(models[0], {
                     "tokens": torch.from_numpy(tokens).to(dev)})[0][
                     ..., :cfg.vocab_size].cpu()
@@ -4507,7 +4597,7 @@ def par_decode_rank(rank: int, world: int, root: str, spec: dict, fed,
            "peak_bytes": int(torch.cuda.max_memory_allocated()),
            "shapes": {k: sorted(v) for k, v in shapes.items()},
            "rules": [{k: v for k, v in r.rules.items() if v is not None}
-                     for r in (prefill_rules, decode_rules)]}
+                     for r in (prefill_rules, decode_rules, forward_rules)]}
     if spec.get("forward"):
         rec["forward_ms"] = forward_ms
     if rank == 0:
@@ -4516,6 +4606,12 @@ def par_decode_rank(rank: int, world: int, root: str, spec: dict, fed,
     dist.destroy_process_group()
     with open(f"{root}/rank{rank}.json", "w") as f:
         json.dump(rec, f)
+
+
+def forward_lengths(spec: dict) -> tuple:
+    """The prompt lengths of ``spec``'s forward: ``spec["forward_lengths"]``
+    where given, else the prefill's."""
+    return tuple(spec.get("forward_lengths", spec["lengths"]))
 
 
 def _decode_cfg(spec: dict):
@@ -4531,7 +4627,10 @@ def par_decode_phase(dev, card: str, prefix: str, spec: dict) -> dict:
     """The model of ``spec`` on one rank in this process (built in
     ``spec["build_dtype"]`` from seed 0 and cast to ``spec["dtype"]``,
     exactly: every bf16 value is an fp32 value): with ``spec["forward"]``
-    one ``forward`` of the padded prompts, then the prompts prefilled and
+    one ``forward`` of the padded prompts (on the ranks under the prefill
+    rules, or under the rules of the ``ParallelConfig`` fields
+    ``spec["forward"]`` gives, which must cut the leaves alike), then the
+    prompts prefilled and
     ``spec["steps"]`` greedy decode steps; then the same on ``PAR_RANKS``
     ranks sharing the card (``par_decode_rank``), fed the same tokens.
     Held: every logit within ``LOGIT_TOL`` of one rank's, and the argmax
@@ -4562,7 +4661,7 @@ def par_decode_phase(dev, card: str, prefix: str, spec: dict) -> dict:
     model.cfg = cfg
     one = {}
     if spec.get("forward"):
-        tokens, _ = _decode_prompts(cfg, spec["lengths"])
+        tokens, _ = _decode_prompts(cfg, forward_lengths(spec))
         with torch.inference_mode(), use_rules(None):
             one["forward"] = forward(model, {"tokens": torch.from_numpy(
                 tokens).to(dev)})[0][..., :cfg.vocab_size].cpu()
@@ -4584,6 +4683,8 @@ def par_decode_phase(dev, card: str, prefix: str, spec: dict) -> dict:
         got = torch.load(f"{root}/logits.pt")
     pairs = [(got["prefill"], one["prefill"])] + list(zip(got["decode"],
                                                           one["decode"]))
+    if spec.get("forward"):
+        pairs.append((got["forward"], one["forward"]))
     worst, disagree, held_rows = 0.0, 0, 0
     for g, w in pairs:
         g, w = g[..., :cfg.vocab_size], w[..., :cfg.vocab_size]
@@ -4602,6 +4703,9 @@ def par_decode_phase(dev, card: str, prefix: str, spec: dict) -> dict:
     attn = attention_layers(cfg)
     moe = moe_layers(cfg)
     calls = 1 + (1 if spec.get("forward") else 0)
+    forward_note = (f"one forward of prompts {list(forward_lengths(spec))} "
+                    f"under {json.dumps(ranks[0]['rules'][2])}, "
+                    if spec.get("forward") else "")
     want = {"flash_attention": attn * calls, "flash_attention_bwd": 0,
             "decode_attention": attn * spec["steps"],
             "partition_histogram": 0,
@@ -4619,7 +4723,8 @@ def par_decode_phase(dev, card: str, prefix: str, spec: dict) -> dict:
           f"{spec['dtype']}, drop-free capacity E / top_k; {len(ranks)} "
           f"ranks on one card, gloo, {wall:.2f} s): prompts "
           f"{list(spec['lengths'])} padded to {max(spec['lengths'])}, "
-          f"prefilled under {json.dumps(ranks[0]['rules'][0])}, then "
+          f"{forward_note}prefilled under "
+          f"{json.dumps(ranks[0]['rules'][0])}, then "
           f"{spec['steps']} decode steps under "
           f"{json.dumps(ranks[0]['rules'][1])}; one rank's prefill "
           f"{one['prefill_ms']:.2f} ms, decode ms a step median "
@@ -4664,7 +4769,8 @@ def parallel_phases(dev, card: str, seconds: dict) -> dict:
     each timed into ``seconds``."""
     phases = {
         "ep_train_granite_moe_1b_a400m": lambda: par_train_phase(
-            dev, card, "ep_train", MOE_ARCH, None, EP_TRAIN_VARIANTS,
+            dev, card, "ep_train", MOE_ARCH, EP_TRAIN_LAYERS,
+            EP_TRAIN_VARIANTS,
             drops=True),
         "ep_decode_moonshot_v1_16b_a3b": lambda: par_decode_phase(
             dev, card, "ep_decode", EP_DECODE),

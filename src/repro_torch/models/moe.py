@@ -19,8 +19,9 @@ aux loss's batch means summed over the ranks (``aux_loss``, called by
 ``lm.forward_hidden`` outside the layer's checkpoint).
 
 Under rules that split more than the batch (``moe_parts`` with a
-``TensorPlan``) the rules pick one of the reference's three data planes,
-as its ``moe`` does:
+``TensorPlan``) the rules pick one of four data planes, three of them the
+reference's ``moe``'s and one the plane GSPMD makes of its chunked
+``moe`` under ``expert_act``:
 
 - ``moe_shard_map`` (``moe_impl="shard_map_a2a"``, experts over
   ``model``): each rank dispatches its block of the sequence at that
@@ -28,6 +29,14 @@ as its ``moe`` does:
   experts' owners through two differentiable all-to-alls
   (``collectives.exchange_rows``): the assignments dropped are the
   reference's ``moe_shard_map``'s, not its chunked ``moe``'s;
+- ``all_to_all`` (``expert_act`` over the experts' axes, the planner's
+  baseline profile; also the experts split under a sequence split
+  without ``moe_impl``): the same exchanges, but the capacity is that of
+  the unsharded layer's chunks of ``s_chunk`` global positions, so the
+  function, drops included, is the unsharded ``moe``'s. A rank whose
+  block is part of a chunk starts its slots after those of the chunk's
+  earlier positions (``dispatch``'s ``start``), and the experts' owners
+  add the chunk's sources up (``_moe_a2a``);
 - ``gather`` (experts over ``model``, no ``moe_impl``; every decode
   cell): every rank dispatches all its tokens and runs its block of the
   experts, and the ranks' outputs are summed over ``model``. The
@@ -106,18 +115,24 @@ class Dispatch(NamedTuple):
     keep: torch.Tensor
 
 
-def _bookkeeping(sorted_e, run_pos, order, top_k: int, cap: int) -> Dispatch:
+def _bookkeeping(sorted_e, run_pos, order, top_k: int, cap: int,
+                 start=None) -> Dispatch:
+    if start is not None:
+        run_pos = run_pos + start.long().gather(1, sorted_e)
     return Dispatch(sorted_e, run_pos.clamp(max=cap - 1), order // top_k,
                     order, run_pos < cap)
 
 
-def dispatch(top_i: torch.Tensor, num_experts: int, cap: int) -> Dispatch:
+def dispatch(top_i: torch.Tensor, num_experts: int, cap: int,
+             start: torch.Tensor | None = None) -> Dispatch:
     """The dispatch bookkeeping of ``top_i (R, S, k)`` through K2: every
     assignment gets the composite id ``row * E + expert``, one
     ``grouping_indices`` call groups them stably, and an assignment's slot
     is its grouped position less its bucket's offset. Rows go to K2 in
     groups of at most ``(MAX_SCATTER_PARTITIONS - 1) // E`` (all of them
-    for a batch of 4 with 32 experts)."""
+    for a batch of 4 with 32 experts). ``start (R, E)``: the slot each
+    row's run of each expert starts at (the assignments of the chunk that
+    precede these positions, held elsewhere), else 0."""
     r, s, k = top_i.shape
     n = s * k
     dev = top_i.device
@@ -136,10 +151,11 @@ def dispatch(top_i: torch.Tensor, num_experts: int, cap: int) -> Dispatch:
         orders.append(order.view(g, n) - base * n)
     order = torch.cat(orders)
     return _bookkeeping(flat.long().gather(1, order), torch.cat(runs), order,
-                        k, cap)
+                        k, cap, start)
 
 
-def dispatch_plain(top_i: torch.Tensor, cap: int) -> Dispatch:
+def dispatch_plain(top_i: torch.Tensor, cap: int,
+                   start: torch.Tensor | None = None) -> Dispatch:
     """``dispatch``'s contract, as the reference computes it: a stable
     argsort of each row's experts, and each run's start by a running max
     over its boundaries."""
@@ -151,7 +167,7 @@ def dispatch_plain(top_i: torch.Tensor, cap: int) -> Dispatch:
     boundary = torch.ones_like(sorted_e, dtype=torch.bool)
     boundary[:, 1:] = sorted_e[:, 1:] != sorted_e[:, :-1]
     run_start = torch.cummax(torch.where(boundary, idx, 0), dim=1).values
-    return _bookkeeping(sorted_e, idx - run_start, order, k, cap)
+    return _bookkeeping(sorted_e, idx - run_start, order, k, cap, start)
 
 
 def _weights(p: MoE, plan) -> dict:
@@ -247,15 +263,51 @@ def _stats(probs: torch.Tensor, top_i: torch.Tensor, e: int) -> torch.Tensor:
     return torch.stack([frac, probs.mean(dim=(0, 1))])
 
 
-def _moe_a2a(p: MoE, w: dict, x: torch.Tensor, cfg: ModelConfig, plan):
-    """``moe_shard_map``: each ``expert`` rank dispatches its block of the
-    sequence (the rows it holds where the residual is sequence-sharded,
+def _chunk_layout(s_loc: int, n: int, s_chunk: int | None):
+    """``(chunk, chunks held, ranks a chunk)`` of a rank holding ``s_loc``
+    positions of ``n * s_loc``: the chunk is ``s_loc`` itself where
+    ``s_chunk`` is ``None`` (capacity per source block), else
+    ``min(s_chunk, n * s_loc)`` global positions, which must nest with the
+    ranks' blocks. ``None`` where they do not."""
+    if s_chunk is None:
+        return s_loc, 1, 1
+    sc = min(s_chunk, n * s_loc)
+    if (n * s_loc) % sc:
+        raise ValueError(f"sequence {n * s_loc} is not a multiple of the "
+                         f"chunk {sc}")
+    if s_loc % sc == 0:
+        return sc, s_loc // sc, 1
+    if sc % s_loc == 0:
+        return sc, 1, sc // s_loc
+    return None
+
+
+def _moe_a2a(p: MoE, w: dict, x: torch.Tensor, cfg: ModelConfig, plan,
+             s_chunk: int | None = None):
+    """The all-to-all planes: each ``expert`` rank dispatches its block of
+    the sequence (the rows it holds where the residual is sequence-sharded,
     else its ``1/tp`` of a sequence every rank holds, routed whole on
-    every rank and split with ``split_along``) at the capacity of that
-    block, exchanges ``(tp, B, E_loc, C, D)`` buffers with the experts'
-    owners, runs its ``E_loc`` experts over the ``tp * C`` slots every
+    every rank and split with ``split_along``), exchanges buffers with the
+    experts' owners, runs its ``E_loc`` experts over the slots every
     source sent, and exchanges the outputs back; a sequence split here is
-    gathered again (``gather_replicated``)."""
+    gathered again (``gather_replicated``).
+
+    ``s_chunk=None`` is ``moe_shard_map``: the capacity of each source
+    block. Else (``all_to_all``) the capacity of the unsharded layer's
+    chunks of ``s_chunk`` global positions: a rank holding ``nco`` whole
+    chunks sends ``(tp, B, E_loc, nco, C, D)``; ``g`` ranks sharing a
+    chunk each send the chunk's ``(tp, B, E_loc, 1, C, D)`` buffer with
+    their own tokens only, their runs of each expert starting after the
+    earlier ranks' (``start``: counted from ``top_i`` where the residual
+    is whole, else one ``all_gather`` of each rank's ``(B, E)`` counts),
+    and each owner sums the chunk's ``g`` sources (each slot is one
+    token's, so the sum is exact) and sends the chunk's outputs back to
+    all ``g``. A layer's forward moves per rank two all-to-alls of
+    ``B * E * nco * C * D`` elements (``nco * C`` about
+    ``s_loc * top_k * capacity_factor / E``, times ``g`` where a chunk is
+    shared), its backward the same two; the whole residual adds a
+    gather of ``y`` forward and of ``x``'s and ``top_p``'s gradients
+    backward."""
     m = cfg.moe
     e, k = m.num_experts, m.top_k
     ex = plan.expert
@@ -264,24 +316,53 @@ def _moe_a2a(p: MoE, w: dict, x: torch.Tensor, cfg: ModelConfig, plan):
     b, s, d = x.shape
     probs, top_p, top_i = route(p, x, k, w["router"])
     stats = _stats(probs, top_i, e)
+    whole_i = top_i
+    lo = 0
     if not plan.seq:
         lo, n = ex.block(s)
         x = C.split_along(x, 1, group)
         top_p = C.split_along(top_p, 1, group)
         top_i = top_i[:, lo:lo + n]
     s_loc = x.shape[1]
-    cap = capacity(s_loc, m)
-    bk = dispatch(top_i, e, cap)
-    buf = _scatter(x, bk, cap, 0, e, e)
-    send = buf.view(b, tp, e_loc, cap, d).transpose(0, 1).contiguous()
-    recv = C.exchange_rows(send, group)           # (source, B, E_loc, C, D)
-    mine = recv.permute(1, 2, 0, 3, 4).reshape(b, e_loc, tp * cap, d)
+    layout = _chunk_layout(s_loc, tp, s_chunk)
+    if layout is None:
+        raise ValueError(f"chunks of {s_chunk} positions do not nest with "
+                         f"blocks of {s_loc}")
+    sc, nco, g = layout
+    cap = capacity(sc, m)
+    start = None
+    if g > 1:
+        if plan.seq:
+            ones = torch.ones_like(top_i.reshape(b, -1))
+            hist = torch.zeros((b, e), dtype=ones.dtype, device=x.device) \
+                .scatter_add_(1, top_i.reshape(b, -1), ones)
+            every = C.all_gather(hist, group)       # (tp, B, E)
+            i = ex.index
+            start = every[i - i % g:i].sum(0)
+        else:
+            first = (lo // sc) * sc
+            earlier = whole_i[:, first:lo].reshape(b, -1)
+            start = torch.zeros((b, e), dtype=torch.int64,
+                                device=x.device).scatter_add_(
+                1, earlier, torch.ones_like(earlier))
+    rows = s_loc // nco
+    bk = dispatch(top_i.reshape(b * nco, rows, k), e, cap, start)
+    buf = _scatter(x.reshape(b * nco, rows, d), bk, cap, 0, e, e)
+    send = buf.view(b, nco, tp, e_loc, cap, d).permute(2, 0, 3, 1, 4, 5) \
+        .contiguous()                             # (owner, B, E_loc, nco, C, D)
+    recv = C.exchange_rows(send, group)           # (source, B, E_loc, nco, C, D)
+    if g > 1:                                     # (chunk, B, E_loc, 1, C, D)
+        recv = recv.view(tp // g, g, b, e_loc, 1, cap, d).sum(1)
+    t = recv.shape[0]
+    mine = recv.permute(1, 2, 0, 3, 4, 5).reshape(b, e_loc, t * nco * cap, d)
     out = _expert_ffn(w, mine)
-    back = out.view(b, e_loc, tp, cap, d).permute(2, 0, 1, 3, 4) \
-        .contiguous()                             # (source, B, E_loc, C, D)
-    ret = C.exchange_rows(back, group)            # (owner, B, E_loc, C, D)
-    y = _combine(ret.transpose(0, 1).reshape(b, e, cap, d), bk, top_p, s_loc,
-                 0, e)
+    back = out.view(b, e_loc, t, nco, cap, d).permute(2, 0, 1, 3, 4, 5)
+    if g > 1:
+        back = back.repeat_interleave(g, dim=0)
+    ret = C.exchange_rows(back.contiguous(), group)
+    ret = ret.permute(1, 3, 0, 2, 4, 5).reshape(b * nco, e, cap, d)
+    y = _combine(ret, bk, top_p.reshape(b * nco, rows, k), rows, 0, e) \
+        .view(b, s_loc, d)
     if not plan.seq:
         y = C.gather_replicated(y, 1, group)
     return y, stats
@@ -329,12 +410,18 @@ def moe_parts(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     in fp32; the sequence is dispatched in chunks of ``s_chunk`` tokens,
     each with its own capacity.
 
-    Under a ``plan`` (``parallel.tensor.TensorPlan``) the rules pick the
-    reference's plane: ``moe_impl="shard_map_a2a"`` with the experts split
-    runs ``_moe_a2a`` (capacity per source block, no chunks); the experts
-    split without it, ``_moe_gather``; otherwise every rank runs this
-    local path on its rows, the ZeRO-sharded leaves gathered, in one chunk
-    under ``moe_impl="shard_map_local"`` (the reference's
+    Under a ``plan`` (``parallel.tensor.TensorPlan``) with the experts
+    split the rules pick the plane (module docstring):
+    ``moe_impl="shard_map_a2a"`` runs ``_moe_a2a`` at the capacity of
+    each source block, no chunks; ``expert_act`` split (the planner's
+    baseline profile turns its ``shard_map_a2a`` plans into GSPMD's
+    ``all_to_all``) or a sequence-sharded residual runs ``_moe_a2a`` in
+    the unsharded layer's chunks (where a whole residual does not split
+    over the experts' ranks in nesting blocks, a decode step,
+    ``_moe_gather``, which computes the same); the experts split without
+    either, ``_moe_gather``. Without an expert split every rank runs this
+    local path on its rows, the ZeRO-sharded leaves gathered, in one
+    chunk under ``moe_impl="shard_map_local"`` (the reference's
     ``moe_shard_map_local``: capacity of the whole local sequence).
     ``stats`` are then this rank's tokens' (``plan.stats`` names the axes
     whose ranks hold other tokens)."""
@@ -345,15 +432,21 @@ def moe_parts(p: MoE, x: torch.Tensor, cfg: ModelConfig,
         if inside:
             raise NotImplementedError(
                 f"the experts split on their mlp dimension over {inside} "
-                f"(num_experts % model != 0; no production cell, ROADMAP "
-                f"Queue 1 item 11.4d)")
-        if plan.moe_impl == "shard_map_a2a" and plan.expert:
-            return _moe_a2a(p, w, x, cfg, plan)
-        if plan.seq:
+                f"(num_experts % model != 0; reached by no plan of either "
+                f"profile, ROADMAP Queue 1 item 11.4d)")
+        if plan.seq and plan.seq.axes != plan.expert.axes:
             raise NotImplementedError(
-                "an MoE layer under a sequence-sharded residual without the "
-                "all-to-all (no production cell, ROADMAP Queue 1 item 11.4d)")
+                f"an MoE layer under a sequence split over {plan.seq.axes} "
+                f"with its experts over {plan.expert.axes} (reached by no "
+                f"plan of either profile, ROADMAP Queue 1 item 11.4d)")
         if plan.expert:
+            if plan.moe_impl == "shard_map_a2a":
+                return _moe_a2a(p, w, x, cfg, plan)
+            s = x.shape[1]
+            if plan.seq or (plan.expert_act and s % plan.expert.n == 0
+                            and _chunk_layout(s // plan.expert.n,
+                                              plan.expert.n, s_chunk)):
+                return _moe_a2a(p, w, x, cfg, plan, s_chunk)
             return _moe_gather(p, w, x, cfg, plan, s_chunk)
         if plan.moe_impl == "shard_map_local":
             s_chunk = x.shape[1]

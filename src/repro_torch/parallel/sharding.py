@@ -13,12 +13,13 @@ its data role), the layer split over ``pod`` (``pp_rules``) and every
 split ``make_rules`` gives a production cell of the ten models: ``heads``,
 ``kv_heads``, ``mlp``, ``vocab``, ``seq`` (with ``mlp_seq``),
 ``cache_seq``, ``w_embed`` (ZeRO-3), ``expert`` with the MoE plane
-``moe_impl`` picks (``shard_map_a2a``, ``gather``, ``shard_map_local``)
-and ``inner`` (Mamba, mLSTM, sLSTM), each rank holding its shards
-(``repro_torch.models.convert.shard_params``) and making the collectives
-of ``repro_torch.parallel.tensor``. ``logical_shard`` only checks the
-rank. ``require_executable`` refuses the rule sets no production cell
-reaches (ROADMAP item 11.4d).
+``moe_impl`` or ``expert_act`` picks (``shard_map_a2a``, GSPMD's
+``all_to_all`` of the planner's baseline profile, ``gather``,
+``shard_map_local``) and ``inner`` (Mamba, mLSTM, sLSTM), each rank
+holding its shards (``repro_torch.models.convert.shard_params``) and
+making the collectives of ``repro_torch.parallel.tensor``.
+``logical_shard`` only checks the rank. ``require_executable`` refuses
+the rule sets no plan of either profile reaches (ROADMAP item 11.4d).
 
 Canonical logical axes (as in the reference):
 
@@ -181,10 +182,9 @@ def _mesh_axes(rules: ShardingRules, logical: str) -> tuple[str, ...]:
 
 def require_executable(rules: ShardingRules | None, pipeline: bool = False,
                        cfg=None) -> None:
-    """Refuse a rule set this port does not run, none of which a
-    production cell of the planner reaches: ``expert_act`` split over more
-    than one rank (the reference's GSPMD ``all_to_all`` strategy, its
-    baseline profile only), the MoE all-to-all (``moe_impl=
+    """Refuse a rule set this port does not run, none of which a plan of
+    the planner's reaches under either profile: ``expert_act`` split over
+    other axes than the experts, the MoE all-to-all (``moe_impl=
     "shard_map_a2a"``) over a ``model`` axis larger than 1 without the
     experts split over ``model`` alone, any split beyond ``batch`` and
     ``layers`` with ``pipeline``, and splits the port's ``TensorPlan``
@@ -193,8 +193,8 @@ def require_executable(rules: ShardingRules | None, pipeline: bool = False,
     heads, ``inner`` split beside a sequence split over other axes. Given
     the model's ``cfg``: an MoE model's experts split on their mlp
     dimension (``num_experts % model != 0``) and an MoE layer under a
-    sequence split without the all-to-all. Raises ``NotImplementedError``
-    naming ROADMAP item 11.4d."""
+    sequence split over other axes than its experts. Raises
+    ``NotImplementedError`` naming ROADMAP item 11.4d."""
     if rules is None or rules.mesh is None:
         return
     wide = {}
@@ -204,8 +204,9 @@ def require_executable(rules: ShardingRules | None, pipeline: bool = False,
         if _mesh_axes(rules, logical):
             wide[logical] = rules.rules[logical]
     refused = {}
-    if "expert_act" in wide:
-        refused["expert_act"] = wide["expert_act"]
+    act = _mesh_axes(rules, "expert_act")
+    if act and act != _mesh_axes(rules, "expert"):
+        refused["expert_act"] = rules.rules["expert_act"]
     if rules.rules.get("moe_impl") == "shard_map_a2a" \
             and int(rules.mesh.shape.get("model", 1)) > 1 \
             and _mesh_axes(rules, "expert") != ("model",):
@@ -229,10 +230,10 @@ def require_executable(rules: ShardingRules | None, pipeline: bool = False,
         if any(a is not None and int(rules.mesh.shape[a]) > 1
                for a in inside):
             refused["mlp"] = rules.rules["mlp"]
-        if seq and rules.rules.get("moe_impl") != "shard_map_a2a":
+        if seq and _mesh_axes(rules, "expert") != seq:
             refused["seq"] = rules.rules["seq"]
     if refused:
         raise NotImplementedError(
             f"these rules shard {refused} over mesh axes larger than 1, a "
-            f"layout no production cell reaches: ROADMAP Queue 1 item "
-            f"11.4d")
+            f"layout no plan of either profile reaches: ROADMAP Queue 1 "
+            f"item 11.4d")

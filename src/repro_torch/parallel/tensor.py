@@ -4,8 +4,8 @@ over ``model``), the sequence-sharded residual of ``seq_tp`` (``seq``,
 with ``mlp_seq``), the sequence-sharded decode cache (``cache_seq``, over
 ``model`` or ``("data", "model")``), ZeRO-3 (``w_embed`` over ``data``
 or the whole mesh), expert parallelism (``expert`` over ``model``, with
-the MoE plane ``moe_impl`` picks: ``models/moe.py``) and the Mamba /
-xLSTM inner split (``inner`` over ``model`` or ``("data", "model")``:
+the MoE plane ``moe_impl`` or ``expert_act`` picks: ``models/moe.py``)
+and the Mamba / xLSTM inner split (``inner`` over ``model`` or ``("data", "model")``:
 ``models/ssm.py``, ``models/xlstm.py``).
 
 The reference names each tensor's logical axes and lets GSPMD place the
@@ -31,7 +31,8 @@ asks it for the process groups and for its weights:
   recurrence each rank runs whole but feeds back only its own slice).
   A leaf sharded over ``expert`` is not summed over ``model``: the
   all-to-all's backward brings each rank every source's gradient of its
-  experts.
+  experts (under either all-to-all plane; the ``gather`` plane's ranks
+  see every token).
 
 A rank holds a parameter's shard as ``ShardingRules.spec`` cuts it
 (``repro_torch.models.convert.shard_params``): a dimension split over
@@ -105,6 +106,7 @@ class TensorPlan:
         self.vocab = _split(rules, "vocab")
         self.cache = _split(rules, "cache_seq")
         self.expert = _split(rules, "expert")
+        self.expert_act = _split(rules, "expert_act")
         self.inner = _split(rules, "inner")
         self.moe_impl = r.get("moe_impl")
         self.mlp_seq = bool(_split(rules, "mlp_seq"))
@@ -128,16 +130,17 @@ class TensorPlan:
                     f"{self.seq.axes}")
         if self.kv_heads and self.kv_heads.axes != self.heads.axes:
             raise NotImplementedError("kv heads split without the heads")
-        if _split(rules, "expert_act"):
+        if self.expert_act and self.expert_act.axes != self.expert.axes:
             raise NotImplementedError(
-                "the GSPMD all-to-all strategy's expert_act split (no "
-                "production cell; ROADMAP Queue 1 item 11.4d)")
+                f"expert_act over {self.expert_act.axes} with the experts "
+                f"over {self.expert.axes} (reached by no plan of either "
+                f"profile; ROADMAP Queue 1 item 11.4d)")
         if self.inner and self.seq and self.inner.axes != self.seq.axes:
             raise NotImplementedError(
                 f"inner over {self.inner.axes} beside the sequence over "
                 f"{self.seq.axes} (ROADMAP Queue 1 item 11.4d)")
-        if self.moe_impl == "shard_map_a2a" and self.seq \
-                and self.seq.axes != self.expert.axes:
+        if (self.moe_impl == "shard_map_a2a" or self.expert_act) \
+                and self.seq and self.seq.axes != self.expert.axes:
             raise NotImplementedError(
                 f"the MoE all-to-all over {self.expert.axes} beside the "
                 f"sequence over {self.seq.axes} (ROADMAP Queue 1 item "

@@ -443,8 +443,10 @@ def _activation_whole(plan, t, seq: bool = True):
 
 def ep_rank(rank, world, cases, arrays):
     """Each case's MoE layer (``models.moe.moe_parts`` under the case's
-    rules) on the rank's shards of the seeded leaves in ``arrays`` and its
-    block of ``x``: the output and ``x``'s gradient gathered whole, the
+    rules, in chunks of the case's ``s_chunk`` where given) on the rank's
+    shards of the seeded leaves in ``arrays`` and its block of ``x`` (the
+    arrays under the case's ``inputs`` prefix, else its arch's; their first
+    ``positions`` where given): the output and ``x``'s gradient gathered whole, the
     aux, every leaf's gradient (summed over ``grad_sync_axes`` as the train
     step sums it) gathered whole, and the assignments the rank's
     dispatches dropped. The loss is ``sum(y * g) + aux``."""
@@ -467,20 +469,24 @@ def ep_rank(rank, world, cases, arrays):
             leaves[leaf] = torch.nn.Parameter(
                 _leaf_shard(rules, M.MoE.AXES[leaf], whole))
             setattr(layer, leaf, leaves[leaf])
+        inputs, n = case.get("inputs", prefix), case.get("positions")
         x = _activation_block(plan, torch.from_numpy(
-            data[f"{prefix}/x"])).requires_grad_(True)
-        g = _activation_block(plan, torch.from_numpy(data[f"{prefix}/g"]))
+            data[f"{inputs}/x"][:, :n])).requires_grad_(True)
+        g = _activation_block(plan, torch.from_numpy(
+            data[f"{inputs}/g"][:, :n]))
         dropped = []
         plain = M.dispatch
 
-        def counting(top_i, e, cap):
-            bk = plain(top_i, e, cap)
+        def counting(top_i, e, cap, start=None):
+            bk = plain(top_i, e, cap, start)
             dropped.append(int((~bk.keep).sum()))
             return bk
 
         M.dispatch = counting
         try:
-            y, stats = M.moe_parts(layer, x, cfg, plan=plan)
+            y, stats = M.moe_parts(layer, x, cfg,
+                                   s_chunk=case.get("s_chunk", 1024),
+                                   plan=plan)
         finally:
             M.dispatch = plain
         aux = M.aux_loss(stats, cfg, plan.stats.group)

@@ -178,6 +178,12 @@ COLLECTIVE_CASES = [
      "mesh": {"pod": 2, "data": 1, "model": 1},
      "pc": dict(pod_axis_role="pipeline", microbatches=2, fsdp="off",
                 remat="block")},
+    # granite's baseline-profile train layout: GSPMD's all_to_all plane
+    # (expert_act over model) under seq_tp, two ranks sharing each chunk
+    {"id": "ep-all_to_all-seq-granite", "arch": "granite-moe-1b-a400m",
+     "mesh": {"data": 1, "model": 2}, "capacity_factor": 8.0,
+     "pc": dict(attn_strategy="seq_tp", moe_strategy="all_to_all",
+                mlp_mode="tp", fsdp="off", remat="block")},
 ]
 
 
@@ -195,6 +201,16 @@ def test_ep_case_is_the_ep_tests_layout():
     _, _, _, rules = D.case_rules(COLLECTIVE_CASES[1])
     want = {"expert": "model", "moe_impl": "shard_map_a2a", "seq": "model",
             "vocab": "model"}
+    assert {k: rules.rules.get(k) for k in want} == want
+
+
+def test_baseline_case_is_the_baseline_tests_layout():
+    """The baseline case's rules hold ``test_torch_ep_baseline.py``'s
+    ``seq`` rules, as the planner's baseline profile gives granite's
+    ``train_4k`` cell."""
+    _, _, _, rules = D.case_rules(COLLECTIVE_CASES[3])
+    want = {"expert": "model", "expert_act": "model", "seq": "model",
+            "vocab": "model", "moe_impl": None}
     assert {k: rules.rules.get(k) for k in want} == want
 
 
@@ -219,6 +235,7 @@ def test_collectives_match_a_real_gloo_run(tmp_path, fake_two):
     kinds = {k: set(collective_costs(v)[1]) for k, v in real.items()}
     assert {"all-reduce", "all-gather"} <= kinds["tp-seq_tp-mlp-llama"]
     assert "all-to-all" in kinds["ep-a2a-seq-granite"]
+    assert {"all-to-all", "all-gather"} <= kinds["ep-all_to_all-seq-granite"]
     assert "collective-permute" in kinds["pp-llama"]
 
 

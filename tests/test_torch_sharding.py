@@ -301,6 +301,79 @@ def test_require_executable_refuses_what_waits_for_11_4b(case):
     require_executable(rules, cfg=cfg)
 
 
+BASELINE_A2A = {(arch, shape, multi)
+                for arch in ("moonshot-v1-16b-a3b", "granite-moe-1b-a400m",
+                             "jamba-v0.1-52b")
+                for shape in ("train_4k", "prefill_32k")
+                for multi in (False, True)}
+
+
+@pytest.mark.parametrize("profile", ["optimized", "baseline"])
+def test_require_executable_admits_every_applicable_cell(profile):
+    """Every one of the 64 applicable production cells (each arch's
+    ``applicable_shapes`` on the 16 x 16 and 2 x 16 x 16 meshes, as the
+    dry-run plans them: ``pp_rules`` under the pipeline) is admitted under
+    both of the planner's profiles. The baseline profile's GSPMD
+    ``all_to_all`` (``expert_act`` over ``model``) is planned for the
+    train and prefill cells of moonshot (under ``head_tp``), granite and
+    jamba (under ``seq_tp``), and for no cell of the optimized one."""
+    from repro_torch.launch.dryrun import applicable_shapes, plan
+    admitted, act = [], set()
+    for arch in ARCH_IDS:
+        cfg = tconfig(arch)
+        for name, shape in tcore.SHAPES.items():
+            if name not in applicable_shapes(cfg):
+                continue
+            for multi in (False, True):
+                mesh = make_production_mesh(multi_pod=multi)
+                pc, rules, pipeline = plan(cfg, shape, mesh, profile=profile)
+                require_executable(rules, pipeline, cfg=cfg)
+                admitted.append((arch, name, multi))
+                if rules.rules.get("expert_act"):
+                    act.add((arch, name, multi))
+                    assert pc.moe_strategy == "all_to_all"
+                    assert rules.rules["expert_act"] == \
+                        rules.rules["expert"] == "model"
+    assert len(admitted) == 64
+    assert act == (BASELINE_A2A if profile == "baseline" else set())
+
+
+REFUSED = {
+    # (mesh, rules, pipeline, arch or None): the rule sets item 11.4d keeps
+    "a2a_without_experts": ({"data": 1, "model": 2},
+                            {"batch": "data", "moe_impl": "shard_map_a2a"},
+                            False, None),
+    "expert_act_without_experts": ({"data": 1, "model": 2},
+                                   {"expert_act": "model"}, False, None),
+    "experts_on_mlp": ({"data": 1, "model": 2}, {"mlp": "model"}, False,
+                       "granite-moe-1b-a400m"),
+    "seq_without_experts": ({"data": 1, "model": 2},
+                            {"seq": "model", "vocab": "model"}, False,
+                            "granite-moe-1b-a400m"),
+    "inner_beside_seq": ({"data": 2, "model": 2},
+                         {"seq": "model", "vocab": "model",
+                          "inner": ("data", "model")}, False, None),
+    "pipeline_beyond_batch": ({"pod": 2, "data": 1, "model": 2},
+                              {"batch": "data", "heads": "model"}, True,
+                              None),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
+def test_require_executable_refuses_what_11_4d_keeps(case):
+    """The rule sets no plan of either profile reaches stay refused, each
+    naming ROADMAP item 11.4d: the all-to-all without the experts over
+    ``model`` (``shard_map_a2a``, or ``expert_act`` alone), the experts
+    split on their mlp dimension, an MoE layer under a sequence split
+    without its experts over the same axes, ``inner`` beside a sequence
+    split over other axes, and a split beyond the batch under the
+    pipeline."""
+    mesh, rules, pipeline, arch = REFUSED[case]
+    with pytest.raises(NotImplementedError, match="11.4d"):
+        require_executable(ShardingRules(Mesh(mesh), rules), pipeline,
+                           cfg=tconfig(arch) if arch else None)
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_require_executable_passes_model1_fsdp_off_plans(arch):
     """Every rule set of a model=1, fsdp-off plan runs, on data=4 and on
