@@ -138,7 +138,7 @@
    every loss and norm finite, peak memory printed beside the plan's
    estimate, the plan's budget (``TRAIN_HBM_SHARE`` of the card's
    memory) and the card's memory; the peak must lie under the budget.
-   ``dp_granite_moe_1b_a400m`` (granite cut to 12 of its 24 layers)
+   ``dp_granite_moe_1b_a400m`` (granite cut to 6 of its 24 layers)
    spawns two ranks that share the card through ``gloo`` (a ``file://``
    rendezvous; ``data=2, model=1``), each planning the cell, taking 2 of
    the train phases' 4 x 1024 rows and running one untimed and one timed
@@ -174,8 +174,19 @@
    step, and one under ``zero2`` with ``regather`` at 2 microbatches, each
    held against the unsharded step at the same microbatch count (loss and
    grad norm within 1e-2, each rank's slice of the fp32 master weights
-   within 2 lr of the same slice). Then K4 and K4b at a query offset and
-   K5 with its log-sum-exp are timed beside their default calls.
+   within 2 lr of the same slice). ``pp_tp_train_llama3_2_3b``: the
+   GPipe pipeline over ``pod=2`` with splits inside its stages, four
+   ranks sharing the card, the 4-layer llama (two a stage) on 8 x 1024
+   tokens in 4 microbatches, one step under the rules of the planner's
+   plan of llama's packing cell (``train_4k`` on 2 x 16 x 16 with the
+   pipeline's pod role) on ``pod=2, model=2`` under the optimized
+   profile (``seq_tp``, ``mlp_seq``) and the baseline one (``seq_tp``,
+   ``mlp``), and one on ``pod=2, data=2`` with ``fsdp="on"`` (ZeRO-3
+   inside the stages); each held against the unsharded step (loss and
+   grad norm within 1e-2, every rank's shards within ``tp_param_bound``,
+   every leaf held whole bit-equal on the ranks that hold it); the
+   shifts are ``collective_permute``s. Then K4 and K4b at a query offset
+   and K5 with its log-sum-exp are timed beside their default calls.
    K2, K4, K4b and K5 are then held at the shapes these phases added.
 7. Profiles jamba and xlstm (the models of step 8, on the weights made
    from the same seed) the same way (xlstm's decode steps only),
@@ -194,9 +205,9 @@
    from seed 0, serves step 3's requests through the same engine, with the
    counters set to 0 just before and read just after: K4 once a wave (one
    attention layer, its tensor-core route), K5 once a step, K2 four times
-   a wave and a step. ``serve_xlstm_1_3b``: ``xlstm-1.3b`` at its full
-   config (48 layers, 7 mLSTM : 1 sLSTM, d_model 2048, 4 heads, vocab
-   50304), the same requests; no K1-K5 launch. Each is held at the model
+   a wave and a step. ``serve_xlstm_1_3b_16l``: ``xlstm-1.3b`` at its
+   full width cut to 16 of its 48 layers (two periods of 7 mLSTM : 1
+   sLSTM, d_model 2048, 4 heads, vocab 50304), the same requests; no K1-K5 launch. Each is held at the model
    level: each request's prompt through ``prefill_step`` (its longest prefix that the
    mLSTM's prefill chunk of 256 takes, the rest teacher-forced), then its
    generated tokens teacher-forced through ``decode_step``, the logits at
@@ -219,8 +230,8 @@
    two ranks sharing the card through ``gloo``, held against one rank on
    the same weights, printing its step, prefill or decode ms, its
    collectives by kind (``all_to_all`` among them), each rank's peak and
-   launches. ``ep_train_granite_moe_1b_a400m``: granite at its published
-   config, drop-free (capacity factor E / top_k), the train phases'
+   launches. ``ep_train_granite_moe_1b_a400m``: granite at full width cut
+   to 8 of its 24 layers, drop-free (capacity factor E / top_k), the train phases'
    batch, one step under its 2 x 16 x 16 ``train_4k`` layout on ``data=1,
    model=2`` (``seq_tp``, ``mlp_seq``, vocab and experts over ``model``,
    the all-to-all dispatch on K2) and one under its 16 x 16 ``pure_dp``
@@ -229,7 +240,7 @@
    the same shards of the unsharded step's; the drops of one forward at
    the model's capacity factor 1.25 printed, unsharded and under each
    layout. ``ep_decode_moonshot_v1_16b_a3b``: moonshot at full width cut
-   to 12 of its 48 layers, in fp32, prompts of 64-512 padded to 512,
+   to 6 of its 48 layers, in fp32, prompts of 64-512 padded to 512,
    prefilled and decoded 32 steps under its ``decode_32k`` layout (the
    ``gather`` plane, K5 with its log-sum-exp). ``inner_tp_jamba_v0_1_52b``:
    jamba at full width cut to layers 0-3 of its period, in fp32, four
@@ -285,8 +296,9 @@ MOE_ARCH = "granite-moe-1b-a400m"
 # bf16 weights, one H100 holds 80 GB), its experts dispatched on K2
 HYBRID_ARCH, HYBRID_LAYERS = "jamba-v0.1-52b", 8
 # the recurrent serve phase: xlstm-1.3b (mLSTM and sLSTM, no attention) at
-# its full config
-XLSTM_ARCH = "xlstm-1.3b"
+# its full width, cut to two periods of its block pattern (16 of 48 layers;
+# all 48 until the pipeline's phase came in)
+XLSTM_ARCH, XLSTM_SERVE_LAYERS = "xlstm-1.3b", 16
 # the stub-frontend phase: each model at its full config, one forward and
 # one prefill of FRONTEND_BATCH x FRONTEND_SEQ positions (internvl2's
 # 256 patches among them)
@@ -371,18 +383,32 @@ ZERO_VARIANTS = {
                                 remat="block", zero2=True,
                                 microbatches=2), True)}
 TP_PROMPT_LENGTHS = (64, 192, 320, 512)
+# the pipeline with splits inside its stages: PP_RANKS gloo ranks sharing
+# the card, llama at full width cut to PP_LAYERS of its 28 layers (two a
+# stage, as TP_LAYERS cuts tp_train), PP_BATCH x TRAIN_SEQ tokens in the
+# packing cell's PP_MICROBATCHES microbatches, one step a variant under the
+# rules of the planner's plan of llama's packing cell (train_4k on
+# 2 x 16 x 16 with the pipeline's pod role, under the variant's profile and
+# overrides) laid on the variant's mesh; held to one rank's unsharded step
+# on the whole batch as tp_train is
+PP_RANKS, PP_LAYERS, PP_BATCH, PP_MICROBATCHES = 4, 4, 8, 4
+PP_TP_VARIANTS = {
+    "seq_tp_mlp_seq": ({"pod": 2, "data": 1, "model": 2}, "optimized", {}),
+    "seq_tp_mlp": ({"pod": 2, "data": 1, "model": 2}, "baseline", {}),
+    "zero3_data": ({"pod": 2, "data": 2, "model": 1}, "optimized",
+                   {"fsdp": "on"})}
 # expert parallelism and the inner split: PAR_RANKS gloo ranks sharing the
 # card, each phase held against one rank on the same weights (the bounds
-# of the tp phases). ep_train: granite at full width cut to 12 of its 24
+# of the tp phases). ep_train: granite at full width cut to 8 of its 24
 # layers (24 until the baseline variant came in: its all-to-alls move a
-# whole chunk's buffer), one step under its 2 x 16 x 16 train_4k layout on
+# whole chunk's buffer; 12 until the pipeline's phase came in), one step under its 2 x 16 x 16 train_4k layout on
 # data=1 x model=2, one under its 16 x 16 pure_dp layout on data=2 and one
 # under its baseline-profile train_4k layout on data=1 x model=2 (GSPMD's
 # all_to_all plane), drop-free (E / top_k), the drops at 1.25 printed
 # beside. ep_decode:
-# moonshot at full width cut to 12 of its 48 layers (all 48 are 56.1 GB of
+# moonshot at full width cut to 6 of its 48 layers (all 48 are 56.1 GB of
 # bf16 weights, and each rank builds the whole model before it keeps its
-# shards), one forward under its baseline-profile prefill_32k layout
+# shards; 12 until the pipeline's phase came in), one forward under its baseline-profile prefill_32k layout
 # (head_tp, all_to_all), its decode_32k layout for the prefill and the
 # decode steps. inner_tp_jamba: jamba at full width cut to
 # layers 0-3 of its period (three Mamba layers, one attention layer, MoE
@@ -394,7 +420,7 @@ TP_PROMPT_LENGTHS = (64, 192, 320, 512)
 # 2 x 16 x 16 layout (vocab and inner over model) and one under pure_dp on
 # data=2
 PAR_RANKS = 2
-EP_TRAIN_LAYERS = 12
+EP_TRAIN_LAYERS = 8
 PUBLISHED["moonshot-v1-16b-a3b"] = (48, 2048, 16, 16, 128, 1408, 163840,
                                     "bfloat16", (64, 6, 1408))
 EP_TRAIN_VARIANTS = {
@@ -413,7 +439,7 @@ EP_TRAIN_VARIANTS = {
                                mlp_mode="tp", fsdp="off", remat="block"))}
 DECODE_PC = dict(attn_strategy="decode_kv_shard", moe_strategy="gather",
                  fsdp="off")
-EP_DECODE = {"arch": "moonshot-v1-16b-a3b", "layers": 12,
+EP_DECODE = {"arch": "moonshot-v1-16b-a3b", "layers": 6,
              "dtype": "float32", "build_dtype": "bfloat16",
              "lengths": TP_PROMPT_LENGTHS, "steps": 32,
              # the baseline profile's prefill_32k layout: head_tp, GSPMD's
@@ -460,8 +486,9 @@ DRYRUN_PEAK_RTOL = 0.05
 # one rank's own rows' aux (the fault the hold is for) lies far outside
 # granite cut to DP_LAYERS of its 24 layers (the int8 all-reduce's hold
 # moves its gradients through host memory four times), since the
-# expert-parallel and inner-split phases came in
-DP_RANKS, DP_STEPS, DP_LAYERS = 2, 1, 12
+# expert-parallel and inner-split phases came in (6 since the pipeline's
+# phase came in)
+DP_RANKS, DP_STEPS, DP_LAYERS = 2, 1, 6
 DP_RTOL, DP_AUX_RTOL = 1e-2, 1e-5
 COMPRESSED_BOUND, COMPRESSED_AGREE = 0.02, 1e-6
 # the full-width gradient hold: llama cut to 2 layers, fp32, 1 x 256
@@ -484,8 +511,10 @@ K4B_EARLIER_MS = 5.29
 LSE_TOL = 1e-4
 # names of K1-K3's device kernels (csrc/partition.cu)
 PARTITION_KERNELS = ("hist_kernel", "scatter_kernel", "fused_probe_kernel")
-# empty device traces taken again before a measurement gives up (``traced``)
-PROFILE_TRIES = 3
+# empty device traces taken again before a measurement gives up (``traced``;
+# after the phases that spawn ranks on the card about half the tries came
+# back empty on an H100)
+PROFILE_TRIES = 5
 # the checkpoint phase: llama at full width cut to CKPT_LAYERS layers (its
 # checkpoint 8.33 GB: bf16 weights and fp32 master, m and v), CKPT_STEPS
 # steps uninterrupted and again under the supervisor, a checkpoint every
@@ -3537,10 +3566,12 @@ def dp_phase(dev, card: str) -> dict:
 # -- tensor, sequence and ZeRO-3 parallelism: ranks sharing the card -----------
 
 
-def _rank_setup(rank: int, world: int, root: str, layers):
+def _rank_setup(rank: int, world: int, root: str, layers,
+                rows: int = TRAIN_BATCH):
     """Join the ``gloo`` group of ranks sharing the card; ``(dev, cfg,
     shape, batch)`` of llama at its published width (``layers`` of them,
-    all where ``None``) and the train phases' batch."""
+    all where ``None``) and the train phases' batch (``rows`` x
+    ``TRAIN_SEQ`` tokens)."""
     import dataclasses
 
     import torch
@@ -3550,7 +3581,7 @@ def _rank_setup(rank: int, world: int, root: str, layers):
     cfg = serve_config(SERVE_ARCH)
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
-    shape, batch = _train_inputs(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
+    shape, batch = _train_inputs(cfg, dev, rows, TRAIN_SEQ)
     return dev, cfg, shape, batch
 
 
@@ -3819,7 +3850,7 @@ def tp_train_phase(dev, card: str) -> dict:
     return out
 
 
-def dryrun_phase(planned: dict, tp: dict, card: str) -> dict:
+def dryrun_phase(planned: dict, tp: dict, pp: dict, card: str) -> dict:
     """``dryrun_plan_train_llama3_2_3b``: the dry-run's trace
     (``repro_torch.launch.dryrun``, meta tensors, no kernel launched) of
     the cell ``plan_train_phase`` ran, under the plan it ran (one rank, the
@@ -3829,8 +3860,11 @@ def dryrun_phase(planned: dict, tp: dict, card: str) -> dict:
     steps equal ``plan_train``'s launches; the collective calls and result
     bytes by kind equal ``tp_train``'s rank 0's, each variant; the traced
     peak lies within ``DRYRUN_PEAK_RTOL`` of ``max_memory_allocated()``.
-    Prints the traced FLOPs a step beside the measured median step, and
-    the achieved FLOP/s as a share of ``H100_SXM.peak_flops``."""
+    ``pp_tp_train_phase``'s variants are traced on rank 0 of a fake group
+    of ``PP_RANKS``: their collective calls and result bytes by kind, and
+    their kernel calls, equal the real rank 0's. Prints the traced FLOPs a
+    step beside the measured median step, and the achieved FLOP/s as a
+    share of ``H100_SXM.peak_flops``."""
     import dataclasses
 
     import torch.distributed as dist
@@ -3894,6 +3928,34 @@ def dryrun_phase(planned: dict, tp: dict, card: str) -> dict:
             print(f"dryrun tp_train {name} (rank 0 of {TP_RANKS}, fake "
                   f"process group): collectives {json.dumps(got)} equal the "
                   f"real rank 0's; traced in {t['trace_s']:.2f} s [{card}]")
+        out["pp_tp"] = {}
+        pcfg = dataclasses.replace(cfg, num_layers=PP_LAYERS)
+        shape = ShapeConfig("chip_train", TRAIN_SEQ, PP_BATCH, "train")
+        dryrun.fake_world(PP_RANKS)
+        for name, (mesh_shape, profile, overrides) in PP_TP_VARIANTS.items():
+            pc, rules = dryrun.packing_plan(SERVE_ARCH, pcfg,
+                                            Mesh(mesh_shape),
+                                            PP_MICROBATCHES, overrides,
+                                            profile)
+            fn, args = dryrun.build_step(pcfg, shape, pc, rules,
+                                         pipeline=True)
+            t = dryrun.traced_fields(fn, args)
+            want_bytes, want_counts = collective_costs(pp["collectives"][name])
+            launched = {k: v for k, v in pp["rank0_launches"][name].items()
+                        if v}
+            got = {"calls": t["collective_counts"],
+                   "result_bytes": t["collective_bytes_by_kind"],
+                   "kernels": t["kernel_launches"]}
+            require(got == {"calls": want_counts, "result_bytes": want_bytes,
+                            "kernels": launched},
+                    f"dryrun pp_tp_train {name}: traced {got}, rank 0 made "
+                    f"{want_counts} calls of {want_bytes} B and launched "
+                    f"{launched}")
+            out["pp_tp"][name] = {"trace_s": t["trace_s"], **got}
+            print(f"dryrun pp_tp_train {name} (rank 0 of {PP_RANKS}, fake "
+                  f"process group): collectives and kernel calls "
+                  f"{json.dumps(got)} equal the real rank 0's; traced in "
+                  f"{t['trace_s']:.2f} s [{card}]")
     finally:
         dist.destroy_process_group()
     return out
@@ -3997,6 +4059,178 @@ def zero3_train_phase(dev, card: str) -> dict:
               f"master_moved_apart: the share of weights more than lr "
               f"apart, a gradient sign that differs) [{card}]")
         out["held"][name] = held
+        for r in ranks:
+            for k, v in r["variants"][name]["launches"].items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+            for k, v in r["variants"][name]["shapes"].items():
+                out["shapes"].setdefault(k, set()).update(map(tuple, v))
+    return out
+
+
+def pp_tp_train_rank(rank: int, world: int, root: str, variants: dict):
+    """One of ``world`` ranks sharing the card (``gloo``): llama at full
+    width cut to ``PP_LAYERS`` layers, rank 0 first runs the unsharded step
+    on the whole ``PP_BATCH`` x ``TRAIN_SEQ`` batch (its loss, grad norm
+    and updated weights reach the other ranks through ``root``), then for
+    each variant one pipelined step on this rank's shards of its stage
+    (``dryrun.packing_plan``); each rank holds its updated shards to the
+    same slices of the unsharded step's within ``tp_param_bound`` and records
+    the bits of the leaves it holds whole. Writes
+    ``root/rank{rank}.json``."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.config import OptimizerConfig
+    from repro_torch.launch.dryrun import packing_plan
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import init_lm
+    from repro_torch.models.convert import (_cuts, _meta_leaves, _shard,
+                                            shard_params)
+    from repro_torch.parallel.pipeline import (init_pp_train_state,
+                                               make_pp_train_step)
+    from repro_torch.parallel.sharding import require_executable
+
+    t0 = time.perf_counter()
+    dev, cfg, shape, batch = _rank_setup(rank, world, root, PP_LAYERS,
+                                         PP_BATCH)
+    seconds = {"setup": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    if rank == 0:
+        one = _one_rank_step(cfg, dev, shape, batch)
+        one.pop("master")
+        one["max_abs"] = {k: float(t.to(dev).abs().max())
+                          for k, t in one["params"].items()}
+        torch.save(one, f"{root}/one.pt")
+        del one
+        _release()
+    dist.barrier()
+    one = torch.load(f"{root}/one.pt")
+    seconds["one_rank_step"] = time.perf_counter() - t0
+    leaves = _meta_leaves(cfg)
+    out = {"rank": rank, "one": {"loss": one["loss"],
+                                 "grad_norm": one["grad_norm"]},
+           "variants": {}, "seconds": seconds}
+    for name, (mesh_shape, profile, overrides) in variants.items():
+        t0 = time.perf_counter()
+        mesh = Mesh(mesh_shape)
+        pc, rules = packing_plan(SERVE_ARCH, cfg, mesh, PP_MICROBATCHES,
+                                 overrides, profile)
+        require_executable(rules, pipeline=True, cfg=cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        full = init_lm(cfg, gen, dev)
+        local = shard_params(full, rules)
+        del full
+        _release()
+        state = init_pp_train_state(cfg, local, mesh)
+        step = make_pp_train_step(cfg, shape, OptimizerConfig(
+            lr=TRAIN_LR, warmup_steps=0), pc, rules)
+        seconds[f"{name}_build"] = time.perf_counter() - t0
+        state, metrics, rec = _timed_step(step, state, batch)
+        t0 = time.perf_counter()
+        named = dict(state["params"].named_parameters())
+        worst, diff, whole = 0.0, 0.0, {}
+        for k, p in named.items():
+            cuts = _cuts(rules, leaves[k][1], tuple(one["params"][k].shape))
+            want = _shard(one["params"][k], cuts).to(dev)
+            d = float((p.detach().float() - want.float()).abs().max())
+            worst = max(worst, d / tp_param_bound(one["max_abs"][k]))
+            diff = max(diff, d)
+            if not cuts:
+                whole[k] = hashlib.sha256(p.detach().contiguous().view(-1)
+                                          .view(torch.uint8).cpu().numpy()
+                                          ).hexdigest()
+        rec.update(param_max_abs_diff=diff, param_bound_ratio=worst,
+                   whole=whole, stage=mesh.coordinate()["pod"],
+                   coordinate=mesh.coordinate(),
+                   rules={k: v for k, v in rules.rules.items()
+                          if v is not None},
+                   pc={k: getattr(pc, k) for k in (
+                       "attn_strategy", "mlp_mode", "fsdp", "remat",
+                       "microbatches")})
+        out["variants"][name] = rec
+        del named, state, step, metrics, local
+        _release()
+        seconds[f"{name}_hold"] = time.perf_counter() - t0
+    dist.destroy_process_group()
+    with open(f"{root}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def pp_tp_train_phase(dev, card: str) -> dict:
+    """``pp_tp_train_llama3_2_3b``: ``PP_RANKS`` ranks sharing the card, one
+    pipelined step of each ``PP_TP_VARIANTS`` entry over ``pod=2`` stages
+    with the packing cell's splits inside them (``pp_tp_train_rank``).
+    Held: every rank's loss and grad norm within ``TP_RTOL`` of the
+    unsharded step's; every rank's updated shards within
+    ``tp_param_bound`` of the same slices of the unsharded step's; every
+    leaf a rank holds whole bit-equal on every rank that holds it; K4
+    twice and K4b once a layer of the rank's stage a microbatch, at the
+    query offset of the rank's block of the sequence under ``seq_tp``."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as root:
+        wall, ranks = _spawn(pp_tp_train_rank, PP_RANKS, root,
+                             PP_TP_VARIANTS)
+    per_stage = PP_LAYERS // 2
+    want = {"flash_attention": 2 * per_stage * PP_MICROBATCHES,
+            "flash_attention_bwd": per_stage * PP_MICROBATCHES,
+            "decode_attention": 0}
+    out = {"wall_s": wall, "held": {}, "launches": {}, "shapes": {},
+           "collectives": {}, "rank0_launches": {}}
+    print(f"pp_tp_train {SERVE_ARCH} ({PP_LAYERS} of 28 layers at full "
+          f"width, {per_stage} a stage, {PP_BATCH}x{TRAIN_SEQ} tokens in "
+          f"{PP_MICROBATCHES} microbatches): {PP_RANKS} ranks on one card "
+          f"(gloo; the shifts' batch_isend_irecv through host memory), "
+          f"{wall:.2f} s (rank 0's parts, s: "
+          f"{json.dumps({k: round(v, 2) for k, v in ranks[0]['seconds'].items()})}"
+          f"); the unsharded step's loss {ranks[0]['one']['loss']:.6f}, "
+          f"grad norm {ranks[0]['one']['grad_norm']:.6f} [{card}]")
+    rel = lambda a, b: abs(a - b) / abs(b)
+    for name, (mesh_shape, profile, _) in PP_TP_VARIANTS.items():
+        _print_rank_records("pp_tp_train", ranks, name, card)
+        held = {"loss": 0.0, "grad_norm": 0.0, "param_bound_ratio": 0.0,
+                "param_max_abs_diff": 0.0}
+        holders: dict = {}
+        for r in ranks:
+            rec, one = r["variants"][name], r["one"]
+            for k in ("loss", "grad_norm"):
+                held[k] = max(held[k], rel(rec[k], one[k]))
+                require(rel(rec[k], one[k]) <= TP_RTOL,
+                        f"pp_tp_train {name} rank {r['rank']}: {k} "
+                        f"{rec[k]} against one rank's {one[k]}")
+            require(rec["param_bound_ratio"] <= 1.0,
+                    f"pp_tp_train {name} rank {r['rank']}: shards "
+                    f"{rec['param_max_abs_diff']} off the unsharded step's, "
+                    f"{rec['param_bound_ratio']} of the bound")
+            for k in ("param_bound_ratio", "param_max_abs_diff"):
+                held[k] = max(held[k], rec[k])
+            for k, digest in rec["whole"].items():
+                holders.setdefault(k, set()).add(digest)
+        require(all(len(d) == 1 for d in holders.values()),
+                f"pp_tp_train {name}: leaves held whole differ across the "
+                f"ranks that hold them: "
+                f"{sorted(k for k, d in holders.items() if len(d) > 1)}")
+        require({r["variants"][name]["stage"] for r in ranks} == {0, 1},
+                f"pp_tp_train {name}: stages")
+        _require_launches("pp_tp_train", ranks, name, want)
+        offsets = {sh[-1] if len(sh) > 8 else 0 for r in ranks for sh in
+                   r["variants"][name]["shapes"]["flash_attention"]
+                   + r["variants"][name]["shapes"]["flash_attention_bwd"]}
+        seq = mesh_shape["model"]
+        require(offsets == {i * TRAIN_SEQ // seq for i in range(seq)},
+                f"pp_tp_train {name}: K4 / K4b query offsets {offsets}")
+        rec0 = ranks[0]["variants"][name]
+        print(f"pp_tp_train {name} (mesh {json.dumps(mesh_shape)}, the "
+              f"{profile} profile's plan {json.dumps(rec0['pc'])}): rules "
+              f"{json.dumps(rec0['rules'])}; held {json.dumps(held)} (loss "
+              f"and grad norm within {TP_RTOL} of the unsharded step's, "
+              f"every rank's shards within 2 lr + 2^-7 max|w| a leaf of the "
+              f"unsharded step's slices, {len(holders)} leaves held whole "
+              f"bit-equal on every rank that holds them) [{card}]")
+        out["held"][name] = held
+        out["collectives"][name] = rec0["collectives"]
+        out["rank0_launches"][name] = rec0["launches"]
         for r in ranks:
             for k, v in r["variants"][name]["launches"].items():
                 out["launches"][k] = out["launches"].get(k, 0) + v
@@ -4792,9 +5026,12 @@ def offset_kernel_times(dev, gen, card: str) -> None:
     """K4 and K4b on a rank's half of the queries at its offset against the
     whole sequence's keys (the ``seq_tp`` training shape), and K5 with its
     log-sum-exp on a rank's half of the cache (the ``decode_kv_shard``
-    shape), each timed beside the default call at the same shape: call ms
-    (median of 20) and device ms."""
+    shape), each timed beside the default call at the same shape, and
+    SDPA at the offset shape (``causal_lower_right``), forward and its
+    backward alone: call ms (median of 20) and device ms."""
     import torch
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
     from repro_torch.kernels import attention as A, ref
     b, s, h, kh, hd, dt = TRAIN_BATCH, TRAIN_SEQ, 24, 8, 128, \
         "torch.bfloat16"
@@ -4824,17 +5061,35 @@ def offset_kernel_times(dev, gen, card: str) -> None:
     calls["K5 (S=512)"] = lambda: A.decode_attention(qd, kc, vc, length)
     calls["K5 with lse (S=512)"] = lambda: A.decode_attention(
         qd, kc, vc, length, return_lse=True)
+    # the library's call at the offset shape: SDPA with the lower-right
+    # causal mask (queries at the keys' end), K and V repeated to the query
+    # heads outside the window; its backward alone, its forward outside
+    rep = h // kh
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (
+        q[:, half:], k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)))
+    mask = causal_lower_right(s - half, s)
+    calls["SDPA causal_lower_right q rows 512-1023"] = \
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+    og = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+    gog = go2.transpose(1, 2).contiguous()
+    calls["SDPA causal_lower_right backward alone q rows 512-1023"] = \
+        lambda: torch.autograd.grad(og, (qg, kg, vg), gog, retain_graph=True)
     err = float((A.flash_attention(q[:, half:], k, v, q_offset=half).float()
                  - ref.flash_attention_ref(q[:, half:], k, v, True,
                                            half).float()).abs().max())
+    sdpa_err = float((F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask).transpose(1, 2).float()
+        - ref.flash_attention_ref(q[:, half:], k, v, True,
+                                  half).float()).abs().max())
     saved = shape_sets()
     times = {name: {"ms": median_ms(fn), "device_ms": device_ms(fn)}
              for name, fn in calls.items()}
     restore_shape_sets(saved)
     print(f"kernel offset and lse calls (B={b} H={h} K={kh} hd={hd} {dt}, "
           f"causal; K5 lengths {length.tolist()}): {json.dumps(times)}; K4 at "
-          f"offset 512 max |err| {err:.4g} against its plain version "
-          f"[{card}]")
+          f"offset 512 max |err| {err:.4g} against its plain version, "
+          f"SDPA's {sdpa_err:.4g} [{card}]")
 
 
 def shape_sets() -> dict:
@@ -5204,6 +5459,10 @@ def main() -> int:
                           card))
     print_kernel_rows(rows[-1:], card)
     seconds["train_kernel_checks"] = time.perf_counter() - t0
+    # the offset and lse calls timed here, before the phases that spawn
+    # ranks on the card: after them the profiler's traces came back empty
+    # on most tries
+    offset_kernel_times(dev, gen, card)
 
     # checkpoint and restart, and the training CLI: after the train phases
     t0 = time.perf_counter()
@@ -5228,19 +5487,21 @@ def main() -> int:
     seconds["dp_granite_moe_1b_a400m"] = time.perf_counter() - t0
     print(f"phase dp_granite_moe_1b_a400m: "
           f"{seconds['dp_granite_moe_1b_a400m']:.2f} s")
-    # tensor, sequence and ZeRO-3 parallelism: two ranks sharing the card,
-    # each phase held against one rank; then the offset and lse calls timed
+    # tensor, sequence and ZeRO-3 parallelism: two ranks sharing the card
+    # (four for the pipeline with those splits inside its stages), each
+    # phase held against one rank
     tp_phases = {}
     for name, fn in (("tp_train_llama3_2_3b", tp_train_phase),
                      ("tp_decode_llama3_2_3b", tp_decode_phase),
-                     ("zero3_train_llama3_2_3b", zero3_train_phase)):
+                     ("zero3_train_llama3_2_3b", zero3_train_phase),
+                     ("pp_tp_train_llama3_2_3b", pp_tp_train_phase)):
         t0 = time.perf_counter()
         tp_phases[name] = fn(dev, card)
         seconds[name] = time.perf_counter() - t0
         print(f"phase {name}: {seconds[name]:.2f} s")
-    offset_kernel_times(dev, gen, card)
     t0 = time.perf_counter()
-    dryrun_phase(planned, tp_phases["tp_train_llama3_2_3b"], card)
+    dryrun_phase(planned, tp_phases["tp_train_llama3_2_3b"],
+                 tp_phases["pp_tp_train_llama3_2_3b"], card)
     seconds["dryrun_plan_train_llama3_2_3b"] = time.perf_counter() - t0
     print(f"phase dryrun_plan_train_llama3_2_3b: "
           f"{seconds['dryrun_plan_train_llama3_2_3b']:.2f} s")
@@ -5270,7 +5531,8 @@ def main() -> int:
     # phases came back empty on an H100
     import dataclasses
     recurrent_cfgs = {}
-    for arch, cut in ((HYBRID_ARCH, HYBRID_LAYERS), (XLSTM_ARCH, None)):
+    for arch, cut in ((HYBRID_ARCH, HYBRID_LAYERS),
+                      (XLSTM_ARCH, XLSTM_SERVE_LAYERS)):
         cfg = serve_config(arch)
         name = "serve_" + arch.replace("-", "_").replace(".", "_")
         if cut is not None:

@@ -107,6 +107,24 @@ def plan(cfg: ModelConfig, shape: ShapeConfig, mesh, pc_overrides=None,
     return pc, rules, pipeline
 
 
+def packing_plan(arch: str, cfg: ModelConfig, mesh, microbatches: int,
+                 pc_overrides=None, profile: str = "optimized",
+                 hw: Hardware = H100_SXM):
+    """``(pc, rules)`` of ``arch``'s packing cell laid on a smaller mesh:
+    ``train_4k`` planned on the 2 x 16 x 16 production mesh with
+    ``pod_axis_role="pipeline"``, ``microbatches`` microbatches and
+    ``pc_overrides``, its rules made by ``make_rules`` on ``mesh`` (of the
+    same axes) for ``cfg`` (the arch, possibly cut in depth or width) at
+    the cell's shape, as ``pp_rules``."""
+    from repro_torch.parallel.pipeline import pp_rules
+    shape = SHAPES["train_4k"]
+    pc = plan_cell(get_config(arch), shape,
+                   make_production_mesh(multi_pod=True), ParallelConfig(
+                       pod_axis_role="pipeline", microbatches=microbatches,
+                       **(pc_overrides or {})), profile=profile, hw=hw)
+    return pc, pp_rules(make_rules(mesh, cfg, shape, pc, hw))
+
+
 def planned_fields(cfg: ModelConfig, shape: ShapeConfig, mesh, pc,
                    rules) -> dict:
     """The record's planning fields (the reference's, computed without

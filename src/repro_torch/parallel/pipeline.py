@@ -16,25 +16,46 @@ stage with ``batch_isend_irecv``, and its backward sends the gradient
 back (the reference's transposed ``ppermute``). Every tick's input is the
 previous tick's ``_Shift`` output on every stage (stage 0 and idle ticks
 pass a zero gradient to it), so each rank's graph is one chain and every
-rank runs the ``_Shift`` backwards in the same order. The last stage's
-outputs reach every rank through one fp32 sum over ``pod`` (the
-reference's ``psum`` of ``out_acc``).
+rank runs the ``_Shift`` backwards in the same order. An idle tick runs
+``h_recv * 0``, which makes no collective. The last stage's outputs reach
+every rank through one fp32 sum over ``pod`` (the reference's ``psum`` of
+``out_acc``).
+
+Inside a pod the rules' other splits run as the tensor-parallel train step
+runs them (the reference's pipeline is manual over ``pod`` only and leaves
+``data`` and ``model`` to GSPMD, so "the per-stage layer stack keeps its
+TP/FSDP shardings"): every rank computes under the rules'
+``parallel.tensor.TensorPlan`` (the batch over ``data``; ``seq`` with
+``mlp_seq`` or ``mlp``, ``vocab``, ``heads`` and ``kv_heads`` over
+``model``; ``w_embed`` over ``data``, ZeRO-3), holds its shards of its
+stage's layers and of the replicated leaves (``convert.shard_params``)
+and their AdamW state. ``_Shift`` sends a rank's shard of the residual
+(under a sequence split, its block of the sequence) to the rank with the
+same ``(data, model)`` coordinate in the next stage, and the sum over
+``pod`` of the last stage's outputs is taken shard by shard. The
+collectives of a stage's layers run on the ticks the stage is active, in
+the same order on every rank of its pod.
 
 Gradients: the loss path's (final norm, unembedding) are the same on every
-rank; the input path's gradient to the embedding exists only on stage 0,
+stage; the input path's gradient to the embedding exists only on stage 0,
 so its gradient with respect to the embeddings is summed over ``pod``
-before it reaches the table, and every rank's replicated leaves stay
-equal. Under ``pp_rules`` the batch may also be split over ``data``: then
-every gradient is summed over ``data`` as in the data-parallel step. As in
-the reference, the MoE aux loss is not part of the pipeline's loss.
+before it reaches the table, and every stage's replicated leaves stay
+equal. Each leaf's gradient is then summed over
+``TensorPlan.grad_sync_axes`` within the pod (ZeRO-3 leaves come
+reduce-scattered from their gathers' backward). The clip norm is the whole
+tree's: the stage's layers' squares summed within the pod and over
+``pod``, the replicated leaves' counted once. As in the reference, the MoE
+aux loss is not part of the pipeline's loss.
 
 Scope: uniform-attention archs (block pattern period 1) in train mode,
-repeats divisible by the stage count, microbatches >= stages.
+repeats divisible by the stage count, microbatches >= stages; an MoE
+layer's experts are not split under the pipeline (``require_executable``).
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.config import (
@@ -45,7 +66,7 @@ from repro_torch.core.config import (
     ShapeConfig,
 )
 from repro_torch.models import lm as lm_mod
-from repro_torch.models.layers import embed, rmsnorm
+from repro_torch.models.layers import embed, residual_from_partial, rmsnorm
 from repro_torch.parallel.collectives import (
     all_reduce_,
     exchange,
@@ -53,13 +74,14 @@ from repro_torch.parallel.collectives import (
     replicated_sum,
 )
 from repro_torch.parallel.sharding import ShardingRules, require_executable
-from repro_torch.training.losses import chunked_cross_entropy
-from repro_torch.training.optimizer import (
-    apply_updates,
-    global_norm,
-    init_opt_state,
+from repro_torch.parallel.tensor import TensorPlan
+from repro_torch.training.losses import chunked_cross_entropy, vocab_input
+from repro_torch.training.optimizer import apply_updates, init_opt_state
+from repro_torch.training.train_step import (
+    _on_device,
+    leaf_axes,
+    sharded_square_sum,
 )
-from repro_torch.training.train_step import _on_device
 
 
 def _repeats(cfg: ModelConfig) -> int:
@@ -95,26 +117,25 @@ def stage_layers(cfg: ModelConfig, stages: int, stage: int) -> range:
     return range(stage * per, (stage + 1) * per)
 
 
-def stage_param_names(model, cfg: ModelConfig, stages: int,
-                      stage: int) -> list[str]:
-    """The parameters a stage updates: its layers' and the replicated
-    ones (embedding, final norm)."""
-    mine = {f"layers.{i}." for i in stage_layers(cfg, stages, stage)}
-    return [k for k, _ in model.named_parameters()
-            if not k.startswith("layers.")
-            or any(k.startswith(p) for p in mine)]
+class _OtherStage(nn.Module):
+    """The place of a layer that another stage holds and runs."""
 
 
 def init_pp_train_state(cfg: ModelConfig, model, mesh) -> dict:
-    """``{"params": model, "opt": ...}`` with gradients on and the AdamW
-    state of this rank's stage's parameters only."""
-    stages, stage = int(mesh.shape["pod"]), mesh.coordinate()["pod"]
+    """``{"params": model, "opt": ...}`` for this rank's stage: ``model``
+    (this rank's shards, ``convert.shard_params``, or the whole model where
+    the rules split nothing inside a pod) keeps its stage's layers and the
+    replicated leaves, with gradients on and their AdamW state; the other
+    stages' layers are dropped from it (``_OtherStage``)."""
+    mine = stage_layers(cfg, int(mesh.shape["pod"]),
+                        mesh.coordinate()["pod"])
+    for i in range(len(model.layers)):
+        if i not in mine:
+            model.layers[i] = _OtherStage()
     named = dict(model.named_parameters())
     for p in named.values():
         p.requires_grad_(True)
-    names = stage_param_names(model, cfg, stages, stage)
-    return {"params": model,
-            "opt": init_opt_state({k: named[k] for k in names})}
+    return {"params": model, "opt": init_opt_state(named)}
 
 
 class _Shift(torch.autograd.Function):
@@ -146,8 +167,9 @@ def make_pp_train_step(cfg: ModelConfig, shape: ShapeConfig,
     """Returns ``train_step(state, batch)`` (``state`` from
     ``init_pp_train_state``) for ``rules`` from ``pp_rules``. Every rank
     receives the same global batch; ``pc.microbatches`` (at least the
-    stage count) slices of it go through the stages."""
-    require_executable(rules, pipeline=True)
+    stage count) slices of it go through the stages, each split over the
+    batch axes in contiguous blocks."""
+    require_executable(rules, pipeline=True, cfg=cfg)
     mesh = rules.mesh
     assert pp_applicable(cfg, shape, mesh, pc)
     stages = int(mesh.shape["pod"])
@@ -155,10 +177,8 @@ def make_pp_train_step(cfg: ModelConfig, shape: ShapeConfig,
     stage = coord["pod"]
     mb = max(stages, pc.microbatches)
     pod = mesh.group("pod")
-    batch_axes = rules.rules.get("batch")
-    dp = rules.axis_size("batch")
-    data = mesh.group(batch_axes) if dp > 1 else None
-    data_index = mesh.axes_index(batch_axes) if dp > 1 else 0
+    plan = TensorPlan(rules)
+    axes_of = leaf_axes(cfg)
 
     def neighbour(offset: int) -> int | None:
         s = stage + offset
@@ -174,22 +194,31 @@ def make_pp_train_step(cfg: ModelConfig, shape: ShapeConfig,
         for i in mine:
             if pc.remat == "none":
                 h, _ = lm_mod._layer(model.layers[i], h, positions, cfg,
-                                     ssm_chunk)
+                                     ssm_chunk, plan)
             else:
                 h, _ = checkpoint(lm_mod._layer, model.layers[i], h,
-                                  positions, cfg, ssm_chunk,
+                                  positions, cfg, ssm_chunk, plan,
                                   use_reentrant=False,
                                   **lm_mod._REMAT[pc.remat])
         return h
 
+    def embedded(model, tokens_mb):
+        """``tokens_mb (M, b, S)`` -> ``(M, b, s, D)``, this rank's shard
+        of the embedded microbatches as the residual stream (``s`` its
+        block of the sequence under a sequence split)."""
+        m_, b = tokens_mb.shape[:2]
+        h = embed(model.embed, tokens_mb.flatten(0, 1), plan)
+        return residual_from_partial(h, plan).unflatten(0, (m_, b))
+
     def pp_loss(model, h0, labels, total_count, h_recv):
-        """``h0 (M, b, s, d)`` embedded microbatches, ``labels (M, b, s)``,
+        """``h0 (M, b, s, D)`` embedded microbatches, ``labels (M, b, S)``,
         ``h_recv`` the chain's zero start (a leaf asking for a gradient, so
         that the gradient of the loss with respect to it runs every
         ``_Shift`` backward): this rank's share of the cross-entropy of the
         whole batch."""
         m_, b, s, d = h0.shape
-        positions = lm_mod._positions(b, s, h0.device)
+        positions = plan.local_positions(
+            lm_mod._positions(b, labels.shape[-1], h0.device))
         first = torch.tensor(stage == 0, device=h0.device)
         outs = [torch.zeros((b, s, d), dtype=torch.float32,
                             device=h0.device) for _ in range(m_)]
@@ -209,40 +238,40 @@ def make_pp_train_step(cfg: ModelConfig, shape: ShapeConfig,
                 outs[k] = torch.where(take, h_out.float(), outs[k])
             if t < ticks - 1:
                 h_recv = _Shift.apply(h_out, prev, nxt, pod)
-        # only the last stage wrote its outputs: one fp32 sum over pod
-        h_final = replicated_sum(torch.stack(outs), pod)
-        total = h0.new_zeros((), dtype=torch.float32)
-        for i in range(m_):
-            h_last = rmsnorm(model.final_norm, h_final[i].to(h0.dtype),
-                             cfg.norm_eps)
-            share, _ = chunked_cross_entropy(model.embed, h_last, labels[i],
-                                             cfg, total_count=total_count)
-            total = total + share
+        # only the last stage wrote its outputs: one fp32 sum over pod;
+        # then the loss of every microbatch in one call (the reference
+        # vmaps it), so a ZeRO-3 table is gathered once
+        h_final = replicated_sum(torch.stack(outs), pod).flatten(0, 1)
+        h_last = rmsnorm(model.final_norm, h_final.to(h0.dtype),
+                         cfg.norm_eps)
+        total, _ = chunked_cross_entropy(
+            model.embed, vocab_input(h_last, plan), labels.flatten(0, 1),
+            cfg, total_count=total_count, plan=plan)
         return total
 
-    def grad_step(model, batch: dict, names: list[str]):
-        """``(loss, grads, norm)``: the loss, the fp32 gradients of the
-        parameters ``names`` (this stage's and the replicated ones, as
-        every rank of the stage's ``data`` slice holds them after the
-        all-reduce) and the whole tree's gradient norm."""
+    def grad_step(model, batch: dict):
+        """``(loss, grads, norm)``: the loss, the fp32 gradients of this
+        rank's shards of the model's parameters (its stage's and the
+        replicated ones) after the sums within the pod, and the whole
+        tree's gradient norm."""
         named = dict(model.named_parameters())
+        names = list(named)
         batch = _on_device(batch, next(iter(named.values())).device)
         tokens, labels = batch["tokens"], batch["labels"]
-        rows = tokens.shape[0]
+        rows, dp = tokens.shape[0], plan.batch.n
         if rows % (mb * dp):
             raise ValueError(f"{mb} microbatches over {dp} batch ranks do "
                              f"not divide a batch of {rows} rows")
         n = rows // mb
         split = [t.reshape(mb, n, *t.shape[1:]) for t in (tokens, labels)]
         total_count = (split[1] >= 0).sum().float()
-        lo = data_index * (n // dp)
+        lo = plan.batch.index * (n // dp)
         tokens_mb, labels_mb = (t[:, lo:lo + n // dp] for t in split)
 
         # the input path stops at h0: its gradient is summed over pod
         # before it reaches the table
-        with torch.no_grad():
-            h0 = embed(model.embed, tokens_mb)
-        h0.requires_grad_(True)
+        h_in = embedded(model, tokens_mb)
+        h0 = h_in.detach().requires_grad_(True)
         start = torch.zeros_like(h0[0], requires_grad=True)
         loss = pp_loss(model, h0, labels_mb, total_count, start)
         got = torch.autograd.grad(
@@ -250,30 +279,35 @@ def make_pp_train_step(cfg: ModelConfig, shape: ShapeConfig,
         got = got[:-1]
         dh0 = all_reduce_(torch.zeros_like(h0) if got[-1] is None
                           else got[-1].contiguous(), pod)
-        emb = embed(model.embed, tokens_mb)
-        (d_table,) = torch.autograd.grad(emb, [model.embed.table], dh0)
+        (d_table,) = torch.autograd.grad(h_in, [model.embed.table], dh0)
         grads = {k: torch.zeros_like(named[k], dtype=torch.float32)
                  if g is None else g.float() for k, g in zip(names, got)}
         grads["embed.table"] = grads["embed.table"] + d_table.float()
         loss = loss.detach()
-        if data is not None:
-            loss = all_reduce_(loss.reshape(1), data)[0]
-            flat_all_reduce_(list(grads.values()), data)
-        # the whole tree's norm: the stage's layers' squares summed over pod
-        own = [g for k, g in grads.items() if k.startswith("layers.")]
-        shared = [g for k, g in grads.items() if not k.startswith("layers.")]
-        sq = torch.stack([global_norm(dict(enumerate(own))).square(),
-                          global_norm(dict(enumerate(shared))).square()])
-        all_reduce_(sq[:1], pod)
-        return loss, grads, sq.sum().sqrt()
+        if plan.batch:
+            loss = all_reduce_(loss.reshape(1), plan.batch.group)[0]
+        buckets: dict[tuple, list] = {}
+        for k, g in grads.items():
+            axes = plan.grad_sync_axes(axes_of[k])
+            if axes:
+                buckets.setdefault(axes, []).append(g)
+        for axes, tensors in buckets.items():
+            flat_all_reduce_(tensors, mesh.group(axes))
+        # the whole tree's norm: the stage's layers' squares summed over
+        # pod, the replicated leaves' counted once
+        own = {k: g for k, g in grads.items() if k.startswith("layers.")}
+        shared = {k: g for k, g in grads.items()
+                  if not k.startswith("layers.")}
+        sq = sharded_square_sum(own, axes_of, plan).reshape(1).clone()
+        all_reduce_(sq, pod)
+        return loss, grads, (sq[0] + sharded_square_sum(
+            shared, axes_of, plan)).sqrt()
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         model = state["params"]
-        named = dict(model.named_parameters())
-        names = list(state["opt"]["master"])
-        loss, grads, gnorm = grad_step(model, batch, names)
+        loss, grads, gnorm = grad_step(model, batch)
         _, opt, opt_metrics = apply_updates(
-            {k: named[k] for k in names}, grads, state["opt"], opt_cfg,
+            dict(model.named_parameters()), grads, state["opt"], opt_cfg,
             total_steps, gnorm=gnorm)
         metrics = dict(opt_metrics)
         metrics["loss"] = loss

@@ -9,8 +9,9 @@ or a tuple of names per dimension, an axis used once), and ``sharding``
 the bound ``DeviceMesh``'s ``Shard``/``Replicate`` placements.
 
 What runs: the batch split (data parallelism over ``data``, and ``pod`` in
-its data role), the layer split over ``pod`` (``pp_rules``) and every
-split ``make_rules`` gives a production cell of the ten models: ``heads``,
+its data role), the layer split over ``pod`` (``pp_rules``, with the
+splits below inside each stage but the experts') and every split
+``make_rules`` gives a production cell of the ten models: ``heads``,
 ``kv_heads``, ``mlp``, ``vocab``, ``seq`` (with ``mlp_seq``),
 ``cache_seq``, ``w_embed`` (ZeRO-3), ``expert`` with the MoE plane
 ``moe_impl`` or ``expert_act`` picks (``shard_map_a2a``, GSPMD's
@@ -186,23 +187,18 @@ def require_executable(rules: ShardingRules | None, pipeline: bool = False,
     the planner's reaches under either profile: ``expert_act`` split over
     other axes than the experts, the MoE all-to-all (``moe_impl=
     "shard_map_a2a"``) over a ``model`` axis larger than 1 without the
-    experts split over ``model`` alone, any split beyond ``batch`` and
-    ``layers`` with ``pipeline``, and splits the port's ``TensorPlan``
-    does not lay out: the sequence split beside a head split or beside a
-    vocab or mlp split over other axes, kv heads split without the query
-    heads, ``inner`` split beside a sequence split over other axes. Given
-    the model's ``cfg``: an MoE model's experts split on their mlp
-    dimension (``num_experts % model != 0``) and an MoE layer under a
-    sequence split over other axes than its experts. Raises
-    ``NotImplementedError`` naming ROADMAP item 11.4d."""
+    experts split over ``model`` alone, experts split under the
+    ``pipeline`` (its stages run every other split ``TensorPlan`` lays
+    out), and splits the port's ``TensorPlan`` does not lay out: the
+    sequence split beside a head split or beside a vocab or mlp split over
+    other axes, kv heads split without the query heads, ``inner`` split
+    beside a sequence split over other axes. Given the model's ``cfg``: an
+    MoE model's experts split on their mlp dimension (``num_experts %
+    model != 0``) and an MoE layer under a sequence split over other axes
+    than its experts. Raises ``NotImplementedError`` naming ROADMAP item
+    11.4d."""
     if rules is None or rules.mesh is None:
         return
-    wide = {}
-    for logical in rules.rules:
-        if logical in _FLAGS or logical in ("batch", "layers"):
-            continue
-        if _mesh_axes(rules, logical):
-            wide[logical] = rules.rules[logical]
     refused = {}
     act = _mesh_axes(rules, "expert_act")
     if act and act != _mesh_axes(rules, "expert"):
@@ -211,8 +207,8 @@ def require_executable(rules: ShardingRules | None, pipeline: bool = False,
             and int(rules.mesh.shape.get("model", 1)) > 1 \
             and _mesh_axes(rules, "expert") != ("model",):
         refused["moe_impl"] = "shard_map_a2a"
-    if wide and pipeline:
-        refused.update(wide)
+    if pipeline and _mesh_axes(rules, "expert"):
+        refused["expert"] = rules.rules["expert"]
     seq = _mesh_axes(rules, "seq")
     if seq and (_mesh_axes(rules, "heads") or _mesh_axes(rules, "kv_heads")
                 or _mesh_axes(rules, "vocab") != seq

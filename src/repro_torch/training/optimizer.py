@@ -63,6 +63,14 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def decays(name: str, leaf: torch.Tensor) -> bool:
+    """Whether AdamW decays the parameter ``name``: the reference decays
+    its leaves of ``ndim >= 2``, and holds each layer's leaves stacked over
+    the repeats (``models/convert.py``), one dimension more than the
+    port's ``layers.{i}.*``."""
+    return leaf.dim() >= 2 or name.startswith("layers.")
+
+
 @torch.no_grad()
 def apply_updates(params: Mapping[str, torch.Tensor],
                   grads: Mapping[str, torch.Tensor], state: dict,
@@ -72,8 +80,11 @@ def apply_updates(params: Mapping[str, torch.Tensor],
     """One AdamW step. ``grads`` (any float dtype) are keyed as ``params``;
     the math is fp32. Updates ``state`` and writes every parameter in place
     from its new master copy; returns ``(params, state, {"grad_norm": the
-    pre-clip norm, "lr"})``. Weight decay applies to matrices only
-    (``ndim >= 2``). ``gnorm``, where given, is the norm to clip by (a
+    pre-clip norm, "lr"})``. Weight decay applies where the reference
+    applies it, to the leaves of ``ndim >= 2`` in its layout: the
+    matrices, and every layer's leaf (``layers.*``), which it stacks over
+    the repeats, its norm scales and biases too (``decays``). ``gnorm``,
+    where given, is the norm to clip by (a
     pipeline stage holds part of the gradient tree; the norm is the
     whole tree's)."""
     step = state["step"] + 1
@@ -94,7 +105,7 @@ def apply_updates(params: Mapping[str, torch.Tensor],
         m.mul_(b1).add_((1 - b1) * g32)
         v.mul_(b2).add_((1 - b2) * g32.square())
         update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        if master.dim() >= 2:
+        if decays(name, master):
             update = update + cfg.weight_decay * master
         master.sub_(lr * update)
         p.copy_(master)

@@ -168,6 +168,13 @@ def sharded_global_norm(grads: dict, axes_of: dict,
     are this rank's shards: each leaf's sum of squares summed over the
     ranks that hold its other shards (one all-reduce a set of mesh axes),
     every replicated leaf counted once."""
+    return sharded_square_sum(grads, axes_of, plan).sqrt()
+
+
+def sharded_square_sum(grads: dict, axes_of: dict,
+                       plan: TensorPlan) -> torch.Tensor:
+    """The square of ``sharded_global_norm``: the fp32 sum of the squares of
+    every element of the tree, on every rank alike."""
     sums: dict[tuple, torch.Tensor] = {}
     for name, g in grads.items():
         sharded = plan.leaf_axes(axes_of[name])
@@ -179,7 +186,7 @@ def sharded_global_norm(grads: dict, axes_of: dict,
         if key:
             sq = all_reduce_(sq.reshape(1).clone(), plan.mesh.group(key))[0]
         total = sq if total is None else total + sq
-    return total.sqrt()
+    return total
 
 
 def make_train_step(cfg: ModelConfig, shape: ShapeConfig,

@@ -64,23 +64,24 @@ def smoke(arch: str, capacity_factor: float | None = None):
     return cfg
 
 
-def model_of(cfg, device: str = "cpu"):
-    """The port's model with weights from seed 0 (a generator on
+def model_of(cfg, device: str = "cpu", seed: int = 0):
+    """The port's model with weights from ``seed`` (a generator on
     ``device``), gradients on."""
     from repro_torch.models import init_lm
     from repro_torch.training import init_train_state
-    gen = torch.Generator(device=device).manual_seed(0)
+    gen = torch.Generator(device=device).manual_seed(seed)
     return init_train_state(cfg, init_lm(cfg, gen, device))
 
 
-def batch_of(cfg, mask_rows: int = 0) -> dict:
-    """Batch 0 of ``SyntheticSource(seed=3)`` at ``BATCH`` x ``SEQ``; with
-    ``mask_rows``, the first that many rows keep a quarter of their labels
-    (so ranks' token counts differ)."""
+def batch_of(cfg, mask_rows: int = 0, rows: int = BATCH,
+             seed: int = 3) -> dict:
+    """Batch 0 of ``SyntheticSource(seed=seed)`` at ``rows`` x ``SEQ``;
+    with ``mask_rows``, the first that many rows keep a quarter of their
+    labels (so ranks' token counts differ)."""
     from repro_torch.core.config import ShapeConfig
     from repro_torch.data import SyntheticSource
-    shape = ShapeConfig("t", SEQ, BATCH, "train")
-    batch = SyntheticSource(cfg, shape, seed=3).batch(0)
+    shape = ShapeConfig("t", SEQ, rows, "train")
+    batch = SyntheticSource(cfg, shape, seed=seed).batch(0)
     labels = batch["labels"]
     labels[:mask_rows, labels.shape[1] // 4:] = -1
     return batch
@@ -105,17 +106,20 @@ def step_result(step, state, batch) -> dict:
 
 
 def single_rank(arch: str, microbatches: int = 1, mask_rows: int = 0,
-                device: str = "cpu") -> dict:
-    """The port's step on the whole batch, no mesh."""
+                device: str = "cpu", seed: int = 0,
+                rows: int = BATCH) -> dict:
+    """The port's step on the whole batch, no mesh: weights from ``seed``,
+    ``batch_of(cfg, mask_rows, rows, seed=3 + seed)``."""
     from repro_torch.core.config import OptimizerConfig, ParallelConfig
     from repro_torch.core.config import ShapeConfig
     from repro_torch.training import make_train_step
     cfg = smoke(arch)
-    shape = ShapeConfig("t", SEQ, BATCH, "train")
+    shape = ShapeConfig("t", SEQ, rows, "train")
     step = make_train_step(cfg, shape, OptimizerConfig(), ParallelConfig(
         remat="block", microbatches=microbatches), q_chunk=Q_CHUNK,
         ssm_chunk=SSM_CHUNK)
-    return step_result(step, model_of(cfg, device), batch_of(cfg, mask_rows))
+    return step_result(step, model_of(cfg, device, seed),
+                       batch_of(cfg, mask_rows, rows, 3 + seed))
 
 
 # -- rank bodies ---------------------------------------------------------------
@@ -210,7 +214,7 @@ def pp_rank(rank, world, arch, microbatches, data):
                               q_chunk=Q_CHUNK)
     state = init_pp_train_state(cfg, model_of(cfg)["params"], mesh)
     names = list(state["opt"]["master"])
-    _, grads, _ = step.grad_step(state["params"], batch_of(cfg), names)
+    _, grads, _ = step.grad_step(state["params"], batch_of(cfg))
     state, metrics = step(state, batch_of(cfg))
     named = dict(state["params"].named_parameters())
     return {"loss": float(metrics["loss"]),
@@ -218,6 +222,67 @@ def pp_rank(rank, world, arch, microbatches, data):
             "names": names, "stage": mesh.coordinate()["pod"],
             "grads": {k: g.numpy().copy() for k, g in grads.items()},
             "params": {k: named[k].detach().numpy().copy() for k in names}}
+
+
+PP_MICROBATCHES, PP_ROWS = 4, 8
+# the pipeline cases' AdamW (test_torch_pp_tp.py): no warmup, so that the
+# first step moves a weight by about the 3e-4 rate, and an eps above the
+# rounding of the smallest gradients, which the first step's g / (|g| +
+# eps) would otherwise turn into moves of up to the rate
+PP_OPT = {"warmup_steps": 0, "eps": 1e-5}
+
+
+def packing_rules(case: dict, cfg):
+    """``(pc, rules)`` of a pipeline case: ``dryrun.packing_plan`` of
+    ``case["arch"]``'s packing cell under ``case["profile"]`` with
+    ``PP_MICROBATCHES`` microbatches and ``case["override"]``, laid on the
+    case's mesh for ``cfg``."""
+    from repro_torch.launch.dryrun import packing_plan
+    from repro_torch.launch.mesh import Mesh
+    return packing_plan(case["arch"], cfg, Mesh(case["mesh"]),
+                        PP_MICROBATCHES, case.get("override"),
+                        case.get("profile", "optimized"))
+
+
+def pp_tp_rank(rank, world, cases, seed):
+    """Each pipeline case's step (``packing_rules``, AdamW under ``PP_OPT``)
+    on the rank's shards of its stage, from ``seed``'s weights on
+    ``batch_of(cfg, rows=PP_ROWS, seed=3 + seed)``: loss, grad norm, the
+    gradients (after the sums within the pod) and updated values of the
+    shards the rank updates with each one's cuts (``convert._cuts``: how
+    the whole leaf is sliced to the shard), and the bits of those it holds
+    whole."""
+    from repro_torch.core.config import OptimizerConfig, ShapeConfig
+    from repro_torch.models.convert import _cuts, _meta_leaves, shard_params
+    from repro_torch.parallel.pipeline import (init_pp_train_state,
+                                               make_pp_train_step)
+    out = {}
+    for case in cases:
+        cfg = smoke(case["arch"])
+        pc, rules = packing_rules(case, cfg)
+        shape = ShapeConfig("t", SEQ, PP_ROWS, "train")
+        local = shard_params(model_of(cfg, seed=seed)["params"], rules)
+        state = init_pp_train_state(cfg, local, rules.mesh)
+        step = make_pp_train_step(cfg, shape, OptimizerConfig(**PP_OPT), pc,
+                                  rules, q_chunk=Q_CHUNK, ssm_chunk=SSM_CHUNK)
+        batch = batch_of(cfg, rows=PP_ROWS, seed=3 + seed)
+        _, grads, _ = step.grad_step(state["params"], batch)
+        state, metrics = step(state, batch)
+        named = dict(state["params"].named_parameters())
+        leaves = _meta_leaves(cfg)
+        cuts = {k: _cuts(rules, leaves[k][1], tuple(leaves[k][0].shape))
+                for k in named}
+        out[case["id"]] = {
+            "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "stage": rules.mesh.coordinate()["pod"],
+            "grads": {k: g.numpy().copy() for k, g in grads.items()},
+            "params": {k: p.detach().numpy().copy()
+                       for k, p in named.items()},
+            "cuts": cuts,
+            "whole": {k: _bits(p) for k, p in named.items() if not cuts[k]},
+            "rules": {k: v for k, v in rules.rules.items() if v is not None}}
+    return out
 
 
 # -- tensor, sequence and ZeRO-3 parallelism -------------------------------------

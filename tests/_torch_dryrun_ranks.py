@@ -11,7 +11,7 @@ import _torch_dist as D
 def collective_rank(rank, world, cases):
     """Each case's train step on the rank's shards of seed 0's weights
     (``_torch_dist.case_rules``; the GPipe step under ``pp_rules`` where
-    the case says ``pipeline``), with the collective counters set to 0
+    the case says ``pipeline``, on the shards of its stage), with the collective counters set to 0
     just before it: ``{case id: COLLECTIVE_STATS}``."""
     from repro_torch.core.config import OptimizerConfig
     from repro_torch.models.convert import shard_params
@@ -24,8 +24,8 @@ def collective_rank(rank, world, cases):
         cfg, shape, pc, rules = D.case_rules(case)
         if case.get("pipeline"):
             rules = pp_rules(rules)
-            state = init_pp_train_state(cfg, D.model_of(cfg)["params"],
-                                        rules.mesh)
+            state = init_pp_train_state(cfg, shard_params(
+                D.model_of(cfg)["params"], rules), rules.mesh)
             step = make_pp_train_step(cfg, shape, OptimizerConfig(), pc,
                                       rules, ssm_chunk=D.SSM_CHUNK)
         else:

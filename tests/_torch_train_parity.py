@@ -144,19 +144,22 @@ def port_named(tree, tcfg) -> dict:
 
 def reference_whole_batch_step(arch: str, model, batch: dict,
                                microbatches: int = 1,
-                               capacity_factor: float | None = None) -> dict:
+                               capacity_factor: float | None = None,
+                               opt: dict | None = None) -> dict:
     """The reference's ``make_train_step`` on the whole ``batch`` from the
     weights of the port's ``model`` (an ``LM``): its loss and metrics, its
     gradients (the mean of its microbatches', as its step accumulates
     them) and its updated parameters, the trees keyed by the port's
     parameter names. What a data-parallel or pipelined step of the port
-    must give on every rank (``capacity_factor`` as in ``configs``)."""
+    must give on every rank (``capacity_factor`` as in ``configs``; ``opt``
+    the AdamW fields that replace the defaults)."""
     jcfg, tcfg = configs(arch, capacity_factor)
     params = jax.tree.map(jnp.asarray, params_to_numpy(model, tcfg))
     rows = batch["labels"].shape[0]
     shape = JShapeConfig("t", batch["labels"].shape[1], rows, "train")
     pc = JParallelConfig(remat="none", microbatches=microbatches)
-    step = jax.jit(jmake_train_step(jcfg, shape, JOptimizerConfig(), pc,
+    step = jax.jit(jmake_train_step(jcfg, shape,
+                                    JOptimizerConfig(**(opt or {})), pc,
                                     q_chunk=Q_CHUNK, ssm_chunk=SSM_CHUNK))
     state, metrics = step(jinit_train_state(jcfg, params),
                           {k: jnp.asarray(v) for k, v in batch.items()})

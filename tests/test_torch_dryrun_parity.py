@@ -116,12 +116,14 @@ def reference_planner(monkeypatch):
                         _once_per_config(jstrat.exact_param_bytes_per_chip))
 
 
-def _reference_fields(arch, shape_name, multi, profile) -> dict:
+def _reference_fields(arch, shape_name, multi, profile,
+                      overrides=None) -> dict:
     """The planning fields the reference's ``run_cell`` records, from its
-    ``build_cell``'s planning calls."""
+    ``build_cell``'s planning calls (``overrides`` its ``pc_overrides``)."""
     cfg, shape = jconfig(arch), jcore.SHAPES[shape_name]
     mesh = FakeMesh(MESHES[multi])
-    pc = jstrat.plan_cell(cfg, shape, mesh, profile=profile)
+    pc = jstrat.plan_cell(cfg, shape, mesh, jcore.ParallelConfig(
+        **overrides) if overrides else None, profile=profile)
     rules = jstrat.make_rules(mesh, cfg, shape, pc)
     if shape.mode == "train" and pc.pod_axis_role == "pipeline":
         rules = jpp.pp_rules(rules)
@@ -162,6 +164,53 @@ def test_planning_fields_match_reference_on_every_cell(profile, tmp_path,
     assert (planned, skipped) == (64, 16)
 
 
+PACKING = {"pod_axis_role": "pipeline", "microbatches": 4}
+PACKING_ARCHS = ("qwen1.5-4b", "mistral-nemo-12b", "llama3.2-3b",
+                 "qwen2-72b", "internvl2-1b", "musicgen-medium")
+
+
+@pytest.mark.parametrize("profile", ["optimized", "baseline"])
+@pytest.mark.parametrize("arch", PACKING_ARCHS)
+def test_packing_cell_planning_fields_match_reference(arch, profile,
+                                                      reference_planner):
+    """The dense archs' packing cells (``train_4k`` on 2 x 16 x 16 with
+    the pipeline's pod role and 4 microbatches, the reference's
+    ``build_cell(pc_overrides=...)``): the planning fields equal the
+    reference's (tolerance: none)."""
+    tcfg, shape = tconfig(arch), tcore.SHAPES["train_4k"]
+    mesh = Mesh(MESHES[True])
+    pc, rules, pipeline = dryrun.plan(tcfg, shape, mesh, PACKING,
+                                      profile=profile, hw=REF_HW)
+    assert pipeline and pc.microbatches == 4
+    got = dryrun.planned_fields(tcfg, shape, mesh, pc, rules)
+    assert got == _reference_fields(arch, "train_4k", True, profile,
+                                    PACKING)
+
+
+def test_qwen2_72b_packing_cell_traces_ok(tmp_path):
+    """qwen2-72b's packing cell, traced on rank 0 of a fake process group
+    of 512: the record ends ``ok``; each stage runs 40 of the 80 layers on
+    its 4 microbatches (K4 twice and K4b once a layer a microbatch under
+    block remat), and the shifts are 4 forward and 4 backward
+    collective-permutes of a microbatch's block of the residual."""
+    import torch.distributed as dist
+    try:
+        rec = dryrun.run_cell("qwen2-72b", "train_4k", True, tmp_path,
+                              pc_overrides=PACKING)
+    finally:
+        dist.destroy_process_group()
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["parallel_config"]["pod_axis_role"] == "pipeline"
+    assert rec["kernel_launches"] == {"flash_attention": 2 * 40 * 4,
+                                      "flash_attention_bwd": 40 * 4}
+    cfg, shape = tconfig("qwen2-72b"), tcore.SHAPES["train_4k"]
+    block = (shape.global_batch // 4 // 16) * (shape.seq_len // 16) \
+        * cfg.d_model * 2
+    assert rec["collective_counts"]["collective-permute"] == 8
+    assert rec["collective_bytes_by_kind"]["collective-permute"] == \
+        8 * block
+
+
 # -- collectives against a real run ---------------------------------------------
 
 COLLECTIVE_CASES = [
@@ -184,6 +233,20 @@ COLLECTIVE_CASES = [
      "mesh": {"data": 1, "model": 2}, "capacity_factor": 8.0,
      "pc": dict(attn_strategy="seq_tp", moe_strategy="all_to_all",
                 mlp_mode="tp", fsdp="off", remat="block")},
+]
+# on four ranks: the pipeline with splits inside its stages, the packing
+# cell's layouts (test_torch_pp_tp.py): seq_tp with mlp_seq on pod=2 x
+# model=2, ZeRO-3 with the batch over data on pod=2 x data=2
+PP_TP_CASES = [
+    {"id": "pp-tp-llama", "arch": "llama3.2-3b", "pipeline": True,
+     "mesh": {"pod": 2, "data": 1, "model": 2},
+     "pc": dict(pod_axis_role="pipeline", microbatches=4,
+                attn_strategy="seq_tp", mlp_mode="seq", fsdp="off",
+                remat="block")},
+    {"id": "pp-zero3-llama", "arch": "llama3.2-3b", "pipeline": True,
+     "mesh": {"pod": 2, "data": 2, "model": 1},
+     "pc": dict(pod_axis_role="pipeline", microbatches=2,
+                attn_strategy="seq_tp", fsdp="on", remat="block")},
 ]
 
 
@@ -219,7 +282,11 @@ def test_collectives_match_a_real_gloo_run(tmp_path, fake_two):
     ``COLLECTIVE_STATS`` of the real step on two ranks (tolerance:
     none)."""
     real = D.run_ranks(R.collective_rank, 2, tmp_path, COLLECTIVE_CASES)[0]
-    for case in COLLECTIVE_CASES:
+    real.update(D.run_ranks(R.collective_rank, 4, tmp_path,
+                            PP_TP_CASES)[0])
+    for case in COLLECTIVE_CASES + PP_TP_CASES:
+        if case is PP_TP_CASES[0]:
+            dryrun.fake_world(4)
         cfg, shape, pc, rules = D.case_rules(case)
         pipeline = bool(case.get("pipeline"))
         if pipeline:
@@ -237,6 +304,13 @@ def test_collectives_match_a_real_gloo_run(tmp_path, fake_two):
     assert "all-to-all" in kinds["ep-a2a-seq-granite"]
     assert {"all-to-all", "all-gather"} <= kinds["ep-all_to_all-seq-granite"]
     assert "collective-permute" in kinds["pp-llama"]
+    for case in ("pp-tp-llama", "pp-zero3-llama"):
+        assert {"all-reduce", "all-gather", "collective-permute"} <= \
+            kinds[case]
+    _, _, _, rules = D.case_rules(PP_TP_CASES[0])
+    assert rules.rules["seq"] == rules.rules["mlp_seq"] == "model"
+    _, _, _, rules = D.case_rules(PP_TP_CASES[1])
+    assert rules.rules["w_embed"] == "data"
 
 
 # -- FLOPs against the reference's HLO count -----------------------------------

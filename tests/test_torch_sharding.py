@@ -353,9 +353,14 @@ REFUSED = {
     "inner_beside_seq": ({"data": 2, "model": 2},
                          {"seq": "model", "vocab": "model",
                           "inner": ("data", "model")}, False, None),
-    "pipeline_beyond_batch": ({"pod": 2, "data": 1, "model": 2},
-                              {"batch": "data", "heads": "model"}, True,
-                              None),
+    # granite's packing-cell rules (the all-to-all under seq_tp), which
+    # run without the pipeline
+    "experts_under_pipeline": ({"pod": 2, "data": 1, "model": 2},
+                               {"batch": "data", "layers": "pod",
+                                "seq": "model", "mlp_seq": "model",
+                                "vocab": "model", "expert": "model",
+                                "moe_impl": "shard_map_a2a"}, True,
+                               "granite-moe-1b-a400m"),
 }
 
 
@@ -366,12 +371,54 @@ def test_require_executable_refuses_what_11_4d_keeps(case):
     ``model`` (``shard_map_a2a``, or ``expert_act`` alone), the experts
     split on their mlp dimension, an MoE layer under a sequence split
     without its experts over the same axes, ``inner`` beside a sequence
-    split over other axes, and a split beyond the batch under the
-    pipeline."""
+    split over other axes, and an MoE layer whose experts are split under
+    the pipeline (whose rules run without it)."""
     mesh, rules, pipeline, arch = REFUSED[case]
+    cfg = tconfig(arch) if arch else None
     with pytest.raises(NotImplementedError, match="11.4d"):
         require_executable(ShardingRules(Mesh(mesh), rules), pipeline,
-                           cfg=tconfig(arch) if arch else None)
+                           cfg=cfg)
+    if case == "experts_under_pipeline":
+        require_executable(ShardingRules(Mesh(mesh), rules), cfg=cfg)
+
+
+PACKING = {"pod_axis_role": "pipeline", "microbatches": 4}
+DENSE = ("qwen1.5-4b", "mistral-nemo-12b", "llama3.2-3b", "qwen2-72b",
+         "internvl2-1b", "musicgen-medium")
+MOE_PP = ("moonshot-v1-16b-a3b", "granite-moe-1b-a400m")
+# the two whose weights outgrow a chip: ZeRO-3 inside the stages, and the
+# MLP split over model (its weights' gathers would cost more than the
+# activations')
+ZERO3 = ("mistral-nemo-12b", "qwen2-72b")
+
+
+@pytest.mark.parametrize("profile", ["optimized", "baseline"])
+@pytest.mark.parametrize("arch", DENSE + MOE_PP)
+def test_require_executable_admits_the_packing_rules(arch, profile):
+    """The packing cell (``train_4k`` on 2 x 16 x 16 with the pipeline's
+    pod role and 4 microbatches, as the dry-run plans it: ``pp_rules``) of
+    every arch ``pp_applicable`` admits: the dense archs' rules, which
+    split the sequence (with ``mlp_seq`` under the optimized profile,
+    ``mlp`` under the baseline one) and the vocab over ``model`` inside
+    the stages, are admitted; the MoE archs', whose experts are split,
+    are refused, naming item 11.4d."""
+    from repro_torch.launch.dryrun import plan
+    cfg, shape = tconfig(arch), tcore.SHAPES["train_4k"]
+    mesh = make_production_mesh(multi_pod=True)
+    pc, rules, pipeline = plan(cfg, shape, mesh, PACKING, profile=profile)
+    assert pipeline and tpp.pp_applicable(cfg, shape, mesh, pc)
+    assert rules.rules["layers"] == "pod" and rules.rules["batch"] == "data"
+    assert rules.rules["vocab"] == "model"
+    if arch in MOE_PP:
+        assert rules.rules["expert"] == "model"
+        with pytest.raises(NotImplementedError, match="11.4d"):
+            require_executable(rules, pipeline, cfg=cfg)
+        return
+    require_executable(rules, pipeline, cfg=cfg)
+    mlp = "mlp_seq" if profile == "optimized" and arch not in ZERO3 \
+        else "mlp"
+    assert rules.rules["seq"] == rules.rules[mlp] == "model"
+    assert rules.rules["w_embed"] == ("data" if arch in ZERO3 else None)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
