@@ -138,7 +138,7 @@
    every loss and norm finite, peak memory printed beside the plan's
    estimate, the plan's budget (``TRAIN_HBM_SHARE`` of the card's
    memory) and the card's memory; the peak must lie under the budget.
-   ``dp_granite_moe_1b_a400m`` (granite cut to 6 of its 24 layers)
+   ``dp_granite_moe_1b_a400m`` (granite cut to 4 of its 24 layers)
    spawns two ranks that share the card through ``gloo`` (a ``file://``
    rendezvous; ``data=2, model=1``), each planning the cell, taking 2 of
    the train phases' 4 x 1024 rows and running one untimed and one timed
@@ -154,7 +154,7 @@
    that share the card through ``gloo`` (any rank's failure fails the
    run), each printing its step or decode ms, its collectives' calls,
    bytes and ms by kind, each rank's peak and its launches:
-   ``tp_train_llama3_2_3b``: llama at full width cut to 4 of its 28
+   ``tp_train_llama3_2_3b``: llama at full width cut to 2 of its 28
    layers (cut from 8 to keep the script inside its time since the
    expert-parallel and inner-split phases came in), the train phases' batch, ``data=1, model=2``: one step under
    ``seq_tp`` with ``mlp=model`` and one under ``mlp_seq`` with the int8
@@ -162,21 +162,25 @@
    same weights (loss and grad norm within 1e-2, the leaves each rank holds
    whole bit-equal across the ranks, the updated weights gathered within
    2 lr + 2^-7 of each leaf's largest weight, ``tp_param_bound``); K4 and
-   K4b at query offsets 0 and 512 against 1024 keys.
-   ``tp_decode_llama3_2_3b``: llama at its published config, four prompts
+   K4b at query offsets 0 and 512 against 1024 keys. Then four ranks, one
+   step under a hand-written layout the reference runs
+   (``TP_TRAIN_LAYOUTS``: the sequence and the vocab over ``model``
+   beside the heads, kv heads and mlp over ``data``,
+   ``sharding.LAYOUTS["seq_beside_heads"]``), held alike
+   (``par_train_phase``). ``tp_decode_llama3_2_3b``: llama at its published config, four prompts
    of 64-512 tokens padded to 512, prefilled under ``seq_tp`` and decoded
    16 greedy steps under ``decode_kv_shard`` (heads, kv heads, ``mlp``,
    vocab and the cache's sequence over ``model``; K5 with its
    log-sum-exp on each rank's half of the cache), fed one rank's tokens
    and held to its logits (within 0.15, the argmax where its top two lie
-   more than 0.3 apart). ``zero3_train_llama3_2_3b``: the 4-layer llama
+   more than 0.3 apart). ``zero3_train_llama3_2_3b``: the 2-layer llama
    under ``pure_dp`` on ``data=2`` (``w_embed`` over both ranks), one
    step, and one under ``zero2`` with ``regather`` at 2 microbatches, each
    held against the unsharded step at the same microbatch count (loss and
    grad norm within 1e-2, each rank's slice of the fp32 master weights
    within 2 lr of the same slice). ``pp_tp_train_llama3_2_3b``: the
    GPipe pipeline over ``pod=2`` with splits inside its stages, four
-   ranks sharing the card, the 4-layer llama (two a stage) on 8 x 1024
+   ranks sharing the card, llama cut to 2 layers (one a stage) on 8 x 1024
    tokens in 4 microbatches, one step under the rules of the planner's
    plan of llama's packing cell (``train_4k`` on 2 x 16 x 16 with the
    pipeline's pod role) on ``pod=2, model=2`` under the optimized
@@ -231,15 +235,19 @@
    the same weights, printing its step, prefill or decode ms, its
    collectives by kind (``all_to_all`` among them), each rank's peak and
    launches. ``ep_train_granite_moe_1b_a400m``: granite at full width cut
-   to 8 of its 24 layers, drop-free (capacity factor E / top_k), the train phases'
+   to 2 of its 24 layers, drop-free (capacity factor E / top_k), the train phases'
    batch, one step under its 2 x 16 x 16 ``train_4k`` layout on ``data=1,
    model=2`` (``seq_tp``, ``mlp_seq``, vocab and experts over ``model``,
-   the all-to-all dispatch on K2) and one under its 16 x 16 ``pure_dp``
+   the all-to-all dispatch on K2), one under its 16 x 16 ``pure_dp``
    layout on ``data=2`` (``shard_map_local``, ZeRO-3 over both ranks),
-   held as ``tp_train`` holds llama, each rank's updated shards against
-   the same shards of the unsharded step's; the drops of one forward at
-   the model's capacity factor 1.25 printed, unsharded and under each
-   layout. ``ep_decode_moonshot_v1_16b_a3b``: moonshot at full width cut
+   one under its baseline ``all_to_all``, one with the experts on their
+   mlp dimension, and on four ranks one with ``expert_act`` over ``data``
+   beside the experts over ``model`` (the last two hand-written
+   layouts), held as ``tp_train`` holds llama, each rank's updated shards
+   against the same shards of the unsharded step's; the drops of one
+   forward at the model's capacity factor 1.25 printed, unsharded and
+   under each layout, and the first MoE layer's drops on one input held
+   to the unsharded layer's where the layout computes its chunks. ``ep_decode_moonshot_v1_16b_a3b``: moonshot at full width cut
    to 6 of its 48 layers, in fp32, prompts of 64-512 padded to 512,
    prefilled and decoded 32 steps under its ``decode_32k`` layout (the
    ``gather`` plane, K5 with its log-sum-exp). ``inner_tp_jamba_v0_1_52b``:
@@ -250,8 +258,9 @@
    (and the forward's logits within 0.15), with the bf16 one-rank run's
    distance from the fp32 one printed (the rounding floor).
    ``inner_tp_train_xlstm_1_3b``: xlstm at full width cut to 8 of its 48
-   layers (one period of its pattern), in fp32, one step under ``vocab`` and ``inner`` over ``model``
-   and one under ``pure_dp`` on ``data=2``, held as ``tp_train``, the
+   layers (one period of its pattern), in fp32, one step under ``vocab`` and ``inner`` over ``model``,
+   one under ``pure_dp`` on ``data=2`` and, on four ranks, one with
+   ``inner`` over ``model`` beside the sequence over ``data``, held as ``tp_train``, the
    bf16 one-rank step printed beside. K2, K4, K4b and K5 are then held
    against their plain versions at the shapes these phases added.
 10. Prints the ``kernels`` JSON line (K1-K5 and K4b), its launch counts summed over
@@ -268,6 +277,8 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -358,8 +369,9 @@ TRAIN_STEPS = {SERVE_ARCH: 4, MOE_ARCH: 3}
 MB_LOSS_RTOL = 1e-2
 # the tensor, sequence and ZeRO-3 phases: TP_RANKS gloo ranks sharing the
 # card. Training: llama at full width cut to TP_LAYERS of its 28 layers
-# (8 until the expert-parallel and inner-split phases came in; two ranks'
-# weights, AdamW state and fp32 accumulators share one card's 80 GB), the
+# (8 until the expert-parallel and inner-split phases came in, 4 until the
+# hand-written layouts' four-rank steps came in; two ranks' weights, AdamW
+# state and fp32 accumulators share one card's 80 GB), the
 # train phases' batch, one step a variant, held to the
 # unsharded step within TP_RTOL (bf16 sums in other orders). Decoding:
 # llama at its published config, TP_PROMPT_LENGTHS prompts padded to the
@@ -367,7 +379,7 @@ MB_LOSS_RTOL = 1e-2
 # split along its sequence; logits held to one rank's within LOGIT_TOL,
 # the argmax where one rank's top two lie more than TP_MARGIN apart (the
 # serve bound of PERF.md section 2)
-TP_RANKS, TP_LAYERS, TP_RTOL = 2, 4, 1e-2
+TP_RANKS, TP_LAYERS, TP_RTOL = 2, 2, 1e-2
 TP_TRAIN_VARIANTS = {
     "seq_tp_mlp": dict(attn_strategy="seq_tp", mlp_mode="tp",
                        kv_compress=False, fsdp="off", layout="tp",
@@ -375,6 +387,11 @@ TP_TRAIN_VARIANTS = {
     "seq_tp_mlp_seq_int8": dict(attn_strategy="seq_tp", mlp_mode="seq",
                                 kv_compress=True, fsdp="off", layout="tp",
                                 remat="block")}
+# hand-written layouts of the tp_train phase on PP_RANKS ranks
+# (``par_train_phase``): the sequence and vocab over model beside the
+# heads, kv heads and mlp over data
+TP_TRAIN_LAYOUTS = {
+    "seq_beside_heads": ({"data": 2, "model": 2}, "seq_beside_heads")}
 ZERO_VARIANTS = {
     "zero3": (dict(layout="pure_dp", attn_strategy="replicated",
                    fsdp="off", remat="block"), None),
@@ -385,7 +402,9 @@ ZERO_VARIANTS = {
 TP_PROMPT_LENGTHS = (64, 192, 320, 512)
 # the pipeline with splits inside its stages: PP_RANKS gloo ranks sharing
 # the card, llama at full width cut to PP_LAYERS of its 28 layers (two a
-# stage, as TP_LAYERS cuts tp_train), PP_BATCH x TRAIN_SEQ tokens in the
+# stage, so that a stage chains layers under its splits: the residual
+# carried from layer to layer, a bucket of several layers' gradients),
+# PP_BATCH x TRAIN_SEQ tokens in the
 # packing cell's PP_MICROBATCHES microbatches, one step a variant under the
 # rules of the planner's plan of llama's packing cell (train_4k on
 # 2 x 16 x 16 with the pipeline's pod role, under the variant's profile and
@@ -399,13 +418,16 @@ PP_TP_VARIANTS = {
                    {"fsdp": "on"})}
 # expert parallelism and the inner split: PAR_RANKS gloo ranks sharing the
 # card, each phase held against one rank on the same weights (the bounds
-# of the tp phases). ep_train: granite at full width cut to 8 of its 24
+# of the tp phases). ep_train: granite at full width cut to 2 of its 24
 # layers (24 until the baseline variant came in: its all-to-alls move a
-# whole chunk's buffer; 12 until the pipeline's phase came in), one step under its 2 x 16 x 16 train_4k layout on
-# data=1 x model=2, one under its 16 x 16 pure_dp layout on data=2 and one
-# under its baseline-profile train_4k layout on data=1 x model=2 (GSPMD's
-# all_to_all plane), drop-free (E / top_k), the drops at 1.25 printed
-# beside. ep_decode:
+# whole chunk's buffer; 12 until the pipeline's phase came in, 8 until the
+# hand-written layouts came in, 4 until the script's time on slower hosts
+# called for more), one step under its 2 x 16 x 16 train_4k
+# layout on data=1 x model=2, one under its 16 x 16 pure_dp layout on
+# data=2, one under its baseline-profile train_4k layout on data=1 x
+# model=2 (GSPMD's all_to_all plane) and one under each hand-written
+# layout, drop-free (E / top_k), the drops at 1.25 printed beside.
+# ep_decode:
 # moonshot at full width cut to 6 of its 48 layers (all 48 are 56.1 GB of
 # bf16 weights, and each rank builds the whole model before it keeps its
 # shards; 12 until the pipeline's phase came in), one forward under its baseline-profile prefill_32k layout
@@ -420,7 +442,7 @@ PP_TP_VARIANTS = {
 # 2 x 16 x 16 layout (vocab and inner over model) and one under pure_dp on
 # data=2
 PAR_RANKS = 2
-EP_TRAIN_LAYERS = 8
+EP_TRAIN_LAYERS = 2
 PUBLISHED["moonshot-v1-16b-a3b"] = (48, 2048, 16, 16, 128, 1408, 163840,
                                     "bfloat16", (64, 6, 1408))
 EP_TRAIN_VARIANTS = {
@@ -436,7 +458,16 @@ EP_TRAIN_VARIANTS = {
     "seq_tp_all_to_all": ({"data": 1, "model": 2},
                           dict(attn_strategy="seq_tp",
                                moe_strategy="all_to_all", layout="tp",
-                               mlp_mode="tp", fsdp="off", remat="block"))}
+                               mlp_mode="tp", fsdp="off", remat="block")),
+    # hand-written layouts (``sharding.LAYOUTS``): the experts on their mlp
+    # dimension (``make_rules``' own where model does not divide the
+    # experts), and expert_act over data beside the experts over model on
+    # PP_RANKS ranks
+    "experts_on_mlp": ({"data": 1, "model": 2}, "experts_on_mlp"),
+    "expert_act_data": ({"data": 2, "model": 2}, "expert_act_data")}
+# the variants whose planes compute the unsharded layer's chunks: their
+# first MoE layer's drops on one input are held to the unsharded layer's
+DROPS_HELD = ("seq_tp_all_to_all", "experts_on_mlp", "expert_act_data")
 DECODE_PC = dict(attn_strategy="decode_kv_shard", moe_strategy="gather",
                  fsdp="off")
 EP_DECODE = {"arch": "moonshot-v1-16b-a3b", "layers": 6,
@@ -465,7 +496,10 @@ XLSTM_TRAIN_VARIANTS = {
                     dict(fsdp="off", layout="tp", remat="block")),
     "pure_dp": ({"data": 2, "model": 1},
                 dict(layout="pure_dp", attn_strategy="replicated",
-                     fsdp="off", remat="dots"))}
+                     fsdp="off", remat="dots")),
+    # the inner split over model beside the sequence over data, on
+    # PP_RANKS ranks
+    "inner_beside_seq": ({"data": 2, "model": 2}, "inner_beside_seq")}
 TP_MAX_SEQ, TP_DECODE_STEPS, TP_MARGIN = 1024, 16, 0.3
 # the planned train phase: llama3.2-3b at 64 x 1024 tokens on this card,
 # its microbatch count the planner's
@@ -487,8 +521,8 @@ DRYRUN_PEAK_RTOL = 0.05
 # granite cut to DP_LAYERS of its 24 layers (the int8 all-reduce's hold
 # moves its gradients through host memory four times), since the
 # expert-parallel and inner-split phases came in (6 since the pipeline's
-# phase came in)
-DP_RANKS, DP_STEPS, DP_LAYERS = 2, 1, 6
+# phase came in, 4 since the hand-written layouts' four-rank steps)
+DP_RANKS, DP_STEPS, DP_LAYERS = 2, 1, 4
 DP_RTOL, DP_AUX_RTOL = 1e-2, 1e-5
 COMPRESSED_BOUND, COMPRESSED_AGREE = 0.02, 1e-6
 # the full-width gradient hold: llama cut to 2 layers, fp32, 1 x 256
@@ -3585,6 +3619,64 @@ def _rank_setup(rank: int, world: int, root: str, layers,
     return dev, cfg, shape, batch
 
 
+def _par_inputs(arch: str, layers, dtype, dev, rows: int = TRAIN_BATCH):
+    """``(cfg, low_cfg, shape, batch)`` of a rank phase: ``arch`` at its
+    published width (``layers`` of its layers where given; drop-free where
+    it has experts, ``drop_free``) in ``dtype`` where given, the published
+    config as ``low_cfg`` where ``dtype`` differs from its dtype (else
+    ``None``), and the train phases' batch of ``rows`` rows."""
+    import dataclasses
+    cfg = drop_free(serve_config(arch))
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    shape, batch = _train_inputs(cfg, dev, rows, TRAIN_SEQ)
+    if dtype is None or dtype == cfg.dtype:
+        return cfg, None, shape, batch
+    return dataclasses.replace(cfg, dtype=dtype), cfg, shape, batch
+
+
+def _unsharded_step(dev, arch: str, layers, dtype=None, drops: bool = False,
+                    rows: int = TRAIN_BATCH) -> dict:
+    """A rank phase's unsharded step (``_par_inputs``), which the phase
+    runs once in this process before it spawns its ranks and leaves in a
+    file every rank loads (``_save_unsharded``): ``{"one":
+    _one_rank_step's result less the master weights}``; with ``drops``
+    also the assignments one forward drops at the capacity factor 1.25
+    (``one_drops``) and those of the first MoE layer alone on one input
+    (``one_layer_drops``); with a ``dtype`` other than the published one
+    also the published dtype's step on the same weights rounded, its loss
+    and grad norm (``one_low``: the rounding floor)."""
+    cfg, low_cfg, shape, batch = _par_inputs(arch, layers, dtype, dev, rows)
+    shared = {}
+    if low_cfg is not None:
+        low = _one_rank_step(low_cfg, dev, shape, batch)
+        shared["one_low"] = {"dtype": low_cfg.dtype, "loss": low["loss"],
+                             "grad_norm": low["grad_norm"]}
+        del low
+        _release()
+    if drops:
+        state = _fresh_state(cfg, dev)
+        shared["one_drops"] = _drops_at(state["params"], cfg, batch)
+        shared["one_layer_drops"] = _layer_drops(state["params"], cfg)
+        del state
+        _release()
+    one = _one_rank_step(cfg, dev, shape, batch)
+    one.pop("master")
+    shared["one"] = one
+    return shared
+
+
+def _save_unsharded(root: str, shared: dict) -> None:
+    import torch
+    torch.save(shared, f"{root}/one.pt")
+    _release()
+
+
+def _load_unsharded(root: str) -> dict:
+    import torch
+    return torch.load(f"{root}/one.pt")
+
+
 def _one_rank_step(cfg, dev, shape, batch, microbatches: int = 1):
     """The unsharded step on the whole batch from seed 0's weights: its
     loss and grad norm, and the updated parameters and master weights on
@@ -3680,15 +3772,15 @@ def _whole_digest(cfg, rules, named) -> tuple[str, int]:
     return digest.hexdigest(), n
 
 
-def tp_train_rank(rank: int, world: int, root: str, variants: dict):
+def tp_train_rank(rank: int, world: int, root: str, variants: dict,
+                  shared_root: str):
     """One of ``world`` ranks sharing the card (``gloo``, ``data=1,
-    model=world``): llama at full width cut to ``TP_LAYERS`` layers, first
-    the unsharded step on the whole batch (each rank its own, from the same
-    seed), then for each variant one step on this rank's shards under the
-    planner's rules for it; rank 0 holds the updated weights, gathered
-    whole, to the unsharded step's within ``tp_param_bound``. Writes
+    model=world``): llama at full width cut to ``TP_LAYERS`` layers, for
+    each variant one step on this rank's shards under the planner's rules
+    for it; rank 0 holds the updated weights, gathered whole, to those of
+    the phase's unsharded step on the whole batch (``_unsharded_step``,
+    loaded from ``shared_root``) within ``tp_param_bound``. Writes
     ``root/rank{rank}.json``."""
-    import torch
     import torch.distributed as dist
     from repro_torch.core.config import OptimizerConfig, ParallelConfig
     from repro_torch.launch.mesh import Mesh
@@ -3698,7 +3790,7 @@ def tp_train_rank(rank: int, world: int, root: str, variants: dict):
     from repro_torch.training import make_train_step
 
     dev, cfg, shape, batch = _rank_setup(rank, world, root, TP_LAYERS)
-    one = _one_rank_step(cfg, dev, shape, batch)
+    one = _load_unsharded(shared_root)["one"]
     mesh = Mesh({"data": 1, "model": world})
     out = {"rank": rank, "one": {"loss": one["loss"],
                                  "grad_norm": one["grad_norm"]},
@@ -3798,16 +3890,20 @@ def _spawn(fn, world: int, root: str, *args) -> tuple[float, list]:
 
 def tp_train_phase(dev, card: str) -> dict:
     """``tp_train_llama3_2_3b``: ``TP_RANKS`` ranks sharing the card, one
-    step of each ``TP_TRAIN_VARIANTS`` entry (``tp_train_rank``). Held:
+    step of each ``TP_TRAIN_VARIANTS`` entry (``tp_train_rank``), then
+    ``PP_RANKS`` ranks for each ``TP_TRAIN_LAYOUTS`` entry
+    (``par_train_phase``, held alike). Held:
     every rank's loss and grad norm within ``TP_RTOL`` of the unsharded
     step's; the leaves each rank holds whole bit-equal across the ranks;
     the updated weights, gathered, within ``tp_param_bound``; K4 twice and
     K4b once an attention layer, each at a query offset on the rank that
     holds the sequence's second half."""
     import tempfile
+    shared = tempfile.TemporaryDirectory()
+    _save_unsharded(shared.name, _unsharded_step(dev, SERVE_ARCH, TP_LAYERS))
     with tempfile.TemporaryDirectory() as root:
         wall, ranks = _spawn(tp_train_rank, TP_RANKS, root,
-                             TP_TRAIN_VARIANTS)
+                             TP_TRAIN_VARIANTS, shared.name)
     layers = TP_LAYERS
     want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers,
             "decode_attention": 0}
@@ -3847,6 +3943,15 @@ def tp_train_phase(dev, card: str) -> dict:
                 out["launches"][k] = out["launches"].get(k, 0) + v
             for k, v in r["variants"][name]["shapes"].items():
                 out["shapes"].setdefault(k, set()).update(map(tuple, v))
+    with shared:
+        laid = par_train_phase(dev, card, "tp_train", SERVE_ARCH, TP_LAYERS,
+                               TP_TRAIN_LAYOUTS, shared_root=shared.name)
+    out["wall_s"] += laid["wall_s"]
+    out["held"].update(laid["held"])
+    for k, v in laid["launches"].items():
+        out["launches"][k] = out["launches"].get(k, 0) + v
+    for k, v in laid["shapes"].items():
+        out["shapes"].setdefault(k, set()).update(v)
     return out
 
 
@@ -4069,13 +4174,12 @@ def zero3_train_phase(dev, card: str) -> dict:
 
 def pp_tp_train_rank(rank: int, world: int, root: str, variants: dict):
     """One of ``world`` ranks sharing the card (``gloo``): llama at full
-    width cut to ``PP_LAYERS`` layers, rank 0 first runs the unsharded step
-    on the whole ``PP_BATCH`` x ``TRAIN_SEQ`` batch (its loss, grad norm
-    and updated weights reach the other ranks through ``root``), then for
-    each variant one pipelined step on this rank's shards of its stage
-    (``dryrun.packing_plan``); each rank holds its updated shards to the
-    same slices of the unsharded step's within ``tp_param_bound`` and records
-    the bits of the leaves it holds whole. Writes
+    width cut to ``PP_LAYERS`` layers, for each variant one pipelined step
+    on this rank's shards of its stage (``dryrun.packing_plan``); each
+    rank holds its updated shards to the same slices of the phase's
+    unsharded step's on the whole ``PP_BATCH`` x ``TRAIN_SEQ`` batch
+    (``_unsharded_step``, loaded from ``root``) within ``tp_param_bound``
+    and records the bits of the leaves it holds whole. Writes
     ``root/rank{rank}.json``."""
     import hashlib
 
@@ -4095,18 +4199,7 @@ def pp_tp_train_rank(rank: int, world: int, root: str, variants: dict):
     dev, cfg, shape, batch = _rank_setup(rank, world, root, PP_LAYERS,
                                          PP_BATCH)
     seconds = {"setup": time.perf_counter() - t0}
-    t0 = time.perf_counter()
-    if rank == 0:
-        one = _one_rank_step(cfg, dev, shape, batch)
-        one.pop("master")
-        one["max_abs"] = {k: float(t.to(dev).abs().max())
-                          for k, t in one["params"].items()}
-        torch.save(one, f"{root}/one.pt")
-        del one
-        _release()
-    dist.barrier()
-    one = torch.load(f"{root}/one.pt")
-    seconds["one_rank_step"] = time.perf_counter() - t0
+    one = _load_unsharded(root)["one"]
     leaves = _meta_leaves(cfg)
     out = {"rank": rank, "one": {"loss": one["loss"],
                                  "grad_norm": one["grad_norm"]},
@@ -4170,6 +4263,14 @@ def pp_tp_train_phase(dev, card: str) -> dict:
     query offset of the rank's block of the sequence under ``seq_tp``."""
     import tempfile
     with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        shared = _unsharded_step(dev, SERVE_ARCH, PP_LAYERS, rows=PP_BATCH)
+        one = shared["one"]
+        one["max_abs"] = {k: float(t.to(dev).abs().max())
+                          for k, t in one["params"].items()}
+        _save_unsharded(root, shared)
+        del shared, one
+        one_s = time.perf_counter() - t0
         wall, ranks = _spawn(pp_tp_train_rank, PP_RANKS, root,
                              PP_TP_VARIANTS)
     per_stage = PP_LAYERS // 2
@@ -4182,7 +4283,8 @@ def pp_tp_train_phase(dev, card: str) -> dict:
           f"width, {per_stage} a stage, {PP_BATCH}x{TRAIN_SEQ} tokens in "
           f"{PP_MICROBATCHES} microbatches): {PP_RANKS} ranks on one card "
           f"(gloo; the shifts' batch_isend_irecv through host memory), "
-          f"{wall:.2f} s (rank 0's parts, s: "
+          f"the unsharded step {one_s:.2f} s before them, {wall:.2f} s "
+          f"(rank 0's parts, s: "
           f"{json.dumps({k: round(v, 2) for k, v in ranks[0]['seconds'].items()})}"
           f"); the unsharded step's loss {ranks[0]['one']['loss']:.6f}, "
           f"grad norm {ranks[0]['one']['grad_norm']:.6f} [{card}]")
@@ -4473,13 +4575,13 @@ def counting_drops():
 @contextlib.contextmanager
 def moe_plane_collectives():
     """Within the block, the collectives the MoE layer's expert-parallel
-    planes (``moe._moe_a2a``, ``moe._moe_gather``) make inside their calls
+    planes (``moe._moe_a2a``, ``moe._moe_partial``) make inside their calls
     (a forward's; a backward's are made after), by kind: ``{kind: {"calls",
     "bytes", "seconds"}}``."""
     from repro_torch.models import moe as M
     from repro_torch.parallel import collectives as C
     seen: dict = {}
-    saved = M._moe_a2a, M._moe_gather
+    saved = M._moe_a2a, M._moe_partial
 
     def counted(fn):
         def call(*args, **kwargs):
@@ -4495,11 +4597,11 @@ def moe_plane_collectives():
                         acc[f] += row[f] - was.get(f, 0)
         return call
 
-    M._moe_a2a, M._moe_gather = map(counted, saved)
+    M._moe_a2a, M._moe_partial = map(counted, saved)
     try:
         yield seen
     finally:
-        M._moe_a2a, M._moe_gather = saved
+        M._moe_a2a, M._moe_partial = saved
         for kind in [k for k, v in seen.items() if not v["calls"]]:
             del seen[kind]
 
@@ -4542,59 +4644,99 @@ def _shard_bound(one_params: dict, named: dict, cfg, rules, dev) -> tuple:
     return diff, worst
 
 
-def par_train_rank(rank: int, world: int, root: str, arch: str, layers,
-                   variants: dict, drops: bool, dtype, device: str):
-    """One of ``world`` ranks sharing the card (``gloo``): ``arch`` at its
-    published width (``layers`` of its layers where given; drop-free where
-    it has experts, ``drop_free``), first the unsharded step on the
-    train phases' batch (each rank its own, from the same seed), then for
-    each variant ``(mesh shape, ParallelConfig fields)`` one step on this
-    rank's shards under the planner's rules for it, its updated shards
-    held to the unsharded step's (``_shard_bound``). With ``drops``, the
-    assignments one forward drops at the model's capacity factor 1.25,
-    unsharded and under each variant's rules. With ``dtype`` other than
-    the published one, the model runs in ``dtype`` (weights drawn in fp32,
-    not rounded) and the unsharded step also runs in the published dtype
-    on the same weights rounded: the rounding floor. The model lives on
-    ``device`` (the card). Writes ``root/rank{rank}.json``."""
+def variant_rules(mesh_shape: dict, fields, cfg, shape) -> tuple:
+    """``(pc, rules)`` of a train variant on a mesh of ``mesh_shape``: the
+    planner's ``make_rules`` under ``ParallelConfig(**fields)``, or, where
+    ``fields`` names a hand-written layout (``sharding.LAYOUTS``, the
+    tests' layouts too), its ``layout_rules`` under ``remat="block"``."""
+    from repro_torch.core.config import ParallelConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.sharding import layout_rules
+    from repro_torch.parallel.strategies import make_rules
+    if isinstance(fields, str):
+        return ParallelConfig(remat="block"), layout_rules(Mesh(mesh_shape),
+                                                           fields)
+    pc = ParallelConfig(**fields)
+    return pc, make_rules(Mesh(mesh_shape), cfg, shape, pc)
+
+
+def variant_world(mesh_shape: dict) -> int:
+    return math.prod(mesh_shape.values())
+
+
+def _layer_drops(model, cfg, rules=None, factor: float = 1.25) -> dict:
+    """The first MoE layer alone (``moe.moe_parts``) at capacity factor
+    ``factor`` on one seeded ``(TRAIN_BATCH, TRAIN_SEQ, d)`` input in the
+    model's dtype (seed 11, a direction every token shares skewing the
+    routing, so that some assignments drop), under ``rules`` on the rank's
+    rows and positions of it: its dispatches' drops and assignments
+    (``counting_drops``). The same input and router on every rank, so the
+    drops can be held exactly."""
     import dataclasses
 
     import torch
+    from repro_torch.models import moe as M
+    from repro_torch.parallel.tensor import tensor_plan
+    layer = next(b.ffn for b in model.layers
+                 if isinstance(getattr(b, "ffn", None), M.MoE))
+    dev = layer.router.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device=dev)
+    x = (x + 2.0 * torch.randn((cfg.d_model,), generator=gen,
+                               device=dev)).to(layer.gate.dtype)
+    plan = tensor_plan(rules) if rules is not None else None
+    if plan is not None:
+        if plan.batch:
+            lo, n = plan.batch.block(x.shape[0])
+            x = x[lo:lo + n]
+        x = plan.seq_block(x)
+    low = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=factor))
+    with torch.no_grad(), counting_drops() as seen:
+        M.moe_parts(layer, x, low, plan=plan)
+    return dict(seen)
+
+
+def par_train_rank(rank: int, world: int, root: str, arch: str, layers,
+                   variants: dict, drops: bool, dtype, device: str,
+                   shared_root: str):
+    """One of ``world`` ranks sharing the card (``gloo``): ``arch`` at its
+    published width (``_par_inputs``) with the phase's unsharded step
+    (``_unsharded_step``, loaded from ``shared_root``); for each variant
+    ``(mesh shape, ParallelConfig fields or a layout name:
+    variant_rules)`` every rank runs one step on its shards under the
+    variant's rules, its updated shards held to the unsharded step's
+    (``_shard_bound``). With ``drops``, the assignments one forward drops
+    at the model's capacity factor 1.25, unsharded and under each
+    variant's rules, and those of the first MoE layer alone on one input
+    (``_layer_drops``). With ``dtype`` other than the published one, the
+    model runs in ``dtype`` (weights drawn in fp32, not rounded) and the
+    unsharded step also runs in the published dtype on the same weights
+    rounded: the rounding floor. The model lives on ``device`` (the
+    card). Writes ``root/rank{rank}.json``."""
+    import torch
     import torch.distributed as dist
-    from repro_torch.core.config import OptimizerConfig, ParallelConfig
-    from repro_torch.launch.mesh import Mesh, init_distributed
+    from repro_torch.core.config import OptimizerConfig
+    from repro_torch.launch.mesh import init_distributed
     from repro_torch.parallel.sharding import require_executable
-    from repro_torch.parallel.strategies import make_rules
     from repro_torch.training import make_train_step
 
     init_distributed(rank, world, f"file://{root}/rendezvous", device)
     dev = torch.device(device)
-    cfg = drop_free(serve_config(arch))
-    if layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
-    shape, batch = _train_inputs(cfg, dev, TRAIN_BATCH, TRAIN_SEQ)
-    out = {"rank": rank, "variants": {}}
-    if dtype is not None and dtype != cfg.dtype:
-        low = _one_rank_step(cfg, dev, shape, batch)
-        out["one_low"] = {"dtype": cfg.dtype, "loss": low["loss"],
-                          "grad_norm": low["grad_norm"]}
-        del low
-        _release()
-        cfg = dataclasses.replace(cfg, dtype=dtype)
-    if drops:
-        state = _fresh_state(cfg, dev)
-        out["one_drops"] = _drops_at(state["params"], cfg, batch)
-        del state
-        _release()
-    one = _one_rank_step(cfg, dev, shape, batch)
-    out["one"] = {"loss": one["loss"], "grad_norm": one["grad_norm"]}
-    one.pop("master")
+    cfg, _, shape, batch = _par_inputs(arch, layers, dtype, dev)
+    shared = _load_unsharded(shared_root)
+    one = shared.pop("one")
+    out = {"rank": rank, "variants": {}, **shared,
+           "one": {"loss": one["loss"], "grad_norm": one["grad_norm"]}}
     for name, (mesh_shape, fields) in variants.items():
-        pc = ParallelConfig(**fields)
-        rules = make_rules(Mesh(mesh_shape), cfg, shape, pc)
+        pc, rules = variant_rules(mesh_shape, fields, cfg, shape)
         require_executable(rules, cfg=cfg)
         state = _sharded_state(cfg, dev, rules)
         drops_125 = _drops_at(state["params"], cfg, batch, rules) \
+            if drops else None
+        layer_drops = _layer_drops(state["params"], cfg, rules) \
             if drops else None
         step = make_train_step(cfg, shape, OptimizerConfig(
             lr=TRAIN_LR, warmup_steps=0), pc, rules=rules)
@@ -4605,10 +4747,12 @@ def par_train_rank(rank: int, world: int, root: str, arch: str, layers,
         rec["rules"] = {k: v for k, v in rules.rules.items()
                         if v is not None}
         rec["mesh"] = mesh_shape
+        rec["remat"] = pc.remat
         rec["param_max_abs_diff"], rec["param_bound_ratio"] = _shard_bound(
             one["params"], named, cfg, rules, dev)
         if drops_125 is not None:
             rec["drops_1.25"] = drops_125
+            rec["layer_drops_1.25"] = layer_drops
         out["variants"][name] = rec
         del named, state, step, metrics
         _release()
@@ -4619,35 +4763,59 @@ def par_train_rank(rank: int, world: int, root: str, arch: str, layers,
 
 def par_train_phase(dev, card: str, prefix: str, arch: str, layers,
                     variants: dict, drops: bool = False,
-                    dtype: str | None = None) -> dict:
-    """``PAR_RANKS`` ranks sharing the card, one step of each variant
-    (``par_train_rank``). Held as ``tp_train`` holds llama: every rank's
-    loss and grad norm within ``TP_RTOL`` of the unsharded step's, the
-    leaves held whole bit-equal across the ranks, every rank's updated
-    shards within ``tp_param_bound``; K4 twice and K4b once an attention
-    layer, K2 once a MoE layer in the forward and again in its recompute
-    (twice under ``remat=block``, the same under ``dots``, which keeps no
-    dispatch)."""
+                    dtype: str | None = None,
+                    shared_root: str | None = None) -> dict:
+    """Ranks sharing the card, one step of each variant
+    (``par_train_rank``): one spawn of ``PAR_RANKS`` ranks for the variants
+    on meshes of that many, one of ``PP_RANKS`` for those on ``data=2 x
+    model=2``. Held as ``tp_train`` holds llama: every rank's loss and
+    grad norm within ``TP_RTOL`` of the unsharded step's, the leaves held
+    whole bit-equal across the ranks, every rank's updated shards within
+    ``tp_param_bound``; K4 twice and K4b once an attention layer, K2 once
+    a MoE layer in the forward and again in its recompute (twice under
+    ``remat=block``, the same under ``dots``, which keeps no dispatch).
+    With ``drops``, for the variants of ``DROPS_HELD`` (their planes
+    compute the unsharded layer's chunks) the first MoE layer's drops on
+    one input (``_layer_drops``), summed over the ranks and divided by how
+    many ranks dispatch each token, equal the unsharded layer's.
+    ``shared_root``: where an earlier phase left its unsharded step on the
+    same model and batch (``_save_unsharded``), else the phase runs it
+    here, once, before its spawns."""
     import dataclasses
     import tempfile
 
-    from repro_torch.core.config import ParallelConfig
-    with tempfile.TemporaryDirectory() as root:
-        wall, ranks = _spawn(par_train_rank, PAR_RANKS, root, arch, layers,
-                             variants, drops, dtype, dev.type)
+    groups: dict = {}
+    for name, (mesh_shape, fields) in variants.items():
+        groups.setdefault(variant_world(mesh_shape), {})[name] = \
+            (mesh_shape, fields)
+    spawned, wall = {}, 0.0
+    with contextlib.ExitStack() as stack:
+        if shared_root is None:
+            shared_root = stack.enter_context(tempfile.TemporaryDirectory())
+            _save_unsharded(shared_root, _unsharded_step(
+                dev, arch, layers, dtype, drops))
+        for world, group in sorted(groups.items()):
+            with tempfile.TemporaryDirectory() as root:
+                took, ranks = _spawn(par_train_rank, world, root, arch,
+                                     layers, group, drops, dtype, dev.type,
+                                     shared_root)
+            wall += took
+            spawned[world] = (took, ranks)
     cfg = serve_config(arch)
     n_layers = layers if layers is not None else cfg.num_layers
     cut = dataclasses.replace(cfg, num_layers=n_layers)
     attn, moe = attention_layers(cut), moe_layers(cut)
     out = {"wall_s": wall, "held": {}, "launches": {}, "shapes": {}}
+    first = spawned[min(spawned)][1][0]
     print(f"{prefix} {arch} ({n_layers} of {cfg.num_layers} layers at full "
           f"width, {dtype or cfg.dtype}, {TRAIN_BATCH}x{TRAIN_SEQ} tokens"
           f"{', drop-free capacity E / top_k' if cfg.moe else ''}): "
-          f"{PAR_RANKS} ranks on one card (gloo), {wall:.2f} s; the "
-          f"unsharded step's loss {ranks[0]['one']['loss']:.6f}, grad norm "
-          f"{ranks[0]['one']['grad_norm']:.6f} [{card}]")
-    if "one_low" in ranks[0]:
-        low = ranks[0]["one_low"]
+          + ", ".join(f"{w} ranks on one card (gloo) {t:.2f} s"
+                      for w, (t, _) in sorted(spawned.items()))
+          + f"; the unsharded step's loss {first['one']['loss']:.6f}, grad "
+          f"norm {first['one']['grad_norm']:.6f} [{card}]")
+    if "one_low" in first:
+        low = first["one_low"]
         print(f"{prefix} rounding floor: the unsharded step in "
               f"{low['dtype']} on the same weights rounded: loss "
               f"{low['loss']:.6f}, grad norm {low['grad_norm']:.6f} (not "
@@ -4655,8 +4823,11 @@ def par_train_phase(dev, card: str, prefix: str, arch: str, layers,
     if drops:
         print(f"{prefix} capacity drops at factor 1.25 in one forward, "
               f"unsharded (chunks of 1024): "
-              f"{json.dumps(ranks[0]['one_drops'])} [{card}]")
-    for name, (_, fields) in variants.items():
+              f"{json.dumps(first['one_drops'])}; the first MoE layer "
+              f"alone on one input: {json.dumps(first['one_layer_drops'])} "
+              f"[{card}]")
+    for name, (mesh_shape, _) in variants.items():
+        ranks = spawned[variant_world(mesh_shape)][1]
         _print_rank_records(prefix, ranks, name, card)
         held = _held_step(prefix, ranks, name, "one")
         worst = max(r["variants"][name]["param_bound_ratio"] for r in ranks)
@@ -4668,13 +4839,13 @@ def par_train_phase(dev, card: str, prefix: str, arch: str, layers,
                 f"{worst} of the bound")
         # a recompute (``block``, or ``dots``, which keeps the matrix
         # products only) runs K4 and the dispatch's K2 again
-        recompute = 2 if ParallelConfig(**fields).remat != "none" else 1
+        rec0 = ranks[0]["variants"][name]
+        recompute = 2 if rec0["remat"] != "none" else 1
         want = {"flash_attention": recompute * attn,
                 "flash_attention_bwd": attn, "decode_attention": 0,
                 "partition_histogram": 0,
                 "partition_scatter": recompute * moe, "fused_probe": 0}
         _require_launches(prefix, ranks, name, want)
-        rec0 = ranks[0]["variants"][name]
         if drops:
             by_rank = [dict(r["variants"][name]["drops_1.25"])
                        for r in ranks]
@@ -4682,7 +4853,7 @@ def par_train_phase(dev, card: str, prefix: str, arch: str, layers,
             print(f"{prefix} {name} capacity drops at factor 1.25 in one "
                   f"forward, by rank: {by_rank} (summed "
                   f"{sum(d['dropped'] for d in by_rank)}; unsharded "
-                  f"{ranks[0]['one_drops']['dropped']}) [{card}]")
+                  f"{first['one_drops']['dropped']}) [{card}]")
             for r, coll in zip(ranks, planes):
                 shown = {k: {"calls": v["calls"], "bytes": v["bytes"],
                              "ms": round(v["seconds"] * 1e3, 2)}
@@ -4690,6 +4861,20 @@ def par_train_phase(dev, card: str, prefix: str, arch: str, layers,
                 print(f"{prefix} {name} rank {r['rank']}: the MoE planes' "
                       f"collectives in that forward, by kind: "
                       f"{json.dumps(shown)} [{card}]")
+            layer = [r["variants"][name]["layer_drops_1.25"] for r in ranks]
+            want_l = first["one_layer_drops"]
+            dropped = sum(d["dropped"] for d in layer)
+            assigned = sum(d["assignments"] for d in layer)
+            print(f"{prefix} {name} the first MoE layer alone at factor "
+                  f"1.25, by rank: {layer} (unsharded {want_l}) [{card}]")
+            if name in DROPS_HELD:
+                require(want_l["dropped"] > 0 and assigned
+                        % want_l["assignments"] == 0
+                        and dropped * want_l["assignments"]
+                        == want_l["dropped"] * assigned,
+                        f"{prefix} {name}: the first MoE layer's drops "
+                        f"{layer} against the unsharded layer's {want_l}")
+                held["layer_drops_held"] = True
         print(f"{prefix} {name}: mesh {json.dumps(rec0['mesh'])}, rules "
               f"{json.dumps(rec0['rules'])}; held {json.dumps(held)} (loss "
               f"and grad norm within {TP_RTOL} of the unsharded step's, "

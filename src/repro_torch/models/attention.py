@@ -82,32 +82,60 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * hd)).unflatten(-1, (h, hd))
 
 
-def _weights(p: Attention, plan, names=("wq", "wk", "wv")):
+_HEAD_DIM = {"wq": 1, "bq": 0, "wo": 0}     # each query-head leaf's heads
+
+
+def _q_block(cfg: ModelConfig, plan) -> tuple[int, int]:
+    """``(first, count)`` of the query heads this rank computes: its block
+    of the head split, or, where only the kv heads are split, the query
+    heads that read its kv heads."""
+    if plan is None or not plan.q_heads:
+        return 0, cfg.num_heads
+    if plan.heads:
+        return plan.heads.block(cfg.num_heads)
+    g = cfg.num_heads // cfg.num_kv_heads
+    k0, k_loc = plan.kv_heads.block(cfg.num_kv_heads)
+    return k0 * g, k_loc * g
+
+
+def _weights(p: Attention, plan, names=("wq", "wk", "wv"), cfg=None):
+    """The leaves as this rank computes with them: under a ``plan``, its
+    shards (``w_embed`` gathered) and, where only the kv heads are split,
+    its query heads' block of the query-head leaves (whole on every
+    rank, so each rank's gradient of them is a partial sum)."""
     if plan is None:
         return [getattr(p, n) for n in names]
-    return [plan.weight(p, n) for n in names]
+    out = [plan.weight(p, n) for n in names]
+    if plan.heads or not plan.kv_heads:
+        return out
+    q0, h_loc = _q_block(cfg, plan)
+    return [w.narrow(_HEAD_DIM[n], q0, h_loc) if n in _HEAD_DIM else w
+            for n, w in zip(names, out)]
 
 
 def _project_qkv(p: Attention, x: torch.Tensor, positions: torch.Tensor,
                  cfg: ModelConfig, plan=None):
-    wq, wk, wv = _weights(p, plan)
-    q, k, v = _proj(x, wq), _proj(x, wk), _proj(x, wv)
+    names = ("wq", "wk", "wv") + (("bq", "bk", "bv") if cfg.qkv_bias
+                                  else ())
+    w = _weights(p, plan, names, cfg)
+    q, k, v = _proj(x, w[0]), _proj(x, w[1]), _proj(x, w[2])
     if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
+        q, k, v = q + w[3], k + w[4], v + w[5]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _out(p: Attention, out: torch.Tensor, plan=None) -> torch.Tensor:
+def _out(p: Attention, out: torch.Tensor, cfg: ModelConfig, plan=None,
+         reduce: bool = True) -> torch.Tensor:
     """``einsum("bshk,hkd->bsd")`` as one matrix product (under a ``plan``
-    that splits the heads, this rank's heads' rows of ``wo``, the partial
-    sums summed over the head ranks)."""
-    (wo,) = _weights(p, plan, ("wo",))
+    that splits the query heads, this rank's heads' rows of ``wo``, the
+    partial sums summed over the head ranks unless ``reduce`` is off)."""
+    (wo,) = _weights(p, plan, ("wo",), cfg)
     h, hd, d = wo.shape
     y = out.flatten(-2) @ wo.reshape(h * hd, d)
-    if plan is not None and plan.heads:
-        y = C.reduce_from(y, plan.heads.group)
+    if reduce and plan is not None and plan.q_heads:
+        y = C.reduce_from(y, plan.q_heads.group)
     return y
 
 
@@ -115,23 +143,24 @@ def _local_kv(k: torch.Tensor, cfg: ModelConfig, plan) -> torch.Tensor:
     """``(B, S, K, hd)`` K or V with all kv heads, cut to those this rank's
     query heads read where the heads are split and the kv heads are not:
     whole groups of query heads, or a part of one group (query head i
-    reads kv head i // (H_local // K_local), K4's grouping)."""
+    reads kv head i // (H_local // K_local), K4's grouping), or else one
+    kv head a query head, each query head's own."""
     if plan is None or not plan.heads or plan.kv_heads:
         return k
     g = cfg.num_heads // cfg.num_kv_heads
     q0, h_loc = plan.heads.block(cfg.num_heads)
     if h_loc % g == 0:
         return k[:, :, q0 // g:q0 // g + h_loc // g]
-    if g % h_loc == 0:
+    if g % h_loc == 0 and q0 // g == (q0 + h_loc - 1) // g:
         return k[:, :, q0 // g:q0 // g + 1]
-    raise NotImplementedError(f"{h_loc} query heads a rank do not group over "
-                              f"kv heads of {g} query heads each")
+    heads = torch.arange(q0, q0 + h_loc, device=k.device) // g
+    return k.index_select(2, heads)
 
 
 def _head_input(x: torch.Tensor, plan) -> torch.Tensor:
     """The replicated input of a head-split projection (``copy_to``)."""
-    if plan is not None and plan.heads:
-        return C.copy_to(x, plan.heads.group)
+    if plan is not None and plan.q_heads:
+        return C.copy_to(x, plan.q_heads.group)
     return x
 
 
@@ -143,22 +172,50 @@ def _gather_kv(k: torch.Tensor, plan, compress: bool) -> torch.Tensor:
     return C.gather_along(k, 1, plan.seq.group)
 
 
+def _resharded(plan):
+    """The ``tensor.Reshard`` of the query heads where their split shares
+    axes with the residual's sequence split (then the block takes the whole
+    sequence: Megatron's sequence parallelism), else ``None`` (each rank
+    projects its block of the sequence and gathers K and V)."""
+    if plan is None or not plan.seq \
+            or not set(plan.q_heads.axes) & set(plan.seq.axes):
+        return None
+    return plan.reshard(plan.q_heads)
+
+
+def _attend(p: Attention, x: torch.Tensor, positions: torch.Tensor,
+            cfg: ModelConfig, causal: bool, plan, compress: bool):
+    """The core of ``attention`` and ``prefill_attention``: ``(y, k, v,
+    reshard)``, ``y`` before ``reshard.leave`` (``None``: as the residual
+    takes it), ``k`` and ``v`` the whole sequence's, this rank's kv
+    heads."""
+    r = _resharded(plan)
+    offset = 0
+    if r is not None:
+        x = r.enter(x)
+        positions = C.gather_dim(positions, 1, plan.seq.group)
+    else:
+        x = _head_input(x, plan)
+    q, k, v = _project_qkv(p, x, positions, cfg, plan)
+    if r is None and plan is not None and plan.seq:
+        offset = plan.seq.index * q.shape[1]
+        k = _gather_kv(k, plan, compress)
+        v = _gather_kv(v, plan, compress)
+    out = ops.flash_attention(q, _local_kv(k, cfg, plan),
+                              _local_kv(v, cfg, plan), causal=causal,
+                              q_offset=offset)
+    return _out(p, out, cfg, plan, reduce=r is None), k, v, r
+
+
 def attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig, causal: bool = True,
               plan=None) -> torch.Tensor:
     """Full (train / prefill) attention. x: ``(B, S, D)``, under a ``plan``
     with a sequence-sharded residual this rank's block of the sequence
     (``positions`` its own)."""
-    x = _head_input(x, plan)
-    q, k, v = _project_qkv(p, x, positions, cfg, plan)
-    offset = 0
-    if plan is not None and plan.seq:
-        offset = plan.seq.index * q.shape[1]
-        k = _gather_kv(k, plan, plan.kv_compress)
-        v = _gather_kv(v, plan, plan.kv_compress)
-    k, v = _local_kv(k, cfg, plan), _local_kv(v, cfg, plan)
-    out = ops.flash_attention(q, k, v, causal=causal, q_offset=offset)
-    return _out(p, out, plan)
+    y, _, _, r = _attend(p, x, positions, cfg, causal, plan,
+                         plan is not None and plan.kv_compress)
+    return y if r is None else r.leave(y)
 
 
 def _write_prefill(cache: torch.Tensor, kv: torch.Tensor,
@@ -187,22 +244,14 @@ def prefill_attention(p: Attention, cache: tuple[torch.Tensor, torch.Tensor],
     where the residual is sequence-sharded, and the whole prompt's K and V
     (all kv heads) go into this rank's block of the cache where
     ``cache_split`` (a ``tensor.Split``) splits its sequence."""
-    x = _head_input(x, plan)
-    q, k, v = _project_qkv(p, x, positions, cfg, plan)
-    offset = 0
-    if plan is not None and plan.seq:
-        offset = plan.seq.index * q.shape[1]
-        k, v = _gather_kv(k, plan, False), _gather_kv(v, plan, False)
-    k_all, v_all = k, v
+    y, k, v, r = _attend(p, x, positions, cfg, True, plan, False)
     if plan is not None and plan.kv_heads:
-        k_all = C.gather_dim(k, 2, plan.kv_heads.group)
-        v_all = C.gather_dim(v, 2, plan.kv_heads.group)
+        k = C.gather_dim(k, 2, plan.kv_heads.group)
+        v = C.gather_dim(v, 2, plan.kv_heads.group)
     k_cache, v_cache = cache
-    _write_prefill(k_cache, k_all, cache_split)
-    _write_prefill(v_cache, v_all, cache_split)
-    k, v = _local_kv(k, cfg, plan), _local_kv(v, cfg, plan)
-    out = ops.flash_attention(q, k, v, causal=True, q_offset=offset)
-    return _out(p, out, plan), (k_cache, v_cache)
+    _write_prefill(k_cache, k, cache_split)
+    _write_prefill(v_cache, v, cache_split)
+    return y if r is None else r.leave(y), (k_cache, v_cache)
 
 
 # -- Decode path ---------------------------------------------------------------
@@ -251,9 +300,9 @@ def decode_attention(p: Attention, cache: tuple[torch.Tensor, torch.Tensor],
         v_cache[rows, at] = v_new[:, 0]
         length = (positions + 1).to(torch.int32)
         out = ops.decode_attention(q[:, 0], k_cache, v_cache, length)
-        return _out(p, out[:, None]), (k_cache, v_cache)
+        return _out(p, out[:, None], cfg), (k_cache, v_cache)
     q, k_new, v_new = _project_qkv(p, x, positions[:, None], cfg, plan)
-    heads = plan.heads if plan is not None else None
+    heads = plan.q_heads if plan is not None else None
     if heads:
         q = C.gather_dim(q, 2, heads.group)
     if plan is not None and plan.kv_heads:
@@ -276,9 +325,9 @@ def decode_attention(p: Attention, cache: tuple[torch.Tensor, torch.Tensor],
                                          return_lse=True)
         out = _combine_by_lse(part, lse, split.group).to(q.dtype)
     if heads:
-        lo_h, n_h = heads.block(cfg.num_heads)
+        lo_h, n_h = _q_block(cfg, plan)
         out = out[:, lo_h:lo_h + n_h]
-    return _out(p, out[:, None], plan), (k_cache, v_cache)
+    return _out(p, out[:, None], cfg, plan), (k_cache, v_cache)
 
 
 def _combine_by_lse(part: torch.Tensor, lse: torch.Tensor,

@@ -9,8 +9,8 @@ reference. The reference's sharding annotations (``logical_shard``) do
 nothing on one device and are not carried over: under sharding rules that
 split more than the batch, each function takes the rank's
 ``repro_torch.parallel.tensor.TensorPlan`` (``plan``) and makes the
-collectives GSPMD placed in the reference (``vocab`` and ``mlp`` over
-``model``, the sequence-sharded residual, ZeRO-3's gathers).
+collectives GSPMD placed in the reference (``vocab`` and ``mlp`` splits,
+the sequence-sharded residual, ZeRO-3's gathers).
 """
 
 from __future__ import annotations
@@ -102,16 +102,10 @@ def residual_from_partial(h: torch.Tensor, plan) -> torch.Tensor:
     """``(B, S, D)`` embeddings, a partial sum over ``plan.vocab`` where it
     is split, as the residual stream the layers take: summed over the vocab
     ranks, and this rank's block of the sequence where the residual is
-    sequence-sharded (one reduce-scatter, whose backward gives every vocab
-    rank the whole sequence's gradient)."""
-    if plan.vocab:
-        if plan.seq:
-            return C.reduce_scatter_along(h, 1, plan.seq.group)
-        return C.reduce_from(h, plan.vocab.group)
-    if plan.seq:
-        lo, n = plan.seq.block(h.shape[1])
-        return h[:, lo:lo + n]
-    return h
+    sequence-sharded (``tensor.Reshard.leave``: one reduce-scatter where
+    the vocab and the sequence are split over the same axes, whose
+    backward gives every vocab rank the whole sequence's gradient)."""
+    return plan.reshard(plan.vocab).leave(h)
 
 
 def unembed_table(emb: Embedding, plan=None) -> torch.Tensor:
@@ -200,18 +194,16 @@ def mlp(m: MLP, x: torch.Tensor, plan=None) -> torch.Tensor:
     """The SwiGLU FFN. Under a ``plan`` that splits ``mlp``, ``gate`` and
     ``up`` are column shards and ``down`` a row shard: the input is
     replicated over the mlp ranks (``copy_to``) or, from a
-    sequence-sharded residual, gathered along the sequence, and the
-    partial outputs are summed (``reduce_from``) or reduce-scattered back
-    to the sequence blocks. Otherwise (``mlp_seq`` among them) every rank
-    runs the whole FFN on its own positions."""
+    sequence-sharded residual, gathered along the sequence over the axes
+    the mlp split shares with it, and the partial outputs are summed
+    (``reduce_from``) or reduce-scattered back to the sequence blocks
+    (``tensor.Reshard``'s ``enter`` and ``leave``, ``local``: the FFN
+    works position by position). Otherwise (``mlp_seq`` among them) every
+    rank runs the whole FFN on its own positions."""
     if plan is None:
         return _swiglu(x, m.gate, m.up, m.down)
     weights = [plan.weight(m, leaf) for leaf in ("gate", "up", "down")]
     if not plan.mlp:
         return _swiglu(x, *weights)
-    if plan.seq:
-        x = C.gather_along(x, 1, plan.seq.group)
-        return C.reduce_scatter_along(_swiglu(x, *weights), 1,
-                                      plan.seq.group)
-    x = C.copy_to(x, plan.mlp.group)
-    return C.reduce_from(_swiglu(x, *weights), plan.mlp.group)
+    r = plan.reshard(plan.mlp)
+    return r.leave(_swiglu(r.enter(x, local=True), *weights), local=True)

@@ -146,11 +146,13 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 def _frontend_embed(model: LM, inputs: dict, plan=None) -> torch.Tensor:
     """The token embeddings, with the vision stub's projected patches put
     before them, or the audio stub's projected frames added at every
-    position. Under a ``plan`` the embeddings are a partial sum over the
-    vocab ranks until ``residual_from_partial``; the stub's projection,
-    the same on every rank, joins it on the first vocab rank only."""
+    position. Under a ``plan`` the token embeddings are a partial sum over
+    the vocab ranks until ``residual_from_partial``; the stub's
+    projection, the same on every rank, joins the residual after it (the
+    rank's block of the sequence)."""
     h = embed(model.embed, inputs["tokens"], plan)
     frontend = model.cfg.frontend
+    extra = None
     if frontend in (Frontend.VISION_STUB.value, Frontend.AUDIO_STUB.value):
         vision = frontend == Frontend.VISION_STUB.value
         name = "patch_proj" if vision else "frame_proj"
@@ -158,10 +160,16 @@ def _frontend_embed(model: LM, inputs: dict, plan=None) -> torch.Tensor:
             else plan.weight(model, name)
         x = inputs["patch_embeds" if vision else "frame_embeds"]
         extra = x.to(h.dtype) @ w
-        if plan is not None and plan.vocab.index:
-            extra = extra * 0
-        h = torch.cat([extra, h], dim=1) if vision else h + extra
-    return h if plan is None else residual_from_partial(h, plan)
+        if plan is None:
+            return torch.cat([extra, h], dim=1) if vision else h + extra
+        if vision:
+            zeros = torch.zeros_like(h)
+            h = torch.cat([torch.zeros_like(extra), h], dim=1)
+            extra = torch.cat([extra, zeros], dim=1)
+    if plan is None:
+        return h
+    h = residual_from_partial(h, plan)
+    return h if extra is None else h + plan.seq_block(extra)
 
 
 def _ffn(layer: Block, h: torch.Tensor, cfg: ModelConfig, plan=None):

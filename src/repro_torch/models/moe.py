@@ -24,25 +24,37 @@ reference's ``moe``'s and one the plane GSPMD makes of its chunked
 ``moe`` under ``expert_act``:
 
 - ``moe_shard_map`` (``moe_impl="shard_map_a2a"``, experts over
+  ``model``, the residual whole or split over axes that include
   ``model``): each rank dispatches its block of the sequence at that
   block's capacity and trades ``(tp, B, E_loc, C, D)`` buffers with the
   experts' owners through two differentiable all-to-alls
   (``collectives.exchange_rows``): the assignments dropped are the
-  reference's ``moe_shard_map``'s, not its chunked ``moe``'s;
-- ``all_to_all`` (``expert_act`` over the experts' axes, the planner's
-  baseline profile; also the experts split under a sequence split
-  without ``moe_impl``): the same exchanges, but the capacity is that of
-  the unsharded layer's chunks of ``s_chunk`` global positions, so the
-  function, drops included, is the unsharded ``moe``'s. A rank whose
-  block is part of a chunk starts its slots after those of the chunk's
-  earlier positions (``dispatch``'s ``start``), and the experts' owners
-  add the chunk's sources up (``_moe_a2a``);
-- ``gather`` (experts over ``model``, no ``moe_impl``; every decode
-  cell): every rank dispatches all its tokens and runs its block of the
-  experts, and the ranks' outputs are summed over ``model``. The
-  reference lets GSPMD assemble the same sum; the port sums each rank's
-  combine of its own experts' rows (one all-reduce of ``(B, S, D)``),
-  which never moves the ``(B, E, C, D)`` buffer;
+  reference's ``moe_shard_map``'s, not its chunked ``moe``'s. On a
+  residual split over other axes the reference's experts' ranks each
+  send the same block; the port runs the ``gather`` plane on each rank's
+  block at that block's capacity, which computes the same;
+- ``all_to_all`` (``expert_act`` over any axes with the experts split,
+  the planner's baseline profile; also the experts under a sequence
+  split over their own axes without ``moe_impl``): the same exchanges,
+  but the capacity is that of the unsharded layer's chunks of
+  ``s_chunk`` global positions, so the function, drops included, is the
+  unsharded ``moe``'s. A rank whose block is part of a chunk starts its
+  slots after those of the chunk's earlier positions (``dispatch``'s
+  ``start``), and the experts' owners add the chunk's sources up
+  (``_moe_a2a``);
+- ``gather`` (``_moe_partial``: experts over ``model`` with no
+  ``moe_impl``, every decode cell; the experts on their mlp dimension,
+  ``expert`` whole and ``mlp`` over ``model``, which ``make_rules`` gives
+  where ``model`` does not divide the experts; any other split beside a
+  sequence split): every rank dispatches all the tokens it takes and
+  runs its block of the experts and of their ``d_expert`` columns, and
+  the ranks' outputs are summed over the block's axes. The reference
+  lets GSPMD assemble the same sum; the port sums each rank's combine of
+  its own rows (one all-reduce of ``(B, S, D)``), which never moves the
+  ``(B, E, C, D)`` buffer. Under a sequence split the layer takes the
+  sequence through ``tensor.Reshard``: gathered over the sequence's axes
+  (only those the block splits, where each rank's block holds whole
+  chunks), and the rank's block of the sum given back;
 - ``moe_shard_map_local`` (``pure_dp``, the batch over the whole mesh):
   the local path on each rank's rows, in one chunk, the ZeRO-sharded
   leaves gathered.
@@ -368,22 +380,37 @@ def _moe_a2a(p: MoE, w: dict, x: torch.Tensor, cfg: ModelConfig, plan,
     return y, stats
 
 
-def _moe_gather(p: MoE, w: dict, x: torch.Tensor, cfg: ModelConfig, plan,
-                s_chunk: int):
-    """The ``gather`` plane: every ``expert`` rank routes and dispatches
-    all its tokens (as the unsharded layer does, chunk by chunk), runs its
-    block of the experts and combines their rows only; the ranks' partial
-    outputs are summed (``reduce_from``). The dispatch input and the
-    routing weights enter through ``copy_to`` (each rank's use is its own),
-    the router runs alike on every rank."""
+def _moe_partial(p: MoE, w: dict, x: torch.Tensor, cfg: ModelConfig, plan,
+                 s_chunk: int, per_block: bool = False):
+    """The ``gather`` plane, and every layout the all-to-alls do not take:
+    each rank routes and dispatches every token of the sequence it takes
+    (as the unsharded layer does, chunk by chunk), runs its block of the
+    experts (``plan.expert``) and of their ``d_expert`` columns of
+    ``gate``/``up`` and rows of ``down`` (``plan.moe_inside``, where the
+    rules split the experts on their mlp dimension) and combines its
+    rows; the ranks' partial outputs are summed over the block's ranks.
+    The router runs alike on every rank; the dispatch input and the
+    routing weights enter through ``copy_to``.
+
+    Under a sequence split the block takes the sequence as
+    ``tensor.Reshard`` gives it: only its ranks' blocks where each rank's
+    block holds whole chunks (``per_block``: the chunk is the rank's
+    block, ``moe_shard_map``'s capacity), else the whole sequence, and it
+    gives back the rank's block of the sum."""
     m = cfg.moe
-    ex = plan.expert
-    first, count = ex.block(m.num_experts)
+    r = plan.reshard(plan.moe_block)
+    first, count = plan.expert.block(m.num_experts) if plan.expert \
+        else (0, m.num_experts)
+    if per_block:
+        s_chunk, local = x.shape[1], True
+    else:
+        local = x.shape[1] % min(s_chunk, x.shape[1] * plan.seq.n) == 0
+    x = r.gather(x, local)
     probs, top_p, top_i = route(p, x, m.top_k, w["router"])
     stats = _stats(probs, top_i, m.num_experts)
-    x, top_p = C.copy_to(x, ex.group), C.copy_to(top_p, ex.group)
-    y = _chunked(w, x, top_p, top_i, cfg, s_chunk, (first, count))
-    return C.reduce_from(y, ex.group), stats
+    y = _chunked(w, r.replicate(x), r.replicate(top_p), top_i, cfg, s_chunk,
+                 (first, count))
+    return r.leave(y, local), stats
 
 
 def _chunked(w: dict, x, top_p, top_i, cfg: ModelConfig, s_chunk: int,
@@ -410,49 +437,63 @@ def moe_parts(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     in fp32; the sequence is dispatched in chunks of ``s_chunk`` tokens,
     each with its own capacity.
 
-    Under a ``plan`` (``parallel.tensor.TensorPlan``) with the experts
-    split the rules pick the plane (module docstring):
-    ``moe_impl="shard_map_a2a"`` runs ``_moe_a2a`` at the capacity of
-    each source block, no chunks; ``expert_act`` split (the planner's
-    baseline profile turns its ``shard_map_a2a`` plans into GSPMD's
-    ``all_to_all``) or a sequence-sharded residual runs ``_moe_a2a`` in
-    the unsharded layer's chunks (where a whole residual does not split
-    over the experts' ranks in nesting blocks, a decode step,
-    ``_moe_gather``, which computes the same); the experts split without
-    either, ``_moe_gather``. Without an expert split every rank runs this
-    local path on its rows, the ZeRO-sharded leaves gathered, in one
-    chunk under ``moe_impl="shard_map_local"`` (the reference's
-    ``moe_shard_map_local``: capacity of the whole local sequence).
-    ``stats`` are then this rank's tokens' (``plan.stats`` names the axes
-    whose ranks hold other tokens)."""
+    Under a ``plan`` (``parallel.tensor.TensorPlan``) the rules pick the
+    plane (module docstring): ``moe_impl="shard_map_a2a"`` runs
+    ``_moe_a2a`` at the capacity of each source block, no chunks, where
+    the experts' axes are among the sequence's (or the residual is whole),
+    else ``_moe_partial`` on each rank's block at its capacity (the
+    reference's ``moe_shard_map`` on a residual split over other axes
+    sends every expert rank the same block); ``expert_act`` split (the
+    planner's baseline profile turns its ``shard_map_a2a`` plans into
+    GSPMD's ``all_to_all``) or a residual split over the experts' own
+    axes runs ``_moe_a2a`` in the unsharded layer's chunks; every other
+    split (the experts without either, the experts on their mlp
+    dimension, a sequence split over other axes than the experts',
+    ``expert_act`` where a whole residual does not split over the
+    experts' ranks in nesting blocks) runs ``_moe_partial``, which
+    computes the unsharded layer's chunks too. Without any split but the
+    batch every rank runs this local path on its rows, the ZeRO-sharded
+    leaves gathered, in one chunk under ``moe_impl="shard_map_local"``
+    (the reference's ``moe_shard_map_local``: capacity of the whole local
+    sequence). ``stats`` are then this rank's tokens' (``plan.stats``
+    names the axes whose ranks hold other tokens)."""
     m = cfg.moe
     w = _weights(p, plan)
     if plan is not None:
-        inside = set(plan.mlp.axes) - set(plan.expert.axes)
-        if inside:
-            raise NotImplementedError(
-                f"the experts split on their mlp dimension over {inside} "
-                f"(num_experts % model != 0; reached by no plan of either "
-                f"profile, ROADMAP Queue 1 item 11.4d)")
-        if plan.seq and plan.seq.axes != plan.expert.axes:
-            raise NotImplementedError(
-                f"an MoE layer under a sequence split over {plan.seq.axes} "
-                f"with its experts over {plan.expert.axes} (reached by no "
-                f"plan of either profile, ROADMAP Queue 1 item 11.4d)")
-        if plan.expert:
-            if plan.moe_impl == "shard_map_a2a":
-                return _moe_a2a(p, w, x, cfg, plan)
+        if plan.moe_impl == "shard_map_a2a":
+            if plan.expert and (not plan.seq or set(plan.expert.axes)
+                                <= set(plan.seq.axes)):
+                return _moe_a2a(p, _whole_mlp(w, plan), x, cfg, plan)
+            return _moe_partial(p, w, x, cfg, plan, s_chunk, per_block=True)
+        if plan.expert and not plan.moe_inside:
             s = x.shape[1]
-            if plan.seq or (plan.expert_act and s % plan.expert.n == 0
-                            and _chunk_layout(s // plan.expert.n,
-                                              plan.expert.n, s_chunk)):
+            if plan.seq.axes == plan.expert.axes or (
+                    not plan.seq and plan.expert_act
+                    and s % plan.expert.n == 0
+                    and _chunk_layout(s // plan.expert.n, plan.expert.n,
+                                      s_chunk)):
                 return _moe_a2a(p, w, x, cfg, plan, s_chunk)
-            return _moe_gather(p, w, x, cfg, plan, s_chunk)
+        if plan.moe_block or plan.seq:
+            return _moe_partial(p, w, x, cfg, plan, s_chunk)
         if plan.moe_impl == "shard_map_local":
             s_chunk = x.shape[1]
     probs, top_p, top_i = route(p, x, m.top_k, w["router"])
     stats = _stats(probs, top_i, m.num_experts)
     return _chunked(w, x, top_p, top_i, cfg, s_chunk), stats
+
+
+def _whole_mlp(w: dict, plan) -> dict:
+    """The experts' leaves with their ``d_expert`` dimension gathered where
+    the rules split it (the reference's ``moe_shard_map`` takes them whole
+    on it, ``mlp_unused``): the gradient is reduce-scattered back, over
+    the ranks that repeat each other's rows (``TensorPlan.repeats``)."""
+    inside = plan.moe_inside
+    if not inside:
+        return w
+    scale = 1.0 / plan.repeats(inside.axes)
+    return dict(w, **{leaf: C.gather_along(w[leaf], dim, inside.group, scale)
+                      for leaf, dim in (("gate", 2), ("up", 2),
+                                        ("down", 1))})
 
 
 def aux_loss(stats: torch.Tensor, cfg: ModelConfig,

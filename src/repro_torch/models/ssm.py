@@ -30,11 +30,15 @@ sequence, and the recurrence needs all of it: the block gathers the
 sequence (``gather_along``, whose backward sums the ranks' gradients and
 hands each its block), runs its inner block over the whole sequence and
 hands back its block of the sequence of the summed output
-(``reduce_scatter_along``). Where ``seq`` is split and ``inner`` is not,
-every rank runs the whole block and keeps its positions. The reference's
-``spec`` gives ``model`` to the first logical axis that asks for it: its
-``(batch, seq, inner)`` activations are sequence-sharded, and GSPMD moves
-them; this layout is the port's.
+(``reduce_scatter_along``). Where ``seq`` and ``inner`` are split over
+other axes (``inner`` over ``model`` beside ``seq`` over ``data``) the
+block gathers the sequence the same way, its input enters the inner
+ranks through ``copy_to``, and the summed output is cut to the rank's
+positions (``tensor.Reshard``); where ``seq`` is split and ``inner`` is
+not, every rank runs the whole block and keeps its positions. The
+reference's ``spec`` gives ``model`` to the first logical axis that asks
+for it: its ``(batch, seq, inner)`` activations are sequence-sharded,
+and GSPMD moves them; this layout is the port's.
 """
 
 from __future__ import annotations
@@ -196,31 +200,21 @@ def _weight(p: Mamba, leaf: str, plan):
 
 def _enter(x: torch.Tensor, plan):
     """The block's input on this rank (the module docstring): the whole
-    sequence gathered under a sequence split, through ``copy_to`` under an
-    inner split alone."""
+    sequence gathered under a sequence split, through ``copy_to`` over the
+    inner axes the sequence split does not share (``tensor.Reshard``)."""
     if plan is None:
         return x
-    if plan.seq:
-        return C.gather_along(x, 1, plan.seq.group)
-    if plan.inner:
-        return C.copy_to(x, plan.inner.group)
-    return x
+    return plan.reshard(plan.inner).enter(x)
 
 
 def _leave(out: torch.Tensor, plan):
     """The block's output as the residual takes it: the inner ranks'
-    partial sums summed (and split along a split sequence), or this
-    rank's positions of a whole block's output."""
+    partial sums summed, and this rank's block of the sequence where it is
+    split (a reduce-scatter over the axes the inner split shares with it,
+    a slice over the others)."""
     if plan is None:
         return out
-    if plan.seq:
-        if plan.inner:
-            return C.reduce_scatter_along(out, 1, plan.seq.group)
-        lo, n = plan.seq.block(out.shape[1])
-        return out[:, lo:lo + n]
-    if plan.inner:
-        return C.reduce_from(out, plan.inner.group)
-    return out
+    return plan.reshard(plan.inner).leave(out)
 
 
 def mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, chunk: int = 128,

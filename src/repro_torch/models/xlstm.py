@@ -178,6 +178,9 @@ class MLSTM(nn.Module):
             "w_if": ("inner", None), "b_if": (None,), "norm": ("inner",),
             "down": ("inner", "w_embed")}
     SPLIT_HALVES = ("up",)          # u and z: convert.shard_params
+    # leaves the inner split leaves whole whose gradient every inner rank
+    # has whole: the bias joins the gates after their sum (``_summed``)
+    INNER_WHOLE = ("b_if",)
 
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
@@ -380,6 +383,7 @@ class SLSTM(nn.Module):
     # leaves the inner split leaves whole whose gradient each inner rank
     # only partly computes (``TensorPlan.grad_sync_axes``)
     INNER_PARTIAL = ("r_gates",)
+    INNER_WHOLE = ("b_gates",)      # as the mLSTM's ``b_if``
 
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()

@@ -44,12 +44,20 @@ equal. Each leaf's gradient is then summed over
 ``TensorPlan.grad_sync_axes`` within the pod (ZeRO-3 leaves come
 reduce-scattered from their gathers' backward). The clip norm is the whole
 tree's: the stage's layers' squares summed within the pod and over
-``pod``, the replicated leaves' counted once. As in the reference, the MoE
-aux loss is not part of the pipeline's loss.
+``pod``, the replicated leaves' counted once.
+
+An MoE layer runs in the port's pipeline with its experts whole (the
+stage's ranks each run every expert), and its aux loss is left out of the
+pipeline's loss. The reference's pipeline runs no MoE layer at all: its
+stage body calls ``_apply_block`` with ``is_moe=False``
+(``repro/parallel/pipeline.py:80``), so ``repro/models/lm.py:169-174``
+hands the experts' 3-D weights to the dense MLP, and the einsum raises
+(ROADMAP Queue 3, "Kept on purpose").
 
 Scope: uniform-attention archs (block pattern period 1) in train mode,
 repeats divisible by the stage count, microbatches >= stages; an MoE
-layer's experts are not split under the pipeline (``require_executable``).
+layer's experts are not split under the pipeline (``require_executable``:
+the reference runs no MoE layer there).
 """
 
 from __future__ import annotations
@@ -75,7 +83,11 @@ from repro_torch.parallel.collectives import (
 )
 from repro_torch.parallel.sharding import ShardingRules, require_executable
 from repro_torch.parallel.tensor import TensorPlan
-from repro_torch.training.losses import chunked_cross_entropy, vocab_input
+from repro_torch.training.losses import (
+    chunked_cross_entropy,
+    vocab_input,
+    vocab_labels,
+)
 from repro_torch.training.optimizer import apply_updates, init_opt_state
 from repro_torch.training.train_step import (
     _on_device,
@@ -245,8 +257,9 @@ def make_pp_train_step(cfg: ModelConfig, shape: ShapeConfig,
         h_last = rmsnorm(model.final_norm, h_final.to(h0.dtype),
                          cfg.norm_eps)
         total, _ = chunked_cross_entropy(
-            model.embed, vocab_input(h_last, plan), labels.flatten(0, 1),
-            cfg, total_count=total_count, plan=plan)
+            model.embed, vocab_input(h_last, plan),
+            vocab_labels(labels.flatten(0, 1), plan), cfg,
+            total_count=total_count, plan=plan)
         return total
 
     def grad_step(model, batch: dict):

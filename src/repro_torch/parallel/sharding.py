@@ -19,8 +19,11 @@ splits below inside each stage but the experts') and every split
 ``shard_map_local``) and ``inner`` (Mamba, mLSTM, sLSTM), each rank
 holding its shards (``repro_torch.models.convert.shard_params``) and
 making the collectives of ``repro_torch.parallel.tensor``.
-``logical_shard`` only checks the rank. ``require_executable`` refuses
-the rule sets no plan of either profile reaches (ROADMAP item 11.4d).
+``logical_shard`` only checks the rank. Splits that the residual's
+sequence split does not fit are resharded around the block
+(``tensor.Reshard``). ``require_executable`` refuses the two rule sets
+the reference itself raises on, and the layouts ``TensorPlan`` does not
+lay out.
 
 Canonical logical axes (as in the reference):
 
@@ -183,53 +186,104 @@ def _mesh_axes(rules: ShardingRules, logical: str) -> tuple[str, ...]:
 
 def require_executable(rules: ShardingRules | None, pipeline: bool = False,
                        cfg=None) -> None:
-    """Refuse a rule set this port does not run, none of which a plan of
-    the planner's reaches under either profile: ``expert_act`` split over
-    other axes than the experts, the MoE all-to-all (``moe_impl=
-    "shard_map_a2a"``) over a ``model`` axis larger than 1 without the
-    experts split over ``model`` alone, experts split under the
-    ``pipeline`` (its stages run every other split ``TensorPlan`` lays
-    out), and splits the port's ``TensorPlan`` does not lay out: the
-    sequence split beside a head split or beside a vocab or mlp split over
-    other axes, kv heads split without the query heads, ``inner`` split
-    beside a sequence split over other axes. Given the model's ``cfg``: an
-    MoE model's experts split on their mlp dimension (``num_experts %
-    model != 0``) and an MoE layer under a sequence split over other axes
-    than its experts. Raises ``NotImplementedError`` naming ROADMAP item
-    11.4d."""
+    """Refuse a rule set the port does not run (``TensorPlan`` asks too,
+    with neither ``pipeline`` nor ``cfg``). Two of them the reference
+    cannot run either, and they are refused naming its failure:
+
+    - an MoE model's experts split under the ``pipeline``, over the
+      experts or on their mlp dimension: the reference's pipeline sends
+      an MoE layer's 3-D expert weights to the dense MLP
+      (``repro/parallel/pipeline.py:80`` calls ``_apply_block`` with
+      ``is_moe=False``, ``repro/models/lm.py:169-174``), which raises on
+      any MoE model (the port's pipeline runs one with its experts whole);
+    - the MoE all-to-all (``moe_impl="shard_map_a2a"``) without the
+      experts split over ``model`` alone (unsplit where ``model`` is 1):
+      ``repro/models/moe.py:138`` cuts ``E // model`` local experts
+      whatever the weights' split, and its einsum raises.
+
+    The others are layouts GSPMD places that the port's ``TensorPlan``
+    does not lay out: a model split over mesh axes the batch is split over
+    as well (GSPMD gathers such weights like ZeRO's), and kv heads split
+    over other axes than the query heads. Raises ``NotImplementedError``."""
     if rules is None or rules.mesh is None:
         return
-    refused = {}
-    act = _mesh_axes(rules, "expert_act")
-    if act and act != _mesh_axes(rules, "expert"):
-        refused["expert_act"] = rules.rules["expert_act"]
+    refused, why = {}, []
+    experts = _mesh_axes(rules, "expert")
+    model = int(rules.mesh.shape.get("model", 1))
     if rules.rules.get("moe_impl") == "shard_map_a2a" \
-            and int(rules.mesh.shape.get("model", 1)) > 1 \
-            and _mesh_axes(rules, "expert") != ("model",):
+            and experts != (("model",) if model > 1 else ()):
         refused["moe_impl"] = "shard_map_a2a"
-    if pipeline and _mesh_axes(rules, "expert"):
-        refused["expert"] = rules.rules["expert"]
-    seq = _mesh_axes(rules, "seq")
-    if seq and (_mesh_axes(rules, "heads") or _mesh_axes(rules, "kv_heads")
-                or _mesh_axes(rules, "vocab") != seq
-                or _mesh_axes(rules, "mlp") not in ((), seq)):
-        refused["seq"] = rules.rules["seq"]
-    kv = _mesh_axes(rules, "kv_heads")
-    if kv and kv != _mesh_axes(rules, "heads"):
+        why.append("the reference's moe_shard_map cuts num_experts // model "
+                   "local experts whatever the experts' split "
+                   "(repro/models/moe.py:138) and raises")
+    # without a cfg only the experts' own split tells of an MoE model
+    moe = cfg is None or cfg.moe is not None
+    inside = _mesh_axes(rules, "mlp") if cfg is not None else ()
+    if pipeline and moe and (experts or inside):
+        logical = "expert" if experts else "mlp"
+        refused[logical] = rules.rules[logical]
+        why.append("the reference's pipeline raises on any MoE layer "
+                   "(repro/parallel/pipeline.py:80 runs it as a dense MLP, "
+                   "repro/models/lm.py:169-174)")
+    batch = set(_mesh_axes(rules, "batch"))
+    for logical in ("seq", "heads", "kv_heads", "mlp", "vocab", "inner",
+                    "expert", "cache_seq"):
+        if batch & set(_mesh_axes(rules, logical)):
+            refused[logical] = rules.rules[logical]
+            why.append(f"{logical} over an axis of the batch's, a layout "
+                       f"the port does not lay out")
+    kv, heads = _mesh_axes(rules, "kv_heads"), _mesh_axes(rules, "heads")
+    if kv and heads and kv != heads:
         refused["kv_heads"] = rules.rules["kv_heads"]
-    inner = _mesh_axes(rules, "inner")
-    if inner and seq and inner != seq:
-        refused["inner"] = rules.rules["inner"]
-    if cfg is not None and cfg.moe is not None:
-        inside = rules.spec("expert", "w_embed", "mlp")[2]
-        inside = tuple(inside) if isinstance(inside, tuple) else (inside,)
-        if any(a is not None and int(rules.mesh.shape[a]) > 1
-               for a in inside):
-            refused["mlp"] = rules.rules["mlp"]
-        if seq and _mesh_axes(rules, "expert") != seq:
-            refused["seq"] = rules.rules["seq"]
+        why.append("kv heads over other axes than the query heads, a "
+                   "layout the port does not lay out")
     if refused:
         raise NotImplementedError(
-            f"these rules shard {refused} over mesh axes larger than 1, a "
-            f"layout no plan of either profile reaches: ROADMAP Queue 1 "
-            f"item 11.4d")
+            f"these rules shard {refused} over mesh axes larger than 1: "
+            + "; ".join(why))
+
+
+# every logical axis a rule set names (``make_rules``'), switches aside
+LOGICAL_AXES = ("batch", "seq", "kv_seq", "mlp_seq", "cache_seq", "embed",
+                "qkv", "cap", "state", "layers", "kv_rep", "w_embed",
+                "vocab", "mlp", "heads", "kv_heads", "expert", "expert_act",
+                "inner")
+
+# Layouts the reference runs under hand-written rules (GSPMD places them)
+# that no plan of the planner's reaches, but the first, which
+# ``make_rules`` gives wherever ``model`` divides ``d_expert`` and not the
+# experts. Each names the logical axes it splits; ``layout_rules`` makes
+# the rest ``None``.
+LAYOUTS = {
+    # the experts on their mlp dimension: every rank routes every token
+    "experts_on_mlp": {"batch": "data", "mlp": "model", "vocab": "model"},
+    # expert_act over other axes than the experts
+    "expert_act_data": {"batch": "data", "expert": "model",
+                        "expert_act": "data", "vocab": "model"},
+    # an MoE layer under a sequence split over other axes than its
+    # experts: the gather plane, and the all-to-all's per-block capacity
+    "moe_beside_seq": {"seq": "data", "vocab": "model", "expert": "model"},
+    "a2a_beside_seq": {"seq": "data", "vocab": "model", "expert": "model",
+                       "moe_impl": "shard_map_a2a"},
+    # the recurrent blocks' inner split beside a sequence split
+    "inner_beside_seq": {"seq": "data", "vocab": "model", "inner": "model"},
+    # the sequence beside the heads, kv heads and mlp over other axes
+    "seq_beside_heads": {"seq": "model", "vocab": "model", "heads": "data",
+                         "kv_heads": "data", "mlp": "data"},
+    # the sequence beside the vocab and the mlp over other axes
+    "seq_beside_vocab": {"seq": "data", "vocab": "model", "mlp": "model"},
+    # the heads over the sequence's own axes (Megatron's sequence
+    # parallelism)
+    "seq_with_heads": {"seq": "model", "vocab": "model", "heads": "model",
+                       "kv_heads": "model", "mlp": "model"},
+    # the kv heads split without the query heads
+    "kv_heads_alone": {"batch": "data", "kv_heads": "model",
+                       "vocab": "model", "mlp": "model"},
+}
+
+
+def layout_rules(mesh, layout) -> ShardingRules:
+    """The ``ShardingRules`` of a ``LAYOUTS`` name or of a rules dict on
+    ``mesh``: the logical axes it names, every other one ``None``."""
+    named = LAYOUTS[layout] if isinstance(layout, str) else layout
+    return ShardingRules(mesh, {**{a: None for a in LOGICAL_AXES}, **named})

@@ -1,12 +1,13 @@
 """How a rank runs the model under sharding rules that split more than the
-batch: tensor parallelism (``heads``, ``kv_heads``, ``mlp`` and ``vocab``
-over ``model``), the sequence-sharded residual of ``seq_tp`` (``seq``,
-with ``mlp_seq``), the sequence-sharded decode cache (``cache_seq``, over
-``model`` or ``("data", "model")``), ZeRO-3 (``w_embed`` over ``data``
-or the whole mesh), expert parallelism (``expert`` over ``model``, with
-the MoE plane ``moe_impl`` or ``expert_act`` picks: ``models/moe.py``)
-and the Mamba / xLSTM inner split (``inner`` over ``model`` or ``("data", "model")``:
-``models/ssm.py``, ``models/xlstm.py``).
+batch: tensor parallelism (``heads``, ``kv_heads``, ``mlp`` and
+``vocab``), the sequence-sharded residual (``seq``, with ``mlp_seq``),
+the sequence-sharded decode cache (``cache_seq``, over ``model`` or
+``("data", "model")``), ZeRO-3 (``w_embed`` over ``data`` or the whole
+mesh), expert parallelism (``expert``, with the MoE plane ``moe_impl`` or
+``expert_act`` picks, and the experts' ``d_expert`` split by ``mlp``
+where ``expert`` is not: ``models/moe.py``) and the Mamba / xLSTM inner
+split (``inner``: ``models/ssm.py``, ``models/xlstm.py``), each over any
+mesh axes but the batch's.
 
 The reference names each tensor's logical axes and lets GSPMD place the
 collectives. Here ``TensorPlan`` resolves the rules once, outside any
@@ -18,21 +19,27 @@ asks it for the process groups and for its weights:
   ``w_embed`` dimension gathered (``collectives.gather_along``: the
   gradient is reduce-scattered back to the shard), or the copy gathered
   once a step under ``zero2`` with ``regather`` (``gathered``);
+- ``reshard(split)`` (``Reshard``) is how a block split over some axes
+  meets a residual split along the sequence over others: the sequence
+  gathered where the block needs it, the block's partial sums summed and
+  cut back to the rank's positions;
 - ``grad_sync_axes(name)`` names the mesh axes over which a leaf's
-  gradient is still a partial sum after the backward: the batch axes it is
-  not sharded over (data parallelism), and, where the residual is
-  sequence-sharded, the sequence axes for every leaf not sharded over them
-  (each rank saw only its positions), or, under ``head_tp`` with kv heads
-  that do not divide, the head axes for the kv projections (each rank used
-  only its query heads' kv heads), or, where a recurrent block's
-  ``inner`` is split, the inner axes for the block's leaves that the
-  split does not cut and whose gradient each inner rank only partly
-  computes (``partial``: the sLSTM's replicated ``r_gates``, whose
-  recurrence each rank runs whole but feeds back only its own slice).
-  A leaf sharded over ``expert`` is not summed over ``model``: the
-  all-to-all's backward brings each rank every source's gradient of its
-  experts (under either all-to-all plane; the ``gather`` plane's ranks
-  see every token).
+  gradient is still a partial sum after the backward: the batch axes and
+  the sequence axes it is not sharded over (each rank saw only its rows
+  and, under a block that does not split the sequence's axes, its
+  positions), or, under a head split, the head axes for the kv
+  projections the kv split does not cut (each rank used only its query
+  heads' kv heads), and, under a kv split alone, the kv axes for the
+  query-head leaves (each rank computes the query heads of its kv heads),
+  or, where a recurrent block's ``inner`` is split, the inner axes for the
+  block's leaves that the split does not cut and whose gradient each inner
+  rank only partly computes (``partial``: the sLSTM's replicated
+  ``r_gates``, whose recurrence each rank runs whole but feeds back only
+  its own slice), and not the inner axes for those each inner rank has
+  whole (``whole``: the gates' biases). A leaf sharded over ``expert`` is
+  not summed over ``model``: the all-to-all's backward brings each rank
+  every source's gradient of its experts (under either all-to-all plane;
+  the ``gather`` plane's ranks see every token).
 
 A rank holds a parameter's shard as ``ShardingRules.spec`` cuts it
 (``repro_torch.models.convert.shard_params``): a dimension split over
@@ -47,7 +54,11 @@ import math
 import torch.distributed as dist
 
 from repro_torch.parallel import collectives as C
-from repro_torch.parallel.sharding import _FLAGS, ShardingRules
+from repro_torch.parallel.sharding import (
+    _FLAGS,
+    ShardingRules,
+    require_executable,
+)
 
 
 def _axes(part) -> tuple[str, ...]:
@@ -95,6 +106,7 @@ class TensorPlan:
     ``zero2`` with ``regather``."""
 
     def __init__(self, rules: ShardingRules):
+        require_executable(rules)
         self.rules = rules
         self.mesh = rules.mesh
         r = rules.rules
@@ -116,35 +128,27 @@ class TensorPlan:
         self.kv_compress = bool(r.get("kv_compress"))
         self.gathered: dict[int, object] = {}
         self._zero: dict[tuple, object] = {}
-        if self.seq:
-            if self.heads or self.kv_heads:
-                raise NotImplementedError("a sequence-sharded residual with "
-                                          "heads split as well")
-            if self.vocab.axes != self.seq.axes:
-                raise NotImplementedError(
-                    f"a sequence split over {self.seq.axes} needs the vocab "
-                    f"split over the same axes, not {self.vocab.axes}")
-            if self.mlp and self.mlp.axes != self.seq.axes:
-                raise NotImplementedError(
-                    f"mlp over {self.mlp.axes} beside the sequence over "
-                    f"{self.seq.axes}")
-        if self.kv_heads and self.kv_heads.axes != self.heads.axes:
-            raise NotImplementedError("kv heads split without the heads")
-        if self.expert_act and self.expert_act.axes != self.expert.axes:
-            raise NotImplementedError(
-                f"expert_act over {self.expert_act.axes} with the experts "
-                f"over {self.expert.axes} (reached by no plan of either "
-                f"profile; ROADMAP Queue 1 item 11.4d)")
-        if self.inner and self.seq and self.inner.axes != self.seq.axes:
-            raise NotImplementedError(
-                f"inner over {self.inner.axes} beside the sequence over "
-                f"{self.seq.axes} (ROADMAP Queue 1 item 11.4d)")
-        if (self.moe_impl == "shard_map_a2a" or self.expert_act) \
-                and self.seq and self.seq.axes != self.expert.axes:
-            raise NotImplementedError(
-                f"the MoE all-to-all over {self.expert.axes} beside the "
-                f"sequence over {self.seq.axes} (ROADMAP Queue 1 item "
-                f"11.4d)")
+        # the query heads a rank computes: the head split's, or, where only
+        # the kv heads are split, those that read the rank's kv heads
+        self.q_heads = self.heads if self.heads else self.kv_heads
+        # the MoE experts' block: their split and the mlp split inside them
+        # (where ``make_rules`` leaves the experts whole)
+        inside = _axes(rules.spec("expert", "w_embed", "mlp")[2])
+        self.moe_inside = Split(self.mesh, tuple(
+            a for a in inside if a not in self.expert.axes))
+        self.moe_block = Split(self.mesh,
+                               self.expert.axes + self.moe_inside.axes)
+        # made here, on every rank in the same order: a group is made
+        # collectively
+        self._reshard = {}
+        for axes in ((), self.mlp.axes, self.vocab.axes, self.inner.axes,
+                     self.q_heads.axes, self.moe_block.axes):
+            if axes not in self._reshard:
+                self._reshard[axes] = Reshard(self.mesh, self.seq, axes)
+
+    def reshard(self, block: Split) -> "Reshard":
+        """How a block split over ``block`` meets the sequence split."""
+        return self._reshard[block.axes]
 
     # -- parameters ------------------------------------------------------------
 
@@ -195,32 +199,107 @@ class TensorPlan:
             out.update(_axes(part))
         return {a for a in out if int(self.mesh.shape[a]) > 1}
 
-    def grad_sync_axes(self, logical: tuple,
-                       partial: bool = False) -> tuple[str, ...]:
+    def grad_sync_axes(self, logical: tuple, partial: bool = False,
+                       whole: bool = False) -> tuple[str, ...]:
         """The mesh axes to sum a leaf's gradient over after the backward
         (the module docstring), in mesh order. ``partial``: the leaf is one
         of a recurrent block's that the inner split leaves whole but each
-        inner rank only partly differentiates."""
+        inner rank only partly differentiates; ``whole``: one the inner
+        split leaves whole whose gradient every inner rank has whole (its
+        use follows the sum over the inner ranks)."""
         sharded = self.leaf_axes(logical)
-        need = set(self.batch.axes) - sharded
-        if self.seq and not sharded & set(self.seq.axes):
-            need |= set(self.seq.axes)
-        if self.heads and not self.kv_heads and "kv_heads" in logical:
+        need = set(self.batch.axes) | set(self.seq.axes)
+        if whole:
+            need -= set(self.inner.axes)
+        if self.heads and "kv_heads" in logical:
             need |= set(self.heads.axes)
-        if partial and self.inner:
-            need |= set(self.inner.axes) - sharded
+        if self.kv_heads and not self.heads and "heads" in logical:
+            need |= set(self.kv_heads.axes)
+        if partial:
+            need |= set(self.inner.axes)
         return tuple(a for a in self.mesh.axis_names
-                     if a in need and int(self.mesh.shape[a]) > 1)
+                     if a in need - sharded and int(self.mesh.shape[a]) > 1)
 
     # -- the sequence ------------------------------------------------------------
 
     def local_positions(self, positions):
         """This rank's block of ``(B, S)`` positions (all of them without a
         sequence split)."""
+        return self.seq_block(positions)
+
+    def seq_block(self, t):
+        """This rank's block of the sequence (dimension 1) of ``t``, which
+        every rank holds whole (a plain slice)."""
         if not self.seq:
-            return positions
-        lo, n = self.seq.block(positions.shape[1])
-        return positions[:, lo:lo + n]
+            return t
+        lo, n = self.seq.block(t.shape[1])
+        return t[:, lo:lo + n]
+
+
+class Reshard:
+    """A block split over mesh axes ``T`` (``block``: heads, mlp, vocab,
+    inner or the experts) on a residual split along the sequence over
+    ``S``. The block computes partial sums over ``T`` of rows that every
+    rank of ``T`` holds alike; the residual keeps rank ``i``'s block of the
+    sequence. GSPMD reshards between the two; here:
+
+    - ``enter``: the sequence gathered over ``S`` (``gather_along``, its
+      backward the sum of the ranks' gradients), then ``copy_to`` over
+      ``T - S``; ``leave``: the partial sums summed over ``T - S``
+      (``reduce_from``), then, axis by axis of ``S`` in mesh order, a
+      reduce-scatter where the axis is in ``T`` and a slice where it is
+      not. ``T == S`` is Megatron's sequence parallelism (an all-gather in,
+      a reduce-scatter out), ``S`` empty its tensor parallelism;
+    - ``local=True``, for a block that works position by position (the
+      MLP, the loss, an MoE whose chunks a rank's block holds whole): only
+      ``S & T`` is gathered and reduce-scattered, and every rank keeps the
+      positions of its block of ``S - T``.
+
+    The gradient a rank ends with is then a partial sum over the axes of
+    ``S`` that ``T`` does not split, for every leaf of the block
+    (``TensorPlan.grad_sync_axes`` sums ``S`` less the leaf's own axes)."""
+
+    def __init__(self, mesh, seq: Split, block: tuple[str, ...]):
+        self.seq = seq
+        self.rest = Split(mesh, tuple(a for a in block if a not in seq.axes))
+        self.shared = Split(mesh, tuple(a for a in seq.axes if a in block))
+        self.alone = Split(mesh, tuple(a for a in seq.axes
+                                       if a not in block))
+        # each axis of ``S``, in mesh order, and whether ``T`` splits it
+        self.per_axis = [(a in block, Split(mesh, (a,))) for a in seq.axes] \
+            if self.shared and self.alone else []
+
+    def gather(self, x, local: bool = False):
+        """The sequence as the block takes it (``enter`` without the
+        ``copy_to``)."""
+        split = self.shared if local else self.seq
+        return C.gather_along(x, 1, split.group) if split else x
+
+    def replicate(self, x):
+        """A tensor every rank of ``T`` uses its own way: ``copy_to`` over
+        ``T - S``."""
+        return C.copy_to(x, self.rest.group) if self.rest else x
+
+    def enter(self, x, local: bool = False):
+        return self.replicate(self.gather(x, local))
+
+    def leave(self, y, local: bool = False):
+        if self.rest:
+            y = C.reduce_from(y, self.rest.group)
+        if self.shared and (local or not self.alone):
+            return C.reduce_scatter_along(y, 1, self.shared.group)
+        if local or not self.seq:
+            return y
+        if not self.shared:
+            lo, n = self.seq.block(y.shape[1])
+            return y[:, lo:lo + n]
+        for inside, split in self.per_axis:
+            if inside:
+                y = C.reduce_scatter_along(y, 1, split.group)
+            else:
+                lo, n = split.block(y.shape[1])
+                y = y[:, lo:lo + n]
+        return y
 
 
 def tensor_plan(rules: ShardingRules | None) -> TensorPlan | None:

@@ -72,17 +72,33 @@ def _chunk_terms_vocab_parallel(hc: torch.Tensor, lc: torch.Tensor,
 
 
 def vocab_input(h: torch.Tensor, plan) -> torch.Tensor:
-    """The final hidden states as the vocab-parallel loss takes them:
-    gathered whole along the sequence from a sequence-sharded residual (its
-    gradient summed over the vocab ranks and split back), or entering the
-    vocab ranks' columns through ``copy_to``."""
+    """The final hidden states as the vocab-parallel loss takes them
+    (``tensor.Reshard.enter`` of the vocab split, position by position):
+    gathered along the sequence over the axes the vocab split shares with
+    a sequence split (its gradient summed over the ranks and split back),
+    and entering the vocab ranks' columns through ``copy_to`` over the
+    others. Where the
+    sequence is split over axes the vocab is not, each rank keeps the
+    positions of its block of them (``vocab_labels``), and the loss sums
+    over those ranks (``chunked_cross_entropy``)."""
     if plan is None:
         return h
-    if plan.seq:
-        return C.gather_along(h, 1, plan.seq.group)
-    if plan.vocab:
-        return C.copy_to(h, plan.vocab.group)
-    return h
+    return plan.reshard(plan.vocab).enter(h, local=True)
+
+
+def whole_sequence(plan) -> bool:
+    """Whether ``vocab_input`` gives every position of the sequence."""
+    return plan is None or not plan.reshard(plan.vocab).alone
+
+
+def vocab_labels(labels: torch.Tensor, plan) -> torch.Tensor:
+    """``(B, S)`` labels of the positions ``vocab_input`` gives."""
+    if whole_sequence(plan):
+        return labels
+    shared = plan.reshard(plan.vocab).shared
+    local = plan.seq_block(labels)
+    return C.gather_dim(local.contiguous(), 1, shared.group) if shared \
+        else local
 
 
 def chunked_cross_entropy(embed: Embedding, h: torch.Tensor,
@@ -96,8 +112,10 @@ def chunked_cross_entropy(embed: Embedding, h: torch.Tensor,
     512). With ``total_count`` (a data-parallel
     rank's rows of a batch of that many tokens) the sum is divided by it:
     the rank's share of the whole batch's mean. Under a ``plan`` ``h`` is
-    ``vocab_input``'s and the loss vocab-parallel where the plan splits
-    the vocab."""
+    ``vocab_input``'s, ``labels`` ``vocab_labels``', the loss
+    vocab-parallel where the plan splits the vocab, and the sum and count
+    summed over the sequence's axes the vocab split leaves out (the sum
+    with ``replicated_sum``: every rank then has the same loss)."""
     b, s = h.shape[:2]
     table = unembed_table(embed, plan)
     terms, extra = _chunk_terms, ()
@@ -116,6 +134,10 @@ def chunked_cross_entropy(embed: Embedding, h: torch.Tensor,
                              *extra, use_reentrant=False)
         total = total + part
         count = count + n
+    if not whole_sequence(plan):
+        group = plan.reshard(plan.vocab).alone.group
+        total = C.replicated_sum(total, group)
+        count = C.all_reduce_(count.detach().clone(), group)
     denom = count if total_count is None else torch.as_tensor(
         total_count, dtype=torch.float32, device=h.device)
     return total / denom.clamp(min=1.0), count

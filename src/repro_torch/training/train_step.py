@@ -44,7 +44,12 @@ from repro_torch.parallel.sharding import (
     use_rules,
 )
 from repro_torch.parallel.tensor import TensorPlan, tensor_plan
-from repro_torch.training.losses import chunked_cross_entropy, vocab_input
+from repro_torch.training.losses import (
+    chunked_cross_entropy,
+    vocab_input,
+    vocab_labels,
+    whole_sequence,
+)
 from repro_torch.training.optimizer import apply_updates, init_opt_state
 
 AUX_LOSS_WEIGHT = 0.01
@@ -77,9 +82,17 @@ def _loss_fn(model: LM, batch: dict, cfg: ModelConfig, pc: ParallelConfig,
     h, aux = forward_hidden(model, batch, remat=pc.remat, q_chunk=q_chunk,
                             ssm_chunk=ssm_chunk, plan=plan)
     h = vocab_input(h, plan)
+    labels = batch["labels"]
     if cfg.frontend == Frontend.VISION_STUB.value:
-        h = h[:, cfg.stub_patches:]        # loss over text positions only
-    ce, count = chunked_cross_entropy(model.embed, h, batch["labels"], cfg,
+        # loss over text positions only: cut where the rank holds them all,
+        # else the patches' positions masked
+        if whole_sequence(plan):
+            h = h[:, cfg.stub_patches:]
+        else:
+            labels = torch.cat([labels.new_full(
+                (labels.shape[0], cfg.stub_patches), -1), labels], dim=1)
+    ce, count = chunked_cross_entropy(model.embed, h,
+                                      vocab_labels(labels, plan), cfg,
                                       total_count=total_count, plan=plan)
     loss = ce + AUX_LOSS_WEIGHT * aux
     return loss, {"ce": ce, "aux": aux, "tokens": count}
@@ -154,12 +167,15 @@ def leaf_axes(cfg: ModelConfig) -> dict:
     return {k: a for k, (_, a) in _meta_leaves(cfg).items()}
 
 
-def inner_partial_leaves(model: LM) -> set[str]:
+def inner_partial_leaves(model: LM, kind: str = "INNER_PARTIAL"
+                         ) -> set[str]:
     """The parameters a recurrent block's inner split leaves whole whose
     gradient each inner rank only partly computes (a module's
-    ``INNER_PARTIAL``: the sLSTM's ``r_gates``)."""
+    ``INNER_PARTIAL``: the sLSTM's ``r_gates``), or, with ``kind=
+    "INNER_WHOLE"``, those whose gradient every inner rank has whole (the
+    gates' biases)."""
     return {f"{mod_name}.{leaf}" for mod_name, mod in model.named_modules()
-            for leaf in getattr(type(mod), "INNER_PARTIAL", ())}
+            for leaf in getattr(type(mod), kind, ())}
 
 
 def sharded_global_norm(grads: dict, axes_of: dict,
@@ -293,8 +309,10 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
                 / plan.repeats(split.axes)
         buckets: dict[tuple, list] = {}
         partial = inner_partial_leaves(model)
+        whole = inner_partial_leaves(model, "INNER_WHOLE")
         for name, g in grads.items():
-            axes = plan.grad_sync_axes(axes_of[name], name in partial)
+            axes = plan.grad_sync_axes(axes_of[name], name in partial,
+                                       name in whole)
             if axes:
                 buckets.setdefault(axes, []).append(g)
         for axes, tensors in buckets.items():

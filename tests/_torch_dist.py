@@ -13,6 +13,7 @@ children can import without JAX: the rank bodies are here.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import pickle
@@ -53,14 +54,18 @@ def run_ranks(fn, world: int, tmp_path, *args, device: str = "cpu") -> list:
 # -- the model, its batch and the single-rank step -----------------------------
 
 
-def smoke(arch: str, capacity_factor: float | None = None):
+def smoke(arch: str, capacity_factor: float | None = None,
+          num_experts: int | None = None):
     """The port's smoke config of ``arch`` in fp32 (an MoE model's capacity
-    factor replaced by ``capacity_factor`` where given)."""
+    factor and expert count replaced by ``capacity_factor`` and
+    ``num_experts`` where given)."""
     from repro_torch.configs import get_config
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
-    if capacity_factor is not None:
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=capacity_factor))
+    moe = {k: v for k, v in (("capacity_factor", capacity_factor),
+                             ("num_experts", num_experts)) if v is not None}
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
     return cfg
 
 
@@ -285,18 +290,122 @@ def pp_tp_rank(rank, world, cases, seed):
     return out
 
 
+def layout_case_rules(case: dict, cfg):
+    """``(pc, rules)`` of a layout case: ``sharding.layout_rules`` of its
+    ``layout`` (a ``LAYOUTS`` name or a rules dict) on its mesh, or the
+    planner's ``make_rules`` under its ``pc`` fields at the train shape."""
+    from repro_torch.core.config import ParallelConfig, ShapeConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.sharding import layout_rules
+    from repro_torch.parallel.strategies import make_rules
+    mesh = Mesh(case["mesh"])
+    if "layout" in case:
+        return ParallelConfig(remat="block"), layout_rules(mesh,
+                                                           case["layout"])
+    pc = ParallelConfig(**case["pc"])
+    return pc, make_rules(mesh, cfg, ShapeConfig("t", SEQ, BATCH, "train"),
+                          pc)
+
+
+@contextlib.contextmanager
+def counted_dispatch():
+    """Within the block, the MoE dispatches' dropped assignments and all of
+    their assignments, summed: ``{"dropped", "assignments"}``."""
+    from repro_torch.models import moe as M
+    plain, seen = M.dispatch, {"dropped": 0, "assignments": 0}
+
+    def counting(top_i, e, cap, start=None):
+        bk = plain(top_i, e, cap, start)
+        seen["dropped"] += int((~bk.keep).sum())
+        seen["assignments"] += bk.keep.numel()
+        return bk
+
+    M.dispatch = counting
+    try:
+        yield seen
+    finally:
+        M.dispatch = plain
+
+
+def forward_drops(model, batch, rules=None) -> dict:
+    """``counted_dispatch`` of one no-grad ``forward_hidden`` of ``batch``
+    (under ``rules``, where given)."""
+    from repro_torch.models.lm import forward_hidden
+    from repro_torch.parallel.sharding import use_rules
+    batch = {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
+    with torch.no_grad(), use_rules(rules), counted_dispatch() as seen:
+        forward_hidden(model, batch, remat="none", ssm_chunk=SSM_CHUNK)
+    return seen
+
+
+def layout_rank(rank, world, cases, seed, serve_cases=()):
+    """Each layout case's train step (``layout_case_rules``, AdamW under
+    ``PP_OPT``) on the rank's shards of ``seed``'s weights, on
+    ``batch_of(cfg, seed=3 + seed)``: as ``pp_tp_rank`` gives the
+    pipeline's (loss, grad norm, gradient and updated shards with their
+    cuts, the bits of the leaves held whole), the rules, and, for an MoE
+    model, the dispatches' drops in one forward under the rules
+    (``forward_drops``); then ``tp_serve_rank``'s results of
+    ``serve_cases``, by their ids."""
+    from repro_torch.core.config import OptimizerConfig, ShapeConfig
+    from repro_torch.models.convert import (_cuts, _halves, _meta_leaves,
+                                            shard_params)
+    from repro_torch.parallel.sharding import require_executable
+    from repro_torch.training import init_train_state, make_train_step
+    out = {}
+    for case in cases:
+        cfg = smoke(case["arch"], case.get("capacity_factor"),
+                    case.get("num_experts"))
+        pc, rules = layout_case_rules(case, cfg)
+        require_executable(rules, cfg=cfg)
+        local = shard_params(model_of(cfg, seed=seed)["params"], rules)
+        batch = batch_of(cfg, seed=3 + seed)
+        drops = forward_drops(local, batch, rules) if cfg.moe else None
+        state = init_train_state(cfg, local)
+        step = make_train_step(cfg, ShapeConfig("t", SEQ, BATCH, "train"),
+                               OptimizerConfig(**PP_OPT), pc,
+                               q_chunk=Q_CHUNK, ssm_chunk=SSM_CHUNK,
+                               rules=rules)
+        _, _, grads = step.grad_step(state["params"], batch)
+        state, metrics = step(state, batch)
+        named = dict(state["params"].named_parameters())
+        leaves, halves = _meta_leaves(cfg), _halves(cfg)
+        cuts = {k: _cuts(rules, leaves[k][1], tuple(leaves[k][0].shape),
+                         k in halves) for k in named}
+        out[case["id"]] = {
+            "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "grads": {k: g.numpy().copy() for k, g in grads.items()},
+            "params": {k: p.detach().numpy().copy()
+                       for k, p in named.items()},
+            "cuts": cuts, "drops": drops,
+            "whole": {k: _bits(p) for k, p in named.items() if not cuts[k]},
+            "rules": {k: v for k, v in rules.rules.items() if v is not None}}
+    out.update(tp_serve_rank(rank, world, serve_cases))
+    return out
+
+
 # -- tensor, sequence and ZeRO-3 parallelism -------------------------------------
 
 
 def case_rules(case: dict, mode: str = "train"):
     """The rules of a tensor-parallel test case: the planner's ``make_rules``
     on the case's mesh under its ``ParallelConfig`` fields (``pc``, or
-    ``serve_pc`` for the decode rules), with ``override`` set on top."""
+    ``serve_pc`` for the decode rules), with ``override`` set on top; or,
+    where the case names them, the hand-written ``layout`` (``serve_layout``
+    for the decode rules, ``sharding.layout_rules``)."""
     from repro_torch.core.config import ParallelConfig, ShapeConfig
     from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.sharding import layout_rules
     from repro_torch.parallel.strategies import make_rules
     cfg = smoke(case["arch"], case.get("capacity_factor"))
     mesh = Mesh(case["mesh"])
+    layout = case.get("serve_layout" if mode == "decode" else "layout")
+    if layout is not None:
+        shape = ShapeConfig("t", MAX_SEQ if mode == "decode" else SEQ, BATCH,
+                            mode)
+        return cfg, shape, ParallelConfig(remat="block"), \
+            layout_rules(mesh, layout)
     if mode == "decode":
         shape = ShapeConfig(case.get("shape_name", "d"), MAX_SEQ, BATCH,
                             "decode")

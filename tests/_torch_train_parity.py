@@ -46,15 +46,19 @@ Q_CHUNK, SSM_CHUNK = 16, 8
 METRIC_RTOL, GRAD_RTOL, PARAM_ATOL = 1e-4, 1e-4, 5e-3
 
 
-def configs(arch: str, capacity_factor: float | None = None):
+def configs(arch: str, capacity_factor: float | None = None,
+            num_experts: int | None = None):
     """The reference's and the port's smoke configs of ``arch``, in fp32
-    (an MoE model's capacity factor replaced where given)."""
+    (an MoE model's capacity factor and expert count replaced where
+    given)."""
+    moe = {k: v for k, v in (("capacity_factor", capacity_factor),
+                             ("num_experts", num_experts)) if v is not None}
     out = []
     for get in (jconfig, tconfig):
         cfg = dataclasses.replace(get(arch, smoke=True), dtype="float32")
-        if capacity_factor is not None:
-            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-                cfg.moe, capacity_factor=capacity_factor))
+        if moe:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                                   **moe))
         out.append(cfg)
     return tuple(out)
 
@@ -145,15 +149,17 @@ def port_named(tree, tcfg) -> dict:
 def reference_whole_batch_step(arch: str, model, batch: dict,
                                microbatches: int = 1,
                                capacity_factor: float | None = None,
-                               opt: dict | None = None) -> dict:
+                               opt: dict | None = None,
+                               num_experts: int | None = None) -> dict:
     """The reference's ``make_train_step`` on the whole ``batch`` from the
     weights of the port's ``model`` (an ``LM``): its loss and metrics, its
     gradients (the mean of its microbatches', as its step accumulates
     them) and its updated parameters, the trees keyed by the port's
     parameter names. What a data-parallel or pipelined step of the port
     must give on every rank (``capacity_factor`` as in ``configs``; ``opt``
-    the AdamW fields that replace the defaults)."""
-    jcfg, tcfg = configs(arch, capacity_factor)
+    the AdamW fields that replace the defaults; ``num_experts`` as in
+    ``configs``)."""
+    jcfg, tcfg = configs(arch, capacity_factor, num_experts)
     params = jax.tree.map(jnp.asarray, params_to_numpy(model, tcfg))
     rows = batch["labels"].shape[0]
     shape = JShapeConfig("t", batch["labels"].shape[1], rows, "train")
@@ -207,3 +213,90 @@ def held_to_reference(outs, ref, loss_rtol=TP_LOSS_RTOL,
         assert w.keys() == whole[0].keys()
         for k in w:
             assert w[k] == whole[0][k], f"{k} differs across the ranks"
+
+
+# the updated shards against the reference's, under AdamW without warmup
+# (``_torch_dist.PP_OPT``), where one step moves every leaf by about the
+# 3e-4 rate
+SHARD_PARAM_ATOL = 1e-5
+
+
+def reference_moved(arch: str, model, batch: dict, **kw) -> dict:
+    """``reference_whole_batch_step`` under ``_torch_dist.PP_OPT``, with
+    ``moved``: how far the step moved each leaf (its largest change)."""
+    import _torch_dist as D
+    start = {k: p.detach().numpy().copy()
+             for k, p in model.named_parameters()}
+    ref = reference_whole_batch_step(arch, model, batch, opt=D.PP_OPT, **kw)
+    ref["moved"] = {k: float(np.abs(p - start[k]).max())
+                    for k, p in ref["params"].items()}
+    return ref
+
+
+def shards_held_to_reference(ranks: list, case: str, ref: dict) -> None:
+    """Every rank's step of ``case`` (``_torch_dist.layout_rank``'s or
+    ``pp_tp_rank``'s results) against the reference's whole-batch step
+    ``ref`` (``reference_moved``): the loss and grad norm within
+    ``TP_LOSS_RTOL``, each gradient shard within ``TP_GRAD_TOL`` of the
+    whole leaf's largest magnitude of the same slice of the reference's
+    (``convert._cuts``), each updated shard within ``SHARD_PARAM_ATOL`` of
+    that slice of the reference's updated leaf, every leaf seen on some
+    rank, and every leaf a rank holds whole bit-equal on every rank that
+    holds it."""
+    import torch
+
+    from repro_torch.models.convert import _shard
+    assert min(ref["moved"].values()) > 10 * SHARD_PARAM_ATOL, ref["moved"]
+    seen = set()
+    for o in ranks:
+        res = o[case]
+        for k in ("loss", "grad_norm"):
+            assert res[k] == approx(ref["metrics"][k], rel=TP_LOSS_RTOL), k
+        assert set(res["grads"]) == set(res["params"])
+        for k, g in res["grads"].items():
+            want = ref["grads"][k]
+            part = _shard(torch.from_numpy(want), res["cuts"][k]).numpy()
+            assert g.shape == part.shape, (k, g.shape, part.shape)
+            err = float(np.abs(g - part).max())
+            assert err <= TP_GRAD_TOL * max(float(np.abs(want).max()),
+                                            1e-30), (k, err)
+            new = _shard(torch.from_numpy(ref["params"][k]),
+                         res["cuts"][k]).numpy()
+            np.testing.assert_allclose(res["params"][k], new, rtol=0,
+                                       atol=SHARD_PARAM_ATOL, err_msg=k)
+            seen.add(k)
+    assert seen == set(ref["params"])
+    holders: dict = {}
+    for o in ranks:
+        for k, bits in o[case]["whole"].items():
+            holders.setdefault(k, []).append(bits)
+    for k, bits in holders.items():
+        assert all(b == bits[0] for b in bits[1:]), k
+
+
+def reference_serve(arch: str) -> dict:
+    """The reference's ``forward``, prefill and decode logits of
+    ``_torch_dist.serve_inputs`` on seed 0's weights of the port's smoke
+    config of ``arch`` (unsharded): ``{"forward", "prefill", "decode"}``."""
+    import torch
+
+    import _torch_dist as D
+    from repro_torch.models import init_lm
+    jcfg, tcfg = configs(arch)
+    model = init_lm(tcfg, torch.Generator().manual_seed(0), "cpu")
+    params = jax.tree.map(jnp.asarray, params_to_numpy(model, tcfg))
+    io = D.serve_inputs(tcfg)
+    inputs = {k: jnp.asarray(v) for k, v in io["inputs"].items()}
+    fwd = jax.jit(lambda p, i: jlm.forward(p, i, jcfg, remat="none"))
+    out = {"forward": np.asarray(fwd(params, inputs)[0])}
+    state = jlm.init_decode_state(jcfg, D.BATCH, D.MAX_SEQ)
+    logits, state = jax.jit(lambda p, s, i: jlm.prefill_step(p, s, i, jcfg))(
+        params, state, inputs)
+    out["prefill"] = np.asarray(logits)
+    state["pos"] = jnp.asarray(io["pos"])
+    step = jax.jit(lambda p, s, t: jlm.decode_step(p, s, t, jcfg))
+    out["decode"] = []
+    for tokens in io["steps"]:
+        logits, state = step(params, state, jnp.asarray(tokens))
+        out["decode"].append(np.asarray(logits))
+    return out

@@ -8,8 +8,9 @@ reference's own hardware constants (a ``Hardware`` built from them); the
 port's default is the H100's. Cells are chosen to cover every branch of
 the decision node (named beside each); the reference plans on a shape-only
 mesh, as its own tests do. No parameter is allocated: qwen2-72b is planned
-at full width. The refusals of ``require_executable`` name ROADMAP item
-11.4d.
+at full width. ``require_executable`` refuses the two layouts the
+reference itself raises on, naming its failure, and admits the rest of
+what ROADMAP item 11.4d listed.
 """
 
 import dataclasses
@@ -269,9 +270,9 @@ def test_require_executable_refuses_what_waits_for_11_4b(case):
     (moonshot, its experts split), ZeRO's w_embed over data=2 of an MoE
     model (granite, as llama's), the MoE all-to-all over model=2 with the
     experts over model (granite's ``seq_tp`` rules). The all-to-all
-    without the experts split, which no production cell reaches (and the
-    reference's ``moe_shard_map`` cannot run: its local experts would not
-    match its buffers), stays refused, naming item 11.4d."""
+    without the experts split, which no production cell reaches and the
+    reference's ``moe_shard_map`` cannot run (its local experts do not
+    match its buffers), stays refused, naming that failure."""
     shape = tcore.SHAPES["train_4k"]
     if case == "head_tp":
         cfg = tconfig("moonshot-v1-16b-a3b")
@@ -289,7 +290,8 @@ def test_require_executable_refuses_what_waits_for_11_4b(case):
         cfg = tconfig("granite-moe-1b-a400m")
     else:
         mesh = Mesh({"data": 1, "model": 2})
-        with pytest.raises(NotImplementedError, match="11.4d"):
+        with pytest.raises(NotImplementedError,
+                           match="repro/models/moe.py:138"):
             require_executable(ShardingRules(
                 mesh, {"batch": "data", "moe_impl": "shard_map_a2a"}))
         cfg = tconfig("granite-moe-1b-a400m")
@@ -339,20 +341,23 @@ def test_require_executable_admits_every_applicable_cell(profile):
 
 
 REFUSED = {
-    # (mesh, rules, pipeline, arch or None): the rule sets item 11.4d keeps
+    # (mesh, rules, pipeline, arch or None, the reference failure a refusal
+    # names or None where the rules are admitted): the rule sets item 11.4d
+    # listed
     "a2a_without_experts": ({"data": 1, "model": 2},
                             {"batch": "data", "moe_impl": "shard_map_a2a"},
-                            False, None),
+                            False, None, "repro/models/moe.py:138"),
     "expert_act_without_experts": ({"data": 1, "model": 2},
-                                   {"expert_act": "model"}, False, None),
+                                   {"expert_act": "model"}, False, None,
+                                   None),
     "experts_on_mlp": ({"data": 1, "model": 2}, {"mlp": "model"}, False,
-                       "granite-moe-1b-a400m"),
+                       "granite-moe-1b-a400m", None),
     "seq_without_experts": ({"data": 1, "model": 2},
                             {"seq": "model", "vocab": "model"}, False,
-                            "granite-moe-1b-a400m"),
+                            "granite-moe-1b-a400m", None),
     "inner_beside_seq": ({"data": 2, "model": 2},
                          {"seq": "model", "vocab": "model",
-                          "inner": ("data", "model")}, False, None),
+                          "inner": ("data", "model")}, False, None, None),
     # granite's packing-cell rules (the all-to-all under seq_tp), which
     # run without the pipeline
     "experts_under_pipeline": ({"pod": 2, "data": 1, "model": 2},
@@ -360,26 +365,37 @@ REFUSED = {
                                 "seq": "model", "mlp_seq": "model",
                                 "vocab": "model", "expert": "model",
                                 "moe_impl": "shard_map_a2a"}, True,
-                               "granite-moe-1b-a400m"),
+                               "granite-moe-1b-a400m",
+                               "repro/parallel/pipeline.py:80"),
+    # the experts whole but on their mlp dimension, which run without it
+    "experts_on_mlp_under_pipeline": ({"pod": 2, "data": 1, "model": 2},
+                                      {"batch": "data", "layers": "pod",
+                                       "mlp": "model", "vocab": "model"},
+                                      True, "granite-moe-1b-a400m",
+                                      "repro/parallel/pipeline.py:80"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_require_executable_refuses_what_11_4d_keeps(case):
-    """The rule sets no plan of either profile reaches stay refused, each
-    naming ROADMAP item 11.4d: the all-to-all without the experts over
-    ``model`` (``shard_map_a2a``, or ``expert_act`` alone), the experts
-    split on their mlp dimension, an MoE layer under a sequence split
-    without its experts over the same axes, ``inner`` beside a sequence
-    split over other axes, and an MoE layer whose experts are split under
-    the pipeline (whose rules run without it)."""
-    mesh, rules, pipeline, arch = REFUSED[case]
+    """Of the rule sets item 11.4d listed, only the two the reference
+    raises on stay refused, each naming the reference's failure: the
+    all-to-all without the experts over ``model`` and an MoE layer whose
+    experts are split, over the experts or on their mlp dimension, under
+    the pipeline (whose rules run without it).
+    ``expert_act`` alone, the experts on their mlp dimension, an MoE layer
+    under a sequence split without its experts over the same axes and
+    ``inner`` beside a sequence split over other axes are admitted."""
+    mesh, rules, pipeline, arch, failure = REFUSED[case]
     cfg = tconfig(arch) if arch else None
-    with pytest.raises(NotImplementedError, match="11.4d"):
-        require_executable(ShardingRules(Mesh(mesh), rules), pipeline,
-                           cfg=cfg)
-    if case == "experts_under_pipeline":
-        require_executable(ShardingRules(Mesh(mesh), rules), cfg=cfg)
+    rules = ShardingRules(Mesh(mesh), rules)
+    if failure is None:
+        require_executable(rules, pipeline, cfg=cfg)
+        return
+    with pytest.raises(NotImplementedError, match=failure):
+        require_executable(rules, pipeline, cfg=cfg)
+    if pipeline:
+        require_executable(rules, cfg=cfg)
 
 
 PACKING = {"pod_axis_role": "pipeline", "microbatches": 4}
@@ -401,7 +417,8 @@ def test_require_executable_admits_the_packing_rules(arch, profile):
     split the sequence (with ``mlp_seq`` under the optimized profile,
     ``mlp`` under the baseline one) and the vocab over ``model`` inside
     the stages, are admitted; the MoE archs', whose experts are split,
-    are refused, naming item 11.4d."""
+    are refused, naming the reference's own failure on any MoE layer in
+    its pipeline."""
     from repro_torch.launch.dryrun import plan
     cfg, shape = tconfig(arch), tcore.SHAPES["train_4k"]
     mesh = make_production_mesh(multi_pod=True)
@@ -411,7 +428,8 @@ def test_require_executable_admits_the_packing_rules(arch, profile):
     assert rules.rules["vocab"] == "model"
     if arch in MOE_PP:
         assert rules.rules["expert"] == "model"
-        with pytest.raises(NotImplementedError, match="11.4d"):
+        with pytest.raises(NotImplementedError,
+                           match="repro/parallel/pipeline.py:80"):
             require_executable(rules, pipeline, cfg=cfg)
         return
     require_executable(rules, pipeline, cfg=cfg)

@@ -127,40 +127,10 @@ def test_tp_train_step_matches_reference(ranks, reference, world, case):
         assert rules["heads"] == "model"
 
 
-def _reference_serve(case):
-    """The reference's ``forward``, prefill and decode logits of the case's
-    inputs on seed 0's weights (unsharded)."""
-    import jax
-    import jax.numpy as jnp
-
-    import repro.models.lm as jlm
-    from repro_torch.models import init_lm
-    from repro_torch.models.convert import params_to_numpy
-    import torch
-    jcfg, tcfg = P.configs(case["arch"])
-    model = init_lm(tcfg, torch.Generator().manual_seed(0), "cpu")
-    params = jax.tree.map(jnp.asarray, params_to_numpy(model, tcfg))
-    io = D.serve_inputs(tcfg)
-    inputs = {k: jnp.asarray(v) for k, v in io["inputs"].items()}
-    fwd = jax.jit(lambda p, i: jlm.forward(p, i, jcfg, remat="none"))
-    out = {"forward": np.asarray(fwd(params, inputs)[0])}
-    state = jlm.init_decode_state(jcfg, D.BATCH, D.MAX_SEQ)
-    logits, state = jax.jit(lambda p, s, i: jlm.prefill_step(p, s, i, jcfg))(
-        params, state, inputs)
-    out["prefill"] = np.asarray(logits)
-    state["pos"] = jnp.asarray(io["pos"])
-    step = jax.jit(lambda p, s, t: jlm.decode_step(p, s, t, jcfg))
-    out["decode"] = []
-    for tokens in io["steps"]:
-        logits, state = step(params, state, jnp.asarray(tokens))
-        out["decode"].append(np.asarray(logits))
-    return out
-
-
 @pytest.mark.parametrize("world,case", SERVE_PARAMS,
                          ids=[f"{w}ranks-{c['id']}" for w, c in SERVE_PARAMS])
 def test_tp_prefill_and_decode_match_reference(ranks, world, case):
-    want = _reference_serve(case)
+    want = P.reference_serve(case["arch"])
     outs = [r[case["id"]] for r in ranks[("serve", world)]]
     prefill_rules, decode_rules = outs[0]["rules"]
     cache = decode_rules["cache_seq"]
