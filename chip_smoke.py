@@ -138,7 +138,7 @@
    every loss and norm finite, peak memory printed beside the plan's
    estimate, the plan's budget (``TRAIN_HBM_SHARE`` of the card's
    memory) and the card's memory; the peak must lie under the budget.
-   ``dp_granite_moe_1b_a400m`` (granite cut to 4 of its 24 layers)
+   ``dp_granite_moe_1b_a400m`` (granite cut to 2 of its 24 layers)
    spawns two ranks that share the card through ``gloo`` (a ``file://``
    rendezvous; ``data=2, model=1``), each planning the cell, taking 2 of
    the train phases' 4 x 1024 rows and running one untimed and one timed
@@ -163,10 +163,12 @@
    whole bit-equal across the ranks, the updated weights gathered within
    2 lr + 2^-7 of each leaf's largest weight, ``tp_param_bound``); K4 and
    K4b at query offsets 0 and 512 against 1024 keys. Then four ranks, one
-   step under a hand-written layout the reference runs
-   (``TP_TRAIN_LAYOUTS``: the sequence and the vocab over ``model``
-   beside the heads, kv heads and mlp over ``data``,
-   ``sharding.LAYOUTS["seq_beside_heads"]``), held alike
+   step under each of four hand-written layouts the reference runs
+   (``TP_TRAIN_LAYOUTS``, ``sharding.LAYOUTS``: the sequence and the
+   vocab over ``model`` beside the heads, kv heads and mlp over ``data``;
+   the mlp over the batch's own ``data``; the heads and kv heads over
+   ``("data", "model")`` beside the batch over ``data``; the kv heads over
+   ``data`` beside the query heads over ``model``), held alike
    (``par_train_phase``). ``tp_decode_llama3_2_3b``: llama at its published config, four prompts
    of 64-512 tokens padded to 512, prefilled under ``seq_tp`` and decoded
    16 greedy steps under ``decode_kv_shard`` (heads, kv heads, ``mlp``,
@@ -242,13 +244,14 @@
    layout on ``data=2`` (``shard_map_local``, ZeRO-3 over both ranks),
    one under its baseline ``all_to_all``, one with the experts on their
    mlp dimension, and on four ranks one with ``expert_act`` over ``data``
-   beside the experts over ``model`` (the last two hand-written
-   layouts), held as ``tp_train`` holds llama, each rank's updated shards
+   beside the experts over ``model`` and one with the experts over the
+   batch's own ``data`` (the last three hand-written layouts), held as
+   ``tp_train`` holds llama, each rank's updated shards
    against the same shards of the unsharded step's; the drops of one
    forward at the model's capacity factor 1.25 printed, unsharded and
    under each layout, and the first MoE layer's drops on one input held
    to the unsharded layer's where the layout computes its chunks. ``ep_decode_moonshot_v1_16b_a3b``: moonshot at full width cut
-   to 6 of its 48 layers, in fp32, prompts of 64-512 padded to 512,
+   to 4 of its 48 layers, in fp32, prompts of 64-512 padded to 512,
    prefilled and decoded 32 steps under its ``decode_32k`` layout (the
    ``gather`` plane, K5 with its log-sum-exp). ``inner_tp_jamba_v0_1_52b``:
    jamba at full width cut to layers 0-3 of its period, in fp32, four
@@ -260,7 +263,8 @@
    ``inner_tp_train_xlstm_1_3b``: xlstm at full width cut to 8 of its 48
    layers (one period of its pattern), in fp32, one step under ``vocab`` and ``inner`` over ``model``,
    one under ``pure_dp`` on ``data=2`` and, on four ranks, one with
-   ``inner`` over ``model`` beside the sequence over ``data``, held as ``tp_train``, the
+   ``inner`` over ``model`` beside the sequence over ``data`` and one with
+   ``inner`` over the batch's own ``data``, held as ``tp_train``, the
    bf16 one-rank step printed beside. K2, K4, K4b and K5 are then held
    against their plain versions at the shapes these phases added.
 10. Prints the ``kernels`` JSON line (K1-K5 and K4b), its launch counts summed over
@@ -389,9 +393,16 @@ TP_TRAIN_VARIANTS = {
                                 remat="block")}
 # hand-written layouts of the tp_train phase on PP_RANKS ranks
 # (``par_train_phase``): the sequence and vocab over model beside the
-# heads, kv heads and mlp over data
+# heads, kv heads and mlp over data; the mlp over the batch's own axis
+# (its weights gathered, ZeRO-3's); the heads and kv heads over data and
+# model beside the batch over data (24 query and 8 kv heads in 4 blocks,
+# each rank computing model's block of them); the kv heads over data
+# beside the query heads over model (the kv projections gathered)
 TP_TRAIN_LAYOUTS = {
-    "seq_beside_heads": ({"data": 2, "model": 2}, "seq_beside_heads")}
+    "seq_beside_heads": ({"data": 2, "model": 2}, "seq_beside_heads"),
+    "mlp_over_batch": ({"data": 2, "model": 2}, "mlp_over_batch"),
+    "heads_mixed_batch": ({"data": 2, "model": 2}, "heads_mixed_batch"),
+    "kv_heads_off_heads": ({"data": 2, "model": 2}, "kv_heads_off_heads")}
 ZERO_VARIANTS = {
     "zero3": (dict(layout="pure_dp", attn_strategy="replicated",
                    fsdp="off", remat="block"), None),
@@ -428,9 +439,10 @@ PP_TP_VARIANTS = {
 # model=2 (GSPMD's all_to_all plane) and one under each hand-written
 # layout, drop-free (E / top_k), the drops at 1.25 printed beside.
 # ep_decode:
-# moonshot at full width cut to 6 of its 48 layers (all 48 are 56.1 GB of
+# moonshot at full width cut to 4 of its 48 layers (all 48 are 56.1 GB of
 # bf16 weights, and each rank builds the whole model before it keeps its
-# shards; 12 until the pipeline's phase came in), one forward under its baseline-profile prefill_32k layout
+# shards; 12 until the pipeline's phase came in, 6 until the layouts over
+# the batch's axes came in), one forward under its baseline-profile prefill_32k layout
 # (head_tp, all_to_all), its decode_32k layout for the prefill and the
 # decode steps. inner_tp_jamba: jamba at full width cut to
 # layers 0-3 of its period (three Mamba layers, one attention layer, MoE
@@ -464,13 +476,17 @@ EP_TRAIN_VARIANTS = {
     # experts), and expert_act over data beside the experts over model on
     # PP_RANKS ranks
     "experts_on_mlp": ({"data": 1, "model": 2}, "experts_on_mlp"),
-    "expert_act_data": ({"data": 2, "model": 2}, "expert_act_data")}
+    "expert_act_data": ({"data": 2, "model": 2}, "expert_act_data"),
+    # the experts over the batch's own axis (GShard's): gathered, the local
+    # plane on each rank's rows
+    "experts_over_batch": ({"data": 2, "model": 2}, "experts_over_batch")}
 # the variants whose planes compute the unsharded layer's chunks: their
 # first MoE layer's drops on one input are held to the unsharded layer's
-DROPS_HELD = ("seq_tp_all_to_all", "experts_on_mlp", "expert_act_data")
+DROPS_HELD = ("seq_tp_all_to_all", "experts_on_mlp", "expert_act_data",
+              "experts_over_batch")
 DECODE_PC = dict(attn_strategy="decode_kv_shard", moe_strategy="gather",
                  fsdp="off")
-EP_DECODE = {"arch": "moonshot-v1-16b-a3b", "layers": 6,
+EP_DECODE = {"arch": "moonshot-v1-16b-a3b", "layers": 4,
              "dtype": "float32", "build_dtype": "bfloat16",
              "lengths": TP_PROMPT_LENGTHS, "steps": 32,
              # the baseline profile's prefill_32k layout: head_tp, GSPMD's
@@ -497,9 +513,10 @@ XLSTM_TRAIN_VARIANTS = {
     "pure_dp": ({"data": 2, "model": 1},
                 dict(layout="pure_dp", attn_strategy="replicated",
                      fsdp="off", remat="dots")),
-    # the inner split over model beside the sequence over data, on
-    # PP_RANKS ranks
-    "inner_beside_seq": ({"data": 2, "model": 2}, "inner_beside_seq")}
+    # the inner split over model beside the sequence over data, and over
+    # the batch's own axis (the inner weights gathered), on PP_RANKS ranks
+    "inner_beside_seq": ({"data": 2, "model": 2}, "inner_beside_seq"),
+    "inner_over_batch": ({"data": 2, "model": 2}, "inner_over_batch")}
 TP_MAX_SEQ, TP_DECODE_STEPS, TP_MARGIN = 1024, 16, 0.3
 # the planned train phase: llama3.2-3b at 64 x 1024 tokens on this card,
 # its microbatch count the planner's
@@ -513,16 +530,16 @@ DRYRUN_PEAK_RTOL = 0.05
 # the train phases' batch split over them; one untimed and DP_STEPS timed
 # steps. Held against one rank on the whole batch: loss and grad norm
 # (bf16 sums in another order); the int8 all-reduce (the reference test's
-# bound) and the ranks' agreement. The aux is held within one forward
-# (a second forward may route differently: K2's combine sums bf16 by
-# atomics): each rank's against the whole batch's aux of the ranks'
+# bound) and the ranks' agreement. The aux is held within one forward:
+# each rank's against the whole batch's aux of the ranks'
 # gathered router statistics, which differ only in fp32 rounding, while
 # one rank's own rows' aux (the fault the hold is for) lies far outside
 # granite cut to DP_LAYERS of its 24 layers (the int8 all-reduce's hold
 # moves its gradients through host memory four times), since the
 # expert-parallel and inner-split phases came in (6 since the pipeline's
-# phase came in, 4 since the hand-written layouts' four-rank steps)
-DP_RANKS, DP_STEPS, DP_LAYERS = 2, 1, 4
+# phase came in, 4 since the hand-written layouts' four-rank steps, 2
+# since the layouts over the batch's axes)
+DP_RANKS, DP_STEPS, DP_LAYERS = 2, 1, 2
 DP_RTOL, DP_AUX_RTOL = 1e-2, 1e-5
 COMPRESSED_BOUND, COMPRESSED_AGREE = 0.02, 1e-6
 # the full-width gradient hold: llama cut to 2 layers, fp32, 1 x 256

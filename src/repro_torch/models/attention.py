@@ -16,8 +16,13 @@ explicit collectives:
 - ``head_tp``: ``wq``, ``wk``/``wv`` (where the kv heads divide) and
   ``wo`` hold this rank's heads; the replicated input enters through
   ``copy_to`` and the output projection's partial sums meet in one
-  all-reduce. Where the kv heads do not divide, every rank projects them
-  all and keeps those its query heads read.
+  all-reduce. Where the kv heads do not divide, or the rules split them
+  over other axes than the query heads (their projections then gathered
+  whole over that split: ``TensorPlan.kv_gather``), every rank projects
+  them all and keeps those its query heads read. Its decode cache holds
+  every kv head where they do not divide (decode gathers the query heads
+  whole), and only those its query heads read under ``kv_gather``
+  (decode runs K5 on the rank's own heads).
 - ``seq_tp``: each rank projects its block of the sequence, gathers K and
   V whole (on the int8 wire of ``collectives.int8_gather_along`` under
   ``kv_compress``, the reference's ``_int8_broadcast``) and runs K4 on its
@@ -139,22 +144,33 @@ def _out(p: Attention, out: torch.Tensor, cfg: ModelConfig, plan=None,
     return y
 
 
-def _local_kv(k: torch.Tensor, cfg: ModelConfig, plan) -> torch.Tensor:
-    """``(B, S, K, hd)`` K or V with all kv heads, cut to those this rank's
-    query heads read where the heads are split and the kv heads are not:
-    whole groups of query heads, or a part of one group (query head i
-    reads kv head i // (H_local // K_local), K4's grouping), or else one
-    kv head a query head, each query head's own."""
+def _kv_read(cfg: ModelConfig, plan) -> range | list[int] | None:
+    """The kv heads this rank's query heads read where the heads are split
+    and the kv heads are not (or are gathered, ``TensorPlan.kv_gather``):
+    a ``range`` of whole groups of query heads, or of a part of one group
+    (query head i reads kv head i // (H_local // K_local), K4's and K5's
+    grouping), or else a list of each query head's own. ``None``: the
+    rank reads every kv head it holds."""
     if plan is None or not plan.heads or plan.kv_heads:
-        return k
+        return None
     g = cfg.num_heads // cfg.num_kv_heads
     q0, h_loc = plan.heads.block(cfg.num_heads)
     if h_loc % g == 0:
-        return k[:, :, q0 // g:q0 // g + h_loc // g]
+        return range(q0 // g, q0 // g + h_loc // g)
     if g % h_loc == 0 and q0 // g == (q0 + h_loc - 1) // g:
-        return k[:, :, q0 // g:q0 // g + 1]
-    heads = torch.arange(q0, q0 + h_loc, device=k.device) // g
-    return k.index_select(2, heads)
+        return range(q0 // g, q0 // g + 1)
+    return [i // g for i in range(q0, q0 + h_loc)]
+
+
+def _local_kv(k: torch.Tensor, cfg: ModelConfig, plan) -> torch.Tensor:
+    """``(B, S, K, hd)`` K or V with all kv heads, cut to those this rank's
+    query heads read (``_kv_read``)."""
+    read = _kv_read(cfg, plan)
+    if read is None:
+        return k
+    if isinstance(read, range):
+        return k[:, :, read.start:read.stop]
+    return k.index_select(2, torch.tensor(read, device=k.device))
 
 
 def _head_input(x: torch.Tensor, plan) -> torch.Tensor:
@@ -242,12 +258,15 @@ def prefill_attention(p: Attention, cache: tuple[torch.Tensor, torch.Tensor],
     place (the reference returns updated copies) and returns
     ``(y, cache)``. Under a ``plan`` x is this rank's block of the sequence
     where the residual is sequence-sharded, and the whole prompt's K and V
-    (all kv heads) go into this rank's block of the cache where
-    ``cache_split`` (a ``tensor.Split``) splits its sequence."""
+    (all kv heads; under ``kv_gather`` those the rank's query heads read)
+    go into this rank's block of the cache where ``cache_split`` (a
+    ``tensor.Split``) splits its sequence."""
     y, k, v, r = _attend(p, x, positions, cfg, True, plan, False)
     if plan is not None and plan.kv_heads:
         k = C.gather_dim(k, 2, plan.kv_heads.group)
         v = C.gather_dim(v, 2, plan.kv_heads.group)
+    elif plan is not None and plan.kv_gather:
+        k, v = _local_kv(k, cfg, plan), _local_kv(v, cfg, plan)
     k_cache, v_cache = cache
     _write_prefill(k_cache, k, cache_split)
     _write_prefill(v_cache, v, cache_split)
@@ -258,15 +277,19 @@ def prefill_attention(p: Attention, cache: tuple[torch.Tensor, torch.Tensor],
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
-                  dtype=None, cache_split=None
+                  dtype=None, cache_split=None, plan=None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Zeroed ``(B, max_seq, K, hd)`` K and V caches; with ``cache_split``
     (a ``tensor.Split`` of ``cache_seq``) this rank's block of
-    ``max_seq / n`` positions."""
+    ``max_seq / n`` positions; under a ``plan`` with ``kv_gather`` the
+    kv heads this rank's query heads read."""
     dtype = dtype or getattr(torch, cfg.dtype)
     if cache_split is not None and cache_split:
         max_seq = cache_split.block(max_seq)[1]
-    shape = (batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+    kv = cfg.num_kv_heads
+    if plan is not None and plan.kv_gather:
+        kv = len(_kv_read(cfg, plan))
+    shape = (batch, max_seq, kv, cfg.resolved_head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 
@@ -281,11 +304,12 @@ def decode_attention(p: Attention, cache: tuple[torch.Tensor, torch.Tensor],
     (K5 with ``length = positions + 1``). Returns ``(y, cache)``.
 
     Under a ``plan`` the rank's query (and kv) heads are gathered whole
-    over the head ranks, and where ``cache_split`` splits the cache's
-    sequence the rank writes the new K/V only where the position falls in
-    its block, runs K5 on the block with its lengths and log-sum-exp, and
-    the blocks' outputs are combined by the ranks' log-sum-exp: one max
-    and one sum over the cache ranks. The rank's heads' share of the
+    over the head ranks (under ``kv_gather`` the rank keeps its query
+    heads and the kv heads they read, as its cache does), and where
+    ``cache_split`` splits the cache's sequence the rank writes the new
+    K/V only where the position falls in its block, runs K5 on the block
+    with its lengths and log-sum-exp, and the blocks' outputs are combined
+    by the ranks' log-sum-exp: one max and one sum over the cache ranks. The rank's heads' share of the
     output projection is then summed over the head ranks."""
     b, one, _ = x.shape
     if one != 1:
@@ -302,7 +326,11 @@ def decode_attention(p: Attention, cache: tuple[torch.Tensor, torch.Tensor],
         out = ops.decode_attention(q[:, 0], k_cache, v_cache, length)
         return _out(p, out[:, None], cfg), (k_cache, v_cache)
     q, k_new, v_new = _project_qkv(p, x, positions[:, None], cfg, plan)
-    heads = plan.q_heads if plan is not None else None
+    own = plan is not None and bool(plan.kv_gather)
+    heads = plan.q_heads if plan is not None and not own else None
+    if own:
+        k_new = _local_kv(k_new, cfg, plan)
+        v_new = _local_kv(v_new, cfg, plan)
     if heads:
         q = C.gather_dim(q, 2, heads.group)
     if plan is not None and plan.kv_heads:

@@ -311,7 +311,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
         kind = cfg.block_kind(i)
         if kind == BlockKind.ATTENTION:
             k, v = attn_mod.init_kv_cache(cfg, batch, max_seq, device,
-                                          cache_split=split)
+                                          cache_split=split, plan=plan)
             layers.append({"k": k, "v": v})
         else:
             recurrent = True

@@ -57,7 +57,10 @@ reference's ``moe``'s and one the plane GSPMD makes of its chunked
   chunks), and the rank's block of the sum given back;
 - ``moe_shard_map_local`` (``pure_dp``, the batch over the whole mesh):
   the local path on each rank's rows, in one chunk, the ZeRO-sharded
-  leaves gathered.
+  leaves gathered. The experts split over the batch's own axes (GShard's
+  layout) take the local path too, in the unsharded layer's chunks: their
+  weights are gathered whole (``TensorPlan.weight``), and the capacity is
+  per row, so the batch split leaves the function unchanged.
 
 The aux statistics are the whole batch's on every plane: each rank's
 tokens' means, averaged over the ranks that hold other tokens
@@ -232,17 +235,20 @@ def _combine(out: torch.Tensor, bk: Dispatch, top_p: torch.Tensor, s: int,
     their routing probabilities, from the ``(B, E', C, D)`` buffer ``out``
     of experts ``[first, first + E')`` of ``total`` (the others'
     assignments add 0): the reference's ``_combine_row`` over every
-    row."""
+    row. The terms are put back in token order (``bk.order`` is a
+    permutation) and each token's ``k`` summed by one reduction: a
+    scatter-add would sum them by atomics on the card, in an order that
+    changes from run to run, and ranks that repeat a layer would drift
+    apart."""
     b, count, _, d = out.shape
     rows = torch.arange(b, device=out.device)[:, None].expand_as(bk.slot)
     e, keep = _block(bk, first, count, total)
     back = out[rows, e, bk.slot]
     w = top_p.reshape(b, -1).gather(1, bk.order)
     back = back * (w * keep).to(back.dtype)[..., None]
-    y = out.new_zeros((b, s, d))
-    y.view(b * s, d).index_add_(0, (rows * s + bk.token_src).reshape(-1),
-                                back.reshape(-1, d))
-    return y
+    back = torch.empty_like(back).scatter_(
+        1, bk.order[..., None].expand_as(back), back)
+    return back.view(b, s, -1, d).sum(2)
 
 
 def _moe_chunk(w: dict, x: torch.Tensor, top_p: torch.Tensor,

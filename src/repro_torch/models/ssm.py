@@ -22,7 +22,10 @@ N)`` state. The scan is elementwise in the inner features and needs no
 collective. ``x_proj`` takes the rank's rows, so ``dt``, ``B`` and ``C``
 are partial sums, summed over the inner ranks (forward and backward:
 ``collectives.reduce_both``); ``out_proj`` too, so the output is summed
-(``reduce_from``). The input enters through ``copy_to``.
+(``reduce_from``). The input enters through ``copy_to``. An ``inner``
+split over the batch's own axes splits the weights only: every leaf is
+read through ``TensorPlan.leaves``, which gathers them whole, and the
+block runs as on one rank.
 
 Under ``seq_tp`` (jamba's ``train_4k`` / ``prefill_32k``: ``seq`` and
 ``inner`` both over ``model``) the residual is the rank's block of the
@@ -194,8 +197,11 @@ def _scan_chunk(h0: torch.Tensor, a_bar: torch.Tensor, bx: torch.Tensor):
     return h_all, h
 
 
-def _weight(p: Mamba, leaf: str, plan):
-    return getattr(p, leaf) if plan is None else plan.weight(p, leaf)
+def _leaves(p, plan):
+    """The block's parameters as this rank computes with them: ``p``, or
+    under a ``plan`` that gathers some of them, its view
+    (``TensorPlan.leaves``)."""
+    return p if plan is None else plan.leaves(p)
 
 
 def _enter(x: torch.Tensor, plan):
@@ -231,10 +237,11 @@ def mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, chunk: int = 128,
     ``K - 1`` inputs before ``stop[b]`` (``conv_tail``). The outputs at
     those positions are not the model's."""
     x = _enter(x, plan)
+    p = _leaves(p, plan)
     group = _inner_group(plan)
     b, s, _ = x.shape
     n = _dims(cfg)[1]
-    u, z = (x @ _weight(p, "in_proj", plan)).chunk(2, dim=-1)
+    u, z = (x @ p.in_proj).chunk(2, dim=-1)
     u_raw = u
     u, conv_state = _causal_conv(u, p.conv_w, p.conv_b)
     u = F.silu(u.float()).to(x.dtype)
@@ -258,7 +265,7 @@ def mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, chunk: int = 128,
     y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
 
     y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
-    out = _leave(y @ _weight(p, "out_proj", plan), plan)
+    out = _leave(y @ p.out_proj, plan)
     if return_state:
         k = p.conv_w.shape[0]
         if stop is not None:
@@ -294,7 +301,8 @@ def mamba_step(p: Mamba, state: dict, x: torch.Tensor,
     if plan is not None and plan.seq:
         raise ValueError("a decode step under a sequence split")
     x = _enter(x, plan)
-    u, z = (x @ _weight(p, "in_proj", plan)).chunk(2, dim=-1)
+    p = _leaves(p, plan)
+    u, z = (x @ p.in_proj).chunk(2, dim=-1)
     u, conv_state = _causal_conv(u, p.conv_w, p.conv_b, state["conv"])
     u = F.silu(u.float()).to(x.dtype)
     a_bar, bx, c_ssm = _ssm_inputs(p, u, cfg, _inner_group(plan))
@@ -302,5 +310,5 @@ def mamba_step(p: Mamba, state: dict, x: torch.Tensor,
     y = (h @ c_ssm[:, 0, :, None])[..., 0]
     y = y + p.d_skip * u[:, 0].float()
     y = y[:, None].to(x.dtype) * F.silu(z.float()).to(x.dtype)
-    return _leave(y @ _weight(p, "out_proj", plan), plan), \
+    return _leave(y @ p.out_proj, plan), \
         {"h": h, "conv": conv_state}

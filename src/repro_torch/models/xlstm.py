@@ -40,7 +40,9 @@ heads.
   the inner axes).
 
 ``down``'s partial outputs are summed (``reduce_from``); the input enters
-through ``copy_to``.
+through ``copy_to``. An ``inner`` split over the batch's own axes splits
+the weights only: every leaf is read through ``TensorPlan.leaves``,
+which gathers them whole, and the blocks run as on one rank.
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ from repro_torch.models.ssm import (
     _causal_conv,
     _enter,
     _leave,
-    _weight,
+    _leaves,
     active_positions,
     conv_tail,
 )
@@ -136,7 +138,8 @@ def _up_conv(p, x: torch.Tensor, conv_state=None, plan=None):
     """The shared front of both blocks: the up projection split into the
     branch ``u`` and the gate ``z``, and ``silu`` of the causal conv of
     ``u``. Returns ``(u, z, conv, new conv state)``."""
-    u, z = (x @ _weight(p, "up", plan)).chunk(2, dim=-1)
+    p = _leaves(p, plan)
+    u, z = (x @ p.up).chunk(2, dim=-1)
     c, conv_state = _causal_conv(u, p.conv_w, p.conv_b, conv_state)
     return u, z, F.silu(c.float()).to(x.dtype), conv_state
 
@@ -148,9 +151,10 @@ def _down(p, hid: torch.Tensor, z: torch.Tensor, cfg: ModelConfig,
     partial outputs summed)."""
     vals = _values(cfg, plan)
     _, heads, _, _, dv = _dims(cfg)
+    p = _leaves(p, plan)
     y = _headnorm(hid, p.norm, vals=vals, dims=(heads, dv))
     y = y * F.silu(z.float()).to(y.dtype)
-    return _leave(y @ _weight(p, "down", plan), plan)
+    return _leave(y @ p.down, plan)
 
 
 def _summed(part: torch.Tensor, group, bias=None) -> torch.Tensor:
@@ -230,6 +234,7 @@ def _mlstm_qkv_gates(p: MLSTM, x: torch.Tensor, cfg: ModelConfig,
     vals = _values(cfg, plan)
     group = plan.inner.group if plan is not None and plan.inner else None
     x = _enter(x, plan)
+    p = _leaves(p, plan)
     b, s, _ = x.shape
     u, z, c, conv_new = _up_conv(p, x, conv_state, plan)
     q = _summed(c @ p.wq, group).view(b, s, h, dk)
@@ -514,6 +519,7 @@ def _slstm_core(p: SLSTM, x: torch.Tensor, cfg: ModelConfig, state: dict,
     vals = _values(cfg, plan)
     group = plan.inner.group if plan is not None and plan.inner else None
     x = _enter(x, plan)
+    p = _leaves(p, plan)
     u, z, c, conv_state = _up_conv(p, x, state["conv"], plan)
     if stop is not None:
         conv_state = conv_tail(u, p.conv_w.shape[0], stop, state["conv"])

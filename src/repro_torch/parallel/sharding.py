@@ -18,12 +18,15 @@ splits below inside each stage but the experts') and every split
 ``all_to_all`` of the planner's baseline profile, ``gather``,
 ``shard_map_local``) and ``inner`` (Mamba, mLSTM, sLSTM), each rank
 holding its shards (``repro_torch.models.convert.shard_params``) and
-making the collectives of ``repro_torch.parallel.tensor``.
-``logical_shard`` only checks the rank. Splits that the residual's
-sequence split does not fit are resharded around the block
-(``tensor.Reshard``). ``require_executable`` refuses the two rule sets
-the reference itself raises on, and the layouts ``TensorPlan`` does not
-lay out.
+making the collectives of ``repro_torch.parallel.tensor``: any of them
+also over the batch's mesh axes (the weights gathered as ZeRO-3's, the
+activations whole on those axes, as the reference's ``spec`` gives
+them), and the kv heads over other axes than the query heads (their
+weights gathered). ``logical_shard`` only checks the rank. Splits that
+the residual's sequence split does not fit are resharded around the
+block (``tensor.Reshard``). ``require_executable`` refuses only the two
+rule sets on which the reference itself raises or computes another
+function.
 
 Canonical logical axes (as in the reference):
 
@@ -187,8 +190,8 @@ def _mesh_axes(rules: ShardingRules, logical: str) -> tuple[str, ...]:
 def require_executable(rules: ShardingRules | None, pipeline: bool = False,
                        cfg=None) -> None:
     """Refuse a rule set the port does not run (``TensorPlan`` asks too,
-    with neither ``pipeline`` nor ``cfg``). Two of them the reference
-    cannot run either, and they are refused naming its failure:
+    with neither ``pipeline`` nor ``cfg``): the two the reference cannot
+    run as the unsharded model, each refused naming what it does:
 
     - an MoE model's experts split under the ``pipeline``, over the
       experts or on their mlp dimension: the reference's pipeline sends
@@ -199,12 +202,13 @@ def require_executable(rules: ShardingRules | None, pipeline: bool = False,
     - the MoE all-to-all (``moe_impl="shard_map_a2a"``) without the
       experts split over ``model`` alone (unsplit where ``model`` is 1):
       ``repro/models/moe.py:138`` cuts ``E // model`` local experts
-      whatever the weights' split, and its einsum raises.
+      whatever the weights' split, so its einsum raises where the experts
+      are unsplit on ``model`` > 1, and it computes another function than
+      the unsharded layer where they are split over other axes (over
+      ``data`` beside the batch: a loss of 6.743961 against 6.826857 on
+      granite's fp32 smoke config).
 
-    The others are layouts GSPMD places that the port's ``TensorPlan``
-    does not lay out: a model split over mesh axes the batch is split over
-    as well (GSPMD gathers such weights like ZeRO's), and kv heads split
-    over other axes than the query heads. Raises ``NotImplementedError``."""
+    Raises ``NotImplementedError``."""
     if rules is None or rules.mesh is None:
         return
     refused, why = {}, []
@@ -215,7 +219,10 @@ def require_executable(rules: ShardingRules | None, pipeline: bool = False,
         refused["moe_impl"] = "shard_map_a2a"
         why.append("the reference's moe_shard_map cuts num_experts // model "
                    "local experts whatever the experts' split "
-                   "(repro/models/moe.py:138) and raises")
+                   "(repro/models/moe.py:138): it raises where the experts "
+                   "are unsplit on model > 1, and computes another "
+                   "function than the unsharded layer where they are "
+                   "split over other axes")
     # without a cfg only the experts' own split tells of an MoE model
     moe = cfg is None or cfg.moe is not None
     inside = _mesh_axes(rules, "mlp") if cfg is not None else ()
@@ -225,18 +232,6 @@ def require_executable(rules: ShardingRules | None, pipeline: bool = False,
         why.append("the reference's pipeline raises on any MoE layer "
                    "(repro/parallel/pipeline.py:80 runs it as a dense MLP, "
                    "repro/models/lm.py:169-174)")
-    batch = set(_mesh_axes(rules, "batch"))
-    for logical in ("seq", "heads", "kv_heads", "mlp", "vocab", "inner",
-                    "expert", "cache_seq"):
-        if batch & set(_mesh_axes(rules, logical)):
-            refused[logical] = rules.rules[logical]
-            why.append(f"{logical} over an axis of the batch's, a layout "
-                       f"the port does not lay out")
-    kv, heads = _mesh_axes(rules, "kv_heads"), _mesh_axes(rules, "heads")
-    if kv and heads and kv != heads:
-        refused["kv_heads"] = rules.rules["kv_heads"]
-        why.append("kv heads over other axes than the query heads, a "
-                   "layout the port does not lay out")
     if refused:
         raise NotImplementedError(
             f"these rules shard {refused} over mesh axes larger than 1: "
@@ -279,6 +274,34 @@ LAYOUTS = {
     # the kv heads split without the query heads
     "kv_heads_alone": {"batch": "data", "kv_heads": "model",
                        "vocab": "model", "mlp": "model"},
+    # the mlp over the batch's own axis: FSDP's weights, gathered
+    "mlp_over_batch": {"batch": "data", "mlp": "data", "vocab": "model"},
+    # the heads and kv heads over the batch's own axis
+    "heads_over_batch": {"batch": "data", "heads": "data",
+                         "kv_heads": "data", "vocab": "model"},
+    # the vocab over the batch's own axis: the table gathered
+    "vocab_over_batch": {"batch": "data", "vocab": "data"},
+    # the sequence over the batch's own axis: the activations whole
+    "seq_over_batch": {"batch": "data", "seq": "data", "vocab": "model",
+                       "mlp": "model"},
+    # the heads over the batch's axis and another: each rank computes the
+    # block of the other axis
+    "heads_mixed_batch": {"batch": "data", "heads": ("data", "model"),
+                          "kv_heads": ("data", "model"), "mlp": "model"},
+    # the experts over the batch's own axis (GShard's, DeepSpeed-MoE's):
+    # every rank runs them all on its rows
+    "experts_over_batch": {"batch": "data", "expert": "data",
+                           "vocab": "model"},
+    # the recurrent blocks' inner features over the batch's own axis (and
+    # a hybrid's experts)
+    "inner_over_batch": {"batch": "data", "inner": "data", "expert": "data",
+                         "vocab": "model"},
+    # the kv heads over another axis than the query heads: gathered
+    "kv_heads_off_heads": {"heads": "model", "kv_heads": "data",
+                           "mlp": "model", "expert": "model"},
+    # the kv heads over some of the query heads' axes
+    "kv_within_heads": {"heads": ("data", "model"), "kv_heads": "model",
+                        "mlp": "model"},
 }
 
 

@@ -7,7 +7,16 @@ mesh), expert parallelism (``expert``, with the MoE plane ``moe_impl`` or
 ``expert_act`` picks, and the experts' ``d_expert`` split by ``mlp``
 where ``expert`` is not: ``models/moe.py``) and the Mamba / xLSTM inner
 split (``inner``: ``models/ssm.py``, ``models/xlstm.py``), each over any
-mesh axes but the batch's.
+mesh axes.
+
+Every activation the reference constrains names ``"batch"`` first, and
+its ``spec`` drops a mesh axis an earlier dimension used: a logical axis
+split over the batch's mesh axes splits the weights only, and every
+activation holds it whole over those axes. ``TensorPlan`` resolves each
+activation split without the batch's axes, and gathers such a weight
+dimension as ZeRO-3 gathers ``w_embed`` (its blocks over every axis of
+the dimension, then the block of the axes left that the activation
+takes).
 
 The reference names each tensor's logical axes and lets GSPMD place the
 collectives. Here ``TensorPlan`` resolves the rules once, outside any
@@ -16,9 +25,11 @@ such a layer on CUDA, does not see ``use_rules``), and the model's code
 asks it for the process groups and for its weights:
 
 - ``weight(module, leaf)`` is this rank's shard of a parameter with its
-  ``w_embed`` dimension gathered (``collectives.gather_along``: the
-  gradient is reduce-scattered back to the shard), or the copy gathered
-  once a step under ``zero2`` with ``regather`` (``gathered``);
+  gathered dimensions joined (``gathers_of``: ``w_embed``, a dimension
+  split over a batch axis, and, where the kv heads are split over other
+  axes than the query heads, the kv heads; ``collectives.gather_along``:
+  the gradient is reduce-scattered back to the shard), or the copy
+  gathered once a step under ``zero2`` with ``regather`` (``gathered``);
 - ``reshard(split)`` (``Reshard``) is how a block split over some axes
   meets a residual split along the sequence over others: the sequence
   gathered where the block needs it, the block's partial sums summed and
@@ -51,6 +62,7 @@ from __future__ import annotations
 
 import math
 
+import torch
 import torch.distributed as dist
 
 from repro_torch.parallel import collectives as C
@@ -96,8 +108,71 @@ class Split:
         return self.index * step, step
 
 
-def _split(rules: ShardingRules, logical: str) -> Split:
-    return Split(rules.mesh, _axes(rules.rules.get(logical)))
+def _split(rules: ShardingRules, logical: str,
+           drop: tuple[str, ...] = ()) -> Split:
+    """The split of ``logical`` over its mesh axes but those of ``drop``."""
+    return Split(rules.mesh, tuple(a for a in _axes(rules.rules.get(logical))
+                                   if a not in drop))
+
+
+class Gather:
+    """A weight dimension a rank joins before it computes with it: the
+    blocks of ``dim`` over ``whole`` (every axis the dimension is sharded
+    over) gathered, then the block of ``keep`` cut (the axes the
+    activation splits the dimension over; none: the dimension whole).
+    ``halves``: the dimension holds two halves, each split on its own
+    (``convert.shard_params``). ``scale`` divides the gathered gradient
+    by the ranks of ``whole`` that compute the same thing."""
+
+    def __init__(self, dim: int, whole: Split, keep: Split, halves: bool,
+                 scale: float):
+        self.dim, self.whole, self.keep = dim, whole, keep
+        self.halves, self.scale = halves, scale
+
+    def _each(self, fn, t):
+        if not self.halves:
+            return fn(t)
+        return torch.cat([fn(h) for h in t.chunk(2, self.dim)], self.dim)
+
+    def join(self, t):
+        """``t``'s blocks gathered whole (the gradient reduce-scattered
+        back, times ``scale``)."""
+        return self._each(lambda h: C.gather_along(
+            h, self.dim, self.whole.group, self.scale), t)
+
+    def cut(self, t):
+        """The block of ``keep`` of the whole dimension."""
+        if not self.keep:
+            return t
+
+        def block(h):
+            lo, n = self.keep.block(h.shape[self.dim])
+            return h.narrow(self.dim, lo, n)
+        return self._each(block, t)
+
+    def scatter(self, g):
+        """``join``'s backward on a gradient of the whole dimension (no
+        autograd): this rank's block of the sum over ``whole``."""
+        return self._each(lambda h: C.reduce_scatter_dim(
+            h, self.dim, self.whole.group), g) * self.scale
+
+
+class Leaves:
+    """A module's parameters as a rank computes with them
+    (``TensorPlan.weight``), by attribute, each joined at its first use in
+    the view's life (one call of a block); any other attribute is the
+    module's."""
+
+    def __init__(self, plan: "TensorPlan", module):
+        self._plan, self._module = plan, module
+
+    def __getattr__(self, name: str):
+        module = self._module
+        if name not in type(module).AXES:
+            return getattr(module, name)
+        w = self._plan.weight(module, name)
+        setattr(self, name, w)
+        return w
 
 
 class TensorPlan:
@@ -111,23 +186,32 @@ class TensorPlan:
         self.mesh = rules.mesh
         r = rules.rules
         self.batch = _split(rules, "batch")
-        self.seq = _split(rules, "seq")
-        self.heads = _split(rules, "heads")
-        self.kv_heads = _split(rules, "kv_heads")
-        self.mlp = _split(rules, "mlp")
-        self.vocab = _split(rules, "vocab")
-        self.cache = _split(rules, "cache_seq")
-        self.expert = _split(rules, "expert")
-        self.expert_act = _split(rules, "expert_act")
-        self.inner = _split(rules, "inner")
+        # every activation names the batch first: a split over its axes
+        # leaves the activation whole (the weights are gathered)
+        off = self.batch.axes
+        self.seq = _split(rules, "seq", off)
+        self.heads = _split(rules, "heads", off)
+        kv = _split(rules, "kv_heads", off)
+        # kv heads split over other axes than the query heads: every rank
+        # projects them all (their leaves gathered over ``kv_gather``) and
+        # keeps those its query heads read
+        self.kv_gather = kv if kv and self.heads \
+            and kv.axes != self.heads.axes else Split(self.mesh, ())
+        self.kv_heads = Split(self.mesh, ()) if self.kv_gather else kv
+        self.mlp = _split(rules, "mlp", off)
+        self.vocab = _split(rules, "vocab", off)
+        self.cache = _split(rules, "cache_seq", off)
+        self.expert = _split(rules, "expert", off)
+        self.expert_act = _split(rules, "expert_act", off)
+        self.inner = _split(rules, "inner", off)
         self.moe_impl = r.get("moe_impl")
-        self.mlp_seq = bool(_split(rules, "mlp_seq"))
+        self.mlp_seq = bool(_split(rules, "mlp_seq", off))
         # the axes along which ranks hold other tokens: what the MoE's
         # router statistics are averaged over (``stats``)
         self.stats = Split(self.mesh, self.batch.axes + self.seq.axes)
         self.kv_compress = bool(r.get("kv_compress"))
         self.gathered: dict[int, object] = {}
-        self._zero: dict[tuple, object] = {}
+        self._gathers: dict[tuple, tuple] = {}
         # the query heads a rank computes: the head split's, or, where only
         # the kv heads are split, those that read the rank's kv heads
         self.q_heads = self.heads if self.heads else self.kv_heads
@@ -135,7 +219,7 @@ class TensorPlan:
         # (where ``make_rules`` leaves the experts whole)
         inside = _axes(rules.spec("expert", "w_embed", "mlp")[2])
         self.moe_inside = Split(self.mesh, tuple(
-            a for a in inside if a not in self.expert.axes))
+            a for a in inside if a not in self.expert.axes + off))
         self.moe_block = Split(self.mesh,
                                self.expert.axes + self.moe_inside.axes)
         # made here, on every rank in the same order: a group is made
@@ -152,43 +236,83 @@ class TensorPlan:
 
     # -- parameters ------------------------------------------------------------
 
-    def zero_dim(self, module, leaf: str):
-        """``(dim, Split)`` of a leaf's ``w_embed`` dimension where the rules
-        shard it, else ``None``."""
-        return self.zero_dim_of(type(module).AXES[leaf])
+    def gathers_of(self, logical: tuple, halves: bool = False
+                   ) -> tuple[Gather, ...]:
+        """The ``Gather`` of each dimension of a leaf with these logical
+        axes that the rank joins (``halves``: its ``inner`` dimension holds
+        two halves): ``w_embed`` whole; a dimension split over an axis of
+        the batch's, cut to the block of its other axes; the kv heads
+        whole where ``kv_gather`` splits them. A gathered gradient is
+        divided by the ranks that repeat each other's work: those of the
+        axes that split neither the batch, the sequence, the leaf's kept
+        blocks nor, for a kv leaf gathered whole, the query heads
+        (``repeats``)."""
+        key = (logical, halves)
+        if key in self._gathers:
+            return self._gathers[key]
+        batch = set(self.batch.axes)
+        found = []
+        for dim, (name, part) in enumerate(zip(logical,
+                                               self.rules.spec(*logical))):
+            whole = Split(self.mesh, _axes(part))
+            if not whole:
+                continue
+            if name == "w_embed" or (name == "kv_heads" and self.kv_gather):
+                keep = ()
+            elif batch & set(whole.axes):
+                keep = tuple(a for a in whole.axes if a not in batch)
+            else:
+                continue
+            found.append((dim, whole, Split(self.mesh, keep),
+                          halves and name == "inner"))
+        busy = {a for _, _, keep, _ in found for a in keep.axes}
+        if "kv_heads" in logical and self.kv_gather:
+            busy |= set(self.q_heads.axes)
+        out = tuple(Gather(dim, whole, keep, two,
+                           1.0 / self.repeats(whole.axes, busy))
+                    for dim, whole, keep, two in found)
+        self._gathers[key] = out
+        return out
 
-    def zero_dim_of(self, logical: tuple):
-        """``zero_dim`` of a leaf with these logical axes."""
-        if logical not in self._zero:
-            found = None
-            if "w_embed" in logical:
-                dim = logical.index("w_embed")
-                split = Split(self.mesh,
-                              _axes(self.rules.spec(*logical)[dim]))
-                found = (dim, split) if split else None
-            self._zero[logical] = found
-        return self._zero[logical]
+    def _leaf_gathers(self, module, leaf: str) -> tuple[Gather, ...]:
+        return self.gathers_of(type(module).AXES[leaf],
+                               leaf in getattr(type(module), "SPLIT_HALVES",
+                                               ()))
 
     def weight(self, module, leaf: str):
-        """The parameter as this rank computes with it: its shard, with the
-        ``w_embed`` dimension gathered."""
+        """The parameter as this rank computes with it: its shard, with
+        the dimensions of ``gathers_of`` joined and cut to the rank's
+        blocks."""
         p = getattr(module, leaf)
+        gathers = self._leaf_gathers(module, leaf)
         full = self.gathered.get(id(p))
-        if full is not None:
-            return full
-        zero = self.zero_dim(module, leaf)
-        if zero is None:
-            return p
-        dim, split = zero
-        return C.gather_along(p, dim, split.group,
-                              1.0 / self.repeats(split.axes))
+        if full is None:
+            if not gathers:
+                return p
+            full = p
+            for g in gathers:
+                full = g.join(full)
+        for g in gathers:
+            full = g.cut(full)
+        return full
 
-    def repeats(self, axes: tuple[str, ...]) -> int:
+    def leaves(self, module):
+        """``module`` itself where the rank computes with its parameters as
+        it holds them, else a ``Leaves`` view of them as ``weight`` gives
+        them."""
+        if isinstance(module, Leaves) or not any(
+                self._leaf_gathers(module, leaf)
+                for leaf in type(module).AXES):
+            return module
+        return Leaves(self, module)
+
+    def repeats(self, axes: tuple[str, ...], busy=()) -> int:
         """How many ranks along ``axes`` compute the same thing: those of
-        the axes that split neither the batch nor the sequence (under
-        ``pure_dp`` with a batch too small for the whole mesh, ZeRO's
-        ``w_embed`` spans axes whose ranks repeat each other's rows)."""
-        busy = set(self.batch.axes) | set(self.seq.axes)
+        the axes that split neither the batch, the sequence nor ``busy``
+        (under ``pure_dp`` with a batch too small for the whole mesh,
+        ZeRO's ``w_embed`` spans axes whose ranks repeat each other's
+        rows)."""
+        busy = set(self.batch.axes) | set(self.seq.axes) | set(busy)
         return math.prod(int(self.mesh.shape[a]) for a in axes
                          if a not in busy)
 

@@ -34,8 +34,6 @@ from repro_torch.models.lm import LM, forward_hidden, plan_for
 from repro_torch.parallel.collectives import (
     all_reduce_,
     flat_all_reduce_,
-    gather_dim,
-    reduce_scatter_dim,
 )
 from repro_torch.parallel.sharding import (
     ShardingRules,
@@ -173,7 +171,8 @@ def inner_partial_leaves(model: LM, kind: str = "INNER_PARTIAL"
     gradient each inner rank only partly computes (a module's
     ``INNER_PARTIAL``: the sLSTM's ``r_gates``), or, with ``kind=
     "INNER_WHOLE"``, those whose gradient every inner rank has whole (the
-    gates' biases)."""
+    gates' biases), or, with ``kind="SPLIT_HALVES"``, those whose inner
+    dimension holds two halves."""
     return {f"{mod_name}.{leaf}" for mod_name, mod in model.named_modules()
             for leaf in getattr(type(mod), kind, ())}
 
@@ -235,10 +234,12 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
     leaf is summed over ``TensorPlan.grad_sync_axes`` (one all-reduce a
     bucket a set of axes), the clip norm is the whole tree's
     (``sharded_global_norm``) and AdamW updates the shards and their
-    state. With ``pc.zero2`` and a true ``regather`` every ``w_embed``
-    shard is gathered once a step, before the first microbatch, the
-    microbatches' gradients of the gathered weights are summed, and each
-    is reduce-scattered to its shard once (the reference's ``regather``
+    state. With ``pc.zero2`` and a true ``regather`` every shard the plan
+    gathers (``TensorPlan.gathers_of``: ``w_embed``, a dimension split
+    over a batch axis, the kv heads off the query heads') is gathered
+    once a step, before the first microbatch, the microbatches' gradients
+    of the gathered weights are summed, and each is reduce-scattered to
+    its shard once (the reference's ``regather``
     gathers inside the loss of each microbatch; the sum is the same)."""
     rules = current_rules() if rules is None else rules
     require_executable(rules, cfg=cfg)
@@ -291,22 +292,25 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
         named = dict(model.named_parameters())
         wrt, zero = dict(named), {}
         if regather:
+            halves = inner_partial_leaves(model, "SPLIT_HALVES")
             with torch.no_grad():
                 for name, p in named.items():
-                    found = plan.zero_dim_of(axes_of[name])
-                    if found is None:
+                    gathers = plan.gathers_of(axes_of[name], name in halves)
+                    if not gathers:
                         continue
-                    full = gather_dim(p.detach(), found[0], found[1].group)
+                    full = p.detach()
+                    for g in gathers:
+                        full = g.join(full)
                     plan.gathered[id(p)] = wrt[name] = full.requires_grad_()
-                    zero[name] = found
+                    zero[name] = gathers
         try:
             loss, metrics, grads, ce_share, aux_mean, count = accumulate(
                 model, batch, wrt, plan)
         finally:
             plan.gathered.clear()
-        for name, (dim, split) in zero.items():
-            grads[name] = reduce_scatter_dim(grads[name], dim, split.group) \
-                / plan.repeats(split.axes)
+        for name, gathers in zero.items():
+            for g in reversed(gathers):
+                grads[name] = g.scatter(grads[name])
         buckets: dict[tuple, list] = {}
         partial = inner_partial_leaves(model)
         whole = inner_partial_leaves(model, "INNER_WHOLE")

@@ -40,10 +40,23 @@ def _child(rank, world, root, device, fn, args):
 
 
 def run_ranks(fn, world: int, tmp_path, *args, device: str = "cpu") -> list:
+    return ranks_of(start_ranks(fn, world, tmp_path, *args, device=device))
+
+
+def start_ranks(fn, world: int, tmp_path, *args, device: str = "cpu"):
+    """``run_ranks`` without waiting for the ranks: what ``ranks_of``
+    takes (the caller works meanwhile)."""
     root = tmp_path / f"ranks{world}_{fn.__name__}"
     root.mkdir()
-    mp.spawn(_child, args=(world, str(root), device, fn, args),
-             nprocs=world, join=True)
+    return mp.spawn(_child, args=(world, str(root), device, fn, args),
+                    nprocs=world, join=False), root, world
+
+
+def ranks_of(started) -> list:
+    """The results of ``start_ranks``'s ranks, once all have ended."""
+    context, root, world = started
+    while not context.join():
+        pass
     out = []
     for r in range(world):
         with open(root / f"rank{r}.pkl", "rb") as f:
@@ -292,16 +305,17 @@ def pp_tp_rank(rank, world, cases, seed):
 
 def layout_case_rules(case: dict, cfg):
     """``(pc, rules)`` of a layout case: ``sharding.layout_rules`` of its
-    ``layout`` (a ``LAYOUTS`` name or a rules dict) on its mesh, or the
-    planner's ``make_rules`` under its ``pc`` fields at the train shape."""
+    ``layout`` (a ``LAYOUTS`` name or a rules dict) on its mesh under
+    ``remat="block"`` and its ``pc`` fields, or the planner's
+    ``make_rules`` under its ``pc`` fields at the train shape."""
     from repro_torch.core.config import ParallelConfig, ShapeConfig
     from repro_torch.launch.mesh import Mesh
     from repro_torch.parallel.sharding import layout_rules
     from repro_torch.parallel.strategies import make_rules
     mesh = Mesh(case["mesh"])
     if "layout" in case:
-        return ParallelConfig(remat="block"), layout_rules(mesh,
-                                                           case["layout"])
+        pc = ParallelConfig(**{"remat": "block", **case.get("pc", {})})
+        return pc, layout_rules(mesh, case["layout"])
     pc = ParallelConfig(**case["pc"])
     return pc, make_rules(mesh, cfg, ShapeConfig("t", SEQ, BATCH, "train"),
                           pc)
@@ -340,8 +354,10 @@ def forward_drops(model, batch, rules=None) -> dict:
 
 def layout_rank(rank, world, cases, seed, serve_cases=()):
     """Each layout case's train step (``layout_case_rules``, AdamW under
-    ``PP_OPT``) on the rank's shards of ``seed``'s weights, on
-    ``batch_of(cfg, seed=3 + seed)``: as ``pp_tp_rank`` gives the
+    ``PP_OPT``, the case's ``regather``) on the rank's shards of
+    ``seed``'s weights (the case's ``seed`` where it names one), on
+    ``batch_of(cfg, seed=3 + seed)``:
+    as ``pp_tp_rank`` gives the
     pipeline's (loss, grad norm, gradient and updated shards with their
     cuts, the bits of the leaves held whole), the rules, and, for an MoE
     model, the dispatches' drops in one forward under the rules
@@ -358,14 +374,15 @@ def layout_rank(rank, world, cases, seed, serve_cases=()):
                     case.get("num_experts"))
         pc, rules = layout_case_rules(case, cfg)
         require_executable(rules, cfg=cfg)
-        local = shard_params(model_of(cfg, seed=seed)["params"], rules)
-        batch = batch_of(cfg, seed=3 + seed)
+        s = case.get("seed", seed)
+        local = shard_params(model_of(cfg, seed=s)["params"], rules)
+        batch = batch_of(cfg, seed=3 + s)
         drops = forward_drops(local, batch, rules) if cfg.moe else None
         state = init_train_state(cfg, local)
         step = make_train_step(cfg, ShapeConfig("t", SEQ, BATCH, "train"),
                                OptimizerConfig(**PP_OPT), pc,
                                q_chunk=Q_CHUNK, ssm_chunk=SSM_CHUNK,
-                               rules=rules)
+                               rules=rules, regather=case.get("regather"))
         _, _, grads = step.grad_step(state["params"], batch)
         state, metrics = step(state, batch)
         named = dict(state["params"].named_parameters())
@@ -508,6 +525,7 @@ def tp_serve_rank(rank, world, cases):
                 state = tlm.init_decode_state(cfg, BATCH, MAX_SEQ, "cpu")
             caches = [st["k"] for st in state["layers"] if "k" in st]
             res["cache_rows"] = int(caches[0].shape[1]) if caches else 0
+            res["cache_heads"] = int(caches[0].shape[2]) if caches else 0
             with use_rules(prefill_rules):
                 logits, state = tlm.prefill_step(model, state, inputs)
             res["prefill"] = logits.numpy()

@@ -14,6 +14,7 @@ port runs ``make_grad_fn`` and ``make_train_step`` under
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -146,6 +147,23 @@ def port_named(tree, tcfg) -> dict:
             for k, p in model.named_parameters()}
 
 
+@functools.lru_cache(maxsize=8)
+def _reference_fns(arch: str, rows: int, seq: int, microbatches: int,
+                   capacity_factor, opt: tuple, num_experts):
+    """The reference's jitted train step and loss gradient of one
+    configuration, made once (so each other seed's weights reuse the
+    compiled step)."""
+    jcfg, _ = configs(arch, capacity_factor, num_experts)
+    shape = JShapeConfig("t", seq, rows, "train")
+    pc = JParallelConfig(remat="none", microbatches=microbatches)
+    step = jax.jit(jmake_train_step(jcfg, shape,
+                                    JOptimizerConfig(**dict(opt)), pc,
+                                    q_chunk=Q_CHUNK, ssm_chunk=SSM_CHUNK))
+    grad_fn = jax.jit(jax.grad(
+        lambda p, b: jloss_fn(p, b, jcfg, pc, Q_CHUNK, SSM_CHUNK)[0]))
+    return step, grad_fn
+
+
 def reference_whole_batch_step(arch: str, model, batch: dict,
                                microbatches: int = 1,
                                capacity_factor: float | None = None,
@@ -162,15 +180,11 @@ def reference_whole_batch_step(arch: str, model, batch: dict,
     jcfg, tcfg = configs(arch, capacity_factor, num_experts)
     params = jax.tree.map(jnp.asarray, params_to_numpy(model, tcfg))
     rows = batch["labels"].shape[0]
-    shape = JShapeConfig("t", batch["labels"].shape[1], rows, "train")
-    pc = JParallelConfig(remat="none", microbatches=microbatches)
-    step = jax.jit(jmake_train_step(jcfg, shape,
-                                    JOptimizerConfig(**(opt or {})), pc,
-                                    q_chunk=Q_CHUNK, ssm_chunk=SSM_CHUNK))
+    step, grad_fn = _reference_fns(
+        arch, rows, batch["labels"].shape[1], microbatches, capacity_factor,
+        tuple(sorted((opt or {}).items())), num_experts)
     state, metrics = step(jinit_train_state(jcfg, params),
                           {k: jnp.asarray(v) for k, v in batch.items()})
-    grad_fn = jax.jit(jax.grad(
-        lambda p, b: jloss_fn(p, b, jcfg, pc, Q_CHUNK, SSM_CHUNK)[0]))
     n = rows // microbatches
     grads = [grad_fn(params, {k: jnp.asarray(v[i * n:(i + 1) * n])
                               for k, v in batch.items()})
@@ -233,11 +247,21 @@ def reference_moved(arch: str, model, batch: dict, **kw) -> dict:
     return ref
 
 
-def shards_held_to_reference(ranks: list, case: str, ref: dict) -> None:
+# xlstm's fp32 step at seed 1 (``_torch_dist.model_of(cfg, seed=1)``,
+# ``batch_of(cfg, seed=4)``) rounds more than TP_GRAD_TOL: the
+# reference's own gradient is 4.15e-5 of a leaf's largest from the same
+# step in float64, where the two packages agree within 3e-14
+# (``test_torch_fp64_rounding.py``). A sharded step there is held to the
+# reference's fp32 step at this bound, below the reference's own rounding.
+ROUNDING_GRAD_TOL = {("xlstm-1.3b", 1): 3e-5}
+
+
+def shards_held_to_reference(ranks: list, case: str, ref: dict,
+                             grad_tol: float = TP_GRAD_TOL) -> None:
     """Every rank's step of ``case`` (``_torch_dist.layout_rank``'s or
     ``pp_tp_rank``'s results) against the reference's whole-batch step
     ``ref`` (``reference_moved``): the loss and grad norm within
-    ``TP_LOSS_RTOL``, each gradient shard within ``TP_GRAD_TOL`` of the
+    ``TP_LOSS_RTOL``, each gradient shard within ``grad_tol`` of the
     whole leaf's largest magnitude of the same slice of the reference's
     (``convert._cuts``), each updated shard within ``SHARD_PARAM_ATOL`` of
     that slice of the reference's updated leaf, every leaf seen on some
@@ -258,8 +282,8 @@ def shards_held_to_reference(ranks: list, case: str, ref: dict) -> None:
             part = _shard(torch.from_numpy(want), res["cuts"][k]).numpy()
             assert g.shape == part.shape, (k, g.shape, part.shape)
             err = float(np.abs(g - part).max())
-            assert err <= TP_GRAD_TOL * max(float(np.abs(want).max()),
-                                            1e-30), (k, err)
+            assert err <= grad_tol * max(float(np.abs(want).max()),
+                                         1e-30), (k, err)
             new = _shard(torch.from_numpy(ref["params"][k]),
                          res["cuts"][k]).numpy()
             np.testing.assert_allclose(res["params"][k], new, rtol=0,

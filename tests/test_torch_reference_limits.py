@@ -1,7 +1,8 @@
-"""The two layouts the port keeps refusing because the JAX reference cannot
-run them either, pinned on both sides, and the reference's all-to-all
-beside a sequence split over other axes than its experts, which it runs
-and the port follows.
+"""The layouts the port keeps refusing because the JAX reference cannot
+run them as the unsharded model either (it raises, or computes another
+function), pinned on both sides, and the reference's all-to-all beside a
+sequence split over other axes than its experts, which it runs and the
+port follows.
 
 The reference runs in one subprocess with forced host devices
 (``XLA_FLAGS=--xla_force_host_platform_device_count=8``, as
@@ -17,6 +18,11 @@ The reference runs in one subprocess with forced host devices
   unsplit on ``model=4`` raises ``ValueError: Size of label 'e' ...``:
   ``repro/models/moe.py:138`` cuts ``E // model`` local experts whatever
   the weights' split;
+- its ``moe_shard_map`` with the experts over ``data`` beside the batch
+  (``data=2 x model=2``, one train step, ``_jax_gspmd.gspmd_step``) runs
+  and computes another function than the unsharded step: granite's loss
+  6.743961 against 6.826857 (its local experts are ``E // model`` of
+  weights split over ``data``);
 - its ``moe_shard_map`` with the sequence over ``data`` and the experts
   over ``model`` (``data=2 x model=2``) runs: every expert rank of a data
   block sends the same block at that block's capacity. At the drop-free
@@ -27,8 +33,8 @@ The reference runs in one subprocess with forced host devices
   so is the port's layout on four ``gloo`` ranks, whose drops are the
   per-block layer's.
 
-The port refuses the first two in ``require_executable`` and
-``TensorPlan``, each message naming the reference's failure.
+The port refuses the first three in ``require_executable`` and
+``TensorPlan``, each message naming what the reference does.
 """
 
 import json
@@ -36,6 +42,7 @@ import os
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -105,6 +112,11 @@ def a2a_without_experts():
 
 errors["pipeline"] = failure(pipeline)
 errors["a2a_without_experts"] = failure(a2a_without_experts)
+from _jax_gspmd import gspmd_step
+steps = {"whole": gspmd_step("granite-moe-1b-a400m", None),
+         "a2a_over_batch": gspmd_step("granite-moe-1b-a400m", {
+             "batch": "data", "expert": "data",
+             "moe_impl": "shard_map_a2a"})}
 
 data = np.load(sys.argv[1])
 out = {}
@@ -123,6 +135,9 @@ for cf in (2.0, 1.25):
     with set_mesh(mesh), use_rules(ShardingRules(mesh, rules)):
         out[f"a2a_beside_seq/{cf}"] = np.asarray(jax.jit(
             lambda p, x: moe(p, x, cfg)[0])(params, x))
+for run, metrics in steps.items():
+    for k, v in metrics.items():
+        out[f"step/{run}/{k}"] = np.float64(v)
 np.savez(sys.argv[2], **out)
 print(json.dumps(errors))
 """
@@ -147,7 +162,8 @@ def reference(tmp_path_factory):
     arrays["x"] = (rng.standard_normal((B, S, cfg.d_model))
                    + shared).astype(np.float32)
     np.savez(root / "arrays.npz", **arrays)
-    env = {"PYTHONPATH": "src", "PATH": "/usr/bin:/bin",
+    env = {"PYTHONPATH": f"src{os.pathsep}{Path(__file__).resolve().parent}",
+           "PATH": "/usr/bin:/bin",
            "HOME": os.environ.get("HOME", "/tmp"),
            "XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
     if "JAX_PLATFORMS" in os.environ:
@@ -203,6 +219,31 @@ def test_port_refuses_what_the_reference_cannot_run(case):
                    lambda: TensorPlan(rules)):
         with pytest.raises(NotImplementedError,
                            match="repro/models/moe.py:138"):
+            refuse()
+
+
+def test_reference_all_to_all_over_the_batch_axis_computes_another_function(
+        reference):
+    """The reference's ``moe_shard_map`` with the experts over ``data``
+    beside the batch (granite's fp32 smoke config, ``data=2 x model=2``,
+    ``_jax_gspmd.gspmd_step``) runs, and its step's loss is not the
+    unsharded step's: 6.743961 against 6.826857 (it cuts ``E // model``
+    local experts from weights split over ``data``). The port refuses the
+    rules, naming that it computes another function."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.sharding import (ShardingRules,
+                                               require_executable)
+    from repro_torch.parallel.tensor import TensorPlan
+    out = reference[1]
+    whole, got = out["step/whole/loss"], out["step/a2a_over_batch/loss"]
+    assert float(whole) == pytest.approx(6.826857, abs=1e-5)
+    assert float(got) == pytest.approx(6.743961, abs=1e-5)
+    rules = ShardingRules(Mesh({"data": 2, "model": 2}), {
+        "batch": "data", "expert": "data", "moe_impl": "shard_map_a2a"})
+    for refuse in (lambda: require_executable(rules),
+                   lambda: TensorPlan(rules)):
+        with pytest.raises(NotImplementedError,
+                           match="computes another function"):
             refuse()
 
 

@@ -42,6 +42,7 @@ from repro_torch.models.convert import ParamShape, param_axes, param_shapes
 from repro_torch.parallel import pipeline as tpp
 from repro_torch.parallel import strategies as tstrat
 from repro_torch.parallel.sharding import (
+    LAYOUTS,
     ShardingRules,
     pad_to_multiple,
     require_executable,
@@ -373,19 +374,41 @@ REFUSED = {
                                        "mlp": "model", "vocab": "model"},
                                       True, "granite-moe-1b-a400m",
                                       "repro/parallel/pipeline.py:80"),
+    # the rule sets item 11.4e listed, admitted: a split over the batch's
+    # own axes, and the kv heads over other axes than the query heads
+    **{name: ({"data": 2, "model": 2}, LAYOUTS[name], False, arch, None)
+       for name, arch in (("mlp_over_batch", "llama3.2-3b"),
+                          ("heads_over_batch", "llama3.2-3b"),
+                          ("vocab_over_batch", "llama3.2-3b"),
+                          ("seq_over_batch", "llama3.2-3b"),
+                          ("heads_mixed_batch", "qwen1.5-4b"),
+                          ("experts_over_batch", "granite-moe-1b-a400m"),
+                          ("inner_over_batch", "jamba-v0.1-52b"),
+                          ("kv_heads_off_heads", "granite-moe-1b-a400m"),
+                          ("kv_within_heads", "qwen1.5-4b"))},
+    # the all-to-all with the experts over the batch's axis, on which the
+    # reference computes another function
+    "a2a_over_batch": ({"data": 2, "model": 2},
+                       {"batch": "data", "expert": "data",
+                        "moe_impl": "shard_map_a2a"}, False,
+                       "granite-moe-1b-a400m", "computes another function"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_require_executable_refuses_what_11_4d_keeps(case):
-    """Of the rule sets item 11.4d listed, only the two the reference
-    raises on stay refused, each naming the reference's failure: the
-    all-to-all without the experts over ``model`` and an MoE layer whose
-    experts are split, over the experts or on their mlp dimension, under
-    the pipeline (whose rules run without it).
-    ``expert_act`` alone, the experts on their mlp dimension, an MoE layer
-    under a sequence split without its experts over the same axes and
-    ``inner`` beside a sequence split over other axes are admitted."""
+    """Of the rule sets items 11.4d and 11.4e listed, only those the
+    reference cannot run as the unsharded model stay refused, each naming
+    what it does: the all-to-all without the experts over ``model`` (it
+    raises, or, with the experts over the batch's axis, computes another
+    function) and an MoE layer whose experts are split, over the experts
+    or on their mlp dimension, under the pipeline (whose rules run
+    without it). ``expert_act`` alone, the experts on their mlp
+    dimension, an MoE layer under a sequence split without its experts
+    over the same axes, ``inner`` beside a sequence split over other
+    axes, the nine ``LAYOUTS`` of item 11.4e (a split over the batch's own
+    axes, the kv heads over other axes than the query heads) are
+    admitted."""
     mesh, rules, pipeline, arch, failure = REFUSED[case]
     cfg = tconfig(arch) if arch else None
     rules = ShardingRules(Mesh(mesh), rules)
